@@ -1,0 +1,199 @@
+"""The weight bridge: the JAX package's flax variables → this port's modules.
+
+:func:`load_flax_params` takes a ``{"params": …, "batch_stats": …}`` tree
+(nested dicts of numpy-convertible arrays, as ``model.init`` returns them)
+and copies it into the matching torch module:
+
+- conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in);
+- GroupNorm / BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and
+  BatchNorm ``mean``/``var`` (under ``batch_stats``) → the running buffers.
+
+The mapping is written out per module type below and follows flax's
+auto-naming (``ConvNormAct_0``, ``Conv_0``, ``Dense_1``, …). It raises if any
+flax leaf is left unused or any torch parameter or buffer is left unfilled
+(``num_batches_tracked`` has no flax counterpart and is set to 0), and on any
+shape mismatch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from lyft3d_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
+from lyft3d_tpu_torch.models.layers import ASPP, ConvNormAct, SEModule, UpBlock
+from lyft3d_tpu_torch.models.unet import LyftUNet, ReferenceUNet
+
+__all__ = ["load_flax_params"]
+
+Path = Tuple[str, ...]
+
+
+def _flatten(tree, prefix: Path = ()) -> Dict[Path, np.ndarray]:
+    out: Dict[Path, np.ndarray] = {}
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = np.asarray(val, dtype=np.float32)
+    return out
+
+
+class _Source:
+    """Flax leaves by path; remembers which were taken."""
+
+    def __init__(self, tree):
+        self.params = _flatten(tree.get("params", {}))
+        self.stats = _flatten(tree.get("batch_stats", {}))
+        self.used = set()
+
+    def take(self, collection: str, path: Path) -> np.ndarray:
+        leaves = self.params if collection == "params" else self.stats
+        if path not in leaves:
+            raise KeyError(f"flax leaf {collection}/{'/'.join(path)} not found")
+        self.used.add((collection, path))
+        return leaves[path]
+
+    def unused(self):
+        return sorted(
+            f"{c}/{'/'.join(p)}"
+            for c, leaves in (("params", self.params), ("batch_stats", self.stats))
+            for p in leaves
+            if (c, p) not in self.used
+        )
+
+
+Out = Dict[str, np.ndarray]
+
+
+def _conv(conv: nn.Conv2d, src: _Source, path: Path, name: str, out: Out):
+    out[f"{name}.weight"] = src.take("params", path + ("kernel",)).transpose(3, 2, 0, 1)
+    if conv.bias is not None:
+        out[f"{name}.bias"] = src.take("params", path + ("bias",))
+
+
+def _dense(src: _Source, path: Path, name: str, out: Out):
+    out[f"{name}.weight"] = src.take("params", path + ("kernel",)).T
+    out[f"{name}.bias"] = src.take("params", path + ("bias",))
+
+
+def _conv_norm_act(m: ConvNormAct, src, path, name, out):
+    _conv(m.conv, src, path + ("Conv_0",), f"{name}conv", out)
+    if isinstance(m.norm, nn.BatchNorm2d):
+        p = path + ("BatchNorm_0",)
+        out[f"{name}norm.weight"] = src.take("params", p + ("scale",))
+        out[f"{name}norm.bias"] = src.take("params", p + ("bias",))
+        out[f"{name}norm.running_mean"] = src.take("batch_stats", p + ("mean",))
+        out[f"{name}norm.running_var"] = src.take("batch_stats", p + ("var",))
+    elif isinstance(m.norm, nn.GroupNorm):
+        p = path + ("GroupNorm_0",)
+        out[f"{name}norm.weight"] = src.take("params", p + ("scale",))
+        out[f"{name}norm.bias"] = src.take("params", p + ("bias",))
+
+
+def _se(m: SEModule, src, path, name, out):
+    _dense(src, path + ("Dense_0",), f"{name}fc1", out)
+    _dense(src, path + ("Dense_1",), f"{name}fc2", out)
+
+
+def _aspp(m: ASPP, src, path, name, out):
+    # flax order of creation: 1x1, one per rate, pooled 1x1, projection.
+    cnas = [*m.branches, m.pool, m.project]
+    names = [f"branches.{i}" for i in range(len(m.branches))] + ["pool", "project"]
+    for i, (cna, sub) in enumerate(zip(cnas, names)):
+        _conv_norm_act(cna, src, path + (f"ConvNormAct_{i}",), f"{name}{sub}.", out)
+
+
+def _up_block(m: UpBlock, src, path, name, out):
+    _conv_norm_act(m.conv1, src, path + ("ConvNormAct_0",), f"{name}conv1.", out)
+    _conv_norm_act(m.conv2, src, path + ("ConvNormAct_1",), f"{name}conv2.", out)
+    _se(m.se, src, path + ("SEModule_0",), f"{name}se.", out)
+
+
+def _block(m, src, path, name, out):
+    convs = ["conv1", "conv2"] + (["conv3"] if isinstance(m, Bottleneck) else [])
+    if m.downsample is not None:
+        convs.append("downsample")
+    for i, sub in enumerate(convs):
+        _conv_norm_act(getattr(m, sub), src, path + (f"ConvNormAct_{i}",), f"{name}{sub}.", out)
+
+
+def _resnet(m: ResNet, src, path, name, out):
+    _conv_norm_act(m.stem, src, path + ("ConvNormAct_0",), f"{name}stem.", out)
+    k = 0  # flax numbers blocks across stages
+    for si, stage in enumerate(m.stages):
+        for bi, block in enumerate(stage):
+            flax_name = f"{type(block).__name__}_{k}"
+            _block(block, src, path + (flax_name,), f"{name}stages.{si}.{bi}.", out)
+            k += 1
+
+
+def _lyft_unet(m: LyftUNet, src, path, name, out):
+    _resnet(m.backbone, src, path + ("ResNet_0",), f"{name}backbone.", out)
+    # ConvNormAct_0..2: skip reductions; ConvNormAct_3: hypercolumn conv.
+    for i, cna in enumerate(m.skips):
+        _conv_norm_act(cna, src, path + (f"ConvNormAct_{i}",), f"{name}skips.{i}.", out)
+    _conv_norm_act(m.hyper, src, path + (f"ConvNormAct_{len(m.skips)}",), f"{name}hyper.", out)
+    _aspp(m.aspp, src, path + ("ASPP_0",), f"{name}aspp.", out)
+    _dense(src, path + ("Dense_0",), f"{name}aux", out)
+    for i, up in enumerate(m.decoder):
+        _up_block(up, src, path + (f"UpBlock_{i}",), f"{name}decoder.{i}.", out)
+    _conv(m.head, src, path + ("Conv_0",), f"{name}head", out)
+
+
+def _reference_unet(m: ReferenceUNet, src, path, name, out):
+    k = 0  # flax numbers every ConvNormAct in creation order
+    for group, prefix in ((m.down, "down"), ([m.bottom], "bottom"), (m.up, "up")):
+        for gi, pair in enumerate(group):
+            base = f"{prefix}.{gi}." if prefix != "bottom" else "bottom."
+            for pi, cna in enumerate(pair):
+                _conv_norm_act(cna, src, path + (f"ConvNormAct_{k}",), f"{name}{base}{pi}.", out)
+                k += 1
+    _conv(m.head, src, path + ("Conv_0",), f"{name}head", out)
+
+
+_MAPPERS: Dict[type, Callable] = {
+    ConvNormAct: _conv_norm_act,
+    SEModule: _se,
+    ASPP: _aspp,
+    UpBlock: _up_block,
+    LyftUNet: _lyft_unet,
+    ReferenceUNet: _reference_unet,
+}
+
+
+@torch.no_grad()
+def load_flax_params(module: nn.Module, tree) -> nn.Module:
+    """Copy the flax variables ``tree`` into ``module`` (in place); returns it."""
+    mapper = _MAPPERS.get(type(module))
+    if mapper is None:
+        raise TypeError(f"no flax mapping for {type(module).__name__}")
+    src = _Source(tree)
+    arrays: Out = {}
+    mapper(module, src, (), "", arrays)
+    unused = src.unused()
+    if unused:
+        raise ValueError(f"flax leaves not used by {type(module).__name__}: {unused}")
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    unfilled = sorted(
+        k for k in targets if k not in arrays and not k.endswith("num_batches_tracked")
+    )
+    if unfilled:
+        raise ValueError(f"torch tensors of {type(module).__name__} left unfilled: {unfilled}")
+    stray = sorted(set(arrays) - set(targets))
+    if stray:
+        raise ValueError(f"mapping names tensors {type(module).__name__} lacks: {stray}")
+    for key, t in targets.items():
+        if key.endswith("num_batches_tracked"):
+            t.zero_()
+            continue
+        arr = arrays[key]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: flax shape {arr.shape} vs torch {tuple(t.shape)}")
+        t.copy_(torch.tensor(arr))
+    return module

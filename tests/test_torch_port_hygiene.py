@@ -1,0 +1,138 @@
+"""Boundaries of the port package ``lyft3d_tpu_torch``:
+
+- none of its modules imports jax, flax or optax;
+- ``bev_rasterize`` picks its path by ``device.type`` alone, and the CUDA
+  path never falls back to the plain version;
+- importing the raster module needs no nvcc and no GPU;
+- models that are not yet ported fail loudly.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from lyft3d_tpu_torch import _build
+from lyft3d_tpu_torch.models import build_model
+from lyft3d_tpu_torch.models.backbones import build_backbone
+from lyft3d_tpu_torch.ops import bev_raster
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _run(code, env_extra=None):
+    env = {**os.environ, "PYTHONPATH": str(REPO), **(env_extra or {})}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_no_module_imports_jax():
+    code = """
+import importlib, pkgutil, sys
+import lyft3d_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lyft3d_tpu_torch.__path__, "lyft3d_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # defines, runs nothing
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+assert not bad, bad
+assert len(names) >= 15, names
+print("ok", len(names))
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_raster_import_needs_no_nvcc_or_gpu():
+    code = """
+import lyft3d_tpu_torch.ops.bev_raster as r
+import lyft3d_tpu_torch._build as b
+import torch
+assert not b._LIBS, "a kernel library was loaded at import"
+pts = torch.zeros(4, 3); valid = torch.ones(4, dtype=torch.bool)
+assert r.bev_rasterize(pts, valid).sum() == 4
+assert r.KERNEL_LAUNCHES == 0
+print("ok")
+"""
+    proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
+                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_dispatch_by_device_type(monkeypatch):
+    pts = torch.zeros(16, 3)
+    valid = torch.ones(16, dtype=torch.bool)
+    # cpu → the plain version
+    calls = []
+    plain = bev_raster.bev_rasterize_scatter
+    monkeypatch.setattr(bev_raster, "bev_rasterize_scatter",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    before = bev_raster.KERNEL_LAUNCHES
+    out = bev_raster.bev_rasterize(pts, valid)
+    assert calls == [1] and out.shape == bev_raster.DEFAULT_SHAPE
+    assert bev_raster.KERNEL_LAUNCHES == before
+    # any other device type → an error, not a fallback
+    with pytest.raises(ValueError, match="meta"):
+        bev_raster.bev_rasterize(pts.to("meta"), valid.to("meta"))
+    assert calls == [1]
+
+
+def test_cuda_path_propagates_loader_errors(monkeypatch):
+    """The CUDA launch path, with the kernel loader failing, raises and
+    returns no plain result."""
+    def broken_loader(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(_build, "load_library", broken_loader)
+    monkeypatch.setattr(bev_raster, "bev_rasterize_scatter", plain_must_not_run)
+    before = bev_raster.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="cannot build bev_raster"):
+        bev_raster._bev_rasterize_cuda(torch.zeros(2, 8, 3), torch.ones(2, 8, dtype=torch.bool),
+                                       bev_raster.DEFAULT_SHAPE, bev_raster.DEFAULT_VOXEL_SIZE,
+                                       bev_raster.DEFAULT_Z_OFFSET)
+    assert bev_raster.KERNEL_LAUNCHES == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("bev_raster", build_dir=tmp_path / "build")
+    assert not (tmp_path / "build" / "libbev_raster.so").exists()
+
+
+@pytest.mark.parametrize("name", ["unet_seresnext50", "unet_efficientnet_b1", "deeplab_resnet50"])
+def test_unported_models_raise(name):
+    with pytest.raises(KeyError, match="not yet ported"):
+        build_model(name)
+
+
+def test_unported_backbone_raises():
+    with pytest.raises(KeyError, match="not yet ported"):
+        build_backbone("seresnext26")
+
+
+@pytest.mark.cuda
+def test_kernel_on_card_matches_plain():
+    """On a machine with a card: the CUDA kernel equals the plain version,
+    including points on bin edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.rand(4, 20000, 3, generator=g) - 0.5) * torch.tensor([160.0, 160.0, 8.0])
+    pts[:, :400, 0] = torch.arange(400).float() * 0.4 - 67.2
+    valid = torch.rand(4, 20000, generator=g) > 0.1
+    pts, valid = pts.cuda(), valid.cuda()
+    got = bev_raster.bev_rasterize(pts, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bev_raster.bev_rasterize_scatter(pts, valid))
