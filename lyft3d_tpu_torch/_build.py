@@ -30,8 +30,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# A shared library, once loaded, belongs to the whole process.
+# A shared library, once loaded, belongs to the whole process. One lock per
+# library, so that different libraries build in parallel threads.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCKS: Dict[str, threading.Lock] = {}
 _LOCK = threading.Lock()
 
 
@@ -75,6 +77,8 @@ def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built on the first call in this process."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))

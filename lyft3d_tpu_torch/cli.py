@@ -4,8 +4,9 @@ Commands:
     infer-bev   inference → submission CSV (+ optional mAP), the same
                 arguments as ``lyft3d_tpu.cli infer-bev``
 
-Runs on the first CUDA card when there is one (the trunk in bfloat16, as the
-JAX package's default), else on the CPU in float32.
+Runs on the first CUDA card (the trunk in bfloat16, as the JAX package's
+default) and fails when there is none; ``--device cpu`` is the explicit CPU
+run, in float32.
 """
 
 from __future__ import annotations
@@ -21,6 +22,18 @@ def _db(args):
     return LyftDB(args.data_root, Path(args.data_root) / args.json_dir)
 
 
+def _device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "--device cuda: torch.cuda.is_available() is false; no CUDA card is "
+            "visible. Pass --device cpu to run on the CPU."
+        )
+    return device
+
+
 def cmd_infer_bev(args):
     import torch
 
@@ -30,7 +43,7 @@ def cmd_infer_bev(args):
     from lyft3d_tpu_torch.models import build_model
     from lyft3d_tpu_torch.pipelines.bev import BEVInferencePipeline, gt_records
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = _device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     models = []
     for spec in args.model:  # "name[:model_dir]" → logit-mean ensemble
@@ -71,6 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out", required=True)
     sp.add_argument("--sweeps", type=int, default=1)
     sp.add_argument("--eval", action="store_true")
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (bfloat16 trunk; fails without a card) or cpu (float32)")
     sp.set_defaults(fn=cmd_infer_bev)
     return p
 

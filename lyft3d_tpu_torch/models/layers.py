@@ -7,8 +7,9 @@ the flax modules:
 
 - convs pad symmetrically, ``dilation·(k−1)//2`` each side (torch style);
 - GroupNorm uses ``eps=1e-6``, :func:`_num_groups` groups and flax's
-  one-pass variance (:class:`GroupNorm`); BatchNorm uses ``eps=1e-5`` (the
-  same in both);
+  one-pass variance (:class:`GroupNorm`), LayerNorm the same statistics over
+  the last dim (:class:`LayerNorm`); BatchNorm uses ``eps=1e-5`` (the same in
+  both);
 - bilinear resizes use half-pixel centres (``align_corners=False``) and
   antialias when they shrink, as ``jax.image.resize`` does.
 
@@ -29,6 +30,7 @@ __all__ = [
     "upsample2x",
     "resize_to",
     "ConvNormAct",
+    "LayerNorm",
     "SEModule",
     "ASPP",
     "UpBlock",
@@ -37,6 +39,7 @@ __all__ = [
 
 NORM_TYPES = ("group", "batch", "folded")
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
+LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm default
 BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
 
 
@@ -80,6 +83,23 @@ class GroupNorm(nn.GroupNorm):
         mul = torch.rsqrt(var + self.eps) * self.weight.float().view(g, c // g, 1, 1)
         y = (xg - mean) * mul + self.bias.float().view(g, c // g, 1, 1)
         return y.flatten(1, 2).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last dim with flax's statistics: float32
+    reductions, the one-pass variance ``E[x²] − E[x]²`` clipped at 0, eps
+    1e-6, then ``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in float32,
+    cast back to the input's dtype."""
+
+    def __init__(self, features: int, eps: float = LAYER_NORM_EPS, device=None, dtype=None):
+        super().__init__(features, eps=eps, device=device, dtype=dtype)
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
 
 
 class ConvNormAct(nn.Module):
@@ -230,7 +250,7 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
             normal(m.weight, 1.0 / math.sqrt(fan_in))
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d)):
+        elif isinstance(m, (nn.GroupNorm, nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
             if isinstance(m, nn.BatchNorm2d):

@@ -1,0 +1,92 @@
+"""Voxel feature encoders (port of ``lyft3d_tpu/models/second/voxel_encoder.py``).
+
+Operates on the fixed-capacity :func:`lyft3d_tpu_torch.ops.voxelize.voxelize`
+output, batched: voxels ``(B, V, T, D)``, num_points ``(B, V)``, coords
+``(B, V, 3)``. Ported: ``PillarFeatureNet`` and ``pillar_scatter`` (the
+Lyft pillars config). ``SimpleVoxel`` and ``VoxelFeatureExtractor`` are not
+on a ported path yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from lyft3d_tpu_torch.models.layers import LayerNorm
+from lyft3d_tpu_torch.ops.dense_fill import fill_rows_by_id
+
+__all__ = ["voxel_mean", "PillarFeatureNet", "pillar_scatter"]
+
+
+def _point_mask(voxels, num_points):
+    """``(…, T, D)`` + ``(…,)`` → ``(…, T)`` membership mask in the voxels' dtype."""
+    t = voxels.shape[-2]
+    return (torch.arange(t, device=voxels.device) < num_points[..., None]).to(voxels.dtype)
+
+
+def voxel_mean(voxels, num_points):
+    """``(…, T, D)`` → ``(…, D)`` masked mean."""
+    mask = _point_mask(voxels, num_points)
+    s = (voxels * mask[..., None]).sum(dim=-2)
+    return s / torch.clamp(num_points[..., None], min=1).to(voxels.dtype)
+
+
+class PillarFeatureNet(nn.Module):
+    """PointPillars encoder: each point augmented with its offset from the
+    pillar's point mean and from the pillar centre, then (Linear without
+    bias → LayerNorm → ReLU · mask) per layer and a max over the points.
+
+    ``in_features`` is the point width D; the first layer takes D + 5.
+    Preprocessing runs in the points' float32; the layers in ``dtype``. The
+    output ``(…, V, features[-1])`` is in ``dtype``: ReLU times a 0/1 mask
+    keeps values exact in it, so this equals the flax module's float32
+    output cast to ``dtype``.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        features: Sequence[int] = (64,),
+        voxel_size: Tuple[float, float] = (0.25, 0.25),
+        point_range: Tuple[float, float] = (-50.0, -50.0),
+        device=None,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        self.voxel_size = tuple(voxel_size)
+        self.point_range = tuple(point_range)
+        widths = [in_features + 5, *features]
+        self.linears = nn.ModuleList(
+            nn.Linear(i, o, bias=False, **fk) for i, o in zip(widths[:-1], widths[1:])
+        )
+        self.norms = nn.ModuleList(LayerNorm(o, **fk) for o in features)
+
+    def forward(self, voxels, num_points, coords):
+        mask = _point_mask(voxels, num_points)
+        mean = voxel_mean(voxels[..., :3], num_points)
+        cluster_rel = voxels[..., :3] - mean[..., None, :]
+        px = (coords[..., 0].to(voxels.dtype) + 0.5) * self.voxel_size[0] + self.point_range[0]
+        py = (coords[..., 1].to(voxels.dtype) + 0.5) * self.voxel_size[1] + self.point_range[1]
+        pillar_rel = torch.stack(
+            [voxels[..., 0] - px[..., None], voxels[..., 1] - py[..., None]], dim=-1
+        )
+        x = torch.cat([voxels, cluster_rel, pillar_rel], dim=-1).to(self.linears[0].weight.dtype)
+        m = mask[..., None].to(x.dtype)
+        for linear, norm in zip(self.linears, self.norms):
+            x = torch.relu(norm(linear(x))) * m
+        return x.amax(dim=-2)
+
+
+def pillar_scatter(features, coords, voxel_valid, grid_hw: Tuple[int, int],
+                   assume_sorted: bool = False):
+    """``(…, V, C)`` pillar features → ``(…, ny, nx, C)`` dense BEV canvas
+    through :func:`~lyft3d_tpu_torch.ops.dense_fill.fill_rows_by_id` (the
+    CUDA kernel on the card). ``assume_sorted`` holds for coords from
+    ``voxelize`` with nz == 1 (ascending unique ids, invalid at the tail)."""
+    ny, nx = grid_hw
+    flat = coords[..., 1] * nx + coords[..., 0]
+    canvas = fill_rows_by_id(features, flat, voxel_valid, ny * nx, assume_sorted=assume_sorted)
+    return canvas.unflatten(-2, (ny, nx))

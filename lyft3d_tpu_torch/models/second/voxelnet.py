@@ -1,0 +1,214 @@
+"""VoxelNet assembly and predict (port of ``lyft3d_tpu/models/second/voxelnet.py``).
+
+Ported: the PointPillars path, ``encoder="pillars"`` with
+``middle="scatter"``: :class:`PillarFeatureNet` → :func:`pillar_scatter`
+(CUDA kernel ``csrc/dense_fill.cu`` on the card) → :class:`RPN`, and the
+batched :func:`voxelnet_predict`. The sparse middles (kernels B3/B4), the
+other encoders and ``voxelnet_loss`` are not ported yet: building a model
+that needs them raises.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from lyft3d_tpu_torch.models.layers import materialize
+from lyft3d_tpu_torch.models.second.rpn import RPN
+from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet, pillar_scatter
+from lyft3d_tpu_torch.ops.anchors import AnchorSpec, generate_anchors
+from lyft3d_tpu_torch.ops.box_ops import decode_boxes, limit_period
+from lyft3d_tpu_torch.ops.nms import nms_mask_from_iou, rotated_nms, select_top_k
+from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev
+from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
+
+__all__ = ["VoxelNetConfig", "VoxelNet", "voxelnet_predict"]
+
+_META = torch.device("meta")
+
+
+@dataclass(frozen=True)
+class VoxelNetConfig:
+    """The JAX package's ``VoxelNetConfig`` fields that inference reads
+    (same names and defaults). The sparse-middle and loss fields come with
+    their ports."""
+
+    grid: VoxelGrid = VoxelGrid(
+        point_cloud_range=(-49.6, -49.6, -5.0, 49.6, 49.6, 3.0),
+        voxel_size=(0.25, 0.25, 8.0),
+    )
+    max_voxels: int = 20000
+    max_points_per_voxel: int = 20
+    encoder: str = "pillars"
+    encoder_features: Tuple[int, ...] = (64,)
+    middle: str = "scatter"
+    anchor_specs: Tuple[AnchorSpec, ...] = (
+        AnchorSpec(size=(1.93, 4.76, 1.72), z_center=-1.0,
+                   matched_threshold=0.6, unmatched_threshold=0.45),
+    )
+    rpn_layer_nums: Tuple[int, ...] = (3, 5, 5)
+    rpn_strides: Tuple[int, ...] = (2, 2, 2)
+    rpn_filters: Tuple[int, ...] = (64, 128, 256)
+    rpn_up_strides: Tuple[float, ...] = (1, 2, 4)
+    rpn_up_filters: Tuple[int, ...] = (128, 128, 128)
+    encode_angle_to_vector: bool = False
+    num_classes: int = 1
+    nms_pre: int = 1000
+    nms_post: int = 300
+    nms_iou: float = 0.5
+    score_threshold: float = 0.05
+    # True = suppress only within each class; False = one NMS across classes.
+    per_class_nms: bool = False
+
+    @property
+    def feature_hw(self) -> Tuple[int, int]:
+        """The RPN's output grid: SAME-padded block-0 conv of stride s
+        (n → ceil(n / s)), then ``int(· × up_strides[0])``."""
+        _check_ported(self)
+        nx, ny, _ = self.grid.grid_size
+        s0 = self.rpn_strides[0]
+        h, w = -(-ny // s0), -(-nx // s0)
+        return (int(h * self.rpn_up_strides[0]), int(w * self.rpn_up_strides[0]))
+
+    @property
+    def anchors_per_loc(self) -> int:
+        return sum(len(s.rotations) for s in self.anchor_specs)
+
+    @property
+    def box_code_size(self) -> int:
+        return 8 if self.encode_angle_to_vector else 7
+
+    def make_anchors(self, device=None):
+        return generate_anchors(
+            self.feature_hw, self.grid.point_cloud_range, self.anchor_specs, device
+        )
+
+
+def _check_ported(cfg: VoxelNetConfig):
+    if cfg.encoder != "pillars" or cfg.middle != "scatter":
+        raise NotImplementedError(
+            f"VoxelNet encoder={cfg.encoder!r} middle={cfg.middle!r} is not yet ported to "
+            "lyft3d_tpu_torch (ported: encoder='pillars', middle='scatter')"
+        )
+
+
+class VoxelNet(nn.Module):
+    """voxels → per-anchor predictions, batched (leading B).
+
+    ``in_features`` is the point width D of the voxels. ``dtype`` is the
+    compute type of the encoder and RPN trunk; the three heads stay float32,
+    as the flax heads do. Built on ``meta``, then allocated on ``device`` and
+    initialised from ``generator`` (load the JAX package's weights with
+    :func:`lyft3d_tpu_torch.utils.flax_params.load_flax_params`).
+    """
+
+    def __init__(
+        self,
+        config: VoxelNetConfig,
+        in_features: int = 4,
+        dtype: torch.dtype = torch.float32,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        _check_ported(config)
+        self.config = config
+        cfg = config
+        self.encoder = PillarFeatureNet(
+            in_features, cfg.encoder_features, cfg.grid.voxel_size[:2],
+            cfg.grid.point_cloud_range[:2], device=_META,
+        )
+        self.rpn = RPN(
+            cfg.encoder_features[-1], cfg.rpn_layer_nums, cfg.rpn_strides, cfg.rpn_filters,
+            cfg.rpn_up_strides, cfg.rpn_up_filters, cfg.anchors_per_loc, cfg.num_classes,
+            cfg.box_code_size, device=_META,
+        )
+        materialize(self, device, dtype, generator, float32_heads=self.rpn.heads())
+
+    def scatter(self, feats, coords, voxel_valid):
+        """``(B, V, C)`` pillar features → ``(B, C, ny, nx)`` BEV map, NHWC in
+        memory (``channels_last``), no copy."""
+        nx, ny, _ = self.config.grid.grid_size
+        # voxelize emits ascending unique flat ids (nz == 1 for pillars).
+        canvas = pillar_scatter(feats, coords, voxel_valid, (ny, nx), assume_sorted=True)
+        return canvas.permute(0, 3, 1, 2)
+
+    def forward(self, voxels, num_points, coords, voxel_valid) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        feats = self.encoder(voxels, num_points, coords)
+        preds = self.rpn(self.scatter(feats, coords, voxel_valid))
+        b = voxels.shape[0]
+        return {
+            "box": preds["box"].reshape(b, -1, cfg.box_code_size),
+            "cls": preds["cls"].reshape(b, -1, cfg.num_classes),
+            "dir": preds["dir"].reshape(b, -1, 2),
+        }
+
+
+def _take(x, idx):
+    """``x[b, idx[b, k], …]`` for ``(B, A, …)`` x and ``(B, K)`` idx."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.dim() - 2))).expand(
+        *idx.shape, *x.shape[2:]))
+
+
+def voxelnet_predict(preds, anchors, anchor_class, cfg: VoxelNetConfig):
+    """Decode + score + rotated NMS for a batch.
+
+    ``preds``: box ``(B, A, code)``, cls ``(B, A, classes)``, dir ``(B, A, 2)``;
+    ``anchors`` ``(A, 7)`` and ``anchor_class`` ``(A,)`` on the same device.
+    Returns fixed-size ``(B, K)`` detections, ``K = min(nms_post, nms_pre, A)``:
+    boxes ``(B, K, 7)``, scores, classes (1-based, int32), valid.
+    """
+    box = preds["box"].float()
+    boxes = decode_boxes(box, anchors, cfg.encode_angle_to_vector)
+    scores_all = torch.sigmoid(preds["cls"].float())
+    scores, cls_idx = scores_all.max(dim=-1)
+    if cfg.num_classes == 1:  # the anchor's own class
+        pred_class = anchor_class.expand(scores.shape)
+    else:
+        pred_class = cls_idx.to(torch.int32) + 1
+
+    # Direction fix: flip by π where the direction bit disagrees with the
+    # anchor's, then wrap into [-π, π).
+    dir_bit = preds["dir"].argmax(dim=-1)
+    yaw = boxes[..., 6]
+    pi = torch.tensor(math.pi, dtype=yaw.dtype, device=yaw.device)
+    anchor_bit = torch.remainder(torch.floor((yaw - anchors[:, 6]) / pi), 2.0)
+    yaw = torch.where(dir_bit != anchor_bit.to(dir_bit.dtype), yaw + pi, yaw)
+    boxes = torch.cat([boxes[..., :6], limit_period(yaw, 0.5, 2 * math.pi)[..., None]], dim=-1)
+
+    # Top-k prefilter (stable: ties to the lower index, as lax.top_k), then NMS.
+    k = min(cfg.nms_pre, scores.shape[-1])
+    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    top_boxes = _take(boxes, top_idx)
+    top_class = torch.gather(pred_class, 1, top_idx)
+    valid = top_scores >= cfg.score_threshold
+
+    bev = torch.cat([top_boxes[..., 0:2], top_boxes[..., 3:5], top_boxes[..., 6:7]], dim=-1)
+    if cfg.per_class_nms:
+        # Suppress only same-class overlaps; rows are already score-sorted.
+        iou = rotated_iou_bev(bev, bev)
+        same = top_class[..., :, None] == top_class[..., None, :]
+        keep = nms_mask_from_iou(torch.where(same, iou, torch.zeros_like(iou)), top_scores,
+                                 cfg.nms_iou, valid=valid, presorted=True)
+    else:
+        keep = rotated_nms(bev, top_scores, cfg.nms_iou, valid=valid)
+    sel, sel_valid = select_top_k(keep, top_scores, min(cfg.nms_post, k))
+
+    out_boxes = _take(top_boxes, sel)
+    r = cfg.grid.point_cloud_range
+    inside = (
+        (out_boxes[..., 0] >= r[0]) & (out_boxes[..., 0] <= r[3])
+        & (out_boxes[..., 1] >= r[1]) & (out_boxes[..., 1] <= r[4])
+    )
+    return {
+        "boxes": out_boxes,
+        "scores": torch.gather(top_scores, 1, sel),
+        "classes": torch.gather(top_class, 1, sel),
+        "valid": sel_valid & inside,
+    }

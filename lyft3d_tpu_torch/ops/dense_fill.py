@@ -1,0 +1,145 @@
+"""Dense-canvas fill from (row-id, feature-row) pairs (port of
+``lyft3d_tpu/ops/dense_fill.py``).
+
+The PointPillars BEV scatter writes V feature rows into a large dense
+canvas at their row ids. :func:`fill_rows_by_id` is the kernel wrapper. It
+masks and (unless ``assume_sorted``) sorts the ids, then chooses its path by
+the device of the features alone:
+
+- CUDA tensor: launches the hand-written kernel ``csrc/dense_fill.cu``
+  (built by ``nvcc`` at first use) or raises. There is no fallback.
+- CPU tensor: runs the plain version, :func:`fill_rows_by_id_scatter`.
+- anything else: raises.
+
+Both sum duplicate ids, as the Pallas kernel does; under the producer
+contract (unique ids) the canvas holds exact copies of the rows. Rows not
+covered by a valid id are zero. The JAX package's sorted-hint scatter and
+its ``method`` switch exist for the TPU and are not ported. The gradient
+(a row gather of the cotangent) comes with the training port.
+
+Layout: ``(V, C)`` rows with ``(V,)`` ids and valid mask for one sample, or
+``(B, V, C)`` with ``(B, V)`` for a batch (``vmap`` becomes the leading
+dimension); the canvas is ``(…, num_rows, C)`` in the features' dtype,
+contiguous.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lyft3d_tpu_torch import _build
+
+__all__ = ["fill_rows_by_id", "fill_rows_by_id_scatter", "KERNEL_LAUNCHES"]
+
+# Number of times fill_rows_by_id launched the CUDA kernel in this process.
+KERNEL_LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _masked_ids(row_ids, valid, num_rows: int):
+    """int32 ids with invalid entries, and ids outside ``[0, num_rows)``,
+    forced to the sentinel ``num_rows``."""
+    ok = valid & (row_ids >= 0) & (row_ids < num_rows)
+    return torch.where(ok, row_ids, num_rows).to(torch.int32)
+
+
+def fill_rows_by_id_scatter(features, row_ids, valid, num_rows: int):
+    """Plain version: ``index_add_`` into ``(B·(num_rows + 1), C)`` with one
+    sentinel row per sample, cut off at the end. Duplicate ids sum."""
+    lead = features.shape[:-1]
+    c = features.shape[-1]
+    feats = features.reshape(-1, lead[-1], c)
+    ids = _masked_ids(row_ids, valid, num_rows).reshape(-1, lead[-1]).long()
+    b = feats.shape[0]
+    base = torch.arange(b, device=feats.device, dtype=torch.int64)[:, None] * (num_rows + 1)
+    canvas = torch.zeros(b * (num_rows + 1), c, dtype=features.dtype, device=features.device)
+    canvas.index_add_(0, (base + ids).reshape(-1), feats.reshape(-1, c))
+    return canvas.view(b, num_rows + 1, c)[:, :num_rows].reshape(*lead[:-1], num_rows, c)
+
+
+def _check_args(features, row_ids, valid):
+    if features.dtype not in _DTYPE_CODES:
+        raise TypeError(f"features must be float32 or bfloat16, got {features.dtype}")
+    if row_ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"row_ids must be int32 or int64, got {row_ids.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool, got {valid.dtype}")
+    if features.dim() not in (2, 3):
+        raise ValueError(f"features must be (V, C) or (B, V, C), got {tuple(features.shape)}")
+    lead = tuple(features.shape[:-1])
+    if tuple(row_ids.shape) != lead or tuple(valid.shape) != lead:
+        raise ValueError(
+            f"row_ids {tuple(row_ids.shape)} and valid {tuple(valid.shape)} must be {lead}"
+        )
+    if not (row_ids.device == valid.device == features.device):
+        raise ValueError(
+            f"features on {features.device}, row_ids on {row_ids.device}, valid on {valid.device}"
+        )
+
+
+def _kernel_library():
+    lib = _build.load_library("dense_fill")
+    fn = lib.dense_fill_launch
+    if fn.argtypes is None:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, ids, out
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, v, num_rows
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # c, dtype, vectorized
+            ctypes.c_int, ctypes.c_void_p,  # device, stream
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _fill_cuda(features, ids, num_rows: int):
+    """Launch ``csrc/dense_fill.cu`` on PyTorch's current stream. ``ids`` are
+    int32, ascending per sample, with invalid entries at ``num_rows``."""
+    global KERNEL_LAUNCHES
+    launch = _kernel_library()
+    batched = features.dim() == 3
+    feats = (features if batched else features[None]).contiguous()
+    ids = (ids if batched else ids[None]).contiguous()
+    b, v, c = feats.shape
+    out = torch.empty((b, num_rows, c), dtype=feats.dtype, device=feats.device)
+    vectorized = int(
+        (c * feats.element_size()) % 16 == 0
+        and feats.data_ptr() % 16 == 0
+        and out.data_ptr() % 16 == 0
+    )
+    dev = feats.device.index if feats.device.index is not None else torch.cuda.current_device()
+    err = launch(
+        ctypes.c_void_p(feats.data_ptr()),
+        ctypes.c_void_p(ids.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        b, v, num_rows, c, _DTYPE_CODES[feats.dtype], vectorized, dev,
+        ctypes.c_void_p(torch.cuda.current_stream(feats.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"dense_fill kernel launch failed with CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return out if batched else out[0]
+
+
+def fill_rows_by_id(features, row_ids, valid, num_rows: int, assume_sorted: bool = False):
+    """``(…, V, C)`` feature rows + ``(…, V)`` ``row_ids`` → ``(…, num_rows, C)``
+    canvas: the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor, an error otherwise.
+
+    Invalid entries are dropped. With ``assume_sorted`` the valid ids must
+    ascend within each sample with the invalid entries at the tail (the
+    ``voxelize`` contract); otherwise they are sorted here (stably) first.
+    """
+    kind = features.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"fill_rows_by_id runs on cuda or cpu tensors, not {kind!r}")
+    _check_args(features, row_ids, valid)
+    ids = _masked_ids(row_ids, valid, num_rows)
+    if not assume_sorted:
+        ids, order = torch.sort(ids, dim=-1, stable=True)
+        features = torch.gather(features, -2, order[..., None].expand(features.shape))
+    if kind == "cuda":
+        return _fill_cuda(features, ids, num_rows)
+    return fill_rows_by_id_scatter(features, ids, ids < num_rows, num_rows)

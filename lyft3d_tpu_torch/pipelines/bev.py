@@ -30,6 +30,7 @@ from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
 __all__ = [
     "make_bev_input",
     "make_infer_fn",
+    "to_host",
     "detections_to_world",
     "BEVInferencePipeline",
     "quaternion_yaw_from_matrix",
@@ -79,7 +80,7 @@ def make_infer_fn(
     return infer
 
 
-def _to_host(det: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def to_host(det: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """One device→host copy for the whole detection dict: every field is
     packed into one float32 buffer (the integer and bool fields are exact
     in float32) and unpacked on the host."""
@@ -175,7 +176,7 @@ class BEVInferencePipeline:
                 batch("points_valid"),
                 batch("map"),
             )
-            det = _to_host(det)
+            det = to_host(det)
             for j, tok in enumerate(chunk):
                 out[tok] = detections_to_world(self.gen, tok, {k: v[j] for k, v in det.items()})
         return out

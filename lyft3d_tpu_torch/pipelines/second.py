@@ -1,0 +1,115 @@
+"""SECOND / VoxelNet pillars inference: points → voxelize → VoxelNet →
+decode + NMS → world records (port of the inference half of
+``lyft3d_tpu/pipelines/second_train.py``).
+
+The device program is :func:`make_second_infer_fn`. The host side reuses
+the JAX package's numpy ``SecondSampleLoader`` and
+``detections_to_world_records`` (``lyft3d_tpu.pipelines.second_pipeline``,
+which imports no JAX). Training comes with its own port.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+from lyft3d_tpu.pipelines.second_pipeline import SecondSampleLoader, detections_to_world_records
+from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, VoxelNetConfig, voxelnet_predict
+from lyft3d_tpu_torch.ops.anchors import AnchorSpec
+from lyft3d_tpu_torch.ops.voxelize import VoxelGrid, voxelize
+from lyft3d_tpu_torch.pipelines.bev import to_host
+
+__all__ = ["voxelnet_config_from_experiment", "make_second_infer_fn", "evaluate_second"]
+
+
+def voxelnet_config_from_experiment(exp, **overrides) -> VoxelNetConfig:
+    """``VoxelNetConfig`` from a ``SecondExperiment`` (read by field name, so
+    ``lyft3d_tpu.config`` and its yaml dependency are not needed here)."""
+    grid = VoxelGrid(
+        point_cloud_range=tuple(exp.point_cloud_range),
+        voxel_size=tuple(exp.voxel_size),
+        block_filtering=exp.block_filtering,
+        block_factor=exp.block_factor,
+        block_size=exp.block_size,
+        height_threshold=exp.height_threshold,
+    )
+    specs = tuple(
+        AnchorSpec(
+            size=tuple(a.size),
+            z_center=a.z_center,
+            matched_threshold=a.matched_threshold,
+            unmatched_threshold=a.unmatched_threshold,
+            class_id=i + 1,
+        )
+        for i, a in enumerate(exp.anchors)
+    )
+    kwargs = dict(
+        grid=grid,
+        max_voxels=exp.max_voxels,
+        max_points_per_voxel=exp.max_points_per_voxel,
+        encoder=exp.encoder,
+        middle=exp.middle,
+        anchor_specs=specs,
+        rpn_layer_nums=tuple(exp.rpn_layer_nums),
+        rpn_strides=tuple(exp.rpn_strides),
+        rpn_filters=tuple(exp.rpn_filters),
+        rpn_up_strides=tuple(exp.rpn_up_strides),
+        rpn_up_filters=tuple(exp.rpn_up_filters),
+    )
+    kwargs.update(overrides)
+    return VoxelNetConfig(**kwargs)
+
+
+def make_second_infer_fn(model: VoxelNet, vcfg: VoxelNetConfig) -> Callable:
+    """Batched points → detections program on the model's device.
+
+    ``infer(points (B, N, D), valid (B, N))`` → dict of ``(B, K, …)``
+    detections (see :func:`voxelnet_predict`). The model is put in eval mode.
+    """
+    model.eval()
+    device = next(model.parameters()).device
+    anchors, _, _, anchor_class = vcfg.make_anchors(device)
+
+    @torch.inference_mode()
+    def infer(points, valid):
+        vox = voxelize(points, valid, vcfg.grid, vcfg.max_voxels, vcfg.max_points_per_voxel)
+        preds = model(vox["voxels"], vox["num_points"], vox["coords"], vox["voxel_valid"])
+        return voxelnet_predict(preds, anchors, anchor_class, vcfg)
+
+    return infer
+
+
+def evaluate_second(
+    model: VoxelNet,
+    vcfg: VoxelNetConfig,
+    loader: SecondSampleLoader,
+    tokens: Sequence[str],
+    class_names: Sequence[str],
+    batch_size: int = 4,
+) -> List[dict]:
+    """Predict over ``tokens`` → world-frame detection records, in
+    fixed-size batches (the last one padded by repeating its final token)
+    with one device→host copy per batch."""
+    infer = make_second_infer_fn(model, vcfg)
+    device = next(model.parameters()).device
+    records: List[dict] = []
+    toks = list(tokens)
+    for i in range(0, len(toks), batch_size):
+        chunk = toks[i : i + batch_size]
+        padded = chunk + [chunk[-1]] * (batch_size - len(chunk))
+        samples = [loader.sample(t, train=False) for t in padded]
+
+        def batch(key):
+            return torch.from_numpy(np.stack([s[key] for s in samples])).to(device)
+
+        det = to_host(infer(batch("points"), batch("points_valid")))
+        for j, tok in enumerate(chunk):
+            records.extend(
+                detections_to_world_records(
+                    loader.infos[tok], det["boxes"][j], det["scores"][j],
+                    det["classes"][j], det["valid"][j], class_names,
+                )
+            )
+    return records

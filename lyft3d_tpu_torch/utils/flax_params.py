@@ -5,7 +5,7 @@
 and copies it into the matching torch module:
 
 - conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in);
-- GroupNorm / BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and
+- GroupNorm / LayerNorm / BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and
   BatchNorm ``mean``/``var`` (under ``batch_stats``) → the running buffers.
 
 The mapping is written out per module type below and follows flax's
@@ -25,6 +25,9 @@ from torch import nn
 
 from lyft3d_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
 from lyft3d_tpu_torch.models.layers import ASPP, ConvNormAct, SEModule, UpBlock
+from lyft3d_tpu_torch.models.second.rpn import RPN
+from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet
+from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
 from lyft3d_tpu_torch.models.unet import LyftUNet, ReferenceUNet
 
 __all__ = ["load_flax_params"]
@@ -76,8 +79,14 @@ def _conv(conv: nn.Conv2d, src: _Source, path: Path, name: str, out: Out):
         out[f"{name}.bias"] = src.take("params", path + ("bias",))
 
 
-def _dense(src: _Source, path: Path, name: str, out: Out):
+def _dense(src: _Source, path: Path, name: str, out: Out, bias: bool = True):
     out[f"{name}.weight"] = src.take("params", path + ("kernel",)).T
+    if bias:
+        out[f"{name}.bias"] = src.take("params", path + ("bias",))
+
+
+def _norm(src: _Source, path: Path, name: str, out: Out):
+    out[f"{name}.weight"] = src.take("params", path + ("scale",))
     out[f"{name}.bias"] = src.take("params", path + ("bias",))
 
 
@@ -90,9 +99,7 @@ def _conv_norm_act(m: ConvNormAct, src, path, name, out):
         out[f"{name}norm.running_mean"] = src.take("batch_stats", p + ("mean",))
         out[f"{name}norm.running_var"] = src.take("batch_stats", p + ("var",))
     elif isinstance(m.norm, nn.GroupNorm):
-        p = path + ("GroupNorm_0",)
-        out[f"{name}norm.weight"] = src.take("params", p + ("scale",))
-        out[f"{name}norm.bias"] = src.take("params", p + ("bias",))
+        _norm(src, path + ("GroupNorm_0",), f"{name}norm", out)
 
 
 def _se(m: SEModule, src, path, name, out):
@@ -156,6 +163,29 @@ def _reference_unet(m: ReferenceUNet, src, path, name, out):
     _conv(m.head, src, path + ("Conv_0",), f"{name}head", out)
 
 
+def _pillar_feature_net(m: PillarFeatureNet, src, path, name, out):
+    for i in range(len(m.linears)):
+        _dense(src, path + (f"Dense_{i}",), f"{name}linears.{i}", out, bias=False)
+        _norm(src, path + (f"LayerNorm_{i}",), f"{name}norms.{i}", out)
+
+
+def _rpn(m: RPN, src, path, name, out):
+    k = 0  # flax numbers every ConvNormAct in creation order: block, then its up branch
+    for bi, (block, up) in enumerate(zip(m.blocks, m.ups)):
+        for li, cna in enumerate(block):
+            _conv_norm_act(cna, src, path + (f"ConvNormAct_{k}",), f"{name}blocks.{bi}.{li}.", out)
+            k += 1
+        _conv_norm_act(up, src, path + (f"ConvNormAct_{k}",), f"{name}ups.{bi}.", out)
+        k += 1
+    for i, head in enumerate(("box", "cls", "dir")):
+        _conv(getattr(m, head), src, path + (f"Conv_{i}",), f"{name}{head}", out)
+
+
+def _voxelnet(m: VoxelNet, src, path, name, out):
+    _pillar_feature_net(m.encoder, src, path + ("PillarFeatureNet_0",), f"{name}encoder.", out)
+    _rpn(m.rpn, src, path + ("RPN_0",), f"{name}rpn.", out)
+
+
 _MAPPERS: Dict[type, Callable] = {
     ConvNormAct: _conv_norm_act,
     SEModule: _se,
@@ -163,6 +193,9 @@ _MAPPERS: Dict[type, Callable] = {
     UpBlock: _up_block,
     LyftUNet: _lyft_unet,
     ReferenceUNet: _reference_unet,
+    PillarFeatureNet: _pillar_feature_net,
+    RPN: _rpn,
+    VoxelNet: _voxelnet,
 }
 
 

@@ -133,7 +133,7 @@ def test_to_host_keeps_values_and_dtypes():
         "box_valid": torch.tensor([[True, False, True], [False, False, True]]),
         "counts": torch.tensor([[5, 0, 112896], [0, 1, 2]], dtype=torch.int32),
     }
-    host = tbev._to_host(det)
+    host = tbev.to_host(det)
     for k, v in det.items():
         assert host[k].dtype == v.numpy().dtype
         np.testing.assert_array_equal(host[k], v.numpy())
@@ -143,9 +143,19 @@ def test_cli_infer_bev(db, tmp_path):
     out = tmp_path / "sub.csv"
     data_root = db.data_path
     cli.main(["infer-bev", "--data-root", str(data_root), "--model", "unet_reference",
-              "--out", str(out)])
+              "--out", str(out), "--device", "cpu"])
     lines = out.read_text().splitlines()
     assert lines[0] == "Id,PredictionString" and len(lines) == 1 + len(db.sample)
     with pytest.raises(SystemExit, match="checkpoint"):
         cli.main(["infer-bev", "--data-root", str(data_root), "--model",
-                  "unet_reference:some_dir", "--out", str(out)])
+                  "unet_reference:some_dir", "--out", str(out), "--device", "cpu"])
+
+
+def test_cli_default_device_needs_a_card(db, tmp_path, monkeypatch):
+    """Without a card the default device raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "sub.csv"
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main(["infer-bev", "--data-root", str(db.data_path), "--model", "unet_reference",
+                  "--out", str(out)])
+    assert not out.exists()

@@ -2,11 +2,13 @@
 
 - none of its modules imports jax, flax or optax;
 - ``bev_rasterize`` picks its path by ``device.type`` alone, and the CUDA
-  path never falls back to the plain version;
-- importing the raster module needs no nvcc and no GPU;
+  path never falls back to the plain version (``fill_rows_by_id``: see
+  ``test_torch_dense_fill.py``);
+- importing the kernel modules needs no nvcc and no GPU;
 - models that are not yet ported fail loudly.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -18,6 +20,7 @@ import torch
 from lyft3d_tpu_torch import _build
 from lyft3d_tpu_torch.models import build_model
 from lyft3d_tpu_torch.models.backbones import build_backbone
+from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, VoxelNetConfig
 from lyft3d_tpu_torch.ops import bev_raster
 
 REPO = Path(__file__).resolve().parent.parent
@@ -57,6 +60,23 @@ assert not b._LIBS, "a kernel library was loaded at import"
 pts = torch.zeros(4, 3); valid = torch.ones(4, dtype=torch.bool)
 assert r.bev_rasterize(pts, valid).sum() == 4
 assert r.KERNEL_LAUNCHES == 0
+print("ok")
+"""
+    proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
+                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_fill_import_needs_no_nvcc_or_gpu():
+    code = """
+import lyft3d_tpu_torch.ops.dense_fill as f
+import lyft3d_tpu_torch.models.second.voxelnet
+import lyft3d_tpu_torch._build as b
+import torch
+assert not b._LIBS, "a kernel library was loaded at import"
+out = f.fill_rows_by_id(torch.ones(3, 2), torch.tensor([4, 0, 2]), torch.ones(3, dtype=torch.bool), 5)
+assert out.sum() == 6 and f.KERNEL_LAUNCHES == 0
 print("ok")
 """
     proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
@@ -120,6 +140,17 @@ def test_unported_models_raise(name):
 def test_unported_backbone_raises():
     with pytest.raises(KeyError, match="not yet ported"):
         build_backbone("seresnext26")
+
+
+@pytest.mark.parametrize("change", [dict(middle="sparse_units"), dict(middle="sparse_columns"),
+                                    dict(middle="sparse"), dict(encoder="vfe"),
+                                    dict(encoder="simple")])
+def test_unported_voxelnet_variants_raise(change):
+    cfg = dataclasses.replace(VoxelNetConfig(), **change)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        VoxelNet(cfg)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cfg.feature_hw
 
 
 @pytest.mark.cuda
