@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's inference paths on one CUDA card: BEV
-segmentation and SECOND pillars.
+segmentation, SECOND pillars and PointRCNN.
 
     python3 chip_smoke.py
 
@@ -41,8 +41,34 @@ Phases, one line of numbers each:
    > 0 after it; samples/s from CUDA events (2 warm-up, 10 timed
    iterations), a stage split, and peak memory.
 
-The last two lines are a JSON object describing each kernel and the JSON
-result line. Any failure raises and exits non-zero without printing them.
+8. fps / ball / knn / roi: the four hand-written PointNet++ kernels against
+   their plain PyTorch versions on the card at the largest shapes of the
+   PointRCNN path (furthest-point sampling 4 x 16,384 → 4,096 and 400 x 512
+   → 128; ball query 4 x 4,096 centres x 16,384 points at radii (0.1, 0.5),
+   k (16, 32), again at radii (2, 4) where rows fill and stop early, and 400
+   x 128 x 512 with k 64; 3-NN 4 x 16,384 x 4,096; RoI select 4 x 100 boxes
+   x 16,384 points, k 512, extra width 1.0), with 5% invalid points,
+   duplicated points, a far-away centre (an empty row), a box with more
+   points than k and an empty box: indices and counts ``torch.equal``,
+   distances within 1e-6; both timed with CUDA events;
+9. pointrcnn check: the ``PointRCNN`` of ``lyft_pointrcnn_config("test")`` in
+   float32 at batch 1 with TF32 off, card against CPU with the same seeded
+   weights, stage by stage on the CPU's inputs: FPS indices and proposal
+   sets equal, RPN outputs, RCNN heads and refined boxes within 1e-3 of
+   their scale;
+10. pointrcnn e2e: the main path, ``make_pointrcnn_infer_fn`` (SA pyramid with
+    the FPS and ball-query kernels → FP with the 3-NN kernel → proposal layer
+    → RoI pool with the RoI-select kernel → RCNN → decode + final NMS), in
+    bfloat16 with folded norms at batch 4 x 16,384 points: the four launch
+    counts are reset before it and must be 6, 6, 4 and 1 a call after it;
+    output shapes, finite boxes, scores in [0, 1]; samples/s from CUDA events
+    (2 warm-up, 10 timed iterations), a stage split, and peak memory.
+
+The last two lines are a JSON object describing each kernel (its launches on
+the main path, its error against the plain version, its time, the plain
+version's, its bound and, where one PyTorch call computes the same function,
+that call's time) and the JSON result line. Any failure raises and exits
+non-zero without printing them.
 """
 
 from __future__ import annotations
@@ -71,6 +97,12 @@ SEC_BATCH = 8
 SEC_POINTS = 262144
 FILL_V, FILL_C, FILL_ROWS = 25000, 64, 496 * 496
 FILL_DUP_REL = 1e-6
+# PointRCNN (lyft_pointrcnn_config("test")): batch 4 x 16,384 points, 100
+# proposals a sample, 512 points a RoI.
+PRC_BATCH = 4
+PRC_POINTS = 16384
+PRC_ROIS = 100
+PRC_ROI_POINTS = 512
 # (w, l, h), z centre, matched and unmatched thresholds of the 9 classes.
 LYFT9_ANCHORS = (
     ((1.93, 4.76, 1.72), -1.07, 0.6, 0.45),    # car
@@ -216,6 +248,202 @@ def fill_case(dtype, seed):
     return feats, ids, valid
 
 
+def rcnn_cloud(batch, n, seed):
+    """Uniform (x, y) in ±40 m, z in [-2, 1] m; the last 5% invalid; 1% of
+    the points exact copies of earlier ones (tied distances)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.empty(batch, n, 3)
+    pts[..., :2].uniform_(-40.0, 40.0, generator=g)
+    pts[..., 2].uniform_(-2.0, 1.0, generator=g)
+    dup = n // 100
+    pts[:, n // 2: n // 2 + dup] = pts[:, :dup]
+    valid = (torch.arange(n) < n - n // 20).expand(batch, n).contiguous()
+    return pts, valid
+
+
+def roi_clouds(batch, n, seed):
+    """RoI-sized clouds in a box frame: ±3 x ±2 x ±1 m, the first ``count``
+    points valid with ``count`` from 1 to ``n``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pts = (torch.rand(batch, n, 3, generator=g) - 0.5) * torch.tensor([6.0, 4.0, 2.0])
+    count = torch.randint(1, n + 1, (batch, 1), generator=g)
+    return pts, torch.arange(n)[None, :] < count
+
+
+def roi_boxes(pts, r, seed):
+    """``r`` car-sized boxes a sample centred on points of the cloud, with
+    random yaw; the last but one 40 m wide (more points than any capacity),
+    the last far away (empty)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b, n, _ = pts.shape
+    pick = torch.randint(0, n, (b, r), generator=g)
+    centre = torch.gather(pts, 1, pick[..., None].expand(b, r, 3))
+    size = torch.tensor([1.93, 4.76, 1.72]) * (0.8 + 0.4 * torch.rand(b, r, 3, generator=g))
+    yaw = (torch.rand(b, r, 1, generator=g) * 2 - 1) * math.pi
+    boxes = torch.cat([centre, size, yaw], dim=-1)
+    boxes[:, -2, 3:5] = 40.0
+    boxes[:, -1, :2] = 500.0
+    return boxes
+
+
+F32_PEAK = 67e12  # float32 operations a second outside the tensor cores (H100 SXM data sheet)
+HBM_RATE = 3.35e12  # bytes a second
+
+
+def bound(n_bytes, n_ops, peak=F32_PEAK):
+    """The least milliseconds the card could take: bytes over the memory
+    rate against operations over the peak rate; returns (ms, which)."""
+    by_bytes, by_ops = n_bytes / HBM_RATE * 1e3, n_ops / peak * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def select_kernels_phase(dev, card):
+    """Phase 8: the four PointNet++ kernels against their plain versions on
+    the card at the largest shapes of the PointRCNN path. Returns one record
+    per kernel for the ``kernels`` line (``launches`` filled in later)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            diff = int((got != want).sum())
+            raise AssertionError(f"{what}: kernel differs from the plain version in {diff} places")
+
+    records = {}
+    pts, valid = (a.to(dev) for a in rcnn_cloud(PRC_BATCH, PRC_POINTS, seed=7))
+    n_valid = int(valid[0].sum())
+
+    # B5 furthest-point sampling: RPN stage 0, and the RCNN's RoI clouds.
+    npoint = PRC_POINTS // 4
+    sel = p2.fps(pts, valid, npoint)
+    same(sel, p2.furthest_point_sample(pts, valid, npoint), "fps 16384->4096")
+    k_ms = cuda_ms(lambda: p2.fps(pts, valid, npoint), warmup=1, iters=5)
+    p_ms = cuda_ms(lambda: p2.furthest_point_sample(pts, valid, npoint), warmup=0, iters=1)
+    rpts, rvalid = (a.to(dev) for a in roi_clouds(PRC_BATCH * PRC_ROIS, PRC_ROI_POINTS, seed=8))
+    rsel = p2.fps(rpts, rvalid, 128)
+    same(rsel, p2.furthest_point_sample(rpts, rvalid, 128), "fps 400 x 512->128")
+    small_ms = cuda_ms(lambda: p2.fps(rpts, rvalid, 128), warmup=1, iters=5)
+    small_plain_ms = cuda_ms(lambda: p2.furthest_point_sample(rpts, rvalid, 128), warmup=0, iters=1)
+    # 3 subtractions, 3 products, 2 sums, a min and a compare per point and step.
+    b_ms, b_by = bound(PRC_BATCH * (PRC_POINTS * 13 + npoint * 4),
+                       PRC_BATCH * (npoint - 1) * PRC_POINTS * 10)
+    records["fps"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"fps: B={PRC_BATCH} {PRC_POINTS}->{npoint} ({n_valid} valid) torch.equal=True "
+        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) | "
+        f"B={PRC_BATCH * PRC_ROIS} {PRC_ROI_POINTS}->128 torch.equal=True kernel_ms={small_ms:.4f} "
+        f"plain_ms={small_plain_ms:.3f} [{card}]")
+
+    # B6 ball query: stage 0 (no radius fills: full scans), the same cloud at
+    # the stage-3 radii (most rows fill and stop early), and the RoI clouds.
+    centers = p2.group_points(pts, sel[:, :, None])[:, :, 0].contiguous()
+    centers[:, -1] = 500.0  # an empty row
+    cvalid = torch.gather(valid, 1, sel.long())
+
+    def ball_case(c, p, v, radii, ks, what):
+        got = p2.multi_radius_ball_query(c, p, v, radii, ks)
+        want = p2.multi_radius_ball_query_dense(c, p, v, radii, ks)
+        n = p.shape[1]
+        scanned = torch.zeros(c.shape[:2], dtype=torch.int64, device=dev)
+        for (g_idx, g_cnt), (w_idx, w_cnt), k in zip(got, want, ks):
+            same(g_idx, w_idx, f"ball query {what} indices")
+            same(g_cnt, w_cnt, f"ball query {what} counts")
+            # A row that fills stops after its k-th hit; the others read the whole cloud.
+            scanned = torch.maximum(scanned, torch.where(w_cnt >= k, w_idx[..., -1].long() + 1, n))
+        full = sum(int((cnt >= k).sum()) for (_, cnt), k in zip(want, ks))
+        return int(scanned.sum()), full
+
+    radii0, ks0 = (0.1, 0.5), (16, 32)
+    pairs0, full0 = ball_case(centers, pts, valid, radii0, ks0, "stage 0")
+    if int(p2.multi_radius_ball_query(centers, pts, valid, radii0, ks0)[1][1][:, -1].max()) != 0:
+        raise AssertionError("ball query: the far-away centre found neighbours")
+    pairs3, full3 = ball_case(centers, pts, valid, (2.0, 4.0), ks0, "radii (2, 4)")
+    if full3 == 0:
+        raise AssertionError("ball query: no row filled at radii (2, 4)")
+    rc = p2.group_points(rpts, rsel[:, :, None])[:, :, 0].contiguous()
+    ball_case(rc, rpts, rvalid, (0.2,), (64,), "400 x 128 x 512")
+    ball_case(rc, rpts, rvalid, (1.5,), (64,), "400 x 128 x 512 radius 1.5")
+    k_ms = cuda_ms(lambda: p2.multi_radius_ball_query(centers, pts, valid, radii0, ks0),
+                   warmup=2, iters=20)
+    p_ms = cuda_ms(lambda: p2.multi_radius_ball_query_dense(centers, pts, valid, radii0, ks0),
+                   warmup=1, iters=3)
+    early_ms = cuda_ms(lambda: p2.multi_radius_ball_query(centers, pts, valid, (2.0, 4.0), ks0),
+                       warmup=2, iters=20)
+    small_ms = cuda_ms(lambda: p2.multi_radius_ball_query(rc, rpts, rvalid, (0.2,), (64,)),
+                       warmup=2, iters=20)
+    s = centers.shape[1]
+    io = PRC_BATCH * (PRC_POINTS * 13 + s * 12 + s * (sum(ks0) + len(ks0)) * 4)
+    # 3 subtractions, 3 products, 2 sums and one compare per radius for each scanned pair.
+    b_ms, b_by = bound(io, pairs0 * (8 + len(ks0)))
+    records["ball_query"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+    log(f"ball: B={PRC_BATCH} S={s} N={PRC_POINTS} radii={radii0} k={ks0} torch.equal=True "
+        f"scanned_pairs={pairs0} filled_rows={full0} kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
+        f"bound_ms={b_ms:.4f} ({b_by}) | radii=(2.0, 4.0) scanned_pairs={pairs3} "
+        f"filled_rows={full3} kernel_ms={early_ms:.4f} | B={PRC_BATCH * PRC_ROIS} S=128 N=512 "
+        f"r=0.2 k=64 kernel_ms={small_ms:.4f} [{card}]")
+
+    # B7 three nearest neighbours: FP stage 0 (16,384 unknown, 4,096 known),
+    # with one duplicated known point and the far-away one.
+    known = centers.clone()
+    known[:, 1] = known[:, 0]
+    kvalid = cvalid.clone()
+    kvalid[:, 1] = kvalid[:, 0]
+    g_d, g_idx = p2.three_nn(pts, known, kvalid)
+    w_d, w_idx = p2.three_nn_dense(pts, known, kvalid)
+    same(g_idx, w_idx, "three_nn indices")
+    knn_err = float((g_d - w_d).abs().max())
+    if not knn_err <= 1e-6 * max(1.0, float(w_d.abs().max())):
+        raise AssertionError(f"three_nn distances differ by {knn_err}")
+    few = torch.zeros_like(kvalid)
+    few[:, 5] = True
+    f_d, f_idx = p2.three_nn(pts[:, :1024], known, few)
+    w_d, w_idx = p2.three_nn_dense(pts[:, :1024], known, few)
+    same(f_idx, w_idx, "three_nn with one valid known point")
+    if not torch.equal(f_d, w_d):
+        raise AssertionError("three_nn miss distances differ")
+    del w_d, w_idx
+    k_ms = cuda_ms(lambda: p2.three_nn(pts, known, kvalid), warmup=2, iters=20)
+    p_ms = cuda_ms(lambda: p2.three_nn_dense(pts, known, kvalid), warmup=1, iters=3)
+    pairs = PRC_POINTS * int(kvalid.sum())
+    b_ms, b_by = bound(PRC_BATCH * (PRC_POINTS * 12 + s * 13 + PRC_POINTS * 24), pairs * 9)
+    records["knn"] = dict(max_abs_err=knn_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    log(f"knn: B={PRC_BATCH} S={PRC_POINTS} M={s} indices torch.equal=True "
+        f"dist_max_abs_err={knn_err:.3g} (tol 1e-6 of scale) pairs={pairs} kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+
+    # B8 RoI select: 100 boxes a sample, k 512, extra width 1.0.
+    boxes = roi_boxes(pts.cpu(), PRC_ROIS, seed=9).to(dev)
+    g_idx, g_cnt = p2.roi_inside_select(pts, valid, boxes, PRC_ROI_POINTS, 1.0)
+    w_idx, w_cnt = p2.roi_inside_select_dense(pts, valid, boxes, PRC_ROI_POINTS, 1.0)
+    same(g_idx, w_idx, "roi select indices")
+    same(g_cnt, w_cnt, "roi select counts")
+    if int(w_cnt[:, -1].max()) != 0 or int(w_cnt[:, -2].min()) != PRC_ROI_POINTS:
+        raise AssertionError("roi select: the empty box or the full box is not as built")
+    scanned = int(torch.where(w_cnt >= PRC_ROI_POINTS, w_idx[..., -1].long() + 1, PRC_POINTS).sum())
+    del w_idx
+    k_ms = cuda_ms(lambda: p2.roi_inside_select(pts, valid, boxes, PRC_ROI_POINTS, 1.0),
+                   warmup=2, iters=20)
+    p_ms = cuda_ms(lambda: p2.roi_inside_select_dense(pts, valid, boxes, PRC_ROI_POINTS, 1.0),
+                   warmup=1, iters=3)
+    io = PRC_BATCH * (PRC_POINTS * 13 + PRC_ROIS * (32 + (PRC_ROI_POINTS + 1) * 4))
+    # 3 subtractions, 4 products, 2 sums, 3 absolute values and 3 compares per scanned pair.
+    b_ms, b_by = bound(io, scanned * 15)
+    records["roi_select"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+    log(f"roi: B={PRC_BATCH} R={PRC_ROIS} N={PRC_POINTS} k={PRC_ROI_POINTS} extra=1.0 "
+        f"torch.equal=True mean_count={float(w_cnt.float().mean()):.1f} scanned_pairs={scanned} "
+        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    return records
+
+
 def torch_equal(a, b):
     import torch
 
@@ -234,28 +462,42 @@ def main():
     log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
 
-    from lyft3d_tpu.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
     from lyft3d_tpu_torch import _build
     from lyft3d_tpu_torch.models import build_model
     from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.models.pointrcnn.net import (
+        PointRCNN,
+        canonical_transform,
+        lyft_pointrcnn_config,
+        proposal_layer,
+    )
     from lyft3d_tpu_torch.ops import bev_raster, dense_fill
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+    from lyft3d_tpu_torch.ops.bin_coder import decode_refined_boxes
     from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
     from lyft3d_tpu_torch.ops.voxelize import voxelize
     from lyft3d_tpu_torch.pipelines.bev import make_bev_input, make_infer_fn
     from lyft3d_tpu_torch.models.second.voxelnet import voxelnet_predict
+    from lyft3d_tpu_torch.pipelines.pointrcnn import make_pointrcnn_infer_fn
     from lyft3d_tpu_torch.pipelines.second import make_second_infer_fn
 
     def reset_counts():
         bev_raster.KERNEL_LAUNCHES = 0
         dense_fill.KERNEL_LAUNCHES = 0
+        for name in p2.KERNEL_LAUNCHES:
+            p2.KERNEL_LAUNCHES[name] = 0
 
     # 2. build
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda load: load(), [bev_raster._kernel_library, dense_fill._kernel_library]))
-    log(f"build: bev_raster.cu dense_fill.cu -> {_build.BUILD_DIR} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    loaders = [bev_raster._kernel_library, dense_fill._kernel_library, p2._fps_library,
+               p2._ball_query_library, p2._knn_library, p2._roi_select_library]
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        list(pool.map(lambda load: load(), loaders))
+    log(f"build: bev_raster.cu dense_fill.cu fps.cu ball_query.cu knn.cu roi_select.cu -> "
+        f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
+        f"(one nvcc each, in parallel: nvcc {' '.join(_build.NVCC_FLAGS)})")
 
     # 3. raster kernel against the plain version on the card
     raster = {}
@@ -270,9 +512,25 @@ def main():
         err = float((got - want).abs().max())
         k_ms = cuda_ms(lambda: bev_raster.bev_rasterize(pts, valid, SHAPE), warmup=3, iters=20)
         p_ms = cuda_ms(lambda: bev_raster.bev_rasterize_scatter(pts, valid, SHAPE), warmup=3, iters=20)
-        raster[b] = (err, k_ms, p_ms)
+        # The one library call that counts the same cells: bincount of the
+        # flat voxel index (computed beforehand; dropped points in a dump cell).
+        row, col, ch, inb = bev_raster.voxel_indices(
+            pts, SHAPE, bev_raster.DEFAULT_VOXEL_SIZE, bev_raster.DEFAULT_Z_OFFSET)
+        ncell = SHAPE[0] * SHAPE[1] * SHAPE[2]
+        flat = torch.arange(b, device=dev)[:, None] * ncell + (row.long() * SHAPE[1] + col) * SHAPE[2] + ch
+        flat = torch.where(inb & valid, flat, b * ncell).reshape(-1)
+        counted = torch.bincount(flat, minlength=b * ncell + 1)[:-1].reshape(b, *SHAPE)
+        if not torch.equal(counted.float(), want):
+            raise AssertionError(f"bincount differs from the plain raster at B={b}")
+        l_ms = cuda_ms(lambda: torch.bincount(flat, minlength=b * ncell + 1), warmup=3, iters=20)
+        # Points and mask read once, the grid written once; ~10 operations a point.
+        b_ms, b_by = bound(b * N_POINTS * 13 + b * ncell * 4, b * N_POINTS * 10)
+        del row, col, ch, inb, flat, counted
+        raster[b] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=l_ms)
         log(f"raster: B={b} N={N_POINTS} grid={SHAPE} torch.equal=True counted={int(got.sum())} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} [{card}]")
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bincount_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
 
     # 4. extraction on the card against the CPU
     logits = torch.from_numpy(blob_logits(8, SHAPE[0], 10, seed=0))
@@ -376,9 +634,22 @@ def main():
                                                           assume_sorted=True), warmup=3, iters=20)
         p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_scatter(feats, ids, fvalid, FILL_ROWS),
                        warmup=3, iters=20)
-        fill[dtype] = (err, k_ms, p_ms)
+        # The one library call that fills the same canvas: index_add_ into
+        # zeros (ids prepared beforehand; one dump row per sample).
+        base = torch.arange(SEC_BATCH, device=dev)[:, None] * (FILL_ROWS + 1)
+        flat_ids = (base + torch.where(fvalid, ids.long(), FILL_ROWS)).reshape(-1)
+        rows2d = feats.reshape(-1, FILL_C)
+        l_ms = cuda_ms(lambda: torch.zeros(SEC_BATCH * (FILL_ROWS + 1), FILL_C, dtype=dtype,
+                                           device=dev).index_add_(0, flat_ids, rows2d),
+                       warmup=3, iters=20)
+        # Rows, ids and mask read once, the canvas written once; no arithmetic.
+        size = feats.element_size()
+        b_ms, b_by = bound(SEC_BATCH * (FILL_V * (FILL_C * size + 5) + FILL_ROWS * FILL_C * size), 0)
+        fill[dtype] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=l_ms)
         log(f"fill: B={SEC_BATCH} V={FILL_V} C={FILL_C} rows={FILL_ROWS} {str(dtype)[6:]} "
-            f"torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} [{card}]")
+            f"torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} index_add_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
     g = torch.Generator().manual_seed(4)
     dup = torch.sort(torch.randint(0, 50000, (SEC_BATCH, FILL_V), generator=g), dim=-1).values
     feats = torch.randn(SEC_BATCH, FILL_V, FILL_C, generator=g)
@@ -477,28 +748,165 @@ def main():
         f"detections={int(det['valid'].sum())} peak_mem_gb={sec_peak_gb:.2f} "
         f"fill_launches={fill_launches} [{card}]")
 
-    err32, k_ms, p_ms = raster[BATCH]
-    f_err = max(e for e, _, _ in fill.values())
-    _, f_ms, f_plain_ms = fill[torch.bfloat16]
-    print(json.dumps({"kernels": [{
-        "name": "bev_raster",
-        "route": "cuda",
-        "source": "lyft3d_tpu_torch/csrc/bev_raster.cu",
-        "replaces": "lyft3d_tpu/ops/bev_raster.py:146",
-        "launches": launches,
-        "max_abs_err": err32,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "dense_fill",
-        "route": "cuda",
-        "source": "lyft3d_tpu_torch/csrc/dense_fill.cu",
-        "replaces": "lyft3d_tpu/ops/dense_fill.py:78",
-        "launches": fill_launches,
-        "max_abs_err": f_err,
-        "ms": f_ms,
-        "plain_ms": f_plain_ms,
-    }]}))
+    del net, infer, pts, pvalid, vox, feats, bev, preds, det
+    torch.cuda.empty_cache()
+
+    # 8. the four PointNet++ kernels against their plain versions
+    select = select_kernels_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # 9. PointRCNN float32 check, stage by stage: card against CPU, TF32 off.
+    # Each stage gets the CPU's inputs on both devices, so that a rounding
+    # difference in one stage cannot reorder the discrete choices of the next.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pcfg = lyft_pointrcnn_config("test")
+    pts, pvalid = rcnn_cloud(1, PRC_POINTS, seed=10)
+    ref_net = PointRCNN(pcfg, norm="folded", generator=torch.Generator().manual_seed(0)).eval()
+    card_net = PointRCNN(pcfg, norm="folded", device=dev,
+                         generator=torch.Generator().manual_seed(0)).eval()
+
+    def rel_err(got, want):
+        return float((got.cpu() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+    def on_card(x):
+        return x.to(dev)
+
+    with torch.inference_mode():
+        zeros = pts.new_zeros(1, PRC_POINTS, 1)
+        if not torch.equal(p2.fps(on_card(pts), on_card(pvalid), pcfg.sa_npoints[0]).cpu(),
+                           p2.fps(pts, pvalid, pcfg.sa_npoints[0])):
+            raise AssertionError("FPS indices on the card differ from the CPU's")
+        ref_rpn = ref_net.rpn(pts, zeros, pvalid)
+        card_rpn = card_net.rpn(on_card(pts), on_card(zeros), on_card(pvalid))
+        rpn_err = {k: rel_err(card_rpn[k], v) for k, v in ref_rpn.items()}
+        ref_props = proposal_layer(pts, ref_rpn["cls"], ref_rpn["reg"], pvalid, pcfg)
+        card_props = proposal_layer(on_card(pts), on_card(ref_rpn["cls"]), on_card(ref_rpn["reg"]),
+                                    on_card(pvalid), pcfg)
+        if not torch.equal(card_props["roi_valid"].cpu(), ref_props["roi_valid"]):
+            raise AssertionError("proposal sets on the card differ from the CPU's")
+        prop_err = max(rel_err(card_props[k], ref_props[k]) for k in ("rois", "roi_scores"))
+        rois = ref_props["rois"]
+
+        def second_stage(net, xyz, feats, valid, rois):
+            pooled, counts, empty = p2.roi_pool3d(xyz, feats, valid, rois, pcfg.roi_points,
+                                                  pcfg.roi_extra_width)
+            canon = canonical_transform(pooled[..., :3], rois)
+            out = net.rcnn(torch.cat([canon, pooled[..., 3:]], dim=-1), counts)
+            return counts, out["cls"], out["reg"], decode_refined_boxes(rois, out["reg"],
+                                                                         pcfg.rcnn_coder)
+
+        ref_2 = second_stage(ref_net, pts, ref_rpn["point_features"], pvalid, rois)
+        card_2 = second_stage(card_net, on_card(pts), on_card(ref_rpn["point_features"]),
+                              on_card(pvalid), on_card(rois))
+        if not torch.equal(card_2[0].cpu(), ref_2[0]):
+            raise AssertionError("RoI point counts on the card differ from the CPU's")
+        rcnn_err = [rel_err(a, b) for a, b in zip(card_2[1:], ref_2[1:])]
+    worst = max(*rpn_err.values(), prop_err, *rcnn_err)
+    if not worst <= 1e-3:
+        raise AssertionError(f"float32 PointRCNN card vs cpu: rpn {rpn_err} proposals {prop_err} "
+                             f"rcnn cls/reg/refined {rcnn_err} > 1e-3 of their scale")
+    log(f"pointrcnn check: PointRCNN lyft test preset f32 B=1 N={PRC_POINTS}, TF32 off, card vs cpu, "
+        f"stage by stage: FPS indices equal, proposal sets equal "
+        f"({int(ref_props['roi_valid'].sum())} of {pcfg.num_proposals} valid, "
+        f"{int((ref_2[0] == 0).sum())} empty RoIs), max_err/scale point_features="
+        f"{rpn_err['point_features']:.3g} rpn_cls={rpn_err['cls']:.3g} rpn_reg={rpn_err['reg']:.3g} "
+        f"rois={prop_err:.3g} rcnn_cls={rcnn_err[0]:.3g} rcnn_reg={rcnn_err[1]:.3g} "
+        f"refined={rcnn_err[2]:.3g} (tol 1e-3)")
+    del ref_net, card_net, ref_rpn, card_rpn, ref_2, card_2
+    torch.backends.cudnn.allow_tf32 = True
+
+    # 10. PointRCNN main path at batch 4 in bfloat16
+    pnet = PointRCNN(pcfg, norm="folded", dtype=torch.bfloat16, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    infer = make_pointrcnn_infer_fn(pnet, pcfg)
+    pts, pvalid = (a.to(dev) for a in rcnn_cloud(PRC_BATCH, PRC_POINTS, seed=11))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
+    boxes, scores = infer(pts, pvalid)
+    torch.cuda.synchronize()
+    calls = 2 + TIMED_ITERS + 1
+    prc_launches = dict(p2.KERNEL_LAUNCHES)
+    per_call = {"fps": 6, "ball_query": 6, "knn": 4, "roi_select": 1}
+    for name, n in per_call.items():
+        if prc_launches[name] <= 0:
+            raise AssertionError(f"the PointRCNN main path never launched the {name} kernel")
+        if prc_launches[name] != n * calls:
+            raise AssertionError(f"{name}: {prc_launches[name]} launches in {calls} calls, "
+                                 f"expected {n} a call")
+    if tuple(boxes.shape) != (PRC_BATCH, PRC_ROIS, 7) or tuple(scores.shape) != (PRC_BATCH, PRC_ROIS):
+        raise AssertionError(f"PointRCNN outputs {tuple(boxes.shape)} {tuple(scores.shape)}")
+    if not bool(torch.isfinite(boxes).all()):
+        raise AssertionError("refined boxes have non-finite values")
+    if not bool(((scores >= 0) & (scores <= 1)).all()):
+        raise AssertionError("PointRCNN scores outside [0, 1]")
+    prc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # Stage split of the same path (each stage timed alone).
+    with torch.inference_mode():
+        zeros = pts.new_zeros(PRC_BATCH, PRC_POINTS, 1)
+        backbone = pnet.rpn.backbone
+
+        def run_sa():
+            stack = [(pts, zeros, pvalid)]
+            for sa in backbone.sa:
+                stack.append(sa(*stack[-1]))
+            return stack
+
+        stack = run_sa()
+
+        def run_fp():
+            up = stack[-1][1]
+            for fp, i in zip(backbone.fp, range(len(stack) - 1, 0, -1)):
+                up = fp(stack[i - 1][0], stack[i - 1][1], stack[i][0], up, stack[i][2])
+            return up
+
+        rpn_out = pnet.rpn(pts, zeros, pvalid)
+        props = proposal_layer(pts, rpn_out["cls"], rpn_out["reg"], pvalid, pcfg)
+
+        def run_pool():
+            pooled, counts, _ = p2.roi_pool3d(pts, rpn_out["point_features"], pvalid, props["rois"],
+                                              pcfg.roi_points, pcfg.roi_extra_width)
+            canon = canonical_transform(pooled[..., :3], props["rois"])
+            return torch.cat([canon, pooled[..., 3:]], dim=-1), counts
+
+        roi_pts, counts = run_pool()
+        prc_ms = {
+            "sa": cuda_ms(run_sa, iters=5),
+            "fp": cuda_ms(run_fp, iters=5),
+            "rpn_total": cuda_ms(lambda: pnet.rpn(pts, zeros, pvalid), iters=5),
+            "proposals": cuda_ms(lambda: proposal_layer(pts, rpn_out["cls"], rpn_out["reg"],
+                                                        pvalid, pcfg), iters=5),
+            "roi_pool": cuda_ms(run_pool, iters=5),
+            "rcnn": cuda_ms(lambda: pnet.rcnn(roi_pts, counts), iters=5),
+        }
+    prc_ms["decode_nms"] = max(0.0, e2e_ms - prc_ms["rpn_total"] - prc_ms["proposals"]
+                               - prc_ms["roi_pool"] - prc_ms["rcnn"])
+    log(f"pointrcnn e2e: PointRCNN lyft test preset folded bf16 B={PRC_BATCH} N={PRC_POINTS} "
+        f"samples_per_s={PRC_BATCH / (e2e_ms / 1e3):.2f} e2e_ms={e2e_ms:.3f} stages_ms "
+        + " ".join(f"{n}={v:.3f}" for n, v in prc_ms.items())
+        + f" (decode_nms is the remainder) valid_proposals={int(props['roi_valid'].sum())} "
+        f"empty_rois={int((counts == 0).sum())} kept={int((scores > 0).sum())} "
+        f"peak_mem_gb={prc_peak_gb:.2f} launches_per_call={per_call} [{card}]")
+
+    def record(name, replaces, launches, numbers, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"lyft3d_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches, "library_ms": library_ms, **numbers}
+
+    sel = "lyft3d_tpu/ops/select_kernel.py"
+    fill_numbers = dict(fill[torch.bfloat16],
+                        max_abs_err=max(f["max_abs_err"] for f in fill.values()))
+    print(json.dumps({"kernels": [
+        record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster[BATCH]),
+        record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78", fill_launches, fill_numbers),
+        record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"], select["fps"]),
+        record("ball_query", f"{sel}:94", prc_launches["ball_query"], select["ball_query"]),
+        record("knn", f"{sel}:115", prc_launches["knn"], select["knn"]),
+        record("roi_select", f"{sel}:127", prc_launches["roi_select"], select["roi_select"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -2,7 +2,7 @@
 
 Commands:
     infer-bev   inference → submission CSV (+ optional mAP), the same
-                arguments as ``lyft3d_tpu.cli infer-bev``
+                arguments as the JAX package's ``infer-bev``
 
 Runs on the first CUDA card (the trunk in bfloat16, as the JAX package's
 default) and fails when there is none; ``--device cpu`` is the explicit CPU
@@ -17,7 +17,7 @@ from pathlib import Path
 
 
 def _db(args):
-    from lyft3d_tpu.data.lyftdb import LyftDB
+    from lyft3d_tpu_torch.data.lyftdb import LyftDB
 
     return LyftDB(args.data_root, Path(args.data_root) / args.json_dir)
 
@@ -37,9 +37,9 @@ def _device(name: str):
 def cmd_infer_bev(args):
     import torch
 
-    from lyft3d_tpu.data.bev_pipeline import BEVConfig
-    from lyft3d_tpu.eval.map_eval import evaluate_map
-    from lyft3d_tpu.eval.submission import records_from_detections, write_submission
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.eval.map_eval import evaluate_map
+    from lyft3d_tpu_torch.eval.submission import records_from_detections, write_submission
     from lyft3d_tpu_torch.models import build_model
     from lyft3d_tpu_torch.pipelines.bev import BEVInferencePipeline, gt_records
 

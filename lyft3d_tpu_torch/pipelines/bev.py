@@ -3,9 +3,8 @@
 
 The device program is :func:`make_infer_fn`: raster kernel → normalize →
 map channels → UNet(s) → logit-space extraction, on a batch. The host does
-the table lookups and the world-frame affine, with the JAX package's data
-layer (``lyft3d_tpu.data``), which imports no JAX. The small numpy host
-functions are restated here because the JAX module imports ``jax``.
+the table lookups and the world-frame affine, with the port's own numpy data
+layer (:mod:`lyft3d_tpu_torch.data`).
 """
 
 from __future__ import annotations
@@ -16,14 +15,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from lyft3d_tpu.core.quaternion import quat_from_yaw
-from lyft3d_tpu.data.bev_pipeline import (
+from lyft3d_tpu_torch.core.quaternion import quat_from_yaw
+from lyft3d_tpu_torch.data.bev_pipeline import (
     BEV_CLASSES,
     BEVConfig,
     BEVSampleGenerator,
     CLASS_HEIGHTS,
 )
-from lyft3d_tpu.data.lyftdb import LyftDB
+from lyft3d_tpu_torch.data.lyftdb import LyftDB
 from lyft3d_tpu_torch.ops.bev_raster import bev_rasterize, normalize_bev
 from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
 

@@ -2,10 +2,10 @@
 decode + NMS → world records (port of the inference half of
 ``lyft3d_tpu/pipelines/second_train.py``).
 
-The device program is :func:`make_second_infer_fn`. The host side reuses
-the JAX package's numpy ``SecondSampleLoader`` and
-``detections_to_world_records`` (``lyft3d_tpu.pipelines.second_pipeline``,
-which imports no JAX). Training comes with its own port.
+The device program is :func:`make_second_infer_fn`. The host side is the
+port's numpy ``SecondSampleLoader`` and ``detections_to_world_records``
+(:mod:`lyft3d_tpu_torch.pipelines.second_pipeline`). Training comes with its
+own port.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from lyft3d_tpu.pipelines.second_pipeline import SecondSampleLoader, detections_to_world_records
+from lyft3d_tpu_torch.pipelines.second_pipeline import SecondSampleLoader, detections_to_world_records
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, VoxelNetConfig, voxelnet_predict
 from lyft3d_tpu_torch.ops.anchors import AnchorSpec
 from lyft3d_tpu_torch.ops.voxelize import VoxelGrid, voxelize
@@ -26,7 +26,7 @@ __all__ = ["voxelnet_config_from_experiment", "make_second_infer_fn", "evaluate_
 
 def voxelnet_config_from_experiment(exp, **overrides) -> VoxelNetConfig:
     """``VoxelNetConfig`` from a ``SecondExperiment`` (read by field name, so
-    ``lyft3d_tpu.config`` and its yaml dependency are not needed here)."""
+    no yaml-backed config module is needed here)."""
     grid = VoxelGrid(
         point_cloud_range=tuple(exp.point_cloud_range),
         voxel_size=tuple(exp.voxel_size),

@@ -4,7 +4,8 @@
 (nested dicts of numpy-convertible arrays, as ``model.init`` returns them)
 and copies it into the matching torch module:
 
-- conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in);
+- conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in); the
+  ``nn.vmap``ped RoI encoder of PointRCNN has one shared set of parameters;
 - GroupNorm / LayerNorm / BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and
   BatchNorm ``mean``/``var`` (under ``batch_stats``) → the running buffers.
 
@@ -24,7 +25,19 @@ import torch
 from torch import nn
 
 from lyft3d_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
-from lyft3d_tpu_torch.models.layers import ASPP, ConvNormAct, SEModule, UpBlock
+from lyft3d_tpu_torch.models.layers import ASPP, ConvNormAct, LayerNorm, SEModule, UpBlock
+from lyft3d_tpu_torch.models.pointrcnn.modules import (
+    FPModule,
+    SAModuleGlobal,
+    SAModuleMSG,
+    SharedMLP,
+)
+from lyft3d_tpu_torch.models.pointrcnn.net import (
+    PointRCNN,
+    PointRCNN_RCNN,
+    PointRCNN_RPN,
+    PointRCNNBackbone,
+)
 from lyft3d_tpu_torch.models.second.rpn import RPN
 from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
@@ -186,6 +199,56 @@ def _voxelnet(m: VoxelNet, src, path, name, out):
     _rpn(m.rpn, src, path + ("RPN_0",), f"{name}rpn.", out)
 
 
+def _shared_mlp(m: SharedMLP, src, path, name, out):
+    for i, (linear, norm) in enumerate(zip(m.linears, m.norms)):
+        _dense(src, path + (f"Dense_{i}",), f"{name}linears.{i}", out, bias=linear.bias is not None)
+        if isinstance(norm, LayerNorm):
+            _norm(src, path + (f"LayerNorm_{i}",), f"{name}norms.{i}", out)
+
+
+def _sa_msg(m: SAModuleMSG, src, path, name, out):
+    for i, mlp in enumerate(m.mlps):
+        _shared_mlp(mlp, src, path + (f"SharedMLP_{i}",), f"{name}mlps.{i}.", out)
+
+
+def _sa_global(m: SAModuleGlobal, src, path, name, out):
+    _shared_mlp(m.mlp, src, path + ("SharedMLP_0",), f"{name}mlp.", out)
+
+
+def _fp_module(m: FPModule, src, path, name, out):
+    _shared_mlp(m.mlp, src, path + ("SharedMLP_0",), f"{name}mlp.", out)
+
+
+def _pointrcnn_backbone(m: PointRCNNBackbone, src, path, name, out):
+    for i, sa in enumerate(m.sa):
+        _sa_msg(sa, src, path + (f"SAModuleMSG_{i}",), f"{name}sa.{i}.", out)
+    for i, fp in enumerate(m.fp):
+        _fp_module(fp, src, path + (f"FPModule_{i}",), f"{name}fp.{i}.", out)
+
+
+def _pointrcnn_rpn(m: PointRCNN_RPN, src, path, name, out):
+    _pointrcnn_backbone(m.backbone, src, path + ("PointRCNNBackbone_0",), f"{name}backbone.", out)
+    _shared_mlp(m.mlp, src, path + ("SharedMLP_0",), f"{name}mlp.", out)
+    _dense(src, path + ("Dense_0",), f"{name}cls", out)
+    _dense(src, path + ("Dense_1",), f"{name}reg", out)
+
+
+def _pointrcnn_rcnn(m: PointRCNN_RCNN, src, path, name, out):
+    # nn.vmap over the RoIs shares one set of encoder parameters.
+    enc, ep, en = m.encoder, path + ("Vmap_RoIEncoder_0",), f"{name}encoder."
+    _shared_mlp(enc.lift, src, ep + ("SharedMLP_0",), f"{en}lift.", out)
+    for i, sa in enumerate(enc.sa):
+        _sa_msg(sa, src, ep + (f"SAModuleMSG_{i}",), f"{en}sa.{i}.", out)
+    _sa_global(enc.pool, src, ep + ("SAModuleGlobal_0",), f"{en}pool.", out)
+    for i, sub in enumerate(("fc", "cls", "reg")):
+        _dense(src, path + (f"Dense_{i}",), f"{name}{sub}", out)
+
+
+def _pointrcnn(m: PointRCNN, src, path, name, out):
+    _pointrcnn_rpn(m.rpn, src, path + ("PointRCNN_RPN_0",), f"{name}rpn.", out)
+    _pointrcnn_rcnn(m.rcnn, src, path + ("PointRCNN_RCNN_0",), f"{name}rcnn.", out)
+
+
 _MAPPERS: Dict[type, Callable] = {
     ConvNormAct: _conv_norm_act,
     SEModule: _se,
@@ -196,6 +259,14 @@ _MAPPERS: Dict[type, Callable] = {
     PillarFeatureNet: _pillar_feature_net,
     RPN: _rpn,
     VoxelNet: _voxelnet,
+    SharedMLP: _shared_mlp,
+    SAModuleMSG: _sa_msg,
+    SAModuleGlobal: _sa_global,
+    FPModule: _fp_module,
+    PointRCNNBackbone: _pointrcnn_backbone,
+    PointRCNN_RPN: _pointrcnn_rpn,
+    PointRCNN_RCNN: _pointrcnn_rcnn,
+    PointRCNN: _pointrcnn,
 }
 
 

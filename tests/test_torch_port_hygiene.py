@@ -1,6 +1,7 @@
 """Boundaries of the port package ``lyft3d_tpu_torch``:
 
-- none of its modules imports jax, flax or optax;
+- none of its modules imports jax, flax or optax, nor anything of the JAX
+  package ``lyft3d_tpu``, and neither does ``chip_smoke.py``;
 - ``bev_rasterize`` picks its path by ``device.type`` alone, and the CUDA
   path never falls back to the plain version (``fill_rows_by_id``: see
   ``test_torch_dense_fill.py``);
@@ -43,7 +44,9 @@ import runpy
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # defines, runs nothing
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not bad, bad
-assert len(names) >= 15, names
+ours = sorted(m for m in sys.modules if m == "lyft3d_tpu" or m.startswith("lyft3d_tpu."))
+assert not ours, ours
+assert len(names) >= 40, names
 print("ok", len(names))
 """
     proc = _run(code)
@@ -77,6 +80,27 @@ import torch
 assert not b._LIBS, "a kernel library was loaded at import"
 out = f.fill_rows_by_id(torch.ones(3, 2), torch.tensor([4, 0, 2]), torch.ones(3, dtype=torch.bool), 5)
 assert out.sum() == 6 and f.KERNEL_LAUNCHES == 0
+print("ok")
+"""
+    proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
+                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_pointnet2_import_needs_no_nvcc_or_gpu():
+    code = """
+import lyft3d_tpu_torch.ops.pointnet2 as p2
+import lyft3d_tpu_torch.pipelines.pointrcnn
+import lyft3d_tpu_torch._build as b
+import torch
+assert not b._LIBS, "a kernel library was loaded at import"
+pts = torch.rand(1, 32, 3); valid = torch.ones(1, 32, dtype=torch.bool)
+sel = p2.fps(pts, valid, 4)
+idx, cnt = p2.ball_query(pts[:, :4], pts, valid, 0.5, 8)
+d, nn = p2.three_nn(pts, pts[:, :4], valid[:, :4])
+assert sel.shape == (1, 4) and idx.shape == (1, 4, 8) and nn.shape == (1, 32, 3)
+assert not any(p2.KERNEL_LAUNCHES.values())
 print("ok")
 """
     proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
