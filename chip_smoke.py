@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's inference paths on one CUDA card: BEV
-segmentation, SECOND pillars and PointRCNN.
+segmentation, SECOND pillars, PointRCNN and sparse SECOND (FHD).
 
     python3 chip_smoke.py
 
@@ -64,6 +64,34 @@ Phases, one line of numbers each:
     output shapes, finite boxes, scores in [0, 1]; samples/s from CUDA events
     (2 warm-up, 10 timed iterations), a stage split, and peak memory.
 
+11. sparse check: the sparse ``VoxelNet`` of
+    ``configs/second_lyft_9class_sparse.yaml`` (spelled out in
+    :func:`fhd_config`: 0.05 x 0.05 x 0.2 m voxels on a 1984 x 1984 x 40
+    grid, 60,000 voxels, block filtering, z-slab unit middle) in float32 at
+    batch 1 x 262,144 points with TF32 off, card against CPU with the same
+    seeded weights, stage by stage on the CPU's inputs: voxelize outputs,
+    unit ids and masks equal, unit features, dense BEV and heads within 1e-3
+    of their scale;
+12. sparse e2e: the main path of this model, ``make_second_infer_fn``
+    (voxelize with block filter → mean encoder → units (fill kernel) → 3
+    stages of 2 submanifold + 1 strided conv (stencil kernel) → dense BEV
+    (fill kernel) → RPN → decode + NMS), in bfloat16 with folded middle norms
+    at batch 4 x 262,144 points: the stencil and fill launch counts are reset
+    before it and must be 9 and 2 a call after it; samples/s from CUDA events,
+    a stage split, how far each capacity cap truncates, and peak memory. Every
+    stencil and fill call of one forward pass is recorded and replayed:
+    the stencil kernel against its plain version at the nine shapes (bfloat16
+    and float32, 1e-5 of the output scale, the strided layers' mask channel
+    equal), the fill kernel at its two new shapes (``torch.equal``);
+13. per-voxel e2e: the second sparse path, ``middle="sparse"``, same geometry
+    and caps, bfloat16: the rank gather kernel's count must be 6 a call and
+    the fill kernel's 1; samples/s and a stage split; the six recorded calls
+    replayed against the plain version (1e-5 of scale) and timed beside
+    ``index_select`` + ``einsum``;
+14. cross-check: with the same float32 weights, and a cloud and caps under
+    which no stage truncates (asserted), both middles give the same dense BEV
+    map within 1e-3 of its scale.
+
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
 version's, its bound and, where one PyTorch call computes the same function,
@@ -103,6 +131,16 @@ PRC_BATCH = 4
 PRC_POINTS = 16384
 PRC_ROIS = 100
 PRC_ROI_POINTS = 512
+# Sparse SECOND (configs/second_lyft_9class_sparse.yaml): batch 4 x 262,144
+# points of (x, y, z).
+FHD_BATCH = 4
+FHD_POINTS = 262144
+# The cross-check's cloud and stage caps: a uniform cloud grows ~2.25x in
+# units with each strided layer, so few points and wide caps keep every stage
+# whole.
+CROSS_POINTS = 3000
+CROSS_CAPS = (65536, 65536, 65536)
+BF16_PEAK = 989e12  # dense bfloat16 tensor-core operations a second (H100 SXM data sheet)
 # (w, l, h), z centre, matched and unmatched thresholds of the 9 classes.
 LYFT9_ANCHORS = (
     ((1.93, 4.76, 1.72), -1.07, 0.6, 0.45),    # car
@@ -223,6 +261,36 @@ def lyft9_config():
     )
 
 
+def fhd_config(**changes):
+    """``configs/second_lyft_9class_sparse.yaml`` as the port's
+    ``VoxelNetConfig``: the reference FHD geometry (0.05 x 0.05 x 0.2 m voxels
+    on a 1984 x 1984 x 40 grid, one point a voxel, block filtering) with the
+    z-slab unit middle (a CPU test holds it to the yaml field by field)."""
+    import dataclasses
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNetConfig
+    from lyft3d_tpu_torch.ops.anchors import AnchorSpec
+    from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
+
+    cfg = VoxelNetConfig(
+        grid=VoxelGrid(point_cloud_range=(-49.6, -49.6, -5.0, 49.6, 49.6, 3.0),
+                       voxel_size=(0.05, 0.05, 0.2), block_filtering=True, block_factor=1,
+                       block_size=8, height_threshold=0.2),
+        max_voxels=60000,
+        max_points_per_voxel=1,
+        encoder="simple",
+        middle="sparse_units",
+        middle_features=(16, 32, 64),
+        middle_max_voxels=(32768, 16384, 8192),
+        middle_z_slab=8,
+        middle_norm="layer",
+        anchor_specs=tuple(AnchorSpec(size, z, m, u, class_id=i + 1)
+                           for i, (size, z, m, u) in enumerate(LYFT9_ANCHORS)),
+        rpn_up_strides=(1, 2, 4),
+    )
+    return dataclasses.replace(cfg, **changes)
+
+
 def pillar_points(batch, n, seed):
     """Uniform (x, y) in ±49.6 m, z in [-3, 1] m, time lag in [0, 0.45] s;
     all valid."""
@@ -301,6 +369,432 @@ def bound(n_bytes, n_ops, peak=F32_PEAK):
     rate against operations over the peak rate; returns (ms, which)."""
     by_bytes, by_ops = n_bytes / HBM_RATE * 1e3, n_ops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def fhd_points(batch, n, seed):
+    """Uniform (x, y) in ±49.6 m, z in [-3, 1] m; all valid."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.empty(batch, n, 3)
+    pts[..., :2].uniform_(-49.6, 49.6, generator=g)
+    pts[..., 2].uniform_(-3.0, 1.0, generator=g)
+    return pts, torch.ones(batch, n, dtype=torch.bool)
+
+
+class recorded:
+    """Within the block, ``module.name`` also appends each call's positional
+    arguments to ``self.calls``."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def rel_diff(got, want):
+    """Largest absolute difference over the largest magnitude of ``want``."""
+    return float((got.float() - want.float()).abs().max()) / max(1e-30, float(want.float().abs().max()))
+
+
+def cols_to(cols, dev):
+    import dataclasses
+
+    return dataclasses.replace(cols, col_ids=cols.col_ids.to(dev), valid=cols.valid.to(dev),
+                               mask=cols.mask.to(dev))
+
+
+# (Cin, Cout, output cells a unit, strided) of the nine stencil launches of
+# the FHD unit middle; a strided layer carries one more channel, the activity.
+FHD_STENCIL_LAYERS = ((3, 16, 8, 0), (16, 16, 8, 0), (16, 16, 4, 1), (16, 32, 4, 0), (32, 32, 4, 0),
+                      (32, 32, 2, 1), (32, 64, 2, 0), (64, 64, 2, 0), (64, 64, 1, 1))
+
+
+def stencil_replay(calls, card):
+    """The recorded stencil calls of one forward pass, kernel against plain
+    version, in the recorded dtype and in float32. Returns the ``kernels``
+    record of the slowest launch (with the largest absolute error of all
+    eighteen comparisons) and the per-call sums."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    assert len(calls) == len(FHD_STENCIL_LAYERS), len(calls)
+    rows, worst = [], 0.0
+    for (args, _), (cin, cout, z_out, strided) in zip(calls, FHD_STENCIL_LAYERS):
+        src, qids, src_ids, wc, nc = args
+        b, vs, width = src.shape
+        vq, (kzp, n) = qids.shape[-1], wc.shape[1:]
+        assert n == z_out * (cout + strided) and nc == 1, (n, z_out, cout, nc)
+        flat = qids.long().reshape(b, -1)
+        pos = torch.searchsorted(src_ids.long().contiguous(), flat).clamp_(max=vs - 1)
+        hits = int(((torch.gather(src_ids.long(), 1, pos) == flat) & (flat >= 0)).sum())
+        del flat, pos
+        errs = {}
+        for dtype in (src.dtype, torch.float32):
+            s_, w_ = src.to(dtype), wc.to(dtype)
+            got = cs.stencil_conv_batched(s_, qids, src_ids, w_, nc)
+            torch.cuda.synchronize()
+            want = cs.stencil_conv_ref(s_, qids, src_ids, w_, nc)
+            errs[dtype] = rel_diff(got, want)
+            worst = max(worst, float((got - want).abs().max()))
+            if not errs[dtype] <= 1e-5:
+                raise AssertionError(f"stencil kernel {vs}->{vq} {kzp}x{n} {dtype}: differs from "
+                                     f"the plain version by {errs[dtype]} of its scale")
+            if strided:  # window counts of ones: exact in any order
+                mask_cols = torch.arange(z_out, device=got.device) * (cout + 1) + cout
+                if not torch.equal(got[..., mask_cols], want[..., mask_cols]):
+                    raise AssertionError(f"stencil kernel {vs}->{vq}: the mask channel differs")
+            del got, want, s_, w_
+        k_ms = cuda_ms(lambda: cs.stencil_conv_batched(src, qids, src_ids, wc, nc), warmup=1, iters=5)
+        p_ms = cuda_ms(lambda: cs.stencil_conv_ref(src, qids, src_ids, wc, nc), warmup=1, iters=2)
+        size = src.element_size()
+        io = (b * vs * width + 9 * kzp * n) * size + (b * 9 * vq + b * vs) * 4 + b * vq * n * 4
+        # A hit at one BEV offset is 3 z taps into every output cell of the unit.
+        ops = hits * 2 * 3 * z_out * cin * cout
+        peak = BF16_PEAK if src.dtype == torch.bfloat16 else F32_PEAK
+        b_ms, b_by = bound(io, ops, peak)
+        rows.append(dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"stencil: B={b} Vs={vs} Vq={vq} kzp={kzp} N={n} ({cin}->{cout}, {z_out} cells) "
+            f"{str(src.dtype)[6:]} hits={hits} of {b * 9 * vq} max_err/scale "
+            + " ".join(f"{str(d)[6:]}={e:.3g}" for d, e in errs.items())
+            + f" (tol 1e-5) kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"[{card}]")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"stencil: nine launches of one call: kernel_ms={total['ms']:.3f} "
+        f"plain_ms={total['plain_ms']:.3f} bound_ms={total['bound_ms']:.4f} [{card}]")
+    slowest = max(rows, key=lambda r: r["ms"])
+    return dict(slowest, max_abs_err=worst), total
+
+
+def subm_replay(calls, card):
+    """The recorded rank gather calls of one forward pass, kernel against
+    plain version and the library pair ``index_select`` + ``einsum``. Returns
+    the ``kernels`` record of the slowest launch (with the largest absolute
+    error of the float32 comparisons) and the per-call sums."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+
+    assert len(calls) == 6, len(calls)
+    rows, worst = [], 0.0
+    for args, _ in calls:
+        f_sorted, ranks, w = args
+        b, v, c = f_sorted.shape
+        k, q = ranks.shape[1:]
+        cout = w.shape[-1]
+        hits = int((ranks >= 0).sum())
+        errs = {}
+        for dtype in (f_sorted.dtype, torch.float32):
+            f_, w_ = f_sorted.to(dtype), w.to(dtype)
+            got = sk.subm_conv(f_, ranks, w_)
+            torch.cuda.synchronize()
+            want = sk.subm_conv_ref(f_, ranks, w_)
+            # The output is rounded to the working type on both sides: in
+            # bfloat16 a sum that differs in its last float32 bits may round
+            # to the neighbouring value, one part in 256.
+            tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            errs[dtype] = rel_diff(got, want)
+            if dtype == torch.float32:
+                worst = max(worst, float((got - want).abs().max()))
+            if not errs[dtype] <= tol:
+                raise AssertionError(f"rank gather kernel {b}x{v} {c}->{cout} {dtype}: differs from "
+                                     f"the plain version by {errs[dtype]} of its scale")
+            del got, want, f_, w_
+        k_ms = cuda_ms(lambda: sk.subm_conv(f_sorted, ranks, w), warmup=1, iters=5)
+        p_ms = cuda_ms(lambda: sk.subm_conv_ref(f_sorted, ranks, w), warmup=1, iters=2)
+        # The library pair: rows by index (absent neighbours point at an
+        # appended zero row), then one contraction.
+        table = torch.cat([f_sorted, f_sorted.new_zeros(b, 1, c)], dim=1).reshape(-1, c)
+        base = torch.arange(b, device=ranks.device)[:, None, None] * (v + 1)
+        index = (torch.where(ranks >= 0, ranks.long(), v) + base).reshape(-1)
+        wk = w.to(f_sorted.dtype)
+
+        def library():
+            rows_ = torch.index_select(table, 0, index).view(b, k, q, c)
+            return torch.einsum("bkvc,kcd->bvd", rows_, wk)
+
+        if not rel_diff(library(), sk.subm_conv_ref(f_sorted, ranks, w)) <= 2.0 ** -6:
+            raise AssertionError("index_select + einsum differs from the plain version")
+        l_ms = cuda_ms(library, warmup=1, iters=5)
+        size = f_sorted.element_size()
+        io = (b * v * c + k * c * cout + b * q * cout) * size + b * k * q * 4
+        peak = BF16_PEAK if f_sorted.dtype == torch.bfloat16 else F32_PEAK
+        b_ms, b_by = bound(io, hits * 2 * c * cout, peak)
+        rows.append(dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
+        log(f"subm: B={b} V={v} {c}->{cout} {str(f_sorted.dtype)[6:]} present={hits} of {b * k * q} "
+            "max_err/scale " + " ".join(f"{str(d)[6:]}={e:.3g}" for d, e in errs.items())
+            + f" (tol 1e-5 float32, 2^-7 bfloat16 outputs) kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
+            f"index_select_einsum_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) [{card}]")
+        del table, index
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"subm: six launches of one call: kernel_ms={total['ms']:.3f} plain_ms={total['plain_ms']:.3f} "
+        f"index_select_einsum_ms={total['library_ms']:.3f} bound_ms={total['bound_ms']:.4f} [{card}]")
+    slowest = max(rows, key=lambda r: r["ms"])
+    return dict(slowest, max_abs_err=worst), total
+
+
+def fill_replay(calls, card, what):
+    """The recorded fill calls of one forward pass: kernel ``torch.equal`` to
+    the plain version, both timed."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    for args, kwargs in calls:
+        feats, ids, valid, num_rows = args
+        got = dense_fill.fill_rows_by_id(feats, ids, valid, num_rows, **kwargs)
+        torch.cuda.synchronize()
+        want = dense_fill.fill_rows_by_id_scatter(feats, ids, valid, num_rows)
+        if not torch.equal(got, want):
+            raise AssertionError(f"fill kernel differs from the plain version at {tuple(feats.shape)} "
+                                 f"-> {num_rows} rows ({what})")
+        k_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id(feats, ids, valid, num_rows, **kwargs),
+                       warmup=2, iters=10)
+        p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_scatter(feats, ids, valid, num_rows),
+                       warmup=2, iters=10)
+        b, v, c = feats.shape
+        size = feats.element_size()
+        b_ms, b_by = bound(b * (v * (c * size + 5) + num_rows * c * size), 0)
+        log(f"fill ({what}): B={b} V={v} C={c} rows={num_rows} {str(feats.dtype)[6:]} "
+            f"sorted_by_caller={bool(kwargs.get('assume_sorted'))} torch.equal=True "
+            f"wrapper_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+
+
+def sparse_phases(dev, card):
+    """Phases 11 to 14: the sparse SECOND paths at the FHD geometry. Returns
+    the ``kernels`` records of the stencil and rank gather kernels and the
+    fill kernel's launches in the main path."""
+    import dataclasses
+
+    import torch
+
+    from lyft3d_tpu_torch.models.second import middle as middle_mod
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, voxelnet_predict
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+    from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+    from lyft3d_tpu_torch.pipelines.second import make_second_infer_fn
+
+    keys = ("voxels", "num_points", "coords", "voxel_valid")
+
+    def active_of(cfg, vox):
+        return ActiveSet(vox["coords"], vox["voxel_valid"], cfg.grid.grid_size)
+
+    def same(a, b, what):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"sparse check: {what} on the card differs from the CPU's")
+
+    # 11. float32 check, stage by stage on the CPU's inputs, TF32 off.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = fhd_config()
+    grid_args = (cfg.grid, cfg.max_voxels, cfg.max_points_per_voxel)
+    pts, pvalid = fhd_points(1, FHD_POINTS, seed=12)
+    ref_net = VoxelNet(cfg, in_features=3, generator=torch.Generator().manual_seed(0)).eval()
+    card_net = VoxelNet(cfg, in_features=3, device=dev,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    errs = {}
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, *grid_args)
+        vox_card = voxelize(pts.to(dev), pvalid.to(dev), *grid_args)
+        for k, v in vox.items():
+            same(vox_card[k], v, f"voxelize {k}")
+        feats = ref_net.encoder(*[vox[k] for k in keys[:3]])
+        same(card_net.encoder(*[vox_card[k] for k in keys[:3]]), feats, "encoder output")
+        cols, x = ref_net.middle.to_units(feats, active_of(cfg, vox))
+        ccols, cx = card_net.middle.to_units(feats.to(dev), active_of(cfg, vox_card))
+        same(ccols.col_ids, cols.col_ids, "unit ids")
+        same(ccols.mask, cols.mask, "unit masks")
+        same(cx, x, "unit features")
+        units = [int(cols.valid.sum())]
+        for i in range(len(cfg.middle_features)):
+            nx_, ncols = ref_net.middle.stage(i, x, cols)
+            cxn, ccols = card_net.middle.stage(i, x.to(dev), cols_to(cols, dev))
+            same(ccols.col_ids, ncols.col_ids, f"stage {i} unit ids")
+            same(ccols.mask, ncols.mask, f"stage {i} unit masks")
+            errs[f"stage{i}"] = rel_diff(cxn.cpu(), nx_)
+            x, cols = nx_, ncols
+            units.append(int(cols.valid.sum()))
+        bev = ref_net.middle.to_dense(x, cols)
+        errs["bev"] = rel_diff(card_net.middle.to_dense(x.to(dev), cols_to(cols, dev)).cpu(), bev)
+        ref_heads = ref_net.rpn(bev.permute(0, 3, 1, 2))
+        card_heads = card_net.rpn(bev.to(dev).permute(0, 3, 1, 2))
+        errs.update({k: rel_diff(card_heads[k].cpu(), h) for k, h in ref_heads.items()})
+    if not max(errs.values()) <= 1e-3:
+        raise AssertionError(f"float32 sparse VoxelNet card vs cpu: {errs} > 1e-3 of their scale")
+    log(f"sparse check: VoxelNet FHD sparse_units f32 B=1 N={FHD_POINTS}, TF32 off, card vs cpu, "
+        f"stage by stage: voxelize equal ({int(vox['voxel_valid'].sum())} voxels kept), unit ids, "
+        f"masks and placed features equal, units per stage {units} "
+        f"(caps {(cfg.max_voxels + cfg.max_voxels // 4,) + cfg.middle_max_voxels}), max_err/scale "
+        + " ".join(f"{k}={v:.3g}" for k, v in errs.items()) + " (tol 1e-3)")
+    del ref_net, card_net, vox, vox_card, x, cols, ccols, cx, cxn, bev, ref_heads, card_heads
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+
+    def run_path(cfg, name, counts):
+        """Drive ``make_second_infer_fn`` for ``cfg``; returns what the phase logs."""
+        net = VoxelNet(cfg, in_features=3, dtype=torch.bfloat16, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        infer = make_second_infer_fn(net, cfg)
+        pts, pvalid = (a.to(dev) for a in fhd_points(FHD_BATCH, FHD_POINTS, seed=13))
+        torch.cuda.reset_peak_memory_stats()
+        cs.KERNEL_LAUNCHES = sk.KERNEL_LAUNCHES = dense_fill.KERNEL_LAUNCHES = 0
+        e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
+        det = infer(pts, pvalid)
+        torch.cuda.synchronize()
+        calls = 2 + TIMED_ITERS + 1
+        launches = {"stencil_conv": cs.KERNEL_LAUNCHES, "subm_conv": sk.KERNEL_LAUNCHES,
+                    "dense_fill": dense_fill.KERNEL_LAUNCHES}
+        for kernel, n in counts.items():
+            if launches[kernel] <= 0:
+                raise AssertionError(f"the {name} path never launched the {kernel} kernel")
+            if launches[kernel] != n * calls:
+                raise AssertionError(f"{name}: {launches[kernel]} {kernel} launches in {calls} "
+                                     f"calls, expected {n} a call")
+        k = cfg.nms_post
+        expect = {"boxes": (FHD_BATCH, k, 7), "scores": (FHD_BATCH, k), "classes": (FHD_BATCH, k),
+                  "valid": (FHD_BATCH, k)}
+        for key, shape in expect.items():
+            if tuple(det[key].shape) != shape:
+                raise AssertionError(f"{name} {key}: shape {tuple(det[key].shape)} != {shape}")
+        if not bool(torch.isfinite(det["boxes"]).all()):
+            raise AssertionError(f"{name}: boxes have non-finite values")
+        if not bool(((det["scores"] >= 0) & (det["scores"] <= 1)).all()):
+            raise AssertionError(f"{name}: scores outside [0, 1]")
+        cls = det["classes"][det["valid"]]
+        if not bool(((cls >= 1) & (cls <= len(LYFT9_ANCHORS))).all()):
+            raise AssertionError(f"{name}: classes outside 1..9")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        return net, pts, pvalid, e2e_ms, det, launches, peak_gb
+
+    # 12. main path: the unit middle, folded norms, bfloat16, batch 4.
+    cfg = fhd_config(middle_norm="folded")
+    per_call = {"stencil_conv": 9, "dense_fill": 2}
+    net, pts, pvalid, e2e_ms, det, launches, peak_gb = run_path(cfg, "sparse", per_call)
+    anchors, _, _, anchor_class = cfg.make_anchors(dev)
+    mid = net.middle
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, *grid_args)
+        feats = net.encoder(*[vox[k] for k in keys[:3]])
+        with recorded(cs, "stencil_conv_batched") as stencil_calls, \
+                recorded(cs, "fill_rows_by_id") as fill_calls:
+            states = [mid.to_units(feats, active_of(cfg, vox))[::-1]]
+            for i in range(len(cfg.middle_features)):
+                states.append(mid.stage(i, *states[-1]))
+            bev = mid.to_dense(*states[-1]).permute(0, 3, 1, 2)
+        preds = net.rpn(bev)
+        preds = {"box": preds["box"].reshape(FHD_BATCH, -1, cfg.box_code_size),
+                 "cls": preds["cls"].reshape(FHD_BATCH, -1, cfg.num_classes),
+                 "dir": preds["dir"].reshape(FHD_BATCH, -1, 2)}
+        occupied = int(voxelize(pts[:1], pvalid[:1], cfg.grid, 10 ** 6, 1)["voxel_valid"].sum())
+        stage_ms = {
+            "voxelize": cuda_ms(lambda: voxelize(pts, pvalid, *grid_args)),
+            "units_from_voxels": cuda_ms(lambda: mid.to_units(feats, active_of(cfg, vox))),
+        }
+        for i in range(len(cfg.middle_features)):
+            stage_ms[f"stage{i}"] = cuda_ms(lambda: mid.stage(i, *states[i]))
+        stage_ms["dense"] = cuda_ms(lambda: mid.to_dense(*states[-1]))
+        stage_ms["rpn"] = cuda_ms(lambda: net.rpn(bev))
+        stage_ms["predict"] = cuda_ms(lambda: voxelnet_predict(preds, anchors, anchor_class, cfg))
+        units = [int(c.valid[0].sum()) for _, c in states]
+        active_cells = [int(c.mask[0].sum()) for _, c in states]
+    caps = (cfg.max_voxels + cfg.max_voxels // 4,) + cfg.middle_max_voxels
+    log(f"sparse e2e: VoxelNet FHD sparse_units folded bf16 B={FHD_BATCH} N={FHD_POINTS} "
+        f"samples_per_s={FHD_BATCH / (e2e_ms / 1e3):.2f} e2e_ms={e2e_ms:.3f} stages_ms "
+        + " ".join(f"{n}={v:.3f}" for n, v in stage_ms.items())
+        + f" occupied_voxels_after_filter_sample0={occupied} kept={int(vox['voxel_valid'][0].sum())} "
+        f"units_sample0={units} caps={caps} active_cells_sample0={active_cells} "
+        f"detections={int(det['valid'].sum())} peak_mem_gb={peak_gb:.2f} "
+        f"launches_per_call={per_call} [{card}]")
+    with torch.inference_mode():
+        stencil_record, _ = stencil_replay(stencil_calls.calls, card)
+        fill_replay(fill_calls.calls, card, "sparse path")
+    main_launches = launches
+    del net, mid, states, bev, preds, vox, feats, det, stencil_calls, fill_calls
+    torch.cuda.empty_cache()
+
+    # 13. second path: the per-voxel middle, bfloat16, batch 4.
+    cfg2 = fhd_config(middle="sparse")
+    per_call2 = {"subm_conv": 6, "dense_fill": 1}
+    net, pts, pvalid, e2e2_ms, det, launches2, peak2_gb = run_path(cfg2, "per-voxel", per_call2)
+    mid = net.middle
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, *grid_args)
+        feats = net.encoder(*[vox[k] for k in keys[:3]])
+        with recorded(middle_mod, "subm_conv") as subm_calls:
+            states = [(feats, active_of(cfg2, vox))]
+            for i in range(len(cfg2.middle_features)):
+                states.append(mid.stage(i, *states[-1]))
+        bev = middle_mod.sparse_to_dense_bev(*states[-1]).permute(0, 3, 1, 2)
+        stage2_ms = {}
+        for i in range(len(cfg2.middle_features)):
+            stage2_ms[f"stage{i}"] = cuda_ms(lambda: mid.stage(i, *states[i]))
+        stage2_ms["dense"] = cuda_ms(lambda: middle_mod.sparse_to_dense_bev(*states[-1]))
+        stage2_ms["rpn"] = cuda_ms(lambda: net.rpn(bev))
+        voxels = [int(a.valid[0].sum()) for _, a in states]
+    log(f"per-voxel e2e: VoxelNet FHD sparse (per-voxel middle) bf16 B={FHD_BATCH} N={FHD_POINTS} "
+        f"samples_per_s={FHD_BATCH / (e2e2_ms / 1e3):.2f} e2e_ms={e2e2_ms:.3f} stages_ms "
+        + " ".join(f"{n}={v:.3f}" for n, v in stage2_ms.items())
+        + f" (voxelize and predict as in the sparse path) voxels_sample0={voxels} "
+        f"caps={(cfg2.max_voxels,) + cfg2.middle_max_voxels} detections={int(det['valid'].sum())} "
+        f"peak_mem_gb={peak2_gb:.2f} launches_per_call={per_call2} [{card}]")
+    with torch.inference_mode():
+        subm_record, _ = subm_replay(subm_calls.calls, card)
+    del net, mid, states, bev, vox, feats, det, subm_calls
+    torch.cuda.empty_cache()
+
+    # 14. both middles on a cloud that no cap truncates, float32, TF32 off.
+    torch.backends.cudnn.allow_tf32 = False
+    open_grid = fhd_config().grid._replace(block_filtering=False)
+    cfg_u = fhd_config(grid=open_grid, middle_max_voxels=CROSS_CAPS)
+    cfg_v = fhd_config(grid=open_grid, middle_max_voxels=CROSS_CAPS, middle="sparse")
+    grid_args = (cfg_u.grid, cfg_u.max_voxels, cfg_u.max_points_per_voxel)
+    net_u = VoxelNet(cfg_u, in_features=3, device=dev, generator=torch.Generator().manual_seed(1)).eval()
+    net_v = VoxelNet(cfg_v, in_features=3, device=dev, generator=torch.Generator().manual_seed(2)).eval()
+    net_v.load_state_dict(net_u.state_dict())
+    pts, pvalid = (a.to(dev) for a in fhd_points(2, CROSS_POINTS, seed=14))
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, *grid_args)
+        feats = net_u.encoder(*[vox[k] for k in keys[:3]])
+        cols, x = net_u.middle.to_units(feats, active_of(cfg_u, vox))
+        counts = [int(vox["voxel_valid"].sum(-1).max()), int(cols.valid.sum(-1).max())]
+        for i, max_out in enumerate(cfg_u.middle_max_voxels):
+            if 4 * int(cols.valid.sum(-1).max()) > max(2 * max_out, 3 * cols.col_ids.shape[-1]):
+                raise AssertionError("cross-check: the parent list of a strided layer may overflow")
+            x, cols = net_u.middle.stage(i, x, cols)
+            counts.append(int(cols.valid.sum(-1).max()))
+        limits = (cfg_u.max_voxels, cfg_u.max_voxels + cfg_u.max_voxels // 4) + cfg_u.middle_max_voxels
+        if not all(c < cap for c, cap in zip(counts, limits)):
+            raise AssertionError(f"cross-check: a cap truncates: {counts} against {limits}")
+        bev_u = net_u.middle.to_dense(x, cols)
+        bev_v, active = net_v.middle(feats, active_of(cfg_v, vox))
+        if not int(active.valid.sum(-1).max()) < cfg_v.middle_max_voxels[-1]:
+            raise AssertionError("cross-check: the per-voxel middle's last cap truncates")
+    err = rel_diff(bev_u, bev_v)
+    if not err <= 1e-3:
+        raise AssertionError(f"cross-check: the two middles' dense BEV differ by {err} of their scale")
+    log(f"cross-check: f32 B=2 N={CROSS_POINTS}, TF32 off, same weights, no cap truncates (voxels, units and "
+        f"stage outputs {counts} under {limits}): unit middle vs per-voxel middle dense BEV "
+        f"{tuple(bev_u.shape)} max_err/scale={err:.3g} (tol 1e-3), "
+        f"{int((bev_u != 0).any(-1).sum())} occupied BEV cells")
+    torch.backends.cudnn.allow_tf32 = True
+    del net_u, net_v
+    torch.cuda.empty_cache()
+    return stencil_record, subm_record, main_launches, launches2
 
 
 def select_kernels_phase(dev, card):
@@ -472,7 +966,7 @@ def main():
         lyft_pointrcnn_config,
         proposal_layer,
     )
-    from lyft3d_tpu_torch.ops import bev_raster, dense_fill
+    from lyft3d_tpu_torch.ops import bev_raster, column_sparse, dense_fill, subm_conv_kernel
     from lyft3d_tpu_torch.ops import pointnet2 as p2
     from lyft3d_tpu_torch.ops.bin_coder import decode_refined_boxes
     from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
@@ -492,10 +986,12 @@ def main():
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     loaders = [bev_raster._kernel_library, dense_fill._kernel_library, p2._fps_library,
-               p2._ball_query_library, p2._knn_library, p2._roi_select_library]
+               p2._ball_query_library, p2._knn_library, p2._roi_select_library,
+               column_sparse._kernel_library, subm_conv_kernel._kernel_library]
     with ThreadPoolExecutor(len(loaders)) as pool:
         list(pool.map(lambda load: load(), loaders))
-    log(f"build: bev_raster.cu dense_fill.cu fps.cu ball_query.cu knn.cu roi_select.cu -> "
+    log(f"build: bev_raster.cu dense_fill.cu fps.cu ball_query.cu knn.cu roi_select.cu "
+        f"stencil_conv.cu subm_conv.cu -> "
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc each, in parallel: nvcc {' '.join(_build.NVCC_FLAGS)})")
 
@@ -892,20 +1388,34 @@ def main():
         f"empty_rois={int((counts == 0).sum())} kept={int((scores > 0).sum())} "
         f"peak_mem_gb={prc_peak_gb:.2f} launches_per_call={per_call} [{card}]")
 
+    del pnet, infer, pts, pvalid, boxes, scores, stack, rpn_out, props, roi_pts, counts
+    torch.cuda.empty_cache()
+
+    # 11-14. sparse SECOND at the FHD geometry
+    stencil_record, subm_record, sparse_launches, voxel_launches = sparse_phases(dev, card)
+
     def record(name, replaces, launches, numbers, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"lyft3d_tpu_torch/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches, "library_ms": library_ms, **numbers}
+                "replaces": replaces, "launches": launches,
+                **{"library_ms": library_ms, **numbers}}
 
     sel = "lyft3d_tpu/ops/select_kernel.py"
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster[BATCH]),
-        record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78", fill_launches, fill_numbers),
+        # Launched by three paths: pillars, sparse (2 a call) and per-voxel (1 a call).
+        record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
+               fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"],
+               fill_numbers),
         record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"], select["fps"]),
         record("ball_query", f"{sel}:94", prc_launches["ball_query"], select["ball_query"]),
         record("knn", f"{sel}:115", prc_launches["knn"], select["knn"]),
         record("roi_select", f"{sel}:127", prc_launches["roi_select"], select["roi_select"]),
+        record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
+               sparse_launches["stencil_conv"], stencil_record),
+        record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
+               voxel_launches["subm_conv"], subm_record),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

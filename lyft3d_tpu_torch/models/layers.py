@@ -235,8 +235,10 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
     Conv and linear weights are normal with std ``1/sqrt(fan_in)`` (flax's
     lecun-normal scale, untruncated), biases zero, norm scales one, running
     means zero and variances one. Values are drawn in float32 on the CPU and
-    copied, so one seed gives the same weights on every device and dtype.
-    Raises on a parameter of a module type it does not know.
+    copied, so one seed gives the same weights on every device and dtype. A
+    module with parameters of its own kind fills them in its
+    ``init_own_params(normal)``. Raises on a parameter of a module type it
+    does not know.
     """
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -257,6 +259,8 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator] = None) 
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
                 m.num_batches_tracked.zero_()
+        elif hasattr(m, "init_own_params"):
+            m.init_own_params(normal)
         elif any(True for _ in m.parameters(recurse=False)):
             raise TypeError(f"init_params does not know {type(m).__name__}")
     return module

@@ -3,8 +3,8 @@
 Operates on the fixed-capacity :func:`lyft3d_tpu_torch.ops.voxelize.voxelize`
 output, batched: voxels ``(B, V, T, D)``, num_points ``(B, V)``, coords
 ``(B, V, 3)``. Ported: ``PillarFeatureNet`` and ``pillar_scatter`` (the
-Lyft pillars config). ``SimpleVoxel`` and ``VoxelFeatureExtractor`` are not
-on a ported path yet.
+Lyft pillars config) and ``SimpleVoxel`` (the sparse FHD config).
+``VoxelFeatureExtractor`` is not on a ported path yet.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from torch import nn
 from lyft3d_tpu_torch.models.layers import LayerNorm
 from lyft3d_tpu_torch.ops.dense_fill import fill_rows_by_id
 
-__all__ = ["voxel_mean", "PillarFeatureNet", "pillar_scatter"]
+__all__ = ["voxel_mean", "SimpleVoxel", "PillarFeatureNet", "pillar_scatter"]
 
 
 def _point_mask(voxels, num_points):
@@ -31,6 +31,20 @@ def voxel_mean(voxels, num_points):
     mask = _point_mask(voxels, num_points)
     s = (voxels * mask[..., None]).sum(dim=-2)
     return s / torch.clamp(num_points[..., None], min=1).to(voxels.dtype)
+
+
+class SimpleVoxel(nn.Module):
+    """Mean encoder: the mean of each voxel's points over the first
+    ``num_features`` point dims, computed in the points' dtype and returned
+    in ``dtype``. No parameters."""
+
+    def __init__(self, num_features: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_features = num_features
+        self.dtype = dtype
+
+    def forward(self, voxels, num_points, coords):
+        return voxel_mean(voxels[..., : self.num_features], num_points).to(self.dtype)
 
 
 class PillarFeatureNet(nn.Module):

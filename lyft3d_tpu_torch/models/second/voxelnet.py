@@ -1,11 +1,17 @@
 """VoxelNet assembly and predict (port of ``lyft3d_tpu/models/second/voxelnet.py``).
 
-Ported: the PointPillars path, ``encoder="pillars"`` with
-``middle="scatter"``: :class:`PillarFeatureNet` → :func:`pillar_scatter`
-(CUDA kernel ``csrc/dense_fill.cu`` on the card) → :class:`RPN`, and the
-batched :func:`voxelnet_predict`. The sparse middles (kernels B3/B4), the
-other encoders and ``voxelnet_loss`` are not ported yet: building a model
-that needs them raises.
+Ported, with the batched :func:`voxelnet_predict`:
+
+- the PointPillars path, ``encoder="pillars"`` with ``middle="scatter"``:
+  :class:`PillarFeatureNet` → :func:`pillar_scatter` (CUDA kernel
+  ``csrc/dense_fill.cu`` on the card) → :class:`RPN`;
+- the sparse paths, ``encoder="simple"`` with ``middle="sparse_units"``
+  (:class:`SparseMiddleUnits`, CUDA kernels ``csrc/stencil_conv.cu`` and
+  ``csrc/dense_fill.cu``) or ``middle="sparse"`` (:class:`SparseMiddle`,
+  ``csrc/subm_conv.cu`` and ``csrc/dense_fill.cu``) → :class:`RPN`.
+
+The ``vfe`` encoder, the ``sparse_columns`` middle and ``voxelnet_loss`` are
+not ported yet: building a model that needs them raises.
 """
 
 from __future__ import annotations
@@ -19,11 +25,17 @@ from torch import nn
 
 from lyft3d_tpu_torch.models.layers import materialize
 from lyft3d_tpu_torch.models.second.rpn import RPN
-from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet, pillar_scatter
+from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleUnits
+from lyft3d_tpu_torch.models.second.voxel_encoder import (
+    PillarFeatureNet,
+    SimpleVoxel,
+    pillar_scatter,
+)
 from lyft3d_tpu_torch.ops.anchors import AnchorSpec, generate_anchors
 from lyft3d_tpu_torch.ops.box_ops import decode_boxes, limit_period
 from lyft3d_tpu_torch.ops.nms import nms_mask_from_iou, rotated_nms, select_top_k
 from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev
+from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
 from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
 
 __all__ = ["VoxelNetConfig", "VoxelNet", "voxelnet_predict"]
@@ -34,8 +46,7 @@ _META = torch.device("meta")
 @dataclass(frozen=True)
 class VoxelNetConfig:
     """The JAX package's ``VoxelNetConfig`` fields that inference reads
-    (same names and defaults). The sparse-middle and loss fields come with
-    their ports."""
+    (same names and defaults). The loss fields come with training."""
 
     grid: VoxelGrid = VoxelGrid(
         point_cloud_range=(-49.6, -49.6, -5.0, 49.6, 49.6, 3.0),
@@ -45,7 +56,15 @@ class VoxelNetConfig:
     max_points_per_voxel: int = 20
     encoder: str = "pillars"
     encoder_features: Tuple[int, ...] = (64,)
+    # "scatter" (pillars), "sparse_units" (z-slab units of BEV columns, the
+    # sparse FHD config's) or "sparse" (per-voxel gather formulation).
     middle: str = "scatter"
+    middle_features: Tuple[int, ...] = (16, 32, 64)
+    middle_max_voxels: Tuple[int, ...] = (8192, 4096, 2048)
+    # Stage-0 z-slab size of "sparse_units"; divisible by 2**(stages − 1).
+    middle_z_slab: int = 8
+    # Norm of the unit middle's layers: "layer" or "folded" (conv + bias).
+    middle_norm: str = "layer"
     anchor_specs: Tuple[AnchorSpec, ...] = (
         AnchorSpec(size=(1.93, 4.76, 1.72), z_center=-1.0,
                    matched_threshold=0.6, unmatched_threshold=0.45),
@@ -65,13 +84,26 @@ class VoxelNetConfig:
     per_class_nms: bool = False
 
     @property
+    def is_sparse(self) -> bool:
+        return self.middle in ("sparse", "sparse_columns", "sparse_units")
+
+    @property
+    def middle_downsample(self) -> int:
+        return 2 ** len(self.middle_features) if self.is_sparse else 1
+
+    @property
     def feature_hw(self) -> Tuple[int, int]:
-        """The RPN's output grid: SAME-padded block-0 conv of stride s
+        """The RPN's output grid: each sparse stage's strided conv (k3 p1 s2:
+        n → (n − 1)//2 + 1), the SAME-padded block-0 conv of stride s
         (n → ceil(n / s)), then ``int(· × up_strides[0])``."""
         _check_ported(self)
         nx, ny, _ = self.grid.grid_size
+        h, w = ny, nx
+        if self.is_sparse:
+            for _ in self.middle_features:
+                h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
         s0 = self.rpn_strides[0]
-        h, w = -(-ny // s0), -(-nx // s0)
+        h, w = -(-h // s0), -(-w // s0)
         return (int(h * self.rpn_up_strides[0]), int(w * self.rpn_up_strides[0]))
 
     @property
@@ -88,11 +120,14 @@ class VoxelNetConfig:
         )
 
 
+_PORTED = (("pillars", "scatter"), ("simple", "sparse_units"), ("simple", "sparse"))
+
+
 def _check_ported(cfg: VoxelNetConfig):
-    if cfg.encoder != "pillars" or cfg.middle != "scatter":
+    if (cfg.encoder, cfg.middle) not in _PORTED:
         raise NotImplementedError(
             f"VoxelNet encoder={cfg.encoder!r} middle={cfg.middle!r} is not yet ported to "
-            "lyft3d_tpu_torch (ported: encoder='pillars', middle='scatter')"
+            f"lyft3d_tpu_torch (ported (encoder, middle) pairs: {_PORTED})"
         )
 
 
@@ -100,7 +135,7 @@ class VoxelNet(nn.Module):
     """voxels → per-anchor predictions, batched (leading B).
 
     ``in_features`` is the point width D of the voxels. ``dtype`` is the
-    compute type of the encoder and RPN trunk; the three heads stay float32,
+    compute type of the encoder, the middle and the RPN trunk; the three heads stay float32,
     as the flax heads do. Built on ``meta``, then allocated on ``device`` and
     initialised from ``generator`` (load the JAX package's weights with
     :func:`lyft3d_tpu_torch.utils.flax_params.load_flax_params`).
@@ -118,12 +153,30 @@ class VoxelNet(nn.Module):
         _check_ported(config)
         self.config = config
         cfg = config
-        self.encoder = PillarFeatureNet(
-            in_features, cfg.encoder_features, cfg.grid.voxel_size[:2],
-            cfg.grid.point_cloud_range[:2], device=_META,
-        )
+        self.middle = None
+        if cfg.encoder == "simple":
+            self.encoder = SimpleVoxel(in_features, dtype=dtype)
+            common = dict(stage_features=cfg.middle_features,
+                          stage_max_voxels=cfg.middle_max_voxels, device=_META)
+            if cfg.middle == "sparse_units":
+                # voxelize emits (y, x, z)-ordered flat ids: no sort needed.
+                self.middle = SparseMiddleUnits(
+                    in_features, z_slab=cfg.middle_z_slab, norm_type=cfg.middle_norm,
+                    assume_sorted_voxels=True, nz=cfg.grid.grid_size[2], **common)
+            else:
+                self.middle = SparseMiddle(in_features, **common)
+            nz = cfg.grid.grid_size[2]
+            for _ in cfg.middle_features:
+                nz = (nz - 1) // 2 + 1
+            bev_features = cfg.middle_features[-1] * nz
+        else:
+            self.encoder = PillarFeatureNet(
+                in_features, cfg.encoder_features, cfg.grid.voxel_size[:2],
+                cfg.grid.point_cloud_range[:2], device=_META,
+            )
+            bev_features = cfg.encoder_features[-1]
         self.rpn = RPN(
-            cfg.encoder_features[-1], cfg.rpn_layer_nums, cfg.rpn_strides, cfg.rpn_filters,
+            bev_features, cfg.rpn_layer_nums, cfg.rpn_strides, cfg.rpn_filters,
             cfg.rpn_up_strides, cfg.rpn_up_filters, cfg.anchors_per_loc, cfg.num_classes,
             cfg.box_code_size, device=_META,
         )
@@ -137,10 +190,20 @@ class VoxelNet(nn.Module):
         canvas = pillar_scatter(feats, coords, voxel_valid, (ny, nx), assume_sorted=True)
         return canvas.permute(0, 3, 1, 2)
 
+    def dense_bev(self, feats, coords, voxel_valid):
+        """``(B, V, C)`` voxel features → the ``(B, C', H, W)`` BEV map the RPN
+        takes, NHWC in memory: the pillar scatter, or the sparse middle."""
+        if self.middle is None:
+            return self.scatter(feats, coords, voxel_valid)
+        active = ActiveSet(coords=coords, valid=voxel_valid,
+                           spatial_shape=self.config.grid.grid_size)
+        bev, _ = self.middle(feats, active)
+        return bev.permute(0, 3, 1, 2)
+
     def forward(self, voxels, num_points, coords, voxel_valid) -> Dict[str, torch.Tensor]:
         cfg = self.config
         feats = self.encoder(voxels, num_points, coords)
-        preds = self.rpn(self.scatter(feats, coords, voxel_valid))
+        preds = self.rpn(self.dense_bev(feats, coords, voxel_valid))
         b = voxels.shape[0]
         return {
             "box": preds["box"].reshape(b, -1, cfg.box_code_size),

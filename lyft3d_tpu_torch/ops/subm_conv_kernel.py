@@ -1,0 +1,123 @@
+"""Fused rank gather + contraction of a sparse 3D conv (port of
+``lyft3d_tpu/ops/subm_conv_kernel.py``).
+
+``out[v] = Σ_k f_sorted[ranks[k, v]] @ weights[k]`` with rank −1 meaning an
+absent neighbour: the (K, V, C) neighbour tensor of the gather + einsum
+formulation is never written to device memory. :func:`subm_conv` is the
+kernel wrapper and chooses its path by the device of the features alone:
+
+- CUDA tensor: launches the hand-written kernel ``csrc/subm_conv.cu`` (built
+  by ``nvcc`` at first use) or raises. There is no fallback.
+- CPU tensor: runs the plain version, :func:`subm_conv_ref`.
+- anything else: raises.
+
+It replaces the Pallas TPU kernel ``_kernel`` behind ``subm_conv_pallas``,
+without the ``tile``/``interpret`` arguments and with a leading batch
+dimension where the JAX package ``vmap``s. The gradient comes with the
+training port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lyft3d_tpu_torch import _build
+from lyft3d_tpu_torch.ops.sparse_conv import take_rows
+
+__all__ = ["subm_conv", "subm_conv_ref", "KERNEL_LAUNCHES"]
+
+# Number of times subm_conv launched the CUDA kernel in this process.
+KERNEL_LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def subm_conv_ref(f_sorted, ranks, weights):
+    """Plain version: gather by rank, zero the absent rows, one einsum in
+    float32, cast back to the features' dtype."""
+    v = f_sorted.shape[-2]
+    k, q = ranks.shape[-2:]
+    rows = take_rows(f_sorted, ranks.clamp(0, v - 1).reshape(*ranks.shape[:-2], k * q).long())
+    rows = rows.reshape(*ranks.shape, f_sorted.shape[-1]).float()
+    rows = rows * ((ranks >= 0) & (ranks < v))[..., None].float()
+    out = torch.einsum("...kvc,kcd->...vd", rows, weights.to(f_sorted.dtype).float())
+    return out.to(f_sorted.dtype)
+
+
+def _check_args(f_sorted, ranks, weights):
+    if f_sorted.dtype not in _DTYPE_CODES:
+        raise TypeError(f"f_sorted must be float32 or bfloat16, got {f_sorted.dtype}")
+    if ranks.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ranks must be int32 or int64, got {ranks.dtype}")
+    if f_sorted.dim() not in (2, 3) or ranks.dim() != f_sorted.dim() or weights.dim() != 3:
+        raise ValueError(
+            f"f_sorted (…, V, C), ranks (…, K, Q) and weights (K, C, Cout) expected, got "
+            f"{tuple(f_sorted.shape)}, {tuple(ranks.shape)}, {tuple(weights.shape)}"
+        )
+    if ranks.shape[:-2] != f_sorted.shape[:-2]:
+        raise ValueError(f"batch of ranks {tuple(ranks.shape)} and f_sorted {tuple(f_sorted.shape)} differ")
+    if weights.shape[0] != ranks.shape[-2] or weights.shape[1] != f_sorted.shape[-1]:
+        raise ValueError(
+            f"weights {tuple(weights.shape)} do not fit ranks {tuple(ranks.shape)} and "
+            f"f_sorted {tuple(f_sorted.shape)}"
+        )
+    if not (ranks.device == weights.device == f_sorted.device):
+        raise ValueError(
+            f"f_sorted on {f_sorted.device}, ranks on {ranks.device}, weights on {weights.device}"
+        )
+
+
+def _kernel_library():
+    lib = _build.load_library("subm_conv")
+    fn = lib.subm_conv_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _subm_conv_cuda(f_sorted, ranks, weights):
+    """Launch ``csrc/subm_conv.cu`` on PyTorch's current stream."""
+    global KERNEL_LAUNCHES
+    launch = _kernel_library()
+    batched = f_sorted.dim() == 3
+    feats = (f_sorted if batched else f_sorted[None]).contiguous()
+    rk = (ranks if batched else ranks[None]).to(torch.int32).contiguous()
+    w = weights.to(feats.dtype).contiguous()
+    b, vs, c = feats.shape
+    k, vq = rk.shape[1:]
+    cout = w.shape[-1]
+    out = torch.empty((b, vq, cout), dtype=feats.dtype, device=feats.device)
+    dev = feats.device.index if feats.device.index is not None else torch.cuda.current_device()
+    err = launch(
+        ctypes.c_void_p(feats.data_ptr()), ctypes.c_void_p(rk.data_ptr()),
+        ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        b, vs, vq, k, c, cout, _DTYPE_CODES[feats.dtype], dev,
+        ctypes.c_void_p(torch.cuda.current_stream(feats.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"subm_conv kernel launch failed with CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return out if batched else out[0]
+
+
+def subm_conv(f_sorted, ranks, weights):
+    """``out[…, v] = Σ_k f_sorted[…, ranks[…, k, v]] @ weights[k]``, absent (−1)
+    rows zero.
+
+    ``f_sorted`` ``(…, V, C)`` features in sorted-id order (``build_hash``'s
+    permutation applied), float32 or bfloat16; ``ranks`` ``(…, K, Q)`` integer
+    sorted-order ranks (``subm_neighbors``); ``weights`` ``(K, C, Cout)``, cast
+    to the features' dtype. Returns ``(…, Q, Cout)`` in that dtype, summed in
+    float32: the CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor, an error otherwise.
+    """
+    kind = f_sorted.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"subm_conv runs on cuda or cpu tensors, not {kind!r}")
+    _check_args(f_sorted, ranks, weights)
+    if kind == "cuda":
+        return _subm_conv_cuda(f_sorted, ranks, weights)
+    return subm_conv_ref(f_sorted, ranks, weights)

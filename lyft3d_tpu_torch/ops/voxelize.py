@@ -20,7 +20,8 @@ sort is unstable: which points an overflowing voxel keeps, and their order
 inside a voxel, are not part of the contract. The TPU-specific payload
 routing and compaction sort are not ported: on a GPU the compaction is one
 scatter. ``block_filtering`` (ground removal, used by the sparse FHD
-config) is not ported yet and raises.
+config) is :func:`block_filter_mask`: a scatter-min per block takes the place
+of the JAX package's sort and segmented scan.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["VoxelGrid", "voxelize"]
+__all__ = ["VoxelGrid", "voxelize", "block_filter_mask"]
 
 
 class VoxelGrid(NamedTuple):
@@ -51,6 +52,38 @@ class VoxelGrid(NamedTuple):
         )
 
 
+def block_filter_mask(points, valid, grid: VoxelGrid):
+    """Ground-removal mask ``(…, N)``: true for valid points at least
+    ``height_threshold`` above the lowest in-range valid point of their BEV
+    block (``voxel_size·block_factor·block_size`` metres square). Points
+    outside the x/y range take no part in a block's minimum and keep their
+    validity (``voxelize`` drops them by range)."""
+    r = grid.point_cloud_range
+    dev = points.device
+    bw = (
+        grid.voxel_size[0] * grid.block_factor * grid.block_size,
+        grid.voxel_size[1] * grid.block_factor * grid.block_size,
+    )
+    nbx = max(int(round((r[3] - r[0]) / bw[0])), 1)
+    nby = max(int(round((r[4] - r[1]) / bw[1])), 1)
+    # float32 arithmetic with tensor divisors, as in voxelize.
+    lo = torch.tensor(r[:2], dtype=torch.float32, device=dev)
+    hi = torch.tensor(r[3:5], dtype=torch.float32, device=dev)
+    width = torch.tensor(bw, dtype=torch.float32, device=dev)
+    xy = points[..., :2].float()
+    z = points[..., 2].float()
+    cell = torch.floor((xy - lo) / width)
+    bx = torch.nan_to_num(cell[..., 0]).clamp(0, nbx - 1).long()
+    by = torch.nan_to_num(cell[..., 1]).clamp(0, nby - 1).long()
+    ok = valid & ((xy >= lo) & (xy < hi)).all(dim=-1)
+    # Points that take no part go to a dump block past the grid.
+    bid = torch.where(ok, by * nbx + bx, nbx * nby)
+    zmin = z.new_full((*z.shape[:-1], nbx * nby + 1), float("inf"))
+    zmin.scatter_reduce_(-1, bid, torch.where(ok, z, float("inf")), "amin")
+    keep = z >= torch.gather(zmin, -1, bid) + grid.height_threshold
+    return valid & (keep | ~ok)
+
+
 def voxelize(
     points,
     valid,
@@ -70,9 +103,7 @@ def voxelize(
                      ``need_point_voxel``
     """
     if grid.block_filtering:
-        raise NotImplementedError(
-            "voxelize: block_filtering (ground removal) is not yet ported to lyft3d_tpu_torch"
-        )
+        valid = block_filter_mask(points, valid, grid)
     batched = points.dim() == 3
     pts = points if batched else points[None]
     ok = valid if batched else valid[None]

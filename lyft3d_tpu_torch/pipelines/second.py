@@ -1,4 +1,4 @@
-"""SECOND / VoxelNet pillars inference: points → voxelize → VoxelNet →
+"""SECOND / VoxelNet inference (pillars and sparse middles): points → voxelize → VoxelNet →
 decode + NMS → world records (port of the inference half of
 ``lyft3d_tpu/pipelines/second_train.py``).
 
@@ -51,6 +51,10 @@ def voxelnet_config_from_experiment(exp, **overrides) -> VoxelNetConfig:
         max_points_per_voxel=exp.max_points_per_voxel,
         encoder=exp.encoder,
         middle=exp.middle,
+        middle_features=tuple(exp.middle_features),
+        middle_max_voxels=tuple(exp.middle_max_voxels),
+        middle_norm=exp.middle_norm,
+        middle_z_slab=exp.middle_z_slab,
         anchor_specs=specs,
         rpn_layer_nums=tuple(exp.rpn_layer_nums),
         rpn_strides=tuple(exp.rpn_strides),

@@ -4,8 +4,10 @@
 (nested dicts of numpy-convertible arrays, as ``model.init`` returns them)
 and copies it into the matching torch module:
 
-- conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in); the
-  ``nn.vmap``ped RoI encoder of PointRCNN has one shared set of parameters;
+- conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in); sparse conv
+  kernels ``(27, Cin, Cout)`` as they are; the ``nn.vmap``ped modules (the
+  RoI encoder of PointRCNN, the per-voxel sparse middle of SECOND) have one
+  shared set of parameters under a ``Vmap_…`` name;
 - GroupNorm / LayerNorm / BatchNorm ``scale``/``bias`` → ``weight``/``bias``, and
   BatchNorm ``mean``/``var`` (under ``batch_stats``) → the running buffers.
 
@@ -38,6 +40,7 @@ from lyft3d_tpu_torch.models.pointrcnn.net import (
     PointRCNN_RPN,
     PointRCNNBackbone,
 )
+from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleUnits
 from lyft3d_tpu_torch.models.second.rpn import RPN
 from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
@@ -194,8 +197,37 @@ def _rpn(m: RPN, src, path, name, out):
         _conv(getattr(m, head), src, path + (f"Conv_{i}",), f"{name}{head}", out)
 
 
+def _sparse_layer(m, src, path, name, out):
+    """A sparse conv layer: its kernel, and LayerNorm_0 ("layer") or bias ("folded")."""
+    out[f"{name}kernel"] = src.take("params", path + ("kernel",))
+    if m.norm is not None:
+        _norm(src, path + ("LayerNorm_0",), f"{name}norm", out)
+    if m.bias is not None:
+        out[f"{name}bias"] = src.take("params", path + ("bias",))
+
+
+def _sparse_middle(subm_name: str, strided_name: str):
+    def mapper(m, src, path, name, out):
+        for i, layer in enumerate(m.subm):
+            _sparse_layer(layer, src, path + (f"{subm_name}_{i}",), f"{name}subm.{i}.", out)
+        for i, layer in enumerate(m.strided):
+            _sparse_layer(layer, src, path + (f"{strided_name}_{i}",), f"{name}strided.{i}.", out)
+    return mapper
+
+
+_sparse_middle_units = _sparse_middle("SubMUnitLayer", "StridedUnitLayer")
+_sparse_middle_voxels = _sparse_middle("SubMConvLayer", "SparseConvLayer")
+
+
 def _voxelnet(m: VoxelNet, src, path, name, out):
-    _pillar_feature_net(m.encoder, src, path + ("PillarFeatureNet_0",), f"{name}encoder.", out)
+    if isinstance(m.middle, SparseMiddleUnits):  # SimpleVoxel has no parameters
+        _sparse_middle_units(m.middle, src, path + ("SparseMiddleUnits_0",), f"{name}middle.", out)
+    elif isinstance(m.middle, SparseMiddle):
+        # nn.vmap over the samples shares one set of parameters.
+        _sparse_middle_voxels(m.middle, src, path + ("Vmap_SparseMiddleBatch_0", "SparseMiddle_0"),
+                              f"{name}middle.", out)
+    else:
+        _pillar_feature_net(m.encoder, src, path + ("PillarFeatureNet_0",), f"{name}encoder.", out)
     _rpn(m.rpn, src, path + ("RPN_0",), f"{name}rpn.", out)
 
 
@@ -258,6 +290,8 @@ _MAPPERS: Dict[type, Callable] = {
     ReferenceUNet: _reference_unet,
     PillarFeatureNet: _pillar_feature_net,
     RPN: _rpn,
+    SparseMiddleUnits: _sparse_middle_units,
+    SparseMiddle: _sparse_middle_voxels,
     VoxelNet: _voxelnet,
     SharedMLP: _shared_mlp,
     SAModuleMSG: _sa_msg,

@@ -46,7 +46,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fla
 assert not bad, bad
 ours = sorted(m for m in sys.modules if m == "lyft3d_tpu" or m.startswith("lyft3d_tpu."))
 assert not ours, ours
-assert len(names) >= 40, names
+assert len(names) >= 44, names
 print("ok", len(names))
 """
     proc = _run(code)
@@ -101,6 +101,29 @@ idx, cnt = p2.ball_query(pts[:, :4], pts, valid, 0.5, 8)
 d, nn = p2.three_nn(pts, pts[:, :4], valid[:, :4])
 assert sel.shape == (1, 4) and idx.shape == (1, 4, 8) and nn.shape == (1, 32, 3)
 assert not any(p2.KERNEL_LAUNCHES.values())
+print("ok")
+"""
+    proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
+                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_sparse_kernels_import_needs_no_nvcc_or_gpu():
+    code = """
+import lyft3d_tpu_torch.ops.column_sparse as cs
+import lyft3d_tpu_torch.ops.subm_conv_kernel as sk
+import lyft3d_tpu_torch.models.second.middle
+import lyft3d_tpu_torch._build as b
+import torch
+assert not b._LIBS, "a kernel library was loaded at import"
+src = torch.ones(4, 128); ids = torch.tensor([3, 5, 8, 9], dtype=torch.int32)
+qids = torch.full((9, 2), -1, dtype=torch.int32); qids[4] = torch.tensor([5, 7])
+out = cs.stencil_conv_batched(src, qids, ids, torch.ones(9, 128, 2), 1)
+assert out.tolist() == [[128.0, 128.0], [0.0, 0.0]]
+out = sk.subm_conv(torch.ones(4, 3), torch.zeros(27, 4, dtype=torch.int32), torch.ones(27, 3, 2))
+assert out.sum() == 27 * 3 * 2 * 4
+assert cs.KERNEL_LAUNCHES == 0 and sk.KERNEL_LAUNCHES == 0
 print("ok")
 """
     proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
@@ -168,8 +191,12 @@ def test_unported_backbone_raises():
 
 @pytest.mark.parametrize("change", [dict(middle="sparse_units"), dict(middle="sparse_columns"),
                                     dict(middle="sparse"), dict(encoder="vfe"),
-                                    dict(encoder="simple")])
+                                    dict(encoder="simple"),
+                                    dict(encoder="simple", middle="sparse_columns"),
+                                    dict(encoder="vfe", middle="sparse_units")])
 def test_unported_voxelnet_variants_raise(change):
+    """Ported (encoder, middle) pairs: pillars + scatter, simple + sparse_units,
+    simple + sparse. Every other pairing raises."""
     cfg = dataclasses.replace(VoxelNetConfig(), **change)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         VoxelNet(cfg)

@@ -138,9 +138,12 @@ def test_voxelize_all_invalid_and_block_filtering():
                         need_point_voxel=True)
     assert not out["voxel_valid"].any() and (out["point_voxel"] == -1).all()
     assert (out["voxels"] == 0).all() and (out["num_points"] == 0).all()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tvox.voxelize(torch.zeros(4, 4), torch.ones(4, dtype=torch.bool),
-                      CFG.grid._replace(block_filtering=True), 4, 2)
+    # Block filtering drops a block's lowest point and those within the
+    # height threshold of it (parity with JAX: test_torch_second_sparse.py).
+    pts = torch.tensor([[0.5, 0.5, 0.0, 0.0], [0.6, 0.6, 0.1, 0.0], [0.7, 0.7, 1.0, 0.0]])
+    out = tvox.voxelize(pts, torch.ones(3, dtype=torch.bool),
+                        CFG.grid._replace(block_filtering=True), 4, 4)
+    assert int(out["num_points"].sum()) == 1 and float(out["voxels"][0, 0, 2]) == 1.0
 
 
 # ------------------------------------------------------ anchors and boxes
