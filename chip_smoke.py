@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's inference paths on one CUDA card: BEV
-segmentation, SECOND pillars, PointRCNN and sparse SECOND (FHD).
+"""Smoke run of the PyTorch port on one CUDA card: the inference paths (BEV
+segmentation, SECOND pillars, PointRCNN, sparse SECOND at the FHD geometry)
+and SECOND training (pillars and both sparse middles).
 
     python3 chip_smoke.py
 
@@ -92,6 +93,45 @@ Phases, one line of numbers each:
     which no stage truncates (asserted), both middles give the same dense BEV
     map within 1e-3 of its scale.
 
+15. fill backward: the row-gather kernel behind ``fill_rows_by_id``'s gradient
+    against its plain version, ``torch.equal``: the pillars shape in bfloat16
+    and float32, the narrow unit shapes (4 and 5 columns, scalar accesses),
+    unsorted ids through the public function, duplicate ids; timed beside
+    ``torch.index_select``;
+16. gradient check: one ``loss.backward()`` of ``make_second_loss_fn`` in
+    float32 with TF32 off, card against CPU with the same seeded weights, for
+    the 9-class pillars ``VoxelNet`` at batch 1 x 262,144 points and the FHD
+    sparse ``VoxelNet`` (unit middle, then per-voxel middle) at batch 1 on a
+    clustered cloud that fills no cap (asserted): loss within 1e-5 relative,
+    every parameter gradient finite, not all zero and within 0.15 in the
+    2-norm (ReLU sign changes under cuDNN's rounding rule out an element-wise
+    bound at this size); then the kernel path alone, the CPU's BEV cotangent
+    pushed through encoder, middle and fill on both devices: every parameter
+    gradient within 2e-2 of its scale (floored at 1e-4 of the largest);
+17. training steps at full width through ``make_second_loss_fn``,
+    ``build_optimizer`` and the ``Trainer``'s step function, bfloat16 model
+    with float32 heads and float32 master parameters: pillars at batch 8 x
+    262,144 points and sparse FHD (``middle_norm="layer"``) at batch 4 with
+    the unit middle and with the per-voxel middle, ``adam_onecycle`` with the
+    yaml's hyper-parameters and 64 padded GT boxes a sample; and the
+    bench-shaped sparse step (batch 2, ``adam(1e-3)``, four car boxes). 2
+    warm-up + 10 timed steps on a fixed batch: step ms and samples/s from
+    CUDA events, a stage split, peak memory, losses finite at every step and
+    lower at the end; every kernel count is reset before the timed steps and
+    read after them;
+18. backward replay: every backward launch of one sparse training step is
+    recorded with its cotangent and replayed, kernel against plain version
+    (the plain forward differentiated by autograd, in float32 on the same
+    values): the stencil's ``d_src`` (the forward kernel on the reverse
+    queries) and ``d_wc`` at the nine launches, the rank gather's ``df`` and
+    ``dW`` at the six, the fill's gather at its recorded shapes; 1e-5 of
+    scale in float32 (5e-5 for the weight gradients, sums of up to 300,000
+    outer products whose atomics vary in order), 2^-7 where the result is
+    rounded to bfloat16;
+19. fit: a short ``Trainer.fit`` on the bench-shaped tensors that writes
+    checkpoints into a temporary directory, resumes from them in a fresh
+    trainer at the right step with equal parameters, and trains on.
+
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
 version's, its bound and, where one PyTorch call computes the same function,
@@ -140,6 +180,20 @@ FHD_POINTS = 262144
 # whole.
 CROSS_POINTS = 3000
 CROSS_CAPS = (65536, 65536, 65536)
+# Training: the yamls' optimizer block (both configs), 2 warm-up + 10 timed
+# steps, 64 GT slots a sample.
+ONECYCLE = dict(lr=0.003, total_steps=58650, weight_decay=0.01, clip_norm=10.0)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+GT_SLOTS, GT_VALID = 64, 40
+BENCH_TRAIN_BATCH = 2
+# The gradient check's clustered cloud: few enough units that no cap fills.
+GRAD_CLUSTERS, GRAD_POINTS = 32, 8192
+# Tolerances of the card-vs-CPU gradient check (see grad_check): whole model
+# in the 2-norm, kernel path element-wise.
+GRAD_NORM_TOL, GRAD_PATH_TOL = 0.15, 2e-2
+# A weight gradient sums up to 300,000 outer products in float32, the kernel's
+# atomics in an order that varies from run to run (seen: up to 8.3e-6 of scale).
+WGRAD_TOL = 5e-5
 BF16_PEAK = 989e12  # dense bfloat16 tensor-core operations a second (H100 SXM data sheet)
 # (w, l, h), z centre, matched and unmatched thresholds of the 9 classes.
 LYFT9_ANCHORS = (
@@ -938,6 +992,681 @@ def select_kernels_phase(dev, card):
     return records
 
 
+def gt_batch(batch, seed):
+    """``GT_SLOTS`` padded GT boxes a sample, the first ``GT_VALID`` valid, of
+    mixed classes with their class's anchor size (±10%), inside the range."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((batch, GT_SLOTS, 7), np.float32)
+    classes = np.zeros((batch, GT_SLOTS), np.int32)
+    for b in range(batch):
+        for i in range(GT_VALID):
+            c = rng.randint(1, len(LYFT9_ANCHORS) + 1)
+            size, z, _, _ = LYFT9_ANCHORS[c - 1]
+            boxes[b, i] = (*rng.uniform(-45.0, 45.0, 2), z + rng.uniform(-0.2, 0.2),
+                           *(np.array(size) * rng.uniform(0.9, 1.1, 3)), rng.uniform(-math.pi, math.pi))
+            classes[b, i] = c
+    valid = np.broadcast_to(np.arange(GT_SLOTS) < GT_VALID, (batch, GT_SLOTS)).copy()
+    return {"gt_boxes": torch.from_numpy(boxes), "gt_classes": torch.from_numpy(classes),
+            "gt_valid": torch.from_numpy(valid)}
+
+
+def bench_gt(batch):
+    """Four identical car boxes a sample, all valid (the JAX bench's sparse
+    train step)."""
+    import torch
+
+    box = torch.tensor([5.0, 5.0, -1.0, 2.0, 4.5, 1.6, 0.3])
+    return {"gt_boxes": box.expand(batch, 4, 7).contiguous(),
+            "gt_classes": torch.ones(batch, 4, dtype=torch.int32),
+            "gt_valid": torch.ones(batch, 4, dtype=torch.bool)}
+
+
+def clustered_points(batch, n, clusters, seed):
+    """``n`` points in ``clusters`` blobs (0.25 m spread in x and y, z in
+    [-2.5, 0.5] m) with centres uniform in ±45 m: a few thousand units, which
+    stay under every cap of the FHD config through the strided stages."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    centres = (torch.rand(batch, clusters, 2, generator=g) * 2 - 1) * 45.0
+    which = torch.randint(0, clusters, (batch, n), generator=g)
+    xy = torch.gather(centres, 1, which[..., None].expand(batch, n, 2))
+    xy = xy + torch.randn(batch, n, 2, generator=g) * 0.25
+    z = torch.rand(batch, n, 1, generator=g) * 3.0 - 2.5
+    return torch.cat([xy, z], dim=-1), torch.ones(batch, n, dtype=torch.bool)
+
+
+def to_dev(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+TRAIN_COUNTERS = ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad",
+                  "subm_conv", "subm_dgrad", "subm_wgrad")
+
+
+def train_counts(reset=False):
+    """The eight launch counts of the training path; ``reset`` zeroes them."""
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+    from lyft3d_tpu_torch.ops import dense_fill as df
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+
+    if reset:
+        df.KERNEL_LAUNCHES = df.BWD_KERNEL_LAUNCHES = 0
+        cs.KERNEL_LAUNCHES = cs.DGRAD_KERNEL_LAUNCHES = cs.WGRAD_KERNEL_LAUNCHES = 0
+        sk.KERNEL_LAUNCHES = sk.DGRAD_KERNEL_LAUNCHES = sk.WGRAD_KERNEL_LAUNCHES = 0
+    return dict(zip(TRAIN_COUNTERS, (
+        df.KERNEL_LAUNCHES, df.BWD_KERNEL_LAUNCHES, cs.KERNEL_LAUNCHES, cs.DGRAD_KERNEL_LAUNCHES,
+        cs.WGRAD_KERNEL_LAUNCHES, sk.KERNEL_LAUNCHES, sk.DGRAD_KERNEL_LAUNCHES, sk.WGRAD_KERNEL_LAUNCHES)))
+
+
+def fill_backward_phase(dev, card):
+    """Phase 15. Returns the ``kernels`` record of the fill's backward kernel
+    (``launches`` filled in later)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    record = None
+    g = torch.Generator().manual_seed(21)
+    cases = [(SEC_BATCH, FILL_V, FILL_C, FILL_ROWS, torch.bfloat16),
+             (SEC_BATCH, FILL_V, FILL_C, FILL_ROWS, torch.float32),
+             (FHD_BATCH, 60000, 4, 600000, torch.bfloat16),
+             (FHD_BATCH, 60000, 5, 600000, torch.float32)]
+    for b, v, c, rows, dtype in cases:
+        ids = torch.stack([torch.sort(torch.randperm(rows, generator=g)[:v]).values for _ in range(b)])
+        ids[:, v - v // 10:] = rows  # the masked tail carries the sentinel
+        ids = ids.int().to(dev)
+        grad = torch.randn(b, rows, c, generator=g).to(dtype).to(dev)
+        got = dense_fill._fill_bwd_cuda(grad, ids, rows)
+        torch.cuda.synchronize()
+        want = dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows)
+        if not torch.equal(got, want):
+            raise AssertionError(f"fill backward kernel differs from the plain version at "
+                                 f"{(b, v, c)} <- {rows} rows {dtype}")
+        if bool(got[:, v - v // 10:].any()):
+            raise AssertionError("fill backward: a masked row received a gradient")
+        k_ms = cuda_ms(lambda: dense_fill._fill_bwd_cuda(grad, ids, rows), warmup=3, iters=20)
+        p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows), warmup=3, iters=20)
+        # The one library call that gathers the same rows: index_select from
+        # the cotangent with one zero row appended per sample (prepared).
+        padded = torch.cat([grad, grad.new_zeros(b, 1, c)], dim=1).reshape(-1, c)
+        flat = (ids.long() + torch.arange(b, device=dev)[:, None] * (rows + 1)).reshape(-1)
+        if not torch.equal(torch.index_select(padded, 0, flat).view(b, v, c), want):
+            raise AssertionError("index_select differs from the plain fill backward")
+        l_ms = cuda_ms(lambda: torch.index_select(padded, 0, flat), warmup=3, iters=20)
+        del padded, flat
+        b_ms, b_by = bound(b * (2 * v * c * grad.element_size() + 4 * v), 0)
+        numbers = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=l_ms)
+        record = record or numbers  # the pillars shape in bfloat16
+        log(f"fill backward: B={b} V={v} C={c} rows={rows} {str(dtype)[6:]} torch.equal=True "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} index_select_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    # Unsorted ids with repeats through the public function: the Function on
+    # the card against autograd of the plain scatter.
+    ids = torch.randint(0, 50000, (SEC_BATCH, FILL_V), generator=g).to(dev)
+    valid = (torch.rand(SEC_BATCH, FILL_V, generator=g) < 0.9).to(dev)
+    cot = torch.randn(SEC_BATCH, 50000, FILL_C, generator=g).to(dev)
+    feats = torch.randn(SEC_BATCH, FILL_V, FILL_C, generator=g).to(dev)
+    f1, f2 = feats.clone().requires_grad_(True), feats.clone().requires_grad_(True)
+    before = dense_fill.BWD_KERNEL_LAUNCHES
+    dense_fill.fill_rows_by_id(f1, ids, valid, 50000).backward(cot)
+    dense_fill.fill_rows_by_id_scatter(f2, ids, valid, 50000).backward(cot)
+    if dense_fill.BWD_KERNEL_LAUNCHES != before + 1:
+        raise AssertionError("fill backward: the gradient on the card did not launch the kernel")
+    if not torch.equal(f1.grad, f2.grad):
+        raise AssertionError("fill backward: unsorted duplicate ids differ from autograd of the scatter")
+    repeats = int((torch.sort(ids, -1).values.diff(dim=-1) == 0).sum())
+    log(f"fill backward: unsorted ids with {repeats} repeats, 10% invalid, float32, through "
+        f"fill_rows_by_id: torch.equal to autograd of the plain scatter")
+    return record
+
+
+def grad_check(name, cfg, in_features, batch, dev, caps_check=None):
+    """Phase 16 for one model, in float32, card against CPU, in two parts.
+
+    Whole model: one ``loss.backward()`` on each device. The loss agrees to
+    1e-5; the gradients cannot agree element by element at this size, because
+    cuDNN and the CPU's convolutions round differently (about 1e-5 of scale in
+    the RPN's activations) and a few dozen of its millions of ReLU inputs
+    change sign, each moving a bias gradient by a fraction of a percent (seen:
+    1.4e-2 for pillars, 5.5e-2 for the FHD models, the same for both middles).
+    They are held to ``GRAD_NORM_TOL`` in the 2-norm of each parameter's
+    gradient, finite and not all zero.
+
+    Kernel path: the CPU's cotangent of the dense BEV map is pushed back
+    through the encoder, the middle and the fill, where the hand-written
+    backward kernels run, on both devices from the same inputs: every
+    parameter gradient there within ``GRAD_PATH_TOL`` of its scale (floored at
+    1e-4 of the largest). Sign changes remain inside the middle's own
+    LayerNorm + ReLU layers (seen: 1.1e-6 per-voxel, 7.9e-4 pillars, 8.8e-3
+    unit middle at batch 1); the strict gate on the kernels is the replay
+    phase, kernel against plain backward on one device and the same values.
+    Returns what the phase logs."""
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+    from lyft3d_tpu_torch.pipelines.second_train import make_second_loss_fn
+
+    def grads_of(net):
+        return {k: p.grad.detach().cpu() for k, p in net.named_parameters() if p.grad is not None}
+
+    whole, path, bev_cot = [], [], None
+    for device, b in ((torch.device("cpu"), batch), (dev, to_dev(batch, dev))):
+        net = VoxelNet(cfg, in_features=in_features, device=device,
+                       generator=torch.Generator().manual_seed(0)).train()
+        if caps_check is not None and device.type == "cpu":
+            caps_check(net, b)
+        seen = []
+
+        def keep_bev(module, inputs):
+            inputs[0].retain_grad()
+            seen.append(inputs[0])
+
+        hook = net.rpn.register_forward_pre_hook(keep_bev)
+        loss, metrics = make_second_loss_fn(cfg, device)(net, b)
+        loss.backward()
+        hook.remove()
+        whole.append((float(loss.detach()), float(metrics["num_pos"]), grads_of(net)))
+        if bev_cot is None:
+            bev_cot = seen[0].grad.detach().clone()  # the CPU's, for both devices
+        del loss, seen
+        net.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            vox = voxelize(b["points"], b["points_valid"], cfg.grid, cfg.max_voxels, cfg.max_points_per_voxel)
+        feats = net.encoder(vox["voxels"], vox["num_points"], vox["coords"])
+        net.dense_bev(feats, vox["coords"], vox["voxel_valid"]).backward(bev_cot.to(device))
+        path.append(grads_of(net))
+        del net, vox, feats
+    (l_cpu, pos, g_cpu), (l_card, _, g_card) = whole
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"{name} gradient check: loss {l_card} on the card, {l_cpu} on the CPU")
+    norm_worst, max_worst = (0.0, ""), (0.0, "")
+    for k, want in g_cpu.items():
+        got = g_card[k]
+        scale = float(want.abs().max())
+        if not (bool(torch.isfinite(got).all()) and scale > 0 and float(got.abs().max()) > 0):
+            raise AssertionError(f"{name} gradient check: gradient of {k} is all zero or not finite")
+        norm_worst = max(norm_worst, (float((got - want).norm() / want.norm()), k))
+        max_worst = max(max_worst, (float((got - want).abs().max()) / scale, k))
+    if not norm_worst[0] <= GRAD_NORM_TOL:
+        raise AssertionError(f"{name} gradient check: gradient of {norm_worst[1]} differs by "
+                             f"{norm_worst[0]} in the 2-norm")
+    p_cpu, p_card = path
+    if not p_cpu or set(p_cpu) != set(p_card):
+        raise AssertionError(f"{name} gradient check: the kernel path has no parameter gradients")
+    top = max(float(v.abs().max()) for v in p_cpu.values())
+    path_worst = (0.0, "")
+    for k, want in p_cpu.items():
+        scale = float(want.abs().max())
+        if not (bool(torch.isfinite(p_card[k]).all()) and scale > 0):
+            raise AssertionError(f"{name} gradient check: kernel-path gradient of {k} is zero or not finite")
+        path_worst = max(path_worst, (float((p_card[k] - want).abs().max()) / max(scale, 1e-4 * top), k))
+    if not path_worst[0] <= GRAD_PATH_TOL:
+        raise AssertionError(f"{name} gradient check: kernel-path gradient of {path_worst[1]} differs by "
+                             f"{path_worst[0]} of its scale")
+    return (f"{name}: loss {l_card:.6f} vs {l_cpu:.6f} (rel {loss_err:.2g}, tol 1e-5), positives "
+            f"{pos:.0f}; whole model, {len(g_cpu)} parameter gradients finite and non-zero, worst "
+            f"2-norm error {norm_worst[0]:.3g} at {norm_worst[1]} (tol {GRAD_NORM_TOL}; worst max_err/scale "
+            f"{max_worst[0]:.3g} at {max_worst[1]}: ReLU sign changes under cuDNN's rounding); kernel "
+            f"path (the CPU's BEV cotangent through encoder, middle and fill), {len(p_cpu)} parameter "
+            f"gradients, worst max_err/scale={path_worst[0]:.3g} at {path_worst[1]} (tol {GRAD_PATH_TOL})")
+
+
+def gradient_check_phase(dev, card):
+    """Phase 16."""
+    import torch
+
+    from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, pvalid = pillar_points(1, SEC_POINTS, seed=22)
+    batch = {"points": pts, "points_valid": pvalid, **gt_batch(1, seed=23)}
+    log("gradient check (f32, TF32 off, card vs cpu, B=1): "
+        + grad_check(f"pillars lyft9 N={SEC_POINTS}", lyft9_config(), 4, batch, dev))
+
+    pts, pvalid = clustered_points(1, GRAD_POINTS, GRAD_CLUSTERS, seed=24)
+    gts = gt_batch(1, seed=25)
+    # Half of the boxes sit on a cluster, so that positives see features.
+    centres = pts[0, :: GRAD_POINTS // (GT_VALID // 2)][: GT_VALID // 2, :2]
+    gts["gt_boxes"][0, : GT_VALID // 2, :2] = centres
+    batch = {"points": pts, "points_valid": pvalid, **gts}
+    seen = {}
+
+    def no_cap_fills(net, b):
+        cfg = net.config
+        with torch.no_grad():
+            vox = voxelize(b["points"], b["points_valid"], cfg.grid, cfg.max_voxels, 1)
+            active = ActiveSet(vox["coords"], vox["voxel_valid"], cfg.grid.grid_size)
+            feats = net.encoder(vox["voxels"], vox["num_points"], vox["coords"])
+            counts = [int(vox["voxel_valid"].sum())]
+            if cfg.middle == "sparse_units":
+                cols, x = net.middle.to_units(feats, active)
+                counts.append(int(cols.valid.sum()))
+                limits = (cfg.max_voxels, cfg.max_voxels + cfg.max_voxels // 4) + cfg.middle_max_voxels
+                for i in range(len(cfg.middle_features)):
+                    x, cols = net.middle.stage(i, x, cols)
+                    counts.append(int(cols.valid.sum()))
+            else:
+                limits = (cfg.max_voxels,) + cfg.middle_max_voxels
+                x = feats
+                for i in range(len(cfg.middle_features)):
+                    x, active = net.middle.stage(i, x, active)
+                    counts.append(int(active.valid.sum()))
+        if not all(0 < c < cap for c, cap in zip(counts, limits)):
+            raise AssertionError(f"gradient check: a cap fills or a stage is empty: {counts} against {limits}")
+        seen[cfg.middle] = (counts, limits)
+
+    for middle in ("sparse_units", "sparse"):
+        line = grad_check(f"FHD {middle} N={GRAD_POINTS} in {GRAD_CLUSTERS} clusters",
+                          fhd_config(middle=middle), 3, batch, dev, caps_check=no_cap_fills)
+        counts, limits = seen[middle]
+        log(f"gradient check (f32, TF32 off, card vs cpu, B=1): {line}; no cap fills: "
+            f"{counts} under {limits}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+
+
+def train_run(name, cfg, in_features, batch, optimizer_fn, optimizer_name, dev, card, expect_kernels):
+    """Phase 17 for one configuration: 2 warm-up + 10 timed steps of the
+    ``Trainer``'s step function on a fixed batch. Returns (launch counts of
+    the timed steps, step ms, the trained state, its trainer)."""
+    import tempfile
+
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, voxelnet_loss
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+    from lyft3d_tpu_torch.pipelines.second_train import make_second_loss_fn, make_second_targets_fn
+    from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig, TrainState
+
+    net = VoxelNet(cfg, in_features=in_features, dtype=torch.bfloat16, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    bsz = batch["points"].shape[0]
+    tmp = tempfile.TemporaryDirectory()
+    trainer = Trainer(net, optimizer_fn, make_second_loss_fn(cfg, dev),
+                      TrainerConfig(model_dir=tmp.name, total_steps=10 ** 6))
+    state = TrainState(net, optimizer_fn)
+    masters = sum(1 for p, m in zip(state.params, state.masters) if m is not p)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = trainer.step_fn(state, batch)
+        losses.append(metrics["loss"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    train_counts(reset=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = trainer.step_fn(state, batch)
+        losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    counts = train_counts()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"{name}: a training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall on the fixed batch: {losses}")
+    for kernel in expect_kernels:
+        if counts[kernel] <= 0:
+            raise AssertionError(f"the {name} training path never launched the {kernel} kernel")
+        if counts[kernel] % TRAIN_STEPS:
+            raise AssertionError(f"{name}: {counts[kernel]} {kernel} launches in {TRAIN_STEPS} steps")
+    stray = {k: n for k, n in counts.items() if n and k not in expect_kernels}
+    if stray:
+        raise AssertionError(f"{name}: launches of kernels not on this path: {stray}")
+
+    # Stage split: the same step with CUDA events between its stages (it goes
+    # on training), and the voxelizer alone.
+    targets_fn = make_second_targets_fn(cfg, dev)
+    keys = ("voxels", "num_points", "coords", "voxel_valid")
+    names = ("voxelize+targets", "forward", "loss", "backward", "optimizer")
+    sums = dict.fromkeys(names, 0.0)
+    net.train()
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        vox, tgts = targets_fn(batch)
+        ev[1].record()
+        preds = net(*[vox[k] for k in keys])
+        ev[2].record()
+        loss, _ = voxelnet_loss(preds, tgts, cfg)
+        ev[3].record()
+        for p in state.params:
+            p.grad = None
+        loss.backward()
+        ev[4].record()
+        state.push_grads()
+        state.optimizer.step()
+        state.pull_params()
+        ev[5].record()
+        torch.cuda.synchronize()
+        for i, stage in enumerate(names):
+            sums[stage] += ev[i].elapsed_time(ev[i + 1]) / 5
+    vox_ms = cuda_ms(lambda: voxelize(batch["points"], batch["points_valid"], cfg.grid,
+                                      cfg.max_voxels, cfg.max_points_per_voxel), iters=5)
+    stages = {"voxelize": vox_ms, "targets": max(0.0, sums["voxelize+targets"] - vox_ms),
+              **{k: sums[k] for k in names[1:]}}
+    per_step = {k: n // TRAIN_STEPS for k, n in counts.items() if n}
+    log(f"train {name}: VoxelNet bf16 (f32 heads, {masters} f32 master parameters of "
+        f"{len(state.params)}) B={bsz} N={batch['points'].shape[1]} GT={batch['gt_boxes'].shape[1]} "
+        f"{optimizer_name} step_ms={step_ms:.3f} samples_per_s={bsz / (step_ms / 1e3):.2f} stages_ms "
+        + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
+        + f" loss step0={losses[0]:.4f} step{len(losses) - 1}={losses[-1]:.4f} "
+        f"(all {len(losses)} finite) peak_mem_gb={peak_gb:.2f} launches_per_step={per_step} [{card}]")
+    tmp.cleanup()
+    del vox, tgts, preds, loss
+    return counts, step_ms, state, trainer
+
+
+def retained_grad_ms(out, wrt, cot):
+    """Milliseconds of autograd's backward from ``out`` to ``wrt`` alone (the
+    graph is kept, the forward is not repeated)."""
+    import torch
+
+    return cuda_ms(lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True), warmup=1, iters=3)
+
+
+def stencil_backward_replay(fwd_calls, wgrad_calls, card):
+    """Phase 18 for the stencil: the nine recorded forward calls with the
+    cotangents of the backward pass (recorded in reverse order). Returns the
+    ``kernels`` records of ``d_src`` and ``d_wc`` (slowest launch, largest
+    float32 error) and the sums over a step."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    assert len(fwd_calls) == len(wgrad_calls) == len(FHD_STENCIL_LAYERS), (len(fwd_calls), len(wgrad_calls))
+    rows = {"dgrad": [], "wgrad": []}
+    worst = {"dgrad": 0.0, "wgrad": 0.0}
+    for (args, kwargs), (wargs, _), (cin, cout, z_out, strided) in zip(
+            fwd_calls, reversed(wgrad_calls), FHD_STENCIL_LAYERS):
+        src, qids, src_ids, wc, nc = args
+        rq, rids = kwargs["rev_qids"].contiguous(), kwargs["rev_src_ids"]
+        cot = wargs[3]
+        b, vs, _ = src.shape
+        vq, (kzp, n) = qids.shape[-1], wc.shape[1:]
+        assert tuple(cot.shape) == (b, vq, nc * n) and cot.dtype == torch.float32
+        s32 = src.detach().float().requires_grad_(True)
+        w32 = wc.detach().float().requires_grad_(True)
+        out = cs.stencil_conv_ref(s32, qids, src_ids, w32, nc)
+        want_s, want_w = torch.autograd.grad(out, (s32, w32), cot, retain_graph=True)
+        rows_read = int((want_s.detach().abs().sum(-1) > 0).sum())  # source rows some query read
+        errs = {}
+        for dtype in (src.dtype, torch.float32):
+            s_, w_ = src.detach().to(dtype), wc.detach().to(dtype)
+            got_s = cs._stencil_conv_cuda(cot.to(dtype), rq, rids, w_.transpose(1, 2).contiguous(), nc,
+                                          dgrad=True).to(dtype)
+            got_w = cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n)
+            torch.cuda.synchronize()
+            tol_s = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            errs[dtype] = (rel_diff(got_s, want_s), rel_diff(got_w, want_w))
+            if dtype == torch.float32:
+                worst["dgrad"] = max(worst["dgrad"], float((got_s - want_s).abs().max()))
+                worst["wgrad"] = max(worst["wgrad"], float((got_w - want_w).abs().max()))
+            if not (errs[dtype][0] <= tol_s and errs[dtype][1] <= WGRAD_TOL):
+                raise AssertionError(f"stencil backward {vs}->{vq} {kzp}x{n} {dtype}: d_src, d_wc differ "
+                                     f"from the plain backward by {errs[dtype]} of their scale")
+            del got_s, got_w
+        s_, w_t = src.detach(), wc.detach().to(src.dtype).transpose(1, 2).contiguous()
+        g_rows = cot.to(src.dtype)
+        d_ms = cuda_ms(lambda: cs._stencil_conv_cuda(g_rows, rq, rids, w_t, nc, dgrad=True), warmup=1, iters=5)
+        w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n), warmup=1, iters=5)
+        pd_ms = retained_grad_ms(out, (s32,), cot)
+        pw_ms = retained_grad_ms(out, (w32,), cot)
+        size = src.element_size()
+        flat = qids.long().reshape(b, -1)
+        pos = torch.searchsorted(src_ids.long().contiguous(), flat).clamp_(max=vs - 1)
+        pairs = int(((torch.gather(src_ids.long(), 1, pos) == flat) & (flat >= 0)).sum())
+        del flat, pos
+        ops = pairs * 2 * 3 * z_out * cin * cout
+        peak = BF16_PEAK if src.dtype == torch.bfloat16 else F32_PEAK
+        ids_bytes = (b * 9 * vq + b * 9 * vs + b * vs + b * vq) * 4
+        d_b = bound((b * vq * n + 9 * kzp * n) * size + ids_bytes + b * vs * kzp * size, ops, peak)
+        w_b = bound(b * vs * kzp * size + b * vq * n * 4 + ids_bytes + 9 * kzp * n * 4, ops, F32_PEAK)
+        rows["dgrad"].append(dict(ms=d_ms, plain_ms=pd_ms, bound_ms=d_b[0], bound_by=d_b[1]))
+        rows["wgrad"].append(dict(ms=w_ms, plain_ms=pw_ms, bound_ms=w_b[0], bound_by=w_b[1]))
+        log(f"stencil backward: B={b} Vs={vs} Vq={vq} kzp={kzp} N={n} ({cin}->{cout}) {str(src.dtype)[6:]} "
+            f"hit_pairs={pairs} rows_read={rows_read} max_err/scale (d_src, d_wc) "
+            + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in errs.items())
+            + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (plain {pd_ms:.3f}, "
+            f"bound {d_b[0]:.5f} {d_b[1]}) d_wc_ms={w_ms:.4f} (plain {pw_ms:.3f}, bound {w_b[0]:.5f} "
+            f"{w_b[1]}) [{card}]")
+        del out, s32, w32, want_s, want_w
+    records = {}
+    for k in rows:
+        total = {m: sum(r[m] for r in rows[k]) for m in ("ms", "plain_ms", "bound_ms")}
+        log(f"stencil backward: nine {k} launches: kernel_ms={total['ms']:.3f} "
+            f"plain_ms={total['plain_ms']:.3f} bound_ms={total['bound_ms']:.4f} [{card}]")
+        records[k] = dict(max(rows[k], key=lambda r: r["ms"]), max_abs_err=worst[k])
+    return records
+
+
+def subm_backward_replay(fwd_calls, bwd_calls, card):
+    """Phase 18 for the rank gather: the six recorded forward calls with the
+    cotangents of the backward pass (recorded in reverse order), the kernels
+    against the plain backward and beside autograd of ``index_select`` +
+    ``einsum``. Returns the ``kernels`` records of ``df`` and ``dW``."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+
+    assert len(fwd_calls) == len(bwd_calls) == 6, (len(fwd_calls), len(bwd_calls))
+    rows = {"dgrad": [], "wgrad": []}
+    worst = {"dgrad": 0.0, "wgrad": 0.0}
+    for (args, _), (bargs, _) in zip(fwd_calls, reversed(bwd_calls)):
+        f_sorted, ranks, w = args
+        cot = bargs[3]
+        b, v, c = f_sorted.shape
+        k, q = ranks.shape[1:]
+        cout = w.shape[-1]
+        present = int(((ranks >= 0) & (ranks < v)).sum())
+        f32 = f_sorted.detach().float().requires_grad_(True)
+        w32 = w.detach().float().requires_grad_(True)
+        out = sk.subm_conv_ref(f32, ranks, w32)
+        want_f, want_w = torch.autograd.grad(out, (f32, w32), cot.float(), retain_graph=True)
+        errs = {}
+        for dtype in (f_sorted.dtype, torch.float32):
+            got_f, got_w = sk._subm_conv_bwd_cuda(f_sorted.detach().to(dtype), ranks, w.detach().to(dtype),
+                                                  cot.to(dtype), True, True)
+            torch.cuda.synchronize()
+            tol_f, tol_w = (1e-5, WGRAD_TOL) if dtype == torch.float32 else (2.0 ** -7, 2.0 ** -7)
+            errs[dtype] = (rel_diff(got_f, want_f), rel_diff(got_w, want_w))
+            if dtype == torch.float32:
+                worst["dgrad"] = max(worst["dgrad"], float((got_f - want_f).abs().max()))
+                worst["wgrad"] = max(worst["wgrad"], float((got_w - want_w).abs().max()))
+            if not (errs[dtype][0] <= tol_f and errs[dtype][1] <= tol_w):
+                raise AssertionError(f"rank gather backward {b}x{v} {c}->{cout} {dtype}: df, dW differ from "
+                                     f"the plain backward by {errs[dtype]} of their scale")
+            del got_f, got_w
+        f_, w_ = f_sorted.detach(), w.detach().to(f_sorted.dtype)
+        d_ms = cuda_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, True, False), warmup=1, iters=5)
+        w_ms = cuda_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, False, True), warmup=1, iters=5)
+        pd_ms = retained_grad_ms(out, (f32,), cot.float())
+        pw_ms = retained_grad_ms(out, (w32,), cot.float())
+        # The library pair differentiated by autograd (index_add_ and matmuls).
+        table = torch.cat([f_, f_.new_zeros(b, 1, c)], dim=1).reshape(-1, c).requires_grad_(True)
+        base = torch.arange(b, device=ranks.device)[:, None, None] * (v + 1)
+        index = (torch.where((ranks >= 0) & (ranks < v), ranks.long(), v) + base).reshape(-1)
+        wk = w_.clone().requires_grad_(True)
+        lib_out = torch.einsum("bkvc,kcd->bvd", torch.index_select(table, 0, index).view(b, k, q, c), wk)
+        ld_ms = retained_grad_ms(lib_out, (table,), cot)
+        lw_ms = retained_grad_ms(lib_out, (wk,), cot)
+        del table, index, lib_out
+        size = f_sorted.element_size()
+        ops = present * 2 * c * cout
+        peak = BF16_PEAK if f_sorted.dtype == torch.bfloat16 else F32_PEAK
+        d_b = bound((b * q * cout + k * c * cout + b * v * c) * size + b * k * q * 4, ops, peak)
+        w_b = bound((b * v * c + b * q * cout) * size + b * k * q * 4 + k * c * cout * 4, ops, peak)
+        rows["dgrad"].append(dict(ms=d_ms, plain_ms=pd_ms, bound_ms=d_b[0], bound_by=d_b[1], library_ms=ld_ms))
+        rows["wgrad"].append(dict(ms=w_ms, plain_ms=pw_ms, bound_ms=w_b[0], bound_by=w_b[1], library_ms=lw_ms))
+        log(f"subm backward: B={b} V={v} {c}->{cout} {str(f_sorted.dtype)[6:]} present={present} of "
+            f"{b * k * q} max_err/scale (df, dW) "
+            + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in errs.items())
+            + f" (tol float32 df 1e-5, dW {WGRAD_TOL}; 2^-7 bfloat16 outputs) df_ms={d_ms:.4f} (plain {pd_ms:.3f}, "
+            f"index_select_einsum backward {ld_ms:.3f}, bound {d_b[0]:.5f} {d_b[1]}) dW_ms={w_ms:.4f} "
+            f"(plain {pw_ms:.3f}, library {lw_ms:.3f}, bound {w_b[0]:.5f} {w_b[1]}) [{card}]")
+        del out, f32, w32, want_f, want_w
+    records = {}
+    for kk in rows:
+        total = {m: sum(r[m] for r in rows[kk]) for m in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        log(f"subm backward: six {kk} launches: kernel_ms={total['ms']:.3f} plain_ms={total['plain_ms']:.3f} "
+            f"index_select_einsum_backward_ms={total['library_ms']:.3f} bound_ms={total['bound_ms']:.4f} "
+            f"[{card}]")
+        records[kk] = dict(max(rows[kk], key=lambda r: r["ms"]), max_abs_err=worst[kk])
+    return records
+
+
+def fill_backward_replay(calls, card, what):
+    """Phase 18 for the fill: its recorded backward launches, ``torch.equal``
+    to the plain gather."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    for (grad, ids, num_rows), _ in calls:
+        got = dense_fill._fill_bwd_cuda(grad, ids, num_rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dense_fill.fill_rows_by_id_bwd_ref(grad, ids, num_rows)):
+            raise AssertionError(f"fill backward kernel differs from the plain version at "
+                                 f"{tuple(ids.shape)} <- {num_rows} rows ({what})")
+        k_ms = cuda_ms(lambda: dense_fill._fill_bwd_cuda(grad, ids, num_rows), warmup=2, iters=10)
+        p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_bwd_ref(grad, ids, num_rows), warmup=2, iters=10)
+        b, v = ids.shape
+        c = grad.shape[-1]
+        b_ms, b_by = bound(b * (2 * v * c * grad.element_size() + 4 * v), 0)
+        log(f"fill backward ({what}): B={b} V={v} C={c} rows={num_rows} {str(grad.dtype)[6:]} "
+            f"torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"[{card}]")
+
+
+def training_phases(dev, card):
+    """Phases 15 to 19. Returns the ``kernels`` records of the five backward
+    kernels and the launch counts of the four training runs."""
+    import tempfile
+
+    import torch
+
+    from lyft3d_tpu_torch.models.second import middle as middle_mod
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+    from lyft3d_tpu_torch.pipelines.second_train import make_second_loss_fn
+    from lyft3d_tpu_torch.train import checkpoint as ckpt
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+    from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    fill_bwd_record = fill_backward_phase(dev, card)
+    gradient_check_phase(dev, card)
+
+    def onecycle(params):
+        return build_optimizer(params, "adam_onecycle", ONECYCLE["lr"], total_steps=ONECYCLE["total_steps"],
+                               weight_decay=ONECYCLE["weight_decay"], clip_norm=ONECYCLE["clip_norm"])
+
+    def adam(params):
+        return build_optimizer(params, "adam", 1e-3)
+
+    onecycle_name = ("adam_onecycle(lr 0.003, 58,650 steps, weight decay 0.01; build_optimizer hands it "
+                     "no clip, as in the JAX package)")
+    counts = {}
+    # 17a. pillars, batch 8.
+    pts, pvalid = pillar_points(SEC_BATCH, SEC_POINTS, seed=26)
+    batch = to_dev({"points": pts, "points_valid": pvalid, **gt_batch(SEC_BATCH, seed=27)}, dev)
+    counts["pillars"], _, state, trainer = train_run(
+        "pillars lyft9", lyft9_config(), 4, batch, onecycle, onecycle_name, dev, card,
+        ("dense_fill", "dense_fill_bwd"))
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+
+    # 17b. sparse FHD, unit middle, batch 4; then one more step recorded for the replay.
+    pts, pvalid = fhd_points(FHD_BATCH, FHD_POINTS, seed=28)
+    batch = to_dev({"points": pts, "points_valid": pvalid, **gt_batch(FHD_BATCH, seed=29)}, dev)
+    unit_kernels = ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad")
+    counts["sparse_units"], _, state, trainer = train_run(
+        "sparse FHD sparse_units", fhd_config(), 3, batch, onecycle, onecycle_name, dev, card, unit_kernels)
+    with recorded(cs, "stencil_conv_batched") as fwd, recorded(cs, "_stencil_wgrad_cuda") as wgrads, \
+            recorded(dense_fill, "_fill_bwd_cuda") as fill_bwds:
+        trainer.step_fn(state, batch)
+    stencil_records = stencil_backward_replay(fwd.calls, wgrads.calls, card)
+    fill_backward_replay(fill_bwds.calls, card, "sparse_units training step")
+    del state, trainer, fwd, wgrads, fill_bwds
+    torch.cuda.empty_cache()
+
+    # 17c. sparse FHD, per-voxel middle, batch 4; one more step recorded.
+    voxel_kernels = ("dense_fill", "dense_fill_bwd", "subm_conv", "subm_dgrad", "subm_wgrad")
+    counts["sparse"], _, state, trainer = train_run(
+        "sparse FHD sparse (per-voxel)", fhd_config(middle="sparse"), 3, batch, onecycle, onecycle_name,
+        dev, card, voxel_kernels)
+    with recorded(middle_mod, "subm_conv") as fwd, recorded(sk, "_subm_conv_bwd_cuda") as bwds, \
+            recorded(dense_fill, "_fill_bwd_cuda") as fill_bwds:
+        trainer.step_fn(state, batch)
+    subm_records = subm_backward_replay(fwd.calls, bwds.calls, card)
+    fill_backward_replay(fill_bwds.calls, card, "per-voxel training step")
+    del state, trainer, fwd, bwds, fill_bwds, batch
+    torch.cuda.empty_cache()
+
+    # 17d. the bench-shaped sparse step: batch 2, adam(1e-3), four car boxes.
+    pts, pvalid = fhd_points(BENCH_TRAIN_BATCH, FHD_POINTS, seed=30)
+    batch = to_dev({"points": pts, "points_valid": pvalid, **bench_gt(BENCH_TRAIN_BATCH)}, dev)
+    counts["bench"], _, state, trainer = train_run(
+        "sparse FHD sparse_units, bench shape", fhd_config(), 3, batch, adam, "adam(1e-3)", dev, card,
+        unit_kernels)
+    del state, trainer
+    torch.cuda.empty_cache()
+
+    # 19. Trainer.fit with checkpoints, resume in a fresh trainer, train on.
+    cfg = fhd_config()
+    with tempfile.TemporaryDirectory() as model_dir:
+        def make(seed, total):
+            net = VoxelNet(cfg, in_features=3, dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(seed))
+            return Trainer(net, adam, make_second_loss_fn(cfg, dev),
+                           TrainerConfig(model_dir=model_dir, total_steps=total, log_every=1,
+                                         eval_every=0, ckpt_every=2))
+
+        def feed():
+            while True:
+                yield batch
+
+        first = make(0, 3)
+        state = first.fit(first.init_or_resume(), feed())
+        saved = [p.name for p in ckpt.list_checkpoints(model_dir)]
+        if state.step != 3 or ckpt.latest_checkpoint(model_dir).name != "model-3.ckpt":
+            raise AssertionError(f"fit: step {state.step}, checkpoints {saved}")
+        second = make(1, 4)  # another initialisation: everything must come from the checkpoint
+        resumed = second.init_or_resume()
+        if resumed.step != 3:
+            raise AssertionError(f"fit: resumed at step {resumed.step}, expected 3")
+        for (k, a), bb in zip(resumed.module.state_dict().items(), state.module.state_dict().values()):
+            if not torch.equal(a, bb):
+                raise AssertionError(f"fit: {k} differs after the checkpoint round trip")
+        for a, bb in zip(resumed.masters, state.masters):
+            if not torch.equal(a, bb):
+                raise AssertionError("fit: a master parameter differs after the checkpoint round trip")
+        if resumed.optimizer.param_groups[0]["count"] != 3:
+            raise AssertionError("fit: the optimizer's step count was not restored")
+        resumed = second.fit(resumed, feed())
+        losses = [h["train.loss"] for h in second.log.reload_history()]
+        if resumed.step != 4 or not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"fit: step {resumed.step} after resuming, losses {losses}")
+        log(f"fit: Trainer.fit on the bench-shaped batch, 3 steps, checkpoints {saved}; a fresh trainer "
+            f"resumed at step 3 with equal parameters, masters and optimizer count, trained to step "
+            f"{resumed.step}; logged losses {' '.join(f'{l:.4f}' for l in losses)}")
+    del first, second, state, resumed, batch
+    torch.cuda.empty_cache()
+    return fill_bwd_record, stencil_records, subm_records, counts
+
+
 def torch_equal(a, b):
     import torch
 
@@ -1394,8 +2123,16 @@ def main():
     # 11-14. sparse SECOND at the FHD geometry
     stencil_record, subm_record, sparse_launches, voxel_launches = sparse_phases(dev, card)
 
-    def record(name, replaces, launches, numbers, library_ms=None):
-        return {"name": name, "route": "cuda", "source": f"lyft3d_tpu_torch/csrc/{name}.cu",
+    # 15-19. SECOND training: backward kernels, gradient checks, training steps, fit
+    fill_bwd_record, stencil_bwd, subm_bwd, train_launches = training_phases(dev, card)
+
+    def trained(kernel):
+        """Launches of ``kernel`` over the timed steps of the four training runs."""
+        return sum(c[kernel] for c in train_launches.values())
+
+    def record(name, replaces, launches, numbers, library_ms=None, source=None):
+        return {"name": name, "route": "cuda",
+                "source": f"lyft3d_tpu_torch/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches,
                 **{"library_ms": library_ms, **numbers}}
 
@@ -1416,6 +2153,20 @@ def main():
                sparse_launches["stencil_conv"], stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
                voxel_launches["subm_conv"], subm_record),
+        # The backward sides, launched by the training paths (10 timed steps each
+        # of pillars, unit middle, per-voxel middle and the bench-shaped step).
+        record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153", trained("dense_fill_bwd"),
+               fill_bwd_record, source="dense_fill"),
+        # d_src is the forward stencil kernel launched on the reverse queries,
+        # as the JAX backward launches its Pallas kernel a second time.
+        record("stencil_dgrad", "lyft3d_tpu/ops/column_sparse.py:773", trained("stencil_dgrad"),
+               stencil_bwd["dgrad"], source="stencil_conv"),
+        record("stencil_wgrad", "lyft3d_tpu/ops/column_sparse.py:777", trained("stencil_wgrad"),
+               stencil_bwd["wgrad"], source="stencil_conv"),
+        record("subm_dgrad", "lyft3d_tpu/ops/subm_conv_kernel.py:106", trained("subm_dgrad"),
+               subm_bwd["dgrad"], source="subm_conv"),
+        record("subm_wgrad", "lyft3d_tpu/ops/subm_conv_kernel.py:106", trained("subm_wgrad"),
+               subm_bwd["wgrad"], source="subm_conv"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,27 +4,37 @@ The JAX package ``lyft3d_tpu`` stays the reference; this package mirrors its
 module layout and public names so each module's counterpart is easy to find:
 
     core      — quaternion, geometry and box math (numpy, host side)
+    config    — the experiment dataclasses, yaml IO, dotted overrides
     data      — Lyft JSON-table DB, point clouds, map masks, the BEV sample
-                generator, KITTI calibration / labels / export (numpy)
+                generator, KITTI calibration / labels / export, training
+                augmentation and GT-database sampling, prefetchers (numpy)
     eval      — official Lyft mAP, numpy rotated IoU, submission CSV,
                 KITTI-style AP and recall (numpy)
-    ops       — BEV raster, canvas fill and the four PointNet++ selections
-                (furthest-point sampling, ball query, 3-NN, RoI select):
-                hand-written CUDA kernels + plain torch versions; connected
-                components, mask → rotated boxes, voxelize, anchors, box ops,
-                rotated IoU, NMS, the bin-based box decoder
+    ops       — BEV raster, canvas fill, the four PointNet++ selections
+                (furthest-point sampling, ball query, 3-NN, RoI select), the
+                unit stencil conv and the rank gather conv: hand-written CUDA
+                kernels + plain torch versions, the fill and the two convs
+                with hand-written backward kernels behind autograd Functions;
+                connected components, mask → rotated boxes, voxelize, anchors
+                and target assignment, box ops, rotated IoU, NMS, the
+                bin-based box decoder
     models    — ConvNormAct / ASPP / UpBlock / LayerNorm, the ResNet
                 encoders, LyftUNet, ReferenceUNet, BatchNorm folding;
-                second/: PillarFeatureNet, RPN, VoxelNet, voxelnet_predict;
+                second/: PillarFeatureNet, SimpleVoxel, the sparse middles,
+                RPN, VoxelNet, voxelnet_loss, voxelnet_predict;
                 pointrcnn/: SharedMLP, the SA and FP modules, the RPN,
                 proposal layer, RCNN and the joint PointRCNN
-    utils     — the flax → torch weight bridge
+    train     — losses, optimizers and schedules (optax's formulas), the
+                step-loop Trainer with float32 master parameters, the
+                checkpoint registry, metric logs
+    utils     — the flax ↔ torch weight bridge
     pipelines — BEV inference (lidar → raster → UNet → boxes → world
-                records), SECOND pillars inference (points → voxelize →
-                VoxelNet → NMS → world records) with its host-side sample
-                loader, and PointRCNN inference and evaluation over a
-                KITTI-layout dataset
-    cli       — the ``infer-bev`` command
+                records), SECOND inference (points → voxelize → VoxelNet →
+                NMS → world records) with its host-side sample loader,
+                SECOND training (targets → loss → Trainer), and PointRCNN
+                inference and evaluation over a KITTI-layout dataset
+    cli       — ``infer-bev``, ``create-infos``, ``create-gtdb``,
+                ``train-second``
 
 The package stands alone: it imports nothing of ``lyft3d_tpu`` and keeps its
 own copies of the host-side numpy modules. Nothing here imports ``jax``,

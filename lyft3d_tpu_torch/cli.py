@@ -1,12 +1,14 @@
 """Command-line interface of the port: ``python -m lyft3d_tpu_torch.cli <command>``.
 
-Commands:
-    infer-bev   inference → submission CSV (+ optional mAP), the same
-                arguments as the JAX package's ``infer-bev``
+Commands (the JAX package's arguments, plus ``--device``):
+    infer-bev       inference → submission CSV (+ optional mAP)
+    create-infos    build SECOND training infos from a Lyft DB (host only)
+    create-gtdb     build the copy-paste GT database (host only)
+    train-second    train the voxelnet detector
 
-Runs on the first CUDA card (the trunk in bfloat16, as the JAX package's
-default) and fails when there is none; ``--device cpu`` is the explicit CPU
-run, in float32.
+Device commands run on the first CUDA card (the trunk in bfloat16, as the JAX
+package's default) and fail when there is none; ``--device cpu`` is the
+explicit CPU run, in float32. Reading a ``--config`` yaml needs pyyaml.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ def cmd_infer_bev(args):
         name, _, model_dir = spec.partition(":")
         if model_dir:
             raise SystemExit(
-                f"{spec!r}: restoring a model directory needs the port of "
-                "train/checkpoint.py, which lyft3d_tpu_torch does not have yet; "
+                f"{spec!r}: restoring a BEV model directory comes with the port of "
+                "BEV training (its checkpoint layout is not defined yet); "
                 "pass a bare model name to run with the default initialisation"
             )
         models.append(
@@ -72,21 +74,108 @@ def cmd_infer_bev(args):
         print(json.dumps({"mAP": overall, "per_class": per_class}, indent=2))
 
 
+def cmd_create_infos(args):
+    from lyft3d_tpu_torch.pipelines.second_pipeline import create_infos, save_infos
+
+    infos = create_infos(_db(args), num_sweeps=args.sweeps)
+    save_infos(infos, args.out)
+    print(f"wrote {len(infos)} infos to {args.out}")
+
+
+def cmd_create_gtdb(args):
+    from lyft3d_tpu_torch.data.augment import create_gt_database
+    from lyft3d_tpu_torch.pipelines.second_pipeline import (
+        LoaderConfig,
+        SecondSampleLoader,
+        load_infos,
+    )
+
+    infos = load_infos(args.infos)
+    loader = SecondSampleLoader(
+        _db(args), infos, args.classes.split(","), LoaderConfig(num_sweeps=1, augment=False)
+    )
+    samples = [
+        {"points": loader.load_points(info), "gt_boxes": info["gt_boxes"], "gt_names": info["gt_names"]}
+        for info in infos
+    ]
+    create_gt_database(args.out, samples)
+    print(f"gt database at {args.out}")
+
+
+def cmd_train_second(args):
+    import torch
+
+    from lyft3d_tpu_torch.config import SecondExperiment, apply_overrides, load_yaml
+    from lyft3d_tpu_torch.pipelines.second_pipeline import (
+        LoaderConfig,
+        SecondSampleLoader,
+        load_infos,
+    )
+    from lyft3d_tpu_torch.pipelines.second_train import train_second
+
+    device = _device(args.device)
+    exp = load_yaml(SecondExperiment, args.config) if args.config else SecondExperiment()
+    if args.set:
+        exp = apply_overrides(exp, args.set)
+    infos = load_infos(args.infos)
+    class_names = [a.class_name for a in exp.anchors]
+    db_sampler = None
+    if args.gtdb and exp.db_sampler_quota:
+        from lyft3d_tpu_torch.data.augment import DataBaseSampler, GTDatabase
+
+        db_sampler = DataBaseSampler(GTDatabase(args.gtdb), exp.db_sampler_quota)
+    loader = SecondSampleLoader(
+        _db(args), infos, class_names,
+        LoaderConfig(num_sweeps=exp.num_sweeps, max_points=exp.data.max_points),
+        db_sampler=db_sampler,
+    )
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    train_second(exp, loader, [i["token"] for i in infos], dtype=dtype, device=device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lyft3d_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
 
+    def add_db_args(sp):
+        sp.add_argument("--data-root", required=True)
+        sp.add_argument("--json-dir", default="data")
+
+    def add_device_arg(sp):
+        sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="cuda (bfloat16 trunk; fails without a card) or cpu (float32)")
+
     sp = sub.add_parser("infer-bev")
-    sp.add_argument("--data-root", required=True)
-    sp.add_argument("--json-dir", default="data")
+    add_db_args(sp)
     sp.add_argument("--model", nargs="+", required=True,
                     help="name[:model_dir] — multiple for an ensemble")
     sp.add_argument("--out", required=True)
     sp.add_argument("--sweeps", type=int, default=1)
     sp.add_argument("--eval", action="store_true")
-    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="cuda (bfloat16 trunk; fails without a card) or cpu (float32)")
+    add_device_arg(sp)
     sp.set_defaults(fn=cmd_infer_bev)
+
+    sp = sub.add_parser("create-infos")
+    add_db_args(sp)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--sweeps", type=int, default=10)
+    sp.set_defaults(fn=cmd_create_infos)
+
+    sp = sub.add_parser("create-gtdb")
+    add_db_args(sp)
+    sp.add_argument("--infos", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--classes", default="car,truck,bus")
+    sp.set_defaults(fn=cmd_create_gtdb)
+
+    sp = sub.add_parser("train-second")
+    add_db_args(sp)
+    sp.add_argument("--infos", required=True)
+    sp.add_argument("--gtdb", help="GT database dir for copy-paste augmentation")
+    sp.add_argument("--config")
+    sp.add_argument("--set", nargs="*", default=[])
+    add_device_arg(sp)
+    sp.set_defaults(fn=cmd_train_second)
     return p
 
 

@@ -28,6 +28,9 @@
 // of feature rows read: ~0.08 ms of HBM bandwidth on an H100 (0.15 ms in
 // float32). A first version searched per thread (a 15-step dependent
 // search for each of 15.7 M threads) and was latency-bound at 0.33 ms.
+//
+// Backward (the JAX package's `_fill_pallas_bwd`, dense_fill.py:153, is an XLA
+// gather): dense_fill_bwd_kernel below, gf[i] = g[ids[i]], up to a warp a row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,6 +145,57 @@ cudaError_t launch(const void* feats, const void* ids, void* out, long long batc
   return cudaGetLastError();
 }
 
+// Backward side: gf[b, i, :] = g[b, ids[b, i], :] where the id is a canvas
+// row, zeros otherwise (the sentinel `num_rows` of a masked entry). `lanes`
+// threads of a warp (a power of two, at most 32, at least the row's chunks of
+// VEC elements when those are fewer than 32) copy one row, so the loads and
+// stores of a row are contiguous and a narrow row does not idle most of a
+// warp; duplicate ids each receive the row. An exact copy.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+dense_fill_bwd_kernel(const T* __restrict__ g, const int32_t* __restrict__ ids,
+                      T* __restrict__ gf, long long total, long long v, long long num_rows,
+                      int c, int lanes) {
+  const int lane = threadIdx.x % lanes;
+  const int rows_per_block = kThreads / lanes;
+  const long long stride = static_cast<long long>(gridDim.x) * rows_per_block;
+  const int chunks = c / VEC;
+  for (long long row = static_cast<long long>(blockIdx.x) * rows_per_block + threadIdx.x / lanes;
+       row < total; row += stride) {
+    const long long b = row / v;
+    const long long id = __ldg(ids + row);
+    const bool hit = id >= 0 && id < num_rows;
+    const T* src = g + (b * num_rows + (hit ? id : 0)) * c;
+    T* dst = gf + row * c;
+    for (int ch = lane; ch < chunks; ch += lanes) {
+      Pack<T, VEC> p;
+      if (hit) {
+        p = *reinterpret_cast<const Pack<T, VEC>*>(src + ch * VEC);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) p.v[i] = from_float<T>(0.0f);
+      }
+      *reinterpret_cast<Pack<T, VEC>*>(dst + ch * VEC) = p;
+    }
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd(const void* g, const void* ids, void* gf, long long batch, long long v,
+                       long long num_rows, int c, cudaStream_t stream) {
+  const long long total = batch * v;
+  if (total == 0 || c == 0) return cudaSuccess;
+  int lanes = 1;
+  while (lanes < 32 && lanes < c / VEC) lanes *= 2;
+  const long long per_block = kThreads / lanes;
+  long long blocks = (total + per_block - 1) / per_block;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // the kernel strides over the rest
+  dense_fill_bwd_kernel<T, VEC><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const int32_t*>(ids), static_cast<T*>(gf), total, v,
+      num_rows, c, lanes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Writes the (batch, num_rows, c) canvas `out` from (batch, v, c) `feats`
@@ -162,6 +216,28 @@ extern "C" int dense_fill_launch(const void* feats, const void* ids, void* out,
   } else if (dtype == 1) {
     err = vectorized ? launch<__nv_bfloat16, 8>(feats, ids, out, batch, v, num_rows, c, s)
                      : launch<__nv_bfloat16, 1>(feats, ids, out, batch, v, num_rows, c, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Backward of the fill: writes gf (batch, v, c) from the canvas cotangent `g`
+// (batch, num_rows, c) and the (batch, v) int32 `ids` the forward used; an id
+// outside [0, num_rows) gives a zero row. Same `dtype` and `vectorized` rules
+// as dense_fill_launch. Returns the CUDA error of the launch (0 on success).
+extern "C" int dense_fill_bwd_launch(const void* g, const void* ids, void* gf,
+                                     long long batch, long long v, long long num_rows, int c,
+                                     int dtype, int vectorized, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    err = vectorized ? launch_bwd<float, 4>(g, ids, gf, batch, v, num_rows, c, s)
+                     : launch_bwd<float, 1>(g, ids, gf, batch, v, num_rows, c, s);
+  } else if (dtype == 1) {
+    err = vectorized ? launch_bwd<__nv_bfloat16, 8>(g, ids, gf, batch, v, num_rows, c, s)
+                     : launch_bwd<__nv_bfloat16, 1>(g, ids, gf, batch, v, num_rows, c, s);
   } else {
     err = cudaErrorInvalidValue;
   }

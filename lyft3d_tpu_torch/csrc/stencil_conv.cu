@@ -28,10 +28,25 @@
 // kernel multiplies them; the real work is 27 taps, 2·27·z_out·Cin·Cout
 // operations a query with all neighbours present, against src rows read once
 // and the output written once.
+//
+// Backward (the JAX package's `_stencil_bwd`, column_sparse.py:742):
+//   d_src  the same stencil launched a second time, as the JAX backward does
+//          (column_sparse.py:773): the cotangent rows are the source, the
+//          reverse queries pick them, the band weights are transposed and the
+//          output width is kzp, taken in several column tiles where kzp > 128.
+//          It is this file's stencil_conv_kernel; the wrapper prepares the
+//          arguments.
+//   d_wc[j] = Σ_{b,q,c} src[b, pos(qids[b, j, q])][chunk c]ᵀ g[b, q][chunk c]
+//          stencil_wgrad_kernel: each block finds the source rows of its
+//          queries with find_id, compacts the hits and runs the shared
+//          outer-product tile of wgrad_tile.cuh, ending in float32 atomicAdds
+//          into a zeroed (9, kzp, N) buffer; the sum order varies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgrad_tile.cuh"
 
 namespace {
 
@@ -206,6 +221,70 @@ cudaError_t launch(const void* src, const void* qids, const void* src_ids, const
   return launch_tile<T, 32, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
 }
 
+// One block: one tile of wgrad::kQueries queries, one offset j, one
+// (kWgK x kWgN) tile of d_wc[j], one sample; it loops over the nc chunks.
+template <typename T>
+__global__ void __launch_bounds__(wgrad::kThreads)
+stencil_wgrad_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
+                     const int32_t* __restrict__ src_ids, const float* __restrict__ g,
+                     float* __restrict__ dwc, int vs, int vq, int nc, int kzp, int n,
+                     int k_tiles, int n_tiles) {
+  __shared__ int hit_row[wgrad::kQueries];
+  __shared__ int hit_q[wgrad::kQueries];
+  __shared__ int count;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * wgrad::kQueries;
+  int y = blockIdx.y;
+  const int nt = y % n_tiles;
+  y /= n_tiles;
+  const int kt = y % k_tiles;
+  const int j = y / k_tiles;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  const int32_t* ids = src_ids + static_cast<long long>(b) * vs;
+  const int32_t* qj = qids + (static_cast<long long>(b) * kOffsets + j) * vq;
+  for (int r = threadIdx.x; r < wgrad::kQueries; r += wgrad::kThreads) {
+    const int q = q0 + r;
+    if (q >= vq) continue;
+    const int32_t id = qj[q];
+    if (id < 0) continue;
+    const int pos = find_id(ids, vs, id);
+    if (pos >= 0) wgrad::push_hit(hit_row, hit_q, &count, pos, q);
+  }
+  __syncthreads();
+  const int nhits = count;
+  if (nhits == 0) return;
+  const int k0 = kt * wgrad::kWgK;
+  const int n0 = nt * wgrad::kWgN;
+  const long long a_stride = static_cast<long long>(nc) * kzp;
+  const long long g_stride = static_cast<long long>(nc) * n;
+  const T* a = src + static_cast<long long>(b) * vs * a_stride;
+  const float* gb = g + static_cast<long long>(b) * vq * g_stride;
+  for (int chunk = 0; chunk < nc; ++chunk) {
+    wgrad::accumulate_tile<T, float>(
+        a + static_cast<long long>(chunk) * kzp, a_stride, gb + static_cast<long long>(chunk) * n,
+        g_stride, hit_row, hit_q, nhits, k0, min(wgrad::kWgK, kzp - k0), n0,
+        min(wgrad::kWgN, n - n0), dwc + static_cast<long long>(j) * kzp * n, n);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wgrad(const void* src, const void* qids, const void* src_ids, const void* g,
+                         void* dwc, int batch, int vs, int vq, int nc, int kzp, int n,
+                         cudaStream_t stream) {
+  if (batch == 0 || vq == 0 || n == 0 || nc == 0 || kzp == 0) return cudaSuccess;
+  const int k_tiles = (kzp + wgrad::kWgK - 1) / wgrad::kWgK;
+  const int n_tiles = (n + wgrad::kWgN - 1) / wgrad::kWgN;
+  const long long gy = static_cast<long long>(kOffsets) * k_tiles * n_tiles;
+  if (batch > 65535 || gy > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((vq + wgrad::kQueries - 1) / wgrad::kQueries, static_cast<unsigned int>(gy), batch);
+  stencil_wgrad_kernel<T><<<grid, wgrad::kThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const int32_t*>(qids),
+      static_cast<const int32_t*>(src_ids), static_cast<const float*>(g),
+      static_cast<float*>(dwc), vs, vq, nc, kzp, n, k_tiles, n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // out (batch, vq, nc·n) float32 from src (batch, vs, nc·kzp), qids
@@ -223,6 +302,26 @@ extern "C" int stencil_conv_launch(const void* src, const void* qids, const void
     err = launch<float>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, s);
   } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// dwc (9, kzp, n) float32, zeroed by the caller, += Σ over samples, queries and
+// chunks of src[pos(qids)]ᵀ g, with src (batch, vs, nc·kzp) in the type
+// `dtype` names and the cotangent g (batch, vq, nc·n) float32. Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int stencil_wgrad_launch(const void* src, const void* qids, const void* src_ids,
+                                    const void* g, void* dwc, int batch, int vs, int vq, int nc,
+                                    int kzp, int n, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    err = launch_wgrad<float>(src, qids, src_ids, g, dwc, batch, vs, vq, nc, kzp, n, s);
+  } else if (dtype == 1) {
+    err = launch_wgrad<__nv_bfloat16>(src, qids, src_ids, g, dwc, batch, vs, vq, nc, kzp, n, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -10,8 +10,13 @@ Ported, with the batched :func:`voxelnet_predict`:
   ``csrc/dense_fill.cu``) or ``middle="sparse"`` (:class:`SparseMiddle`,
   ``csrc/subm_conv.cu`` and ``csrc/dense_fill.cu``) → :class:`RPN`.
 
-The ``vfe`` encoder, the ``sparse_columns`` middle and ``voxelnet_loss`` are
-not ported yet: building a model that needs them raises.
+:func:`voxelnet_loss` is the training objective (focal classification,
+sin-error smooth-L1 localization, direction cross-entropy). The model has no
+layer that behaves differently in ``train()`` mode (GroupNorm and LayerNorm
+only), and every kernel wrapper on its path is differentiable.
+
+The ``vfe`` encoder and the ``sparse_columns`` middle are not ported yet:
+building a model that needs them raises.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lyft3d_tpu_torch.models.layers import materialize
@@ -32,21 +38,21 @@ from lyft3d_tpu_torch.models.second.voxel_encoder import (
     pillar_scatter,
 )
 from lyft3d_tpu_torch.ops.anchors import AnchorSpec, generate_anchors
-from lyft3d_tpu_torch.ops.box_ops import decode_boxes, limit_period
+from lyft3d_tpu_torch.ops.box_ops import add_sin_difference, decode_boxes, limit_period
 from lyft3d_tpu_torch.ops.nms import nms_mask_from_iou, rotated_nms, select_top_k
 from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev
 from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
 from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
+from lyft3d_tpu_torch.train.losses import sigmoid_focal_loss, weighted_smooth_l1
 
-__all__ = ["VoxelNetConfig", "VoxelNet", "voxelnet_predict"]
+__all__ = ["VoxelNetConfig", "VoxelNet", "voxelnet_loss", "voxelnet_predict"]
 
 _META = torch.device("meta")
 
 
 @dataclass(frozen=True)
 class VoxelNetConfig:
-    """The JAX package's ``VoxelNetConfig`` fields that inference reads
-    (same names and defaults). The loss fields come with training."""
+    """The JAX package's ``VoxelNetConfig`` (same names and defaults)."""
 
     grid: VoxelGrid = VoxelGrid(
         point_cloud_range=(-49.6, -49.6, -5.0, 49.6, 49.6, 3.0),
@@ -75,7 +81,20 @@ class VoxelNetConfig:
     rpn_up_strides: Tuple[float, ...] = (1, 2, 4)
     rpn_up_filters: Tuple[int, ...] = (128, 128, 128)
     encode_angle_to_vector: bool = False
+    # Anchor-GT matching: "nearest" (standup IoU) or "rotated".
+    similarity: str = "nearest"
+    # Don't-care anchors over empty BEV area (0 disables), and the cap on
+    # mask-selected anchors of the pruned (rotated) assignment.
+    anchor_area_threshold: float = 0.0
+    max_active_anchors: int = 4096
     num_classes: int = 1
+    # loss
+    cls_weight: float = 1.0
+    loc_weight: float = 2.0
+    dir_weight: float = 0.2
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    # predict
     nms_pre: int = 1000
     nms_post: int = 300
     nms_iou: float = 0.5
@@ -210,6 +229,49 @@ class VoxelNet(nn.Module):
             "cls": preds["cls"].reshape(b, -1, cfg.num_classes),
             "dir": preds["dir"].reshape(b, -1, 2),
         }
+
+
+def voxelnet_loss(preds, targets, cfg: VoxelNetConfig):
+    """Focal classification + sin-error smooth-L1 localization + direction
+    cross-entropy, each normalised by the sample's positives and averaged
+    over the batch. ``targets``: the batched ``(B, A, …)`` dict of
+    :func:`lyft3d_tpu_torch.ops.anchors.assign_targets`. Returns
+    ``(total, metrics)``."""
+    labels = targets["labels"]  # (B, A): −1 don't-care, 0 background, > 0 class
+    pos = (labels > 0).float()
+    care = (labels >= 0).float()
+    num_pos = torch.clamp(pos.sum(dim=1, keepdim=True), min=1.0)
+
+    # Per-class sigmoid focal, background encoded as zeros. num_classes == 1
+    # means "objectness of the anchor's own class": every positive is a 1.
+    if cfg.num_classes == 1:
+        cls_onehot = pos[..., None]
+    else:
+        cls_onehot = F.one_hot((labels.long() - 1).clamp(min=0), cfg.num_classes).float() * pos[..., None]
+    cls_loss = sigmoid_focal_loss(
+        preds["cls"], cls_onehot, alpha=cfg.focal_alpha, gamma=cfg.focal_gamma
+    ).sum(-1)
+    cls_loss = (cls_loss * care / num_pos).sum()
+
+    box_pred, box_tgt = preds["box"], targets["bbox_targets"]
+    if not cfg.encode_angle_to_vector:
+        sin_p, sin_t = add_sin_difference(box_pred[..., 6], box_tgt[..., 6])
+        box_pred = torch.cat([box_pred[..., :6], sin_p[..., None]], dim=-1)
+        box_tgt = torch.cat([box_tgt[..., :6], sin_t[..., None]], dim=-1)
+    loc_loss = weighted_smooth_l1(box_pred, box_tgt, weights=pos / num_pos).sum()
+
+    dir_logp = F.log_softmax(preds["dir"], dim=-1)
+    dir_ll = torch.gather(dir_logp, -1, targets["dir_targets"].long()[..., None])[..., 0]
+    dir_loss = (-dir_ll * pos / num_pos).sum()
+
+    b = labels.shape[0]
+    total = (cfg.cls_weight * cls_loss + cfg.loc_weight * loc_loss + cfg.dir_weight * dir_loss) / b
+    return total, {
+        "cls_loss": cls_loss / b,
+        "loc_loss": loc_loss / b,
+        "dir_loss": dir_loss / b,
+        "num_pos": pos.sum() / b,
+    }
 
 
 def _take(x, idx):

@@ -4,8 +4,7 @@ Boxes keep the JAX layout, a trailing dim of 7: ``[x, y, z, w, l, h, yaw]``
 (BEV boxes: 5, ``[x, y, w, l, yaw]``). Any leading batch shape works.
 Constants that divide are tensors on the input's device, so the division
 is a true IEEE division on every device (PyTorch's CUDA division by a host
-scalar multiplies by the reciprocal). ``encode_boxes`` and
-``add_sin_difference`` serve training and come with the training port.
+scalar multiplies by the reciprocal).
 """
 
 from __future__ import annotations
@@ -19,7 +18,9 @@ __all__ = [
     "rotate_points_2d",
     "box_corners_2d",
     "corners_to_standup_2d",
+    "encode_boxes",
     "decode_boxes",
+    "add_sin_difference",
 ]
 
 
@@ -54,6 +55,33 @@ def box_corners_2d(boxes):
 def corners_to_standup_2d(corners):
     """``(…, 4, 2)`` corners → ``(…, 4)`` axis-aligned [xmin, ymin, xmax, ymax]."""
     return torch.cat([corners.amin(dim=-2), corners.amax(dim=-2)], dim=-1)
+
+
+def encode_boxes(boxes, anchors, encode_angle_to_vector: bool = False, smooth_dim: bool = False):
+    """SECOND residual box encoding: centre deltas over the anchor's BEV
+    diagonal (x, y) and height (z), dims as log ratios (ratio − 1 with
+    ``smooth_dim``), the angle as a raw delta or a (cos, sin) vector delta.
+    ``(…, 7)`` boxes and broadcastable anchors → ``(…, 7)`` or ``(…, 8)``."""
+    xg, yg, zg, wg, lg, hg, rg = boxes.unbind(-1)
+    xa, ya, za, wa, la, ha, ra = anchors.unbind(-1)
+    diag = torch.sqrt(wa * wa + la * la)
+    xt, yt, zt = (xg - xa) / diag, (yg - ya) / diag, (zg - za) / ha
+    if smooth_dim:
+        wt, lt, ht = wg / wa - 1.0, lg / la - 1.0, hg / ha - 1.0
+    else:
+        wt, lt, ht = torch.log(wg / wa), torch.log(lg / la), torch.log(hg / ha)
+    if encode_angle_to_vector:
+        angle = [torch.cos(rg) - torch.cos(ra), torch.sin(rg) - torch.sin(ra)]
+    else:
+        angle = [rg - ra]
+    return torch.stack([xt, yt, zt, wt, lt, ht, *angle], dim=-1)
+
+
+def add_sin_difference(boxes1_rot, boxes2_rot):
+    """Sin-error angle encoding of the localization loss: the pair
+    ``(sin p · cos t, cos p · sin t)``, whose difference is ``sin(p − t)``."""
+    return (torch.sin(boxes1_rot) * torch.cos(boxes2_rot),
+            torch.cos(boxes1_rot) * torch.sin(boxes2_rot))
 
 
 def decode_boxes(deltas, anchors, encode_angle_to_vector: bool = False, smooth_dim: bool = False):

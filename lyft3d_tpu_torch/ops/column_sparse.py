@@ -13,9 +13,20 @@ Every function takes one sample or a batch: leading dimensions are carried
 where the JAX package ``vmap``s. Capacities, the even-spread overflow
 policies and the ghost rules are the JAX package's integer arithmetic,
 literally, because they decide which units survive. Not ported: the dense-z
-column functions (kept in the JAX package for comparison), the TPU kernel's
-window machinery and its ``t_tile``/``w_win`` knobs, and the backward sides
-(``rev_qids``), which come with training.
+column functions (kept in the JAX package for comparison) and the TPU
+kernel's window machinery with its ``t_tile``/``w_win`` knobs.
+
+The gradient of the stencil (:class:`StencilConv`) has two sides. ``d_src`` is
+the stencil kernel itself, launched a second time on the cotangent rows with
+the reverse queries ``rev_qids``/``rev_src_ids`` (for each source row and
+offset, the id of the query that reads it: index arithmetic in
+:func:`subm_conv_units_batched` and :func:`strided_conv_units_batched`) and
+transposed band weights, as in the JAX package. ``d_wc`` is
+``stencil_wgrad_kernel`` of the same source file. On a CPU tensor the plain
+versions run: :func:`stencil_conv_ref` on the reverse queries, and
+:func:`stencil_conv_bwd_ref` (the plain forward differentiated by autograd).
+Everything around the kernel (masks, halos, band weights, the fill) is plain
+autograd.
 """
 
 from __future__ import annotations
@@ -44,12 +55,21 @@ __all__ = [
     "units_to_dense_bev",
     "stencil_conv_batched",
     "stencil_conv_ref",
+    "stencil_conv_bwd_ref",
+    "StencilConv",
+    "rev_qids_strided",
     "PAD_ID",
     "KERNEL_LAUNCHES",
+    "DGRAD_KERNEL_LAUNCHES",
+    "WGRAD_KERNEL_LAUNCHES",
 ]
 
 # Number of times stencil_conv_batched launched the CUDA kernel in this process.
 KERNEL_LAUNCHES = 0
+# Number of times its backward launched the stencil kernel on the reverse
+# queries (d_src) and the weight-gradient kernel (d_wc).
+DGRAD_KERNEL_LAUNCHES = 0
+WGRAD_KERNEL_LAUNCHES = 0
 
 # Larger than any unit id (nx·ny·NC ≤ 2^25 at the FHD geometry).
 PAD_ID = 2 ** 28
@@ -296,7 +316,11 @@ def subm_conv_units_batched(colf, cols: ColumnSet, w, ncs: int):
     fm = colf * cols.mask[..., None].to(colf.dtype)
     src = _unit_rows_padded(fm, cols.col_ids, cols.valid, ncs, bottom=True)
     wc = _unit_band_weights(w, zs, zs + 2, 1, _lane_pad((zs + 2) * cin))
-    out = stencil_conv_batched(src, unit_qids_subm(cols, ncs), cols.col_ids, wc, 1)
+    qids = unit_qids_subm(cols, ncs)
+    # The nine BEV offsets are symmetric under j ↦ 8 − j: the query that reads
+    # row v at offset j is v's own neighbour at the opposite offset.
+    out = stencil_conv_batched(src, qids, cols.col_ids, wc, 1,
+                               rev_qids=qids.flip(-2), rev_src_ids=cols.col_ids)
     return out.unflatten(-1, (zs, cout))
 
 
@@ -382,6 +406,30 @@ def downsample_units(cols: ColumnSet, ncs: int, max_out: int) -> ColumnSet:
     )
 
 
+def rev_qids_strided(in_cols: ColumnSet, out_cols: ColumnSet, ncs: int):
+    """``(…, 9, Vu)`` int32 reverse queries of the strided conv: for input unit
+    v at (ix, iy, slab) and offset j = (dx, dy), the id of the output unit at
+    ``((ix − dx)/2, (iy − dy)/2, slab)`` where both are even and inside the
+    output grid, else −1. Floor division, as Python's ``//`` on negatives."""
+    nxv, _ = in_cols.bev_shape
+    onxv, ony = out_cols.bev_shape
+    onx = onxv // ncs
+    offs = _bev_offsets2d(in_cols.col_ids.device)
+    ic_ids = in_cols.col_ids.long()
+    vx = ic_ids % nxv
+    ix = vx // ncs
+    slab = vx - ix * ncs
+    iy = ic_ids // nxv
+    tx = ix[..., None, :] - offs[:, None, 0]
+    ty = iy[..., None, :] - offs[:, None, 1]
+    even = (torch.remainder(tx, 2) == 0) & (torch.remainder(ty, 2) == 0)
+    qx = torch.div(tx, 2, rounding_mode="floor")
+    qy = torch.div(ty, 2, rounding_mode="floor")
+    inb = (in_cols.valid[..., None, :] & even
+           & (qx >= 0) & (qx < onx) & (qy >= 0) & (qy < ony))
+    return torch.where(inb, (qy * onx + qx) * ncs + slab[..., None, :], -1).to(torch.int32)
+
+
 def strided_conv_units_batched(colf, in_cols: ColumnSet, out_cols: ColumnSet, w, ncs: int):
     """k=3 s=2 p=1 strided conv over z-slab units: output slab c reads input
     slab c plus one top halo row. Returns (``(…, Vuo, zso, Cout)`` float32,
@@ -409,11 +457,15 @@ def strided_conv_units_batched(colf, in_cols: ColumnSet, out_cols: ColumnSet, w,
     m = in_cols.mask[..., None].to(colf.dtype)
     src = _unit_rows_padded(torch.cat([colf * m, m], dim=-1), in_cols.col_ids, in_cols.valid,
                             ncs, bottom=False)
-    w_aug = w.new_zeros(27, cin + 1, cout + 1)
-    w_aug[:, :cin, :cout] = w
-    w_aug[:, cin, cout] = 1
+    # [w 0; 0 1] without writing into a tensor, so that the gradient reaches w.
+    corner = torch.zeros(27, cin + 1, cout + 1, dtype=w.dtype, device=w.device)
+    corner[:, cin, cout] = 1
+    w_aug = F.pad(w, (0, 1, 0, 1)) + corner
     wc = _unit_band_weights(w_aug, zso, zs + 1, 2, _lane_pad((zs + 1) * (cin + 1)))
-    out_full = stencil_conv_batched(src, qids, in_cols.col_ids, wc, 1).unflatten(-1, (zso, cout + 1))
+    out_full = stencil_conv_batched(
+        src, qids, in_cols.col_ids, wc, 1,
+        rev_qids=rev_qids_strided(in_cols, out_cols, ncs), rev_src_ids=out_cols.col_ids,
+    ).unflatten(-1, (zso, cout + 1))
     omask = (out_full[..., cout] > 0.5) & out_cols.valid[..., None]
     return out_full[..., :cout], omask
 
@@ -458,6 +510,16 @@ def stencil_conv_ref(src, qids, src_ids, wc, nc: int):
     return out.reshape(*qids.shape[:-2], vq, nc * n)
 
 
+def stencil_conv_bwd_ref(src, qids, src_ids, wc, nc: int, grad_out):
+    """Plain backward: :func:`stencil_conv_ref` differentiated by autograd.
+    Returns ``(d_src, d_wc)`` in the dtypes of ``src`` and ``wc``."""
+    with torch.enable_grad():
+        s = src.detach().requires_grad_(True)
+        w = wc.detach().requires_grad_(True)
+        out = stencil_conv_ref(s, qids, src_ids, w, nc)
+        return torch.autograd.grad(out, (s, w), grad_out)
+
+
 def _check_args(src, qids, src_ids, wc, nc: int):
     if src.dtype not in _DTYPE_CODES:
         raise TypeError(f"src must be float32 or bfloat16, got {src.dtype}")
@@ -482,18 +544,22 @@ def _check_args(src, qids, src_ids, wc, nc: int):
         )
 
 
-def _kernel_library():
+def _kernel_library(entry: str = "stencil_conv_launch"):
+    """Both launch functions of ``csrc/stencil_conv.cu`` have one signature:
+    five pointers, eight ints, the stream."""
     lib = _build.load_library("stencil_conv")
-    fn = lib.stencil_conv_launch
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int):
-    """Launch ``csrc/stencil_conv.cu`` on PyTorch's current stream."""
-    global KERNEL_LAUNCHES
+def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int, dgrad: bool = False):
+    """Launch ``csrc/stencil_conv.cu`` on PyTorch's current stream. ``dgrad``
+    says that this is the backward's launch on the reverse queries, counted
+    apart."""
+    global KERNEL_LAUNCHES, DGRAD_KERNEL_LAUNCHES
     launch = _kernel_library()
     batched = src.dim() == 3
     s = (src if batched else src[None]).contiguous()
@@ -513,11 +579,92 @@ def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int):
     )
     if err != 0:
         raise RuntimeError(f"stencil_conv kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    if dgrad:
+        DGRAD_KERNEL_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out if batched else out[0]
 
 
-def stencil_conv_batched(src, qids, src_ids, wc, nc: int):
+def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int):
+    """Launch ``stencil_wgrad_kernel`` on PyTorch's current stream: ``(9, kzp,
+    n)`` float32 from the source rows and the float32 cotangent."""
+    global WGRAD_KERNEL_LAUNCHES
+    launch = _kernel_library("stencil_wgrad_launch")
+    batched = src.dim() == 3
+    s = (src if batched else src[None]).contiguous()
+    q = (qids if batched else qids[None]).contiguous()
+    ids = (src_ids if batched else src_ids[None]).contiguous()
+    g = (grad_out if batched else grad_out[None]).float().contiguous()
+    b, vs, _ = s.shape
+    vq = q.shape[-1]
+    out = torch.zeros((9, kzp, n), dtype=torch.float32, device=s.device)
+    dev = s.device.index if s.device.index is not None else torch.cuda.current_device()
+    err = launch(
+        ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(ids.data_ptr()),
+        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        b, vs, vq, nc, kzp, n, _DTYPE_CODES[s.dtype], dev,
+        ctypes.c_void_p(torch.cuda.current_stream(s.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"stencil_wgrad kernel launch failed with CUDA error {err}")
+    WGRAD_KERNEL_LAUNCHES += 1
+    return out
+
+
+class StencilConv(torch.autograd.Function):
+    """The stencil with its gradient; ``wc`` in ``src``'s dtype. ``rev_qids``
+    ``(…, 9, Vs)`` and ``rev_src_ids`` ``(…, Vq)`` are the reverse queries (for
+    source row v and offset j the id of the query that reads v, and the
+    ascending ids of the queries). On a CUDA tensor ``d_src`` is the stencil
+    kernel on them and ``d_wc`` the weight-gradient kernel; without reverse
+    queries the backward raises there. On a CPU tensor the plain versions run
+    (without reverse queries, autograd of the plain forward)."""
+
+    @staticmethod
+    def forward(ctx, src, qids, src_ids, wc, nc, rev_qids, rev_src_ids):
+        ctx.save_for_backward(src, qids, src_ids, wc, rev_qids, rev_src_ids)
+        ctx.nc = nc
+        if src.device.type == "cuda":
+            return _stencil_conv_cuda(src, qids, src_ids, wc, nc)
+        return stencil_conv_ref(src, qids, src_ids, wc, nc)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        src, qids, src_ids, wc, rev_qids, rev_src_ids = ctx.saved_tensors
+        nc = ctx.nc
+        grad_out = grad_out.contiguous()
+        need_src, need_wc = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
+        on_card = grad_out.device.type == "cuda"
+        if rev_qids is None:
+            if on_card:
+                raise ValueError(
+                    "the stencil's backward on a CUDA tensor needs rev_qids and rev_src_ids"
+                )
+            d_src, d_wc = stencil_conv_bwd_ref(src, qids, src_ids, wc, nc, grad_out)
+            return (d_src if need_src else None), None, None, (d_wc if need_wc else None), None, None, None
+        kzp, n = wc.shape[1:]
+        d_src = d_wc = None
+        if need_src:
+            # The transposed conv is a 9-offset stencil over the cotangent
+            # rows (chunk width N, output width kzp), picked by the reverse
+            # queries; the cotangent rows' ids are the forward's query ids.
+            g_rows = grad_out.to(src.dtype)
+            wct = wc.transpose(1, 2).contiguous()
+            if on_card:
+                d_src = _stencil_conv_cuda(g_rows, rev_qids, rev_src_ids, wct, nc, dgrad=True)
+            else:
+                d_src = stencil_conv_ref(g_rows, rev_qids, rev_src_ids, wct, nc)
+            d_src = d_src.to(src.dtype)
+        if need_wc:
+            if on_card:
+                d_wc = _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc, kzp, n).to(wc.dtype)
+            else:
+                d_wc = stencil_conv_bwd_ref(src, qids, src_ids, wc, nc, grad_out)[1]
+        return d_src, None, None, d_wc, None, None, None
+
+
+def stencil_conv_batched(src, qids, src_ids, wc, nc: int, rev_qids=None, rev_src_ids=None):
     """9-offset stencil conv over chunked column rows, matched by id:
     ``out[…, q, c·N:(c+1)·N] = Σ_j src[…, pos(qids[…, j, q])][c·kzp:(c+1)·kzp] @ wc[j]``.
 
@@ -525,13 +672,25 @@ def stencil_conv_batched(src, qids, src_ids, wc, nc: int):
     ``(…, 9, Vq)`` int32 neighbour ids per offset (−1 absent); ``src_ids``
     ``(…, Vs)`` int32 ascending source ids (the invalid tail above every
     query id); ``wc`` ``(9, kzp, N)`` band weights, cast to ``src``'s dtype.
-    Returns ``(…, Vq, nc·N)`` float32: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor, an error otherwise.
+    ``rev_qids`` ``(…, 9, Vs)`` / ``rev_src_ids`` ``(…, Vq)`` int32: the
+    optional reverse queries the backward's ``d_src`` runs on
+    (:class:`StencilConv`). Returns ``(…, Vq, nc·N)`` float32: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor, an error
+    otherwise. Differentiable with respect to ``src`` and ``wc``.
     """
     kind = src.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"stencil_conv_batched runs on cuda or cpu tensors, not {kind!r}")
     _check_args(src, qids, src_ids, wc, nc)
-    if kind == "cuda":
-        return _stencil_conv_cuda(src, qids, src_ids, wc, nc)
-    return stencil_conv_ref(src, qids, src_ids, wc, nc)
+    if (rev_qids is None) != (rev_src_ids is None):
+        raise ValueError("rev_qids and rev_src_ids come together")
+    if rev_qids is not None and (
+        rev_qids.dtype != torch.int32 or rev_src_ids.dtype != torch.int32
+        or rev_qids.shape != (*src.shape[:-2], 9, src.shape[-2])
+        or rev_src_ids.shape != (*qids.shape[:-2], qids.shape[-1])
+    ):
+        raise ValueError(
+            f"rev_qids (…, 9, Vs) and rev_src_ids (…, Vq) int32 expected, got "
+            f"{tuple(rev_qids.shape)} {rev_qids.dtype}, {tuple(rev_src_ids.shape)} {rev_src_ids.dtype}"
+        )
+    return StencilConv.apply(src, qids, src_ids, wc.to(src.dtype), nc, rev_qids, rev_src_ids)

@@ -14,8 +14,14 @@ the device of the features alone:
 Both sum duplicate ids, as the Pallas kernel does; under the producer
 contract (unique ids) the canvas holds exact copies of the rows. Rows not
 covered by a valid id are zero. The JAX package's sorted-hint scatter and
-its ``method`` switch exist for the TPU and are not ported. The gradient
-(a row gather of the cotangent) comes with the training port.
+its ``method`` switch exist for the TPU and are not ported.
+
+The gradient with respect to the features is a row gather of the canvas
+cotangent, ``gf[i] = g[ids[i]]`` (zero for a dropped row; duplicate ids each
+receive the row): :class:`FillRowsById` computes it with the kernel
+``dense_fill_bwd_kernel`` of the same source file on a CUDA tensor and with
+the plain :func:`fill_rows_by_id_bwd_ref` on a CPU tensor. The sort that
+``fill_rows_by_id`` puts in front of the kernel is plain autograd.
 
 Layout: ``(V, C)`` rows with ``(V,)`` ids and valid mask for one sample, or
 ``(B, V, C)`` with ``(B, V)`` for a batch (``vmap`` becomes the leading
@@ -31,10 +37,19 @@ import torch
 
 from lyft3d_tpu_torch import _build
 
-__all__ = ["fill_rows_by_id", "fill_rows_by_id_scatter", "KERNEL_LAUNCHES"]
+__all__ = [
+    "fill_rows_by_id",
+    "fill_rows_by_id_scatter",
+    "fill_rows_by_id_bwd_ref",
+    "FillRowsById",
+    "KERNEL_LAUNCHES",
+    "BWD_KERNEL_LAUNCHES",
+]
 
 # Number of times fill_rows_by_id launched the CUDA kernel in this process.
 KERNEL_LAUNCHES = 0
+# Number of times its backward launched the CUDA gather kernel.
+BWD_KERNEL_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,6 +75,14 @@ def fill_rows_by_id_scatter(features, row_ids, valid, num_rows: int):
     return canvas.view(b, num_rows + 1, c)[:, :num_rows].reshape(*lead[:-1], num_rows, c)
 
 
+def fill_rows_by_id_bwd_ref(grad_canvas, ids, num_rows: int):
+    """Plain backward: ``gf[…, i, :] = grad_canvas[…, ids[…, i], :]``, zero
+    where the id is the sentinel ``num_rows``."""
+    hit = (ids >= 0) & (ids < num_rows)
+    index = ids.clamp(0, num_rows - 1).long()[..., None].expand(*ids.shape, grad_canvas.shape[-1])
+    return torch.gather(grad_canvas, -2, index) * hit[..., None].to(grad_canvas.dtype)
+
+
 def _check_args(features, row_ids, valid):
     if features.dtype not in _DTYPE_CODES:
         raise TypeError(f"features must be float32 or bfloat16, got {features.dtype}")
@@ -80,9 +103,9 @@ def _check_args(features, row_ids, valid):
         )
 
 
-def _kernel_library():
+def _kernel_library(entry: str = "dense_fill_launch"):
     lib = _build.load_library("dense_fill")
-    fn = lib.dense_fill_launch
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, ids, out
@@ -123,10 +146,61 @@ def _fill_cuda(features, ids, num_rows: int):
     return out if batched else out[0]
 
 
+def _fill_bwd_cuda(grad_canvas, ids, num_rows: int):
+    """Launch the gather kernel of ``csrc/dense_fill.cu`` on PyTorch's current
+    stream: ``(…, num_rows, C)`` canvas cotangent → ``(…, V, C)``."""
+    global BWD_KERNEL_LAUNCHES
+    launch = _kernel_library("dense_fill_bwd_launch")
+    batched = grad_canvas.dim() == 3
+    g = (grad_canvas if batched else grad_canvas[None]).contiguous()
+    ids = (ids if batched else ids[None]).contiguous()
+    b, v = ids.shape
+    c = g.shape[-1]
+    out = torch.empty((b, v, c), dtype=g.dtype, device=g.device)
+    vectorized = int(
+        (c * g.element_size()) % 16 == 0 and g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    )
+    dev = g.device.index if g.device.index is not None else torch.cuda.current_device()
+    err = launch(
+        ctypes.c_void_p(g.data_ptr()),
+        ctypes.c_void_p(ids.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()),
+        b, v, num_rows, c, _DTYPE_CODES[g.dtype], vectorized, dev,
+        ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"dense_fill backward kernel launch failed with CUDA error {err}")
+    BWD_KERNEL_LAUNCHES += 1
+    return out if batched else out[0]
+
+
+class FillRowsById(torch.autograd.Function):
+    """The fill on sorted, masked int32 ids (sentinel ``num_rows``) with its
+    gradient: forward and backward each take the CUDA kernel for a CUDA
+    tensor and the plain version for a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, features, ids, num_rows: int):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = num_rows
+        if features.device.type == "cuda":
+            return _fill_cuda(features, ids, num_rows)
+        return fill_rows_by_id_scatter(features, ids, ids < num_rows, num_rows)
+
+    @staticmethod
+    def backward(ctx, grad_canvas):
+        (ids,) = ctx.saved_tensors
+        grad_canvas = grad_canvas.contiguous()
+        if grad_canvas.device.type == "cuda":
+            return _fill_bwd_cuda(grad_canvas, ids, ctx.num_rows), None, None
+        return fill_rows_by_id_bwd_ref(grad_canvas, ids, ctx.num_rows), None, None
+
+
 def fill_rows_by_id(features, row_ids, valid, num_rows: int, assume_sorted: bool = False):
     """``(…, V, C)`` feature rows + ``(…, V)`` ``row_ids`` → ``(…, num_rows, C)``
     canvas: the CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor, an error otherwise.
+    tensor, an error otherwise. Differentiable with respect to ``features``
+    (:class:`FillRowsById`).
 
     Invalid entries are dropped. With ``assume_sorted`` the valid ids must
     ascend within each sample with the invalid entries at the tail (the
@@ -140,6 +214,4 @@ def fill_rows_by_id(features, row_ids, valid, num_rows: int, assume_sorted: bool
     if not assume_sorted:
         ids, order = torch.sort(ids, dim=-1, stable=True)
         features = torch.gather(features, -2, order[..., None].expand(features.shape))
-    if kind == "cuda":
-        return _fill_cuda(features, ids, num_rows)
-    return fill_rows_by_id_scatter(features, ids, ids < num_rows, num_rows)
+    return FillRowsById.apply(features, ids, num_rows)

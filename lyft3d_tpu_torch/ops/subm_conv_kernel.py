@@ -13,8 +13,14 @@ kernel wrapper and chooses its path by the device of the features alone:
 
 It replaces the Pallas TPU kernel ``_kernel`` behind ``subm_conv_pallas``,
 without the ``tile``/``interpret`` arguments and with a leading batch
-dimension where the JAX package ``vmap``s. The gradient comes with the
-training port.
+dimension where the JAX package ``vmap``s.
+
+The gradient (:class:`SubmConv`; XLA code in the JAX package) has two sides,
+each a hand-written kernel of the same source file on a CUDA tensor:
+``dW[k] = Σ f_sorted[ranks[k]]ᵀ g`` (``subm_wgrad_kernel``) and
+``df[ranks[k, v]] += g[v] @ W[k]ᵀ`` (``subm_dgrad_kernel``, a scatter with
+float32 atomics that holds for any rank table). On a CPU tensor both come
+from :func:`subm_conv_bwd_ref`, the plain forward differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -26,10 +32,22 @@ import torch
 from lyft3d_tpu_torch import _build
 from lyft3d_tpu_torch.ops.sparse_conv import take_rows
 
-__all__ = ["subm_conv", "subm_conv_ref", "KERNEL_LAUNCHES"]
+__all__ = [
+    "subm_conv",
+    "subm_conv_ref",
+    "subm_conv_bwd_ref",
+    "SubmConv",
+    "KERNEL_LAUNCHES",
+    "DGRAD_KERNEL_LAUNCHES",
+    "WGRAD_KERNEL_LAUNCHES",
+]
 
 # Number of times subm_conv launched the CUDA kernel in this process.
 KERNEL_LAUNCHES = 0
+# Number of times its backward launched the feature-gradient kernel and the
+# weight-gradient kernel.
+DGRAD_KERNEL_LAUNCHES = 0
+WGRAD_KERNEL_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,6 +62,16 @@ def subm_conv_ref(f_sorted, ranks, weights):
     rows = rows * ((ranks >= 0) & (ranks < v))[..., None].float()
     out = torch.einsum("...kvc,kcd->...vd", rows, weights.to(f_sorted.dtype).float())
     return out.to(f_sorted.dtype)
+
+
+def subm_conv_bwd_ref(f_sorted, ranks, weights, grad_out):
+    """Plain backward: :func:`subm_conv_ref` differentiated by autograd.
+    Returns ``(df, dW)`` in the dtypes of ``f_sorted`` and ``weights``."""
+    with torch.enable_grad():
+        f = f_sorted.detach().requires_grad_(True)
+        w = weights.detach().requires_grad_(True)
+        out = subm_conv_ref(f, ranks, w)
+        return torch.autograd.grad(out, (f, w), grad_out)
 
 
 def _check_args(f_sorted, ranks, weights):
@@ -69,9 +97,11 @@ def _check_args(f_sorted, ranks, weights):
         )
 
 
-def _kernel_library():
+def _kernel_library(entry: str = "subm_conv_launch"):
+    """Every launch function of ``csrc/subm_conv.cu`` has one signature: four
+    pointers, eight ints, the stream."""
     lib = _build.load_library("subm_conv")
-    fn = lib.subm_conv_launch
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -103,6 +133,70 @@ def _subm_conv_cuda(f_sorted, ranks, weights):
     return out if batched else out[0]
 
 
+def _subm_bwd_cuda(entry: str, a, ranks, other, out, dims):
+    launch = _kernel_library(entry)
+    dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    err = launch(
+        ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(ranks.data_ptr()),
+        ctypes.c_void_p(other.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        *dims, _DTYPE_CODES[a.dtype], dev,
+        ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"{entry} failed with CUDA error {err}")
+
+
+def _subm_conv_bwd_cuda(f_sorted, ranks, weights, grad_out, need_df: bool, need_dw: bool):
+    """Launch the backward kernels of ``csrc/subm_conv.cu`` on PyTorch's
+    current stream; ``weights`` already in the features' dtype."""
+    global DGRAD_KERNEL_LAUNCHES, WGRAD_KERNEL_LAUNCHES
+    batched = f_sorted.dim() == 3
+    feats = (f_sorted if batched else f_sorted[None]).contiguous()
+    rk = (ranks if batched else ranks[None]).to(torch.int32).contiguous()
+    g = (grad_out if batched else grad_out[None]).to(feats.dtype).contiguous()
+    w = weights.contiguous()
+    b, vs, c = feats.shape
+    k, vq = rk.shape[1:]
+    cout = w.shape[-1]
+    dims = (b, vs, vq, k, c, cout)
+    df = dw = None
+    if need_df:
+        df = torch.zeros((b, vs, c), dtype=torch.float32, device=feats.device)
+        _subm_bwd_cuda("subm_dgrad_launch", g, rk, w, df, dims)
+        DGRAD_KERNEL_LAUNCHES += 1
+        df = (df if batched else df[0]).to(f_sorted.dtype)
+    if need_dw:
+        dw = torch.zeros((k, c, cout), dtype=torch.float32, device=feats.device)
+        _subm_bwd_cuda("subm_wgrad_launch", feats, rk, g, dw, dims)
+        WGRAD_KERNEL_LAUNCHES += 1
+        dw = dw.to(weights.dtype)
+    return df, dw
+
+
+class SubmConv(torch.autograd.Function):
+    """The rank gather-GEMM with its gradient; ``weights`` in the features'
+    dtype. Forward and backward each take the CUDA kernels for a CUDA tensor
+    and the plain version for a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, f_sorted, ranks, weights):
+        ctx.save_for_backward(f_sorted, ranks, weights)
+        if f_sorted.device.type == "cuda":
+            return _subm_conv_cuda(f_sorted, ranks, weights)
+        return subm_conv_ref(f_sorted, ranks, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        f_sorted, ranks, weights = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        need_df, _, need_dw = ctx.needs_input_grad
+        if grad_out.device.type == "cuda":
+            df, dw = _subm_conv_bwd_cuda(f_sorted, ranks, weights, grad_out, need_df, need_dw)
+        else:
+            df, dw = subm_conv_bwd_ref(f_sorted, ranks, weights, grad_out)
+        return (df if need_df else None), None, (dw if need_dw else None)
+
+
 def subm_conv(f_sorted, ranks, weights):
     """``out[…, v] = Σ_k f_sorted[…, ranks[…, k, v]] @ weights[k]``, absent (−1)
     rows zero.
@@ -112,12 +206,11 @@ def subm_conv(f_sorted, ranks, weights):
     sorted-order ranks (``subm_neighbors``); ``weights`` ``(K, C, Cout)``, cast
     to the features' dtype. Returns ``(…, Q, Cout)`` in that dtype, summed in
     float32: the CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor, an error otherwise.
+    tensor, an error otherwise. Differentiable with respect to ``f_sorted``
+    and ``weights`` (:class:`SubmConv`).
     """
     kind = f_sorted.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"subm_conv runs on cuda or cpu tensors, not {kind!r}")
     _check_args(f_sorted, ranks, weights)
-    if kind == "cuda":
-        return _subm_conv_cuda(f_sorted, ranks, weights)
-    return subm_conv_ref(f_sorted, ranks, weights)
+    return SubmConv.apply(f_sorted, ranks, weights.to(f_sorted.dtype))

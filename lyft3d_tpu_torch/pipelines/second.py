@@ -55,6 +55,7 @@ def voxelnet_config_from_experiment(exp, **overrides) -> VoxelNetConfig:
         middle_max_voxels=tuple(exp.middle_max_voxels),
         middle_norm=exp.middle_norm,
         middle_z_slab=exp.middle_z_slab,
+        similarity=exp.similarity,
         anchor_specs=specs,
         rpn_layer_nums=tuple(exp.rpn_layer_nums),
         rpn_strides=tuple(exp.rpn_strides),

@@ -1,12 +1,12 @@
-"""SECOND pipeline, host side: Lyft DB → infos → fixed-capacity samples, and
-detections → world-frame records (port of the inference half of
+"""SECOND pipeline, host side: Lyft DB → infos → (augmented) fixed-capacity
+samples, and detections → world-frame records (copy of
 ``lyft3d_tpu/pipelines/second_pipeline.py``; numpy only).
 
 - :func:`create_infos`: per-sample sensor-frame GT boxes and pose matrices;
-- :class:`SecondSampleLoader`: multisweep load → fixed arrays. The training
-  augmentations (database sampling, per-object noise, global flip, rotation
-  and scaling) come with the training port: ``sample(train=True)`` under
-  ``cfg.augment`` raises "not yet ported";
+- :class:`SecondSampleLoader`: multisweep load → fixed arrays;
+  ``sample(train=True)`` under ``cfg.augment`` applies database sampling,
+  per-object noise, global flip, rotation and scaling
+  (:mod:`lyft3d_tpu_torch.data.augment`), in the original's draw order;
 - :func:`detections_to_world_records`: sensor-frame detections → the records
   the mAP evaluator and the submission writer take.
 
@@ -16,16 +16,24 @@ standard yaw; evaluation happens in the world frame.
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from lyft3d_tpu_torch.core.quaternion import quat_from_yaw
+from lyft3d_tpu_torch.data.augment import (
+    DataBaseSampler,
+    global_rotation,
+    global_scaling,
+    noise_per_object,
+    random_flip,
+)
 from lyft3d_tpu_torch.data.lyftdb import LyftDB
 from lyft3d_tpu_torch.data.pointcloud import LidarPointCloud, load_multisweep
 
-__all__ = ["create_infos", "LoaderConfig", "SecondSampleLoader",
+__all__ = ["create_infos", "save_infos", "load_infos", "LoaderConfig", "SecondSampleLoader",
            "detections_to_world_records"]
 
 
@@ -56,6 +64,16 @@ def create_infos(db: LyftDB, num_sweeps: int = 10, classes: Optional[Sequence[st
     return infos
 
 
+def save_infos(infos, path):
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+
+
+def load_infos(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
 @dataclass
 class LoaderConfig:
     max_points: int = 65536
@@ -78,11 +96,9 @@ class SecondSampleLoader:
         infos: List[dict],
         class_names: Sequence[str],
         cfg: LoaderConfig = LoaderConfig(),
-        db_sampler=None,
+        db_sampler: Optional[DataBaseSampler] = None,
         seed: int = 0,
     ):
-        if db_sampler is not None:
-            raise NotImplementedError("db_sampler: training augmentation is not yet ported")
         self.db = db
         self.infos = {i["token"]: i for i in infos}
         self.class_names = list(class_names)
@@ -113,10 +129,21 @@ class SecondSampleLoader:
         names = np.asarray(info["gt_names"]).copy()
 
         if train and cfg.augment:
-            raise NotImplementedError(
-                "training augmentation is not yet ported; call sample(train=False) "
-                "or set LoaderConfig(augment=False)"
-            )
+            if self.db_sampler is not None:
+                extra = self.db_sampler.sample_all(boxes, names)
+                if extra is not None:
+                    boxes = np.concatenate([boxes, extra["boxes"]])
+                    names = np.concatenate([names, extra["names"]])
+                    pasted = extra["points"]
+                    pts4 = np.column_stack(
+                        [pasted[:, :3], np.zeros(len(pasted), np.float32)]
+                    )
+                    points = np.concatenate([points, pts4.astype(np.float32)])
+            if cfg.per_object_noise and len(boxes):
+                points, boxes = noise_per_object(points, boxes, self.rng)
+            points, boxes = random_flip(points, boxes, self.rng, cfg.flip_prob)
+            points, boxes, _ = global_rotation(points, boxes, self.rng, cfg.global_rot)
+            points, boxes, _ = global_scaling(points, boxes, self.rng, cfg.global_scale)
 
         # Fixed-capacity padding.
         out_pts = np.zeros((cfg.max_points, 4), np.float32)

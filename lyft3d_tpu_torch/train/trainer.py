@@ -1,0 +1,173 @@
+"""Generic step-loop trainer: train state, checkpoints, logs (port of
+``lyft3d_tpu/train/trainer.py``).
+
+Step-based loop with periodic eval and checkpointing, best-val tracking,
+auto-resume from the model_dir registry and checkpoint-on-interrupt. The
+supplied ``loss_fn(model, batch, generator) -> (loss, metrics_dict)`` runs
+the module; the module holds its parameters, so the JAX package's ``params``
+argument and its ``_model_state`` convention have no counterpart (running
+statistics are buffers of the module).
+
+**Master parameters.** The flax parameters are float32 and each layer casts
+them to its compute type. Here a module built in bfloat16 holds bfloat16
+parameters, and the train state keeps a float32 master copy of each of them:
+the gradient is cast up, the optimizer updates the masters, and the module's
+parameters are refreshed from them after every step. Float32 parameters (a
+float32 module, the heads) are their own masters.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Iterable, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from lyft3d_tpu_torch.train import checkpoint as ckpt
+from lyft3d_tpu_torch.train.logging import MetricLog
+from lyft3d_tpu_torch.train.optim import global_norm
+
+__all__ = ["TrainState", "TrainerConfig", "Trainer"]
+
+
+class TrainState:
+    """(module, optimizer, step) with the float32 master parameters the
+    optimizer works on."""
+
+    def __init__(self, module: nn.Module, optimizer_fn: Callable):
+        self.module = module
+        self.params: List[nn.Parameter] = [p for p in module.parameters() if p.requires_grad]
+        self.masters: List[nn.Parameter] = [
+            p if p.dtype == torch.float32 else nn.Parameter(p.detach().float()) for p in self.params
+        ]
+        self.optimizer = optimizer_fn(self.masters)
+        self.step = 0
+
+    def push_grads(self):
+        """The module's gradients, cast up, onto the masters."""
+        for p, m in zip(self.params, self.masters):
+            if m is not p:
+                m.grad = None if p.grad is None else p.grad.float()
+
+    @torch.no_grad()
+    def pull_params(self):
+        """The masters' values, cast down, into the module."""
+        for p, m in zip(self.params, self.masters):
+            if m is not p:
+                p.copy_(m)
+
+    def state_dict(self):
+        return {
+            "model": self.module.state_dict(),
+            "masters": [m.detach() for p, m in zip(self.params, self.masters) if m is not p],
+            "optimizer": self.optimizer.state_dict(),
+            "step": int(self.step),
+        }
+
+    def load_state_dict(self, sd):
+        self.module.load_state_dict(sd["model"])
+        own = [m for p, m in zip(self.params, self.masters) if m is not p]
+        if len(own) != len(sd["masters"]):
+            raise ValueError(f"checkpoint holds {len(sd['masters'])} master parameters, the state {len(own)}")
+        with torch.no_grad():
+            for m, saved in zip(own, sd["masters"]):
+                m.copy_(saved)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.step = int(sd["step"])
+
+
+@dataclass
+class TrainerConfig:
+    model_dir: str = "/tmp/lyft3d_model"
+    total_steps: int = 1000
+    log_every: int = 50
+    eval_every: int = 500
+    ckpt_every: int = 500
+    max_to_keep: int = 8
+    ckpt_name: str = "model"
+    use_tensorboard: bool = False
+
+
+class Trainer:
+    """``optimizer_fn(params) -> torch.optim.Optimizer`` builds the optimizer
+    over the master parameters (e.g. ``lambda p: build_optimizer(p, "adam",
+    1e-3)``)."""
+
+    def __init__(self, model: nn.Module, optimizer_fn: Callable, loss_fn: Callable,
+                 config: TrainerConfig, eval_fn: Optional[Callable] = None):
+        self.model = model
+        self.optimizer_fn = optimizer_fn
+        self.loss_fn = loss_fn
+        self.cfg = config
+        self.eval_fn = eval_fn
+        self.log = MetricLog(config.model_dir, use_tensorboard=config.use_tensorboard)
+        self.best_val = float("inf")
+
+    def step_fn(self, state: TrainState, batch, generator=None):
+        """One optimizer step on ``batch``; returns ``(state, metrics)`` with
+        the metrics as detached tensors (``loss`` and ``grad_norm`` added)."""
+        model = state.module
+        model.train()
+        for p in state.params:
+            p.grad = None
+        loss, metrics = self.loss_fn(model, batch, generator)
+        loss.backward()
+        metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in dict(metrics).items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = global_norm([p.grad for p in state.params])
+        state.push_grads()
+        state.optimizer.step()
+        state.pull_params()
+        state.step += 1
+        return state, metrics
+
+    # -- lifecycle -----------------------------------------------------------
+    def init_or_resume(self) -> TrainState:
+        state = TrainState(self.model, self.optimizer_fn)
+        _, step = ckpt.restore_latest(self.cfg.model_dir, state, name=self.cfg.ckpt_name)
+        if step is not None:
+            self.log.log_text(f"resumed from step {step}", step)
+        return state
+
+    def _save(self, state: TrainState, name: str, max_to_keep: int):
+        ckpt.save(self.cfg.model_dir, state, name=name, global_step=int(state.step),
+                  max_to_keep=max_to_keep)
+
+    def fit(self, state: TrainState, batches: Iterable, generator=None) -> TrainState:
+        """Run the step loop over ``batches`` (a host iterator of batches the
+        ``loss_fn`` takes)."""
+        cfg = self.cfg
+        t0 = time.time()
+        window = []
+        try:
+            for batch in batches:
+                if state.step >= cfg.total_steps:
+                    break
+                state, metrics = self.step_fn(state, batch, generator)
+                window.append(metrics)
+
+                step = state.step
+                if step % cfg.log_every == 0:
+                    m = {k: (float(v) if torch.is_tensor(v) else v) for k, v in window[-1].items()}
+                    m["runtime/steptime"] = (time.time() - t0) / max(len(window), 1)
+                    t0, window = time.time(), []
+                    self.log.log_metrics({"train": m}, step)
+                if cfg.eval_every and step % cfg.eval_every == 0 and self.eval_fn:
+                    val = self.eval_fn(state)
+                    self.log.log_metrics({"eval": val}, step)
+                    vloss = float(val.get("loss", np.inf))
+                    if vloss < self.best_val:
+                        self.best_val = vloss
+                        self._save(state, "best", 2)
+                if cfg.ckpt_every and step % cfg.ckpt_every == 0:
+                    self._save(state, cfg.ckpt_name, cfg.max_to_keep)
+        except (KeyboardInterrupt, Exception):
+            # Checkpoint on failure, then re-raise.
+            self._save(state, cfg.ckpt_name, cfg.max_to_keep)
+            self.log.log_text(f"interrupted at step {int(state.step)}; checkpoint saved")
+            raise
+        self._save(state, cfg.ckpt_name, cfg.max_to_keep)
+        return state

@@ -1,4 +1,4 @@
-"""The weight bridge: the JAX package's flax variables → this port's modules.
+"""The weight bridge: the JAX package's flax variables ↔ this port's modules.
 
 :func:`load_flax_params` takes a ``{"params": …, "batch_stats": …}`` tree
 (nested dicts of numpy-convertible arrays, as ``model.init`` returns them)
@@ -16,6 +16,11 @@ auto-naming (``ConvNormAct_0``, ``Conv_0``, ``Dense_1``, …). It raises if any
 flax leaf is left unused or any torch parameter or buffer is left unfilled
 (``num_batches_tracked`` has no flax counterpart and is set to 0), and on any
 shape mismatch.
+
+:func:`export_flax_params` is the reverse, through the same mapping: a module
+→ the ``{"params": …}`` tree as float32 numpy arrays, so that a test can take
+an optimizer step in both packages and compare the updated weights leaf by
+leaf. It raises on a torch tensor the mapping does not name.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
 from lyft3d_tpu_torch.models.unet import LyftUNet, ReferenceUNet
 
-__all__ = ["load_flax_params"]
+__all__ = ["load_flax_params", "export_flax_params"]
 
 Path = Tuple[str, ...]
 
@@ -335,3 +340,55 @@ def load_flax_params(module: nn.Module, tree) -> nn.Module:
             raise ValueError(f"{key}: flax shape {arr.shape} vs torch {tuple(t.shape)}")
         t.copy_(torch.tensor(arr))
     return module
+
+
+class _Ref:
+    """Stands for a flax leaf in a mapper run by :func:`export_flax_params`:
+    remembers the leaf's path and the axis permutation the mapper applies."""
+
+    def __init__(self, collection: str, path: Path, perm=None):
+        self.collection, self.path, self.perm = collection, path, perm
+
+    def transpose(self, *axes):
+        return _Ref(self.collection, self.path, axes)
+
+    @property
+    def T(self):
+        return _Ref(self.collection, self.path, (1, 0))
+
+
+class _Recorder:
+    def take(self, collection: str, path: Path) -> _Ref:
+        return _Ref(collection, path)
+
+
+@torch.no_grad()
+def export_flax_params(module: nn.Module):
+    """The flax variables of ``module``: ``{"params": …}`` (and
+    ``"batch_stats"`` where the module has running statistics) as nested
+    dicts of float32 numpy arrays in flax's layouts and names."""
+    mapper = _MAPPERS.get(type(module))
+    if mapper is None:
+        raise TypeError(f"no flax mapping for {type(module).__name__}")
+    refs: Dict[str, _Ref] = {}
+    mapper(module, _Recorder(), (), "", refs)
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    unmapped = sorted(
+        k for k in targets if k not in refs and not k.endswith("num_batches_tracked")
+    )
+    if unmapped:
+        raise ValueError(f"torch tensors of {type(module).__name__} without a flax name: {unmapped}")
+    stray = sorted(set(refs) - set(targets))
+    if stray:
+        raise ValueError(f"mapping names tensors {type(module).__name__} lacks: {stray}")
+    tree: Dict[str, dict] = {}
+    for key, ref in refs.items():
+        arr = targets[key].detach().float().cpu().numpy()
+        if ref.perm is not None:
+            arr = arr.transpose(np.argsort(ref.perm))
+        node = tree.setdefault(ref.collection, {})
+        for part in ref.path[:-1]:
+            node = node.setdefault(part, {})
+        node[ref.path[-1]] = np.ascontiguousarray(arr)
+    return tree

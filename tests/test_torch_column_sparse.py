@@ -303,3 +303,193 @@ def test_stencil_kernel_on_card_matches_plain():
     torch.cuda.synchronize()
     want = tcs.stencil_conv_ref(src, qids, ids, wc, 2)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ------------------------------------------------------------------ gradients
+#
+# Tolerance: 1e-5 of the gradient's scale in float32 (sums of the same
+# products in another order). Reverse-query arrays are integer arithmetic and
+# compared exactly.
+
+GRAD_TOL = 1e-5
+
+
+def unit_batch(seeds, shape, z_slab, n, cap):
+    pairs = [unit_pair(s, shape, z_slab, n + 3 * i, cap) for i, s in enumerate(seeds)]
+    jcols = stack_trees([p[0][0] for p in pairs])
+    jf = jnp.stack([p[0][1] for p in pairs])
+    return jcols, jf, to_torch_cols(jcols)
+
+
+@pytest.mark.parametrize("rev", [True, False], ids=["rev_qids", "legacy"])
+@pytest.mark.parametrize("method", ["ref", "pallas_interpret"])
+def test_stencil_conv_gradients_match_jax(method, rev):
+    """d_src and d_wc of the submanifold stencil (symmetric queries, so that
+    reverse queries exist) against jax.grad, with the reverse queries and
+    through the legacy branch without them."""
+    shape, z_slab, ncs, cin, cout = (10, 11, 8), 4, 2, 3, 4
+    jcols, jf, tcols = unit_batch((3, 13), shape, z_slab, 56, 80)
+    rng = np.random.RandomState(0)
+    kzp = 128
+    jsrc = jax.vmap(lambda f, i, v: jcs._unit_rows_padded(f, i, v, ncs, bottom=True))(
+        jf * jcols.mask[..., None], jcols.col_ids, jcols.valid)
+    wc = (rng.randn(9, kzp, z_slab * cout) * 0.3).astype(np.float32)
+    jq = jax.vmap(lambda c: jcs.unit_qids_subm(c, ncs))(jcols)
+    tgt = rng.randn(*jsrc.shape[:2], z_slab * cout).astype(np.float32)
+
+    def jloss(s, w):
+        o = jcs.stencil_conv_batched(s, jq, jcols.col_ids, w, 1, 256, 384, method,
+                                     rev_qids=jq[:, ::-1] if rev else None,
+                                     rev_src_ids=jcols.col_ids if rev else None)
+        return jnp.sum(jnp.sin(o) * tgt)
+
+    want_s, want_w = jax.grad(jloss, argnums=(0, 1))(jsrc, jnp.asarray(wc))
+    src = t(jsrc).requires_grad_(True)
+    w = t(wc).requires_grad_(True)
+    tq = t(jq)
+    out = tcs.stencil_conv_batched(src, tq, tcols.col_ids, w, 1,
+                                   rev_qids=tq.flip(-2) if rev else None,
+                                   rev_src_ids=tcols.col_ids if rev else None)
+    (torch.sin(out) * t(tgt)).sum().backward()
+    close(src.grad, want_s, GRAD_TOL)
+    close(w.grad, want_w, GRAD_TOL)
+    assert float(np.abs(want_s).max()) > 0 and float(np.abs(want_w).max()) > 0
+
+
+def test_stencil_backward_rev_equals_plain_autograd(monkeypatch):
+    """The reverse-query d_src equals autograd of the plain forward, for the
+    strided layer's queries too (asymmetric: the cotangent's ids are the
+    output units', with the invalid tail above every valid id)."""
+    shape, z_slab, ncs = (12, 10, 8), 4, 2
+    jcols, jf, tcols = unit_batch((70, 71), shape, z_slab, 50, 80)
+    out_cols = tcs.downsample_units(tcols, ncs, 96)
+    ids = out_cols.col_ids.long()
+    big = int(ids.max())
+    assert (ids[..., 1:] >= ids[..., :-1]).all()  # ascending, PAD at the tail
+    assert (ids[~out_cols.valid] == big).all() and (ids[out_cols.valid] < big).all()
+    w = t((np.random.RandomState(1).randn(27, 3, 5) * 0.3).astype(np.float32))
+    stencil = tcs.stencil_conv_batched
+
+    def run():
+        f = t(jf).requires_grad_(True)
+        wt = w.clone().requires_grad_(True)
+        o, _ = tcs.strided_conv_units_batched(f, tcols, out_cols, wt, ncs)
+        torch.sin(o).sum().backward()
+        return f.grad, wt.grad
+
+    with_rev = run()
+    # The same layer with the reverse queries dropped: the legacy branch.
+    monkeypatch.setattr(tcs, "stencil_conv_batched",
+                        lambda s, q, i, wc, nc, rev_qids=None, rev_src_ids=None: stencil(s, q, i, wc, nc))
+    legacy = run()
+    close(with_rev[0], legacy[0].numpy(), GRAD_TOL)
+    close(with_rev[1], legacy[1].numpy(), GRAD_TOL)
+    assert float(with_rev[0].abs().max()) > 0
+
+
+def test_rev_qids_equal_jax():
+    """Reverse queries, exact: submanifold (the flip) and strided (floor
+    division and modulo on negative coordinates)."""
+    shape, z_slab, ncs = (12, 10, 8), 4, 2
+    jcols, jf, tcols = unit_batch((70, 71), shape, z_slab, 50, 80)
+    jout = jax.jit(jax.vmap(lambda c: jcs.downsample_units(c, ncs, 256)))(jcols)
+    tout = tcs.downsample_units(tcols, ncs, 256)
+    captured = {}
+    orig = jcs.stencil_conv_batched
+
+    def spy(*a, rev_qids=None, rev_src_ids=None, **k):
+        captured["rev_qids"], captured["rev_src_ids"] = rev_qids, rev_src_ids
+        return orig(*a, rev_qids=rev_qids, rev_src_ids=rev_src_ids, **k)
+
+    jcs.stencil_conv_batched = spy
+    try:
+        w = jnp.zeros((27, 3, 2), jnp.float32)
+        jcs.strided_conv_units_batched(jf, jcols, jout, w, ncs, method="ref")
+        got = tcs.rev_qids_strided(tcols, tout, ncs)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(captured["rev_qids"]))
+        np.testing.assert_array_equal(tout.col_ids.numpy(), np.asarray(captured["rev_src_ids"]))
+        assert (got.numpy() >= 0).any() and (got.numpy() < 0).any()
+        jcs.subm_conv_units_batched(jf, jcols, jnp.zeros((27, 3, 2), jnp.float32), ncs, method="ref")
+        np.testing.assert_array_equal(tcs.unit_qids_subm(tcols, ncs).flip(-2).numpy(),
+                                      np.asarray(captured["rev_qids"]))
+    finally:
+        jcs.stencil_conv_batched = orig
+
+
+@pytest.mark.parametrize("layer", ["subm", "strided"])
+def test_unit_layer_gradients_match_jax(layer):
+    """Gradients of the unit layers w.r.t. the unit features and the
+    (27, C, Cout) kernel: through masks, halos, band weights, the mask channel
+    of the strided layer and the kernel's Function."""
+    shape, z_slab, ncs, cin, cout = (12, 10, 8), 4, 2, 3, 5
+    jcols, jf, tcols = unit_batch((70, 71), shape, z_slab, 50, 80)
+    w = (np.random.RandomState(7).randn(27, cin, cout) * 0.3).astype(np.float32)
+    if layer == "subm":
+        def jloss(f, wt):
+            return jnp.sum(jnp.sin(jcs.subm_conv_units_batched(f, jcols, wt, ncs, method="ref")))
+
+        def tloss(f, wt):
+            return torch.sin(tcs.subm_conv_units_batched(f, tcols, wt, ncs)).sum()
+    else:
+        jout = jax.jit(jax.vmap(lambda c: jcs.downsample_units(c, ncs, 256)))(jcols)
+        tout = tcs.downsample_units(tcols, ncs, 256)
+
+        def jloss(f, wt):
+            o, m = jcs.strided_conv_units_batched(f, jcols, jout, wt, ncs, method="ref")
+            return jnp.sum(jnp.sin(o) * m[..., None])
+
+        def tloss(f, wt):
+            o, m = tcs.strided_conv_units_batched(f, tcols, tout, wt, ncs)
+            return (torch.sin(o) * m[..., None]).sum()
+
+    want_f, want_w = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jf, jnp.asarray(w))
+    f = t(jf).requires_grad_(True)
+    wt = t(w).requires_grad_(True)
+    tloss(f, wt).backward()
+    close(f.grad, want_f, GRAD_TOL)
+    close(wt.grad, want_w, GRAD_TOL)
+    assert float(np.abs(want_w).max()) > 0
+
+
+@pytest.mark.parametrize("seed,shape,z_slab,n,cap,sort,unit_cap", [
+    (1, (9, 9, 4), 2, 50, 64, True, None),
+    (0, (14, 12, 8), 4, 80, 100, False, None),
+    (4, (6, 6, 16), 4, 200, 256, True, 90),
+], ids=["sorted", "unsorted", "cap_overflow"])
+def test_units_from_voxels_gradient_matches_jax(seed, shape, z_slab, n, cap, sort, unit_cap):
+    """The hand-written JAX VJP is a gather; here it falls out of autograd
+    through the fill's backward and the sort. Exact (copies); a voxel of a
+    unit the cap dropped gets zero."""
+    coords, valid = random_voxels(seed, shape, n, cap, sort=sort)
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(cap, 5).astype(np.float32)
+    ucap = unit_cap if unit_cap is not None else cap + cap // 4
+    tgt = rng.randn(ucap, z_slab, 5).astype(np.float32)
+    want = jax.grad(lambda f: jnp.sum(jcs.units_from_voxels(
+        f, jactive(coords, valid, shape), z_slab, sort, unit_cap)[1] * tgt))(jnp.asarray(feats))
+    f = t(feats).requires_grad_(True)
+    _, uf = tcs.units_from_voxels(f, tactive(coords, valid, shape), z_slab, sort, unit_cap)
+    (uf * t(tgt)).sum().backward()
+    np.testing.assert_array_equal(f.grad.numpy(), np.asarray(want))
+    assert (f.grad.numpy()[~valid] == 0).all()
+    if unit_cap is not None:
+        assert (np.abs(f.grad.numpy()[valid]).sum(-1) == 0).any()
+
+
+@pytest.mark.cuda
+def test_stencil_backward_kernels_on_card_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
+    shape, z_slab, ncs = (12, 10, 8), 4, 2
+    _, jf, tcols = unit_batch((70, 71), shape, z_slab, 50, 80)
+    w = t((np.random.RandomState(1).randn(27, 3, 5) * 0.3).astype(np.float32))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        cols = tcs.ColumnSet(tcols.col_ids.to(dev), tcols.valid.to(dev), tcols.mask.to(dev),
+                             tcols.bev_shape, tcols.nz)
+        f = t(jf).to(dev).requires_grad_(True)
+        wt = w.to(dev).requires_grad_(True)
+        torch.sin(tcs.subm_conv_units_batched(f, cols, wt, ncs)).sum().backward()
+        grads.append((f.grad.cpu(), wt.grad.cpu()))
+    close(grads[0][0], grads[1][0].numpy(), GRAD_TOL)
+    close(grads[0][1], grads[1][1].numpy(), GRAD_TOL)

@@ -182,3 +182,89 @@ def test_kernel_on_card_matches_plain(dtype):
                                      assume_sorted=True)
     ref = dense_fill.fill_rows_by_id_scatter(feats.double(), dup, torch.ones(2, v, dtype=torch.bool), 500)
     torch.testing.assert_close(got.cpu().double(), ref, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------------ gradient
+#
+# The gradient is a gather of cotangent rows: exact against jax.grad through
+# the interpret-mode Pallas kernel's custom VJP and through the scatter.
+
+
+def _grad_case(seed, sort, batched):
+    rng = np.random.RandomState(seed)
+    shape = (2,) if batched else ()
+    ids = np.stack([rng.choice(ROWS, V, replace=False) for _ in range(2 if batched else 1)]).astype(np.int32)
+    if sort:
+        ids = np.sort(ids, -1)
+    ids = ids.reshape(*shape, V)
+    feats = rng.randn(*shape, V, C).astype(np.float32)
+    valid = (np.arange(V) < int(V * 0.9)) if sort else (rng.rand(V) < 0.85)
+    valid = np.broadcast_to(valid, ids.shape).copy()
+    tgt = rng.randn(*shape, ROWS, C).astype(np.float32)
+    return ids, feats, valid, tgt
+
+
+@pytest.mark.parametrize("sort,batched,jmethod", [
+    (True, False, "pallas"), (True, False, "scatter"), (False, False, "scatter"),
+    (True, True, "scatter"), (False, True, "scatter"),
+], ids=["sorted-pallas_interpret", "sorted-scatter", "unsorted-scatter", "batched-sorted",
+        "batched-unsorted"])
+def test_gradient_matches_jax(sort, batched, jmethod):
+    import jax
+
+    ids, feats, valid, tgt = _grad_case(11, sort, batched)
+
+    def jfill_one(f, i, v):
+        if jmethod == "pallas":
+            return jfill.fill_rows_by_id_pallas(f, i, v, ROWS, tile=256, interpret=True)
+        return jfill.fill_rows_by_id(f, i, v, ROWS, assume_sorted=sort, method="scatter")
+
+    def jloss(f):
+        fn = jax.vmap(jfill_one) if batched else jfill_one
+        return jnp.sum(fn(f, jnp.asarray(ids), jnp.asarray(valid)) * tgt)
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(feats)))
+    f = torch.from_numpy(feats).requires_grad_(True)
+    out = dense_fill.fill_rows_by_id(f, torch.from_numpy(ids), torch.from_numpy(valid), ROWS,
+                                     assume_sorted=sort)
+    (out * torch.from_numpy(tgt)).sum().backward()
+    np.testing.assert_array_equal(f.grad.numpy(), want)
+    assert (f.grad.numpy()[~valid] == 0).all() and np.abs(f.grad.numpy()[valid]).min() > 0
+
+
+def test_gradient_duplicate_ids_each_receive_the_row():
+    rng = np.random.RandomState(5)
+    ids = np.sort(rng.randint(0, 50, V)).astype(np.int32)
+    assert len(np.unique(ids)) < V
+    valid = rng.rand(V) < 0.9
+    g = rng.randn(50, C).astype(np.float32)
+    f = torch.zeros(V, C, requires_grad=True)
+    dense_fill.fill_rows_by_id(f, torch.from_numpy(ids), torch.from_numpy(valid), 50,
+                               assume_sorted=False).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(f.grad.numpy(), g[ids] * valid[:, None])
+    np.testing.assert_array_equal(
+        dense_fill.fill_rows_by_id_bwd_ref(torch.from_numpy(g), torch.from_numpy(np.where(valid, ids, 50)), 50).numpy(),
+        g[ids] * valid[:, None])
+
+
+def test_backward_cuda_path_has_no_fallback(monkeypatch):
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(_build, "load_library", broken)
+    monkeypatch.setattr(dense_fill, "fill_rows_by_id_bwd_ref",
+                        lambda *a: pytest.fail("fell back to the plain version"))
+    with pytest.raises(RuntimeError, match="cannot build dense_fill"):
+        dense_fill._fill_bwd_cuda(torch.zeros(6, 4), torch.zeros(3, dtype=torch.int32), 6)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_on_card_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
+    rng = np.random.RandomState(0)
+    for c, dtype in ((8, torch.float32), (5, torch.float32), (64, torch.bfloat16)):
+        ids = torch.from_numpy(np.sort(rng.randint(0, ROWS + 1, (2, V)), -1).astype(np.int32)).cuda()
+        g = torch.from_numpy(rng.randn(2, ROWS, c).astype(np.float32)).to(dtype).cuda()
+        got = dense_fill._fill_bwd_cuda(g, ids, ROWS)
+        assert torch.equal(got, dense_fill.fill_rows_by_id_bwd_ref(g, ids, ROWS))

@@ -1,39 +1,52 @@
-"""The port's own host modules (``lyft3d_tpu_torch.core/.data/.eval`` and
-``.pipelines.second_pipeline``, numpy only) give the results of the JAX
-package's originals on the synthetic dataset. Equal where the arithmetic is
+"""The port's own host modules (``lyft3d_tpu_torch.core/.data/.eval``,
+``.config``, ``.train.logging`` and ``.pipelines.second_pipeline``, numpy
+only) give the results of the JAX package's originals on the synthetic
+dataset, the augmentations under equal seeds included. Equal where the arithmetic is
 the same code; every case is one parametrised test."""
+
+import dataclasses
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 
+import lyft3d_tpu.config as jconfig
 import lyft3d_tpu.core as jcore
 import lyft3d_tpu.core.box as jbox
 import lyft3d_tpu.core.geometry as jgeo
 import lyft3d_tpu.core.quaternion as jquat
+import lyft3d_tpu.data.augment as jaug
 import lyft3d_tpu.data.bev_pipeline as jbev
 import lyft3d_tpu.data.kitti as jkitti
 import lyft3d_tpu.data.lyftdb as jdb
 import lyft3d_tpu.data.map_mask as jmap
 import lyft3d_tpu.data.pointcloud as jpc
+import lyft3d_tpu.data.prefetch as jprefetch
 import lyft3d_tpu.eval.kitti_eval as jkeval
 import lyft3d_tpu.eval.map_eval as jmeval
 import lyft3d_tpu.eval.np_rotated_iou as jiou
 import lyft3d_tpu.eval.submission as jsub
 import lyft3d_tpu.pipelines.second_pipeline as jsec
+import lyft3d_tpu.train.logging as jlog
+import lyft3d_tpu_torch.config as tconfig
 import lyft3d_tpu_torch.core as tcore
 import lyft3d_tpu_torch.core.box as tbox
 import lyft3d_tpu_torch.core.geometry as tgeo
 import lyft3d_tpu_torch.core.quaternion as tquat
+import lyft3d_tpu_torch.data.augment as taug
 import lyft3d_tpu_torch.data.bev_pipeline as tbev
 import lyft3d_tpu_torch.data.kitti as tkitti
 import lyft3d_tpu_torch.data.lyftdb as tdb
 import lyft3d_tpu_torch.data.map_mask as tmap
 import lyft3d_tpu_torch.data.pointcloud as tpc
+import lyft3d_tpu_torch.data.prefetch as tprefetch
 import lyft3d_tpu_torch.eval.kitti_eval as tkeval
 import lyft3d_tpu_torch.eval.map_eval as tmeval
 import lyft3d_tpu_torch.eval.np_rotated_iou as tiou
 import lyft3d_tpu_torch.eval.submission as tsub
 import lyft3d_tpu_torch.pipelines.second_pipeline as tsec
+import lyft3d_tpu_torch.train.logging as tlog
 from lyft3d_tpu.data.synthetic import make_synthetic_lyft
 
 
@@ -328,7 +341,140 @@ def test_second_loader_and_world_records(dbs):
             classes)
     same(tsec.detections_to_world_records(t_infos[0], *args),
          jsec.detections_to_world_records(j_infos[0], *args))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsec.SecondSampleLoader(t, t_infos, classes).sample(tokens[0])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsec.SecondSampleLoader(t, t_infos, classes, db_sampler=object())
+    # Training samples: the augmentations draw from the loader's RandomState
+    # in the original's order, so equal seeds give equal arrays.
+    aug = dict(cfg, augment=True)
+    jl = jsec.SecondSampleLoader(j, j_infos, classes, jsec.LoaderConfig(**aug), seed=5)
+    tl = tsec.SecondSampleLoader(t, t_infos, classes, tsec.LoaderConfig(**aug), seed=5)
+    plain = tl.sample(tokens[0], train=False)
+    for tok in tokens:
+        same(tl.sample(tok), jl.sample(tok))
+    same(tl.batch(tokens), jl.batch(tokens))
+    assert not np.array_equal(tl.sample(tokens[0])["points"], plain["points"])
+
+
+def test_second_loader_with_database_sampling(dbs, tmp_path):
+    """GT database creation, class-balanced copy-paste sampling and the
+    training sample that pastes from it, under equal seeds."""
+    j, t = dbs
+    classes = ["car", "pedestrian"]
+    infos = tsec.create_infos(t, num_sweeps=1)
+    plain = tsec.SecondSampleLoader(t, infos, classes, tsec.LoaderConfig(num_sweeps=1, augment=False))
+    samples = [{"points": plain.load_points(i), "gt_boxes": i["gt_boxes"], "gt_names": i["gt_names"]}
+               for i in infos]
+    jaug.create_gt_database(tmp_path / "jdb", samples, min_points=1)
+    taug.create_gt_database(tmp_path / "tdb", samples, min_points=1)
+    jgt, tgt = jaug.GTDatabase(tmp_path / "jdb"), taug.GTDatabase(tmp_path / "tdb")
+    assert tgt.classes() == jgt.classes() and tgt.classes()
+    quota = {c: 6 for c in tgt.classes()}
+    cfg = dict(max_points=8192, max_gt=32, num_sweeps=1, augment=True)
+    jl = jsec.SecondSampleLoader(j, infos, classes, jsec.LoaderConfig(**cfg), seed=3,
+                                 db_sampler=jaug.DataBaseSampler(jgt, quota, seed=7))
+    tl = tsec.SecondSampleLoader(t, infos, classes, tsec.LoaderConfig(**cfg), seed=3,
+                                 db_sampler=taug.DataBaseSampler(tgt, quota, seed=7))
+    tokens = [s["token"] for s in t.sample]
+    pasted = 0
+    for tok in tokens:
+        got, want = tl.sample(tok), jl.sample(tok)
+        same(got, want)
+        pasted += int(got["gt_valid"].sum()) - int(plain.sample(tok, train=False)["gt_valid"].sum())
+    assert pasted > 0
+    tsec.save_infos(infos, tmp_path / "infos.pkl")
+    same(tsec.load_infos(tmp_path / "infos.pkl"), jsec.load_infos(tmp_path / "infos.pkl"))
+
+
+AUG_CASES = {
+    "random_flip": lambda m, p, b, r: m.random_flip(p, b, r, 0.9),
+    "global_rotation": lambda m, p, b, r: m.global_rotation(p, b, r, (-0.4, 0.4)),
+    "global_scaling": lambda m, p, b, r: m.global_scaling(p, b, r, (0.9, 1.1)),
+    "global_translate": lambda m, p, b, r: m.global_translate(p, b, r),
+    "noise_per_object": lambda m, p, b, r: m.noise_per_object(p, b, r),
+    "box_collision_test": lambda m, p, b, r: m.box_collision_test(b[:4], b[2:]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(AUG_CASES))
+def test_augmentations(case):
+    rng = np.random.RandomState(2)
+    boxes = np.column_stack([rng.uniform(-15, 15, (6, 2)), rng.uniform(-1, 1, 6),
+                             rng.uniform(1.5, 4, (6, 3)), rng.uniform(-3, 3, 6)])
+    boxes[5, :2] = boxes[4, :2] + 0.5  # one colliding pair
+    points = rng.uniform(-20, 20, (500, 4)).astype(np.float32)
+    points[:240, :3] = (boxes[:, None, :3] + rng.uniform(-0.7, 0.7, (6, 40, 3))).reshape(-1, 3)
+    fn = AUG_CASES[case]
+    same(fn(taug, points.copy(), boxes.copy(), np.random.RandomState(8)),
+         fn(jaug, points.copy(), boxes.copy(), np.random.RandomState(8)))
+
+
+def test_config_copy(tmp_path):
+    """Defaults, dict round trip, overrides, the yaml presets and the snapshot
+    of the copy equal the original's (compared as plain dicts)."""
+    for name in ("OptimizerConfig", "DataConfig", "BEVExperiment", "AnchorConfig", "SecondExperiment",
+                 "PointRCNNExperiment"):
+        assert tconfig.to_dict(getattr(tconfig, name)()) == jconfig.to_dict(getattr(jconfig, name)())
+    repo = Path(__file__).resolve().parent.parent
+    for cls, fname in (("SecondExperiment", "second_lyft_9class.yaml"),
+                       ("SecondExperiment", "second_lyft_9class_sparse.yaml"),
+                       ("BEVExperiment", "bev_seresnext101_map.yaml")):
+        jexp = jconfig.load_yaml(getattr(jconfig, cls), repo / "configs" / fname)
+        texp = tconfig.load_yaml(getattr(tconfig, cls), repo / "configs" / fname)
+        assert tconfig.to_dict(texp) == jconfig.to_dict(jexp)
+    overrides = ["optimizer.lr=0.5", "batch_size=3", "middle=sparse", "voxel_size=[0.1,0.1,0.2]"]
+    jexp = jconfig.apply_overrides(jconfig.SecondExperiment(), overrides)
+    texp = tconfig.apply_overrides(tconfig.SecondExperiment(), overrides)
+    assert tconfig.to_dict(texp) == jconfig.to_dict(jexp)
+    assert texp.optimizer.lr == 0.5 and texp.middle == "sparse" and tuple(texp.voxel_size) == (0.1, 0.1, 0.2)
+    with pytest.raises(Exception):
+        tconfig.apply_overrides(tconfig.SecondExperiment(), ["no_such_field=1"])
+    jp, tp = jconfig.snapshot_config(jexp, tmp_path / "j"), tconfig.snapshot_config(texp, tmp_path / "t")
+    assert tp.name == jp.name == "experiment.yaml"
+    assert tconfig.to_dict(tconfig.load_yaml(tconfig.SecondExperiment, tp)) == tconfig.to_dict(texp)
+    moved = tconfig.change_detection_range(texp, (-30, -30, -3, 30, 30, 1))
+    assert dataclasses.asdict(moved) == dataclasses.asdict(
+        jconfig.change_detection_range(jexp, (-30, -30, -3, 30, 30, 1)))
+
+
+@pytest.mark.parametrize("kind", ["mapped", "mapped_unordered", "threaded", "prefetch"])
+def test_prefetch_copy(kind):
+    def run(m):
+        work = lambda: iter(range(23))  # noqa: E731
+        if kind.startswith("mapped"):
+            it = m.MappedPrefetcher(work, lambda i: i * i, num_workers=3, depth=2,
+                                    ordered=kind == "mapped")
+        elif kind == "threaded":
+            it = m.ThreadedPrefetcher(work, depth=3)
+        else:
+            return list(m.prefetch(range(23), depth=2))
+        return list(iter(it))
+
+    got, want = run(tprefetch), run(jprefetch)
+    if kind == "mapped_unordered":
+        got, want = sorted(got), sorted(want)
+    assert got == want and len(got) == 23
+
+    def boom(i):
+        if i == 5:
+            raise ValueError("bad item")
+        return i
+
+    if kind == "mapped":
+        with pytest.raises(ValueError, match="bad item"):
+            list(iter(tprefetch.MappedPrefetcher(lambda: iter(range(9)), boom, num_workers=2)))
+
+
+def test_logging_copy(tmp_path):
+    metrics = {"train": {"loss": 1.5, "parts": {"cls": np.float32(0.25)}, "note": "warm"}, "lr": 3}
+    assert tlog.flatten_metrics(metrics) == jlog.flatten_metrics(metrics)
+    logs = []
+    for m, d in ((jlog, tmp_path / "j"), (tlog, tmp_path / "t")):
+        log = m.MetricLog(d, use_tensorboard=False)
+        log.log_text("hello", 1)
+        log.log_metrics(metrics, 2)
+        history = log.reload_history()
+        log.close()
+        for h in history:
+            h.pop("ts")
+        logs.append(((d / "log.txt").read_text(), history))
+    assert logs[0] == logs[1]
+    assert logs[1][1] == [{"step": 2, "train.loss": 1.5, "train.parts.cls": 0.25, "train.note": "warm", "lr": 3.0}]
+    assert json.loads((tmp_path / "t" / "log.json.lst").read_text().splitlines()[0])["step"] == 2

@@ -5,7 +5,9 @@
 - ``bev_rasterize`` picks its path by ``device.type`` alone, and the CUDA
   path never falls back to the plain version (``fill_rows_by_id``: see
   ``test_torch_dense_fill.py``);
-- importing the kernel modules needs no nvcc and no GPU;
+- importing the kernel modules and the training modules needs no nvcc and
+  no GPU, and a backward pass on CPU tensors launches no kernel;
+- a failing backward launch raises and never reaches the plain backward;
 - models that are not yet ported fail loudly.
 """
 
@@ -46,7 +48,10 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fla
 assert not bad, bad
 ours = sorted(m for m in sys.modules if m == "lyft3d_tpu" or m.startswith("lyft3d_tpu."))
 assert not ours, ours
-assert len(names) >= 44, names
+assert len(names) >= 55, names
+for new in ("config", "data.augment", "data.prefetch", "train.losses", "train.optim", "train.trainer",
+            "train.checkpoint", "train.logging", "pipelines.second_train"):
+    assert "lyft3d_tpu_torch." + new in names, new
 print("ok", len(names))
 """
     proc = _run(code)
@@ -130,6 +135,98 @@ print("ok")
                        "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_training_import_and_cpu_backward_need_no_nvcc_or_gpu():
+    code = """
+import lyft3d_tpu_torch.pipelines.second_train
+import lyft3d_tpu_torch.train.trainer
+import lyft3d_tpu_torch.cli
+import lyft3d_tpu_torch.ops.column_sparse as cs
+import lyft3d_tpu_torch.ops.subm_conv_kernel as sk
+import lyft3d_tpu_torch.ops.dense_fill as f
+import lyft3d_tpu_torch._build as b
+import torch
+src = torch.ones(4, 128, requires_grad=True); ids = torch.tensor([3, 5, 8, 9], dtype=torch.int32)
+qids = torch.full((9, 4), -1, dtype=torch.int32); qids[4] = ids
+wc = torch.ones(9, 128, 2, requires_grad=True)
+cs.stencil_conv_batched(src, qids, ids, wc, 1, rev_qids=qids.flip(0), rev_src_ids=ids).sum().backward()
+assert src.grad.sum() == 4 * 128 * 2 and wc.grad[4].sum() == 4 * 128 * 2
+feats = torch.ones(4, 3, requires_grad=True)
+sk.subm_conv(feats, torch.zeros(27, 4, dtype=torch.int32), torch.ones(27, 3, 2)).sum().backward()
+assert feats.grad[0].sum() == 27 * 4 * 3 * 2
+rows = torch.ones(3, 2, requires_grad=True)
+f.fill_rows_by_id(rows, torch.tensor([4, 0, 9]), torch.ones(3, dtype=torch.bool), 5).sum().backward()
+assert rows.grad.tolist() == [[1, 1], [1, 1], [0, 0]]
+assert not b._LIBS, "a kernel library was loaded"
+counts = (cs.KERNEL_LAUNCHES, cs.DGRAD_KERNEL_LAUNCHES, cs.WGRAD_KERNEL_LAUNCHES, sk.KERNEL_LAUNCHES,
+          sk.DGRAD_KERNEL_LAUNCHES, sk.WGRAD_KERNEL_LAUNCHES, f.KERNEL_LAUNCHES, f.BWD_KERNEL_LAUNCHES)
+assert not any(counts), counts
+print("ok")
+"""
+    proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
+                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("which", ["stencil_dgrad", "stencil_wgrad", "subm", "fill"])
+def test_backward_cuda_paths_propagate_loader_errors(monkeypatch, which):
+    """Each backward launcher, with the kernel loader failing, raises before
+    it counts a launch, and the plain backward is never called."""
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+    from lyft3d_tpu_torch.ops import dense_fill as f
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+
+    def broken_loader(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(_build, "load_library", broken_loader)
+    for mod, name in ((cs, "stencil_conv_bwd_ref"), (cs, "stencil_conv_ref"), (sk, "subm_conv_bwd_ref"),
+                      (f, "fill_rows_by_id_bwd_ref")):
+        monkeypatch.setattr(mod, name, plain_must_not_run)
+    ids = torch.zeros(4, dtype=torch.int32)
+    q = torch.zeros(9, 4, dtype=torch.int32)
+    calls = {
+        "stencil_dgrad": (lambda: cs._stencil_conv_cuda(torch.zeros(4, 2), q, ids, torch.zeros(9, 2, 128), 1,
+                                                        dgrad=True), "stencil_conv"),
+        "stencil_wgrad": (lambda: cs._stencil_wgrad_cuda(torch.zeros(4, 128), q, ids, torch.zeros(4, 2), 1,
+                                                         128, 2), "stencil_conv"),
+        "subm": (lambda: sk._subm_conv_bwd_cuda(torch.zeros(4, 3), torch.zeros(27, 4, dtype=torch.int32),
+                                                torch.zeros(27, 3, 2), torch.zeros(4, 2), True, True),
+                 "subm_conv"),
+        "fill": (lambda: f._fill_bwd_cuda(torch.zeros(6, 4), ids, 6), "dense_fill"),
+    }
+    call, lib = calls[which]
+    with pytest.raises(RuntimeError, match=f"cannot build {lib}"):
+        call()
+    assert not any((cs.DGRAD_KERNEL_LAUNCHES, cs.WGRAD_KERNEL_LAUNCHES, sk.DGRAD_KERNEL_LAUNCHES,
+                    sk.WGRAD_KERNEL_LAUNCHES, f.BWD_KERNEL_LAUNCHES))
+
+
+def test_stencil_backward_on_a_cuda_tensor_needs_reverse_queries():
+    """The legacy branch (no ``rev_qids``) is the plain backward; the Function
+    refuses it for a cotangent on the card instead of differentiating the
+    plain forward there."""
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    class Ctx:
+        saved_tensors = (torch.zeros(4, 128), torch.zeros(9, 4, dtype=torch.int32),
+                         torch.zeros(4, dtype=torch.int32), torch.zeros(9, 128, 2), None, None)
+        nc = 1
+        needs_input_grad = (True, False, False, True, False, False, False)
+
+    class OnCard:  # stands for a CUDA cotangent: only its device is read before the check
+        device = torch.device("cuda")
+
+        def contiguous(self):
+            return self
+
+    with pytest.raises(ValueError, match="needs rev_qids"):
+        cs.StencilConv.backward(Ctx(), OnCard())
 
 
 def test_dispatch_by_device_type(monkeypatch):

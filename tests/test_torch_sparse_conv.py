@@ -167,3 +167,116 @@ def test_subm_conv_kernel_on_card_matches_plain():
     torch.cuda.synchronize()
     want = tk.subm_conv_ref(f, ranks, w)
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+
+
+# ------------------------------------------------------------------ gradients
+
+
+def _subm_grad_case(c=4, cout=4):
+    shape = (8, 8, 4)
+    coords, valid = random_set(9, shape, 30, 40)
+    ja, ta = both(coords, valid, shape)
+    rng = np.random.RandomState(9)
+    feats = (rng.randn(40, c) * valid[:, None]).astype(np.float32)
+    w = rng.randn(27, c, cout).astype(np.float32)
+    jh, th = jsp.build_hash(ja), tsp.build_hash(ta)
+    jranks = jsp.subm_neighbors(ja, jh, jsp.kernel_offsets(3))
+    tranks = tsp.subm_neighbors(ta, th, tsp.kernel_offsets(3))
+    return feats, w, jh, th, jranks, tranks
+
+
+def test_subm_conv_gradients_match_jax_custom_vjp():
+    """df and dW of ``subm_conv`` against jax.grad through the interpret-mode
+    Pallas kernel's custom VJP (invalid rows, −1 ranks). 1e-5 of scale."""
+    import jax
+
+    feats, w, jh, th, jranks, tranks = _subm_grad_case()
+    want_f, want_w = jax.grad(
+        lambda f, ww: jnp.sum(subm_conv_pallas(f, jranks, ww, tile=16, interpret=True) ** 2),
+        argnums=(0, 1))(jnp.asarray(feats)[jh[1]], jnp.asarray(w))
+    f = t(feats)[th[1]].clone().requires_grad_(True)
+    wt = t(w).requires_grad_(True)
+    (tk.subm_conv(f, tranks, wt) ** 2).sum().backward()
+    close(f.grad, want_f)
+    close(wt.grad, want_w)
+    assert (np.asarray(jranks) < 0).any() and float(np.abs(want_f).max()) > 0
+
+
+def test_subm_conv_gradient_generic_ranks_and_bwd_ref():
+    """Any rank table (repeats, Q != V): the Function's CPU backward is the
+    plain backward, a scatter-add in df."""
+    g = torch.Generator().manual_seed(3)
+    f = torch.randn(2, 12, 3, generator=g)
+    w = torch.randn(27, 3, 5, generator=g)
+    ranks = torch.randint(-1, 12, (2, 27, 7), generator=g).int()
+    go = torch.randn(2, 7, 5, generator=g)
+    df, dw = tk.subm_conv_bwd_ref(f, ranks, w, go)
+    want_f = np.zeros((2, 12, 3))
+    want_w = np.zeros((27, 3, 5))
+    for b in range(2):
+        for k in range(27):
+            for q in range(7):
+                r = int(ranks[b, k, q])
+                if r >= 0:
+                    want_f[b, r] += go[b, q].numpy() @ w[k].numpy().T
+                    want_w[k] += np.outer(f[b, r].numpy(), go[b, q].numpy())
+    close(df, want_f)
+    close(dw, want_w)
+    fr, wr = f.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    tk.subm_conv(fr, ranks, wr).backward(go)
+    assert torch.equal(fr.grad, df) and torch.equal(wr.grad, dw)
+
+
+def test_sparse_index_ops_are_differentiable_in_the_features():
+    """``take_rows``, ``gather_by_rank`` and ``sparse_conv3d_gather`` against
+    jax.grad: exact (sums of copies of cotangent rows, each voxel read at
+    most once per offset)."""
+    import jax
+
+    shape = (8, 8, 4)
+    coords, valid = random_set(3, shape, 50, 64)
+    ja, ta = both(coords, valid, shape)
+    jo, to = jsp.downsample_coords(ja, 512), tsp.downsample_coords(ta, 512)
+    rng = np.random.RandomState(3)
+    feats = rng.randn(64, 5).astype(np.float32)
+    tgt = rng.randint(-3, 4, (27, 512, 5)).astype(np.float32)
+    want = jax.grad(lambda f: jnp.sum(jsp.sparse_conv3d_gather(f, ja, jo) * tgt))(jnp.asarray(feats))
+    f = t(feats).requires_grad_(True)
+    (tsp.sparse_conv3d_gather(f, ta, to) * t(tgt)).sum().backward()
+    close(f.grad, want, 1e-6)
+    jh, th = jsp.build_hash(ja), tsp.build_hash(ta)
+    jr = jsp.subm_neighbors(ja, jh, jsp.kernel_offsets(3))
+    tr = tsp.subm_neighbors(ta, th, tsp.kernel_offsets(3))
+    tgt2 = rng.randint(-3, 4, (27, 64, 5)).astype(np.float32)
+    want2 = jax.grad(lambda f: jnp.sum(jsp.gather_by_rank(f, jh[1], jr) * tgt2))(jnp.asarray(feats))
+    f2 = t(feats).requires_grad_(True)
+    (tsp.gather_by_rank(f2, th[1], tr) * t(tgt2)).sum().backward()
+    close(f2.grad, want2, 1e-6)
+
+
+def test_subm_conv_backward_cuda_path_has_no_fallback(monkeypatch):
+    from lyft3d_tpu_torch import _build
+
+    def broken(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(_build, "load_library", broken)
+    monkeypatch.setattr(tk, "subm_conv_bwd_ref", lambda *a: pytest.fail("fell back to the plain version"))
+    with pytest.raises(RuntimeError, match="cannot build subm_conv"):
+        tk._subm_conv_bwd_cuda(torch.zeros(4, 3), torch.zeros(27, 4, dtype=torch.int32),
+                               torch.zeros(27, 3, 2), torch.zeros(4, 2), True, True)
+
+
+@pytest.mark.cuda
+def test_subm_conv_backward_kernels_on_card_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
+    g = torch.Generator().manual_seed(0)
+    f = torch.randn(2, 3000, 16, generator=g).cuda()
+    ranks = torch.randint(-1, 3000, (2, 27, 3000), generator=g).int().cuda()
+    w = torch.randn(27, 16, 32, generator=g).cuda()
+    go = torch.randn(2, 3000, 32, generator=g).cuda()
+    df, dw = tk._subm_conv_bwd_cuda(f, ranks, w, go, True, True)
+    want_f, want_w = tk.subm_conv_bwd_ref(f, ranks, w, go)
+    assert float((df - want_f).abs().max()) <= TOL * float(want_f.abs().max())
+    assert float((dw - want_w).abs().max()) <= TOL * float(want_w.abs().max())
