@@ -65,6 +65,15 @@ Phases, one line of numbers each:
     output shapes, finite boxes, scores in [0, 1]; samples/s from CUDA events
     (2 warm-up, 10 timed iterations), a stage split, and peak memory.
 
+10a. sparse kernel edges: the stencil kernel, its two backward sides and the
+    rank gather's backward against their plain versions at the shapes a tiled
+    tensor-core kernel gets wrong first (:data:`STENCIL_EDGES`,
+    :data:`SUBM_EDGES`): query counts that are no multiple of the 128-query
+    tile, tiles without a hit, every query hitting at all nine offsets, one
+    hit in the whole launch, an empty sample, 65, 66, 68, 128 and 256 columns,
+    128 and 256 lanes, one and two chunks, dense random weights and banded
+    ones, 3 to 64 channels; bfloat16 (tensor cores) and float32 (FMA), with
+    the tolerances of phases 12 and 18;
 11. sparse check: the sparse ``VoxelNet`` of
     ``configs/second_lyft_9class_sparse.yaml`` (spelled out in
     :func:`fhd_config`: 0.05 x 0.05 x 0.2 m voxels on a 1984 x 1984 x 40
@@ -127,7 +136,10 @@ Phases, one line of numbers each:
     ``dW`` at the six, the fill's gather at its recorded shapes; 1e-5 of
     scale in float32 (5e-5 for the weight gradients, sums of up to 300,000
     outer products whose atomics vary in order), 2^-7 where the result is
-    rounded to bfloat16;
+    rounded to bfloat16. The weight gradient of the stencil is timed beside
+    cuBLAS (``torch.einsum``) on rows gathered beforehand, with and without
+    the gather; the stencil's two are replayed once more on a clustered cloud
+    that fills no cap (dense hits, few zero cotangent rows);
 19. fit: a short ``Trainer.fit`` on the bench-shaped tensors that writes
     checkpoints into a temporary directory, resumes from them in a fresh
     trainer at the right step with equal parameters, and trains on.
@@ -188,6 +200,8 @@ GT_SLOTS, GT_VALID = 64, 40
 BENCH_TRAIN_BATCH = 2
 # The gradient check's clustered cloud: few enough units that no cap fills.
 GRAD_CLUSTERS, GRAD_POINTS = 32, 8192
+# The clustered cloud of the backward replay: the same density a blob, more blobs.
+CLUSTER_BLOBS, CLUSTER_POINTS = 96, 24576
 # Tolerances of the card-vs-CPU gradient check (see grad_check): whole model
 # in the 2-norm, kernel path element-wise.
 GRAD_NORM_TOL, GRAD_PATH_TOL = 0.15, 2e-2
@@ -475,6 +489,151 @@ FHD_STENCIL_LAYERS = ((3, 16, 8, 0), (16, 16, 8, 0), (16, 16, 4, 1), (16, 32, 4,
                       (32, 32, 2, 1), (32, 64, 2, 0), (64, 64, 2, 0), (64, 64, 1, 1))
 
 
+# (batch, Vs, Vq, nc, kzp, N, hits) of the stencil edge checks; ``hits`` is the
+# share of (offset, query) pairs that hit, "all", "one", or "holes": 128-query
+# tiles without a hit and an empty last sample.
+STENCIL_EDGES = (
+    (2, 300, 300, 1, 128, 128, 0.3), (2, 300, 260, 2, 128, 68, 0.3), (1, 1000, 777, 1, 256, 128, 0.11),
+    (2, 500, 500, 2, 256, 65, 0.5), (2, 333, 400, 1, 128, 66, 0.4), (1, 257, 129, 1, 128, 256, "all"),
+    (2, 400, 400, 1, 256, 256, 0.2), (3, 640, 640, 1, 128, 128, "holes"), (2, 500, 500, 1, 256, 128, "one"),
+    (2, 100, 90, 1, 30, 16, 0.5),
+)
+# (C, Cout) of the rank gather's backward edge checks.
+SUBM_EDGES = ((3, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (20, 40), (96, 80))
+
+
+def stencil_edge_case(b, vs, vq, nc, kzp, n, hits, seed, dev):
+    """Sources, ids, queries with their reverse queries, weights (banded for
+    odd seeds: 60% of the 16-lane blocks zero) and a cotangent with every
+    third row zero. At every offset the queries read distinct rows, so the
+    reverse queries exist."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    span = 4 * max(vs, vq) + 16
+    src_ids = torch.stack([torch.sort(torch.randperm(span, generator=g)[:vs]).values for _ in range(b)]).int()
+    q_ids = torch.stack([torch.sort(torch.randperm(span, generator=g)[:vq]).values for _ in range(b)]).int()
+    qids = torch.full((b, 9, vq), -1, dtype=torch.int32)
+    rev = torch.full((b, 9, vs), -1, dtype=torch.int32)
+    for bi in range(b):
+        for j in range(9):
+            target = torch.randperm(max(vs, vq), generator=g)[:vq]
+            if hits == "all":
+                keep = target < vs
+            elif hits == "one":
+                keep = torch.zeros(vq, dtype=torch.bool)
+                keep[vq // 3] = (bi, j) == (b - 1, 7)
+            elif hits == "holes":
+                keep = (torch.rand(vq, generator=g) < 0.3) & ((torch.arange(vq) // 128) % 2 == 0) & (bi < b - 1)
+            else:
+                keep = torch.rand(vq, generator=g) < hits
+            keep &= target < vs
+            # A miss is −1 or an id no source row has.
+            miss = torch.where(torch.rand(vq, generator=g) < 0.5, -1, span + 5).int()
+            qids[bi, j] = torch.where(keep, src_ids[bi][target.clamp(max=vs - 1)], miss)
+            rev[bi, j, target[keep]] = q_ids[bi][keep]
+    src = torch.randn(b, vs, nc * kzp, generator=g)
+    wc = torch.randn(9, kzp, n, generator=g) * 0.3
+    if seed % 2:
+        wc = wc * (torch.rand(9, -(-kzp // 16), 1, generator=g) < 0.4).repeat_interleave(16, dim=1)[:, :kzp]
+    cot = torch.randn(b, vq, nc * n, generator=g)
+    cot[:, ::3] = 0
+    return tuple(t.to(dev) for t in (src, src_ids, q_ids, qids.contiguous(), rev.contiguous(), wc, cot))
+
+
+def stencil_edge_checks(dev):
+    """Phase 10a for the stencil: forward, ``d_src`` and ``d_wc`` of every
+    :data:`STENCIL_EDGES` case against the plain versions, in bfloat16 and in
+    float32. Returns the largest error over its tolerance."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    worst = 0.0
+
+    def hold(what, got, want, tol):
+        nonlocal worst
+        scale = float(want.float().abs().max())
+        err = rel_diff(got, want) if scale > 0 else float(got.float().abs().max())
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"sparse kernel edges: {what} differs from the plain version by "
+                                 f"{err} of its scale (tol {tol})")
+
+    for i, (b, vs, vq, nc, kzp, n, hits) in enumerate(STENCIL_EDGES):
+        src, src_ids, q_ids, qids, rev, wc, cot = stencil_edge_case(b, vs, vq, nc, kzp, n, hits, 600 + i, dev)
+        what = f"B={b} Vs={vs} Vq={vq} nc={nc} kzp={kzp} N={n} hits={hits}"
+        for dtype in (torch.bfloat16, torch.float32):
+            s_ = src.to(dtype).requires_grad_(True)
+            w_ = wc.to(dtype).requires_grad_(True)
+            out = cs.stencil_conv_batched(s_, qids, src_ids, w_, nc, rev_qids=rev, rev_src_ids=q_ids)
+            s32 = s_.detach().float().requires_grad_(True)
+            w32 = w_.detach().float().requires_grad_(True)
+            want = cs.stencil_conv_ref(s32, qids, src_ids, w32, nc)
+            hold(f"forward {what} {dtype}", out.detach(), want.detach(), 1e-5)
+            if hits == "one" and int((out.detach().abs().sum(-1) > 0).sum()) != 1:
+                raise AssertionError(f"sparse kernel edges: one hit must write one non-zero row ({what})")
+            got_s, = torch.autograd.grad(out, (s_,), cot)
+            want_s, want_w = torch.autograd.grad(want, (s32, w32), cot)
+            hold(f"d_src {what} {dtype}", got_s, want_s, 1e-5 if dtype == torch.float32 else 2.0 ** -7)
+            if dev.type == "cuda":  # before it is rounded to the weights' type
+                got_w = cs._stencil_wgrad_cuda(s_.detach(), qids, src_ids, cot, nc, kzp, n)
+            else:
+                got_w = cs.stencil_conv_bwd_ref(s32.detach(), qids, src_ids, w32.detach(), nc, cot)[1]
+            hold(f"d_wc {what} {dtype}", got_w, want_w, WGRAD_TOL)
+    return worst
+
+
+def subm_edge_checks(dev):
+    """Phase 10a for the rank gather: ``df`` and ``dW`` at :data:`SUBM_EDGES`
+    (3 samples of 2,000 rows, 20% of the off-centre neighbours present, the
+    last sample empty, every fourth cotangent row zero) against the plain
+    backward. Returns the largest error over its tolerance."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+
+    worst = 0.0
+    b, v = 3, 2000
+    for c, cout in SUBM_EDGES:
+        g = torch.Generator().manual_seed(100 * c + cout)
+        ranks = torch.where(torch.rand(b, 27, v, generator=g) < 0.2,
+                            torch.randint(0, v, (b, 27, v), generator=g), -1).int()
+        ranks[:, 13] = torch.arange(v)
+        ranks[-1] = -1
+        f = torch.randn(b, v, c, generator=g)
+        w = torch.randn(27, c, cout, generator=g) * 0.3
+        cot = torch.randn(b, v, cout, generator=g)
+        cot[:, ::4] = 0
+        f, w, cot, ranks = f.to(dev), w.to(dev), cot.to(dev), ranks.to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            f_ = f.to(dtype).requires_grad_(True)
+            w_ = w.to(dtype).requires_grad_(True)
+            got = torch.autograd.grad(sk.subm_conv(f_, ranks, w_), (f_, w_), cot.to(dtype))
+            f32 = f_.detach().float().requires_grad_(True)
+            w32 = w_.detach().float().requires_grad_(True)
+            want = torch.autograd.grad(sk.subm_conv_ref(f32, ranks, w32), (f32, w32), cot.to(dtype).float())
+            tols = (1e-5, WGRAD_TOL) if dtype == torch.float32 else (2.0 ** -7, 2.0 ** -7)
+            for name, a, bb, tol in zip(("df", "dW"), got, want, tols):
+                err = rel_diff(a, bb)
+                worst = max(worst, err / tol)
+                if not err <= tol:
+                    raise AssertionError(f"sparse kernel edges: rank gather {name} {c}->{cout} {dtype} "
+                                         f"differs from the plain backward by {err} of its scale (tol {tol})")
+    return worst
+
+
+def sparse_kernel_edges(dev, card):
+    """Phase 10a."""
+    t0 = time.perf_counter()
+    stencil = stencil_edge_checks(dev)
+    subm = subm_edge_checks(dev)
+    log(f"sparse kernel edges: {len(STENCIL_EDGES)} stencil cases (forward, d_src, d_wc) and "
+        f"{len(SUBM_EDGES)} rank gather cases (df, dW), bfloat16 and float32, all within tolerance "
+        f"(largest error / tolerance: stencil {stencil:.3g}, rank gather {subm:.3g}; tol 1e-5 float32, "
+        f"2^-7 rounded to bfloat16, weight gradients {WGRAD_TOL}) in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def stencil_replay(calls, card):
     """The recorded stencil calls of one forward pass, kernel against plain
     version, in the recorded dtype and in float32. Returns the ``kernels``
@@ -491,10 +650,7 @@ def stencil_replay(calls, card):
         b, vs, width = src.shape
         vq, (kzp, n) = qids.shape[-1], wc.shape[1:]
         assert n == z_out * (cout + strided) and nc == 1, (n, z_out, cout, nc)
-        flat = qids.long().reshape(b, -1)
-        pos = torch.searchsorted(src_ids.long().contiguous(), flat).clamp_(max=vs - 1)
-        hits = int(((torch.gather(src_ids.long(), 1, pos) == flat) & (flat >= 0)).sum())
-        del flat, pos
+        hits = int((cs.stencil_positions_ref(qids, src_ids) >= 0).sum())
         errs = {}
         for dtype in (src.dtype, torch.float32):
             s_, w_ = src.to(dtype), wc.to(dtype)
@@ -1376,7 +1532,7 @@ def retained_grad_ms(out, wrt, cot):
     return cuda_ms(lambda: torch.autograd.grad(out, wrt, cot, retain_graph=True), warmup=1, iters=3)
 
 
-def stencil_backward_replay(fwd_calls, wgrad_calls, card):
+def stencil_backward_replay(fwd_calls, wgrad_calls, card, cloud="uniform cloud"):
     """Phase 18 for the stencil: the nine recorded forward calls with the
     cotangents of the backward pass (recorded in reverse order). Returns the
     ``kernels`` records of ``d_src`` and ``d_wc`` (slowest launch, largest
@@ -1405,7 +1561,7 @@ def stencil_backward_replay(fwd_calls, wgrad_calls, card):
         for dtype in (src.dtype, torch.float32):
             s_, w_ = src.detach().to(dtype), wc.detach().to(dtype)
             got_s = cs._stencil_conv_cuda(cot.to(dtype), rq, rids, w_.transpose(1, 2).contiguous(), nc,
-                                          dgrad=True).to(dtype)
+                                          dgrad=True, out_dtype=dtype)
             got_w = cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n)
             torch.cuda.synchronize()
             tol_s = 1e-5 if dtype == torch.float32 else 2.0 ** -7
@@ -1419,35 +1575,63 @@ def stencil_backward_replay(fwd_calls, wgrad_calls, card):
             del got_s, got_w
         s_, w_t = src.detach(), wc.detach().to(src.dtype).transpose(1, 2).contiguous()
         g_rows = cot.to(src.dtype)
-        d_ms = cuda_ms(lambda: cs._stencil_conv_cuda(g_rows, rq, rids, w_t, nc, dgrad=True), warmup=1, iters=5)
+        d_ms = cuda_ms(lambda: cs._stencil_conv_cuda(g_rows, rq, rids, w_t, nc, dgrad=True,
+                                                     out_dtype=src.dtype), warmup=1, iters=5)
         w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n), warmup=1, iters=5)
+        zero_rows = int((cot.abs().amax(-1) == 0).sum())
         pd_ms = retained_grad_ms(out, (s32,), cot)
         pw_ms = retained_grad_ms(out, (w32,), cot)
         size = src.element_size()
-        flat = qids.long().reshape(b, -1)
-        pos = torch.searchsorted(src_ids.long().contiguous(), flat).clamp_(max=vs - 1)
-        pairs = int(((torch.gather(src_ids.long(), 1, pos) == flat) & (flat >= 0)).sum())
-        del flat, pos
+        pos = cs.stencil_positions_ref(qids, src_ids).long().reshape(b, -1)
+        pairs = int((pos >= 0).sum())
+        # The library yardstick of d_wc: the rows gathered beforehand, then one
+        # cuBLAS contraction (torch.einsum) in the source's type, which rounds
+        # the float32 cotangent once (the kernel keeps 16 bits of it).
+        s_flat, cot_w = src.detach(), cot.to(src.dtype)
+
+        def gather_rows():
+            picked = torch.gather(s_flat, 1, pos.clamp(min=0)[..., None].expand(-1, -1, s_flat.shape[-1]))
+            return (picked * (pos >= 0)[..., None].to(picked.dtype)).view(b, 9, vq, nc, kzp)
+
+        def contract(picked):
+            return torch.einsum("bjvck,bvcn->jkn", picked, cot_w.view(b, vq, nc, n))
+
+        picked = gather_rows()
+        lib_err = rel_diff(contract(picked), want_w)
+        if not lib_err <= 2.0 ** -6:
+            raise AssertionError(f"gather + einsum differs from the plain weight gradient by {lib_err}")
+        le_ms = cuda_ms(lambda: contract(picked), warmup=1, iters=3)
+        del picked
+        lg_ms = cuda_ms(lambda: contract(gather_rows()), warmup=1, iters=3)
+        del pos
         ops = pairs * 2 * 3 * z_out * cin * cout
         peak = BF16_PEAK if src.dtype == torch.bfloat16 else F32_PEAK
         ids_bytes = (b * 9 * vq + b * 9 * vs + b * vs + b * vq) * 4
         d_b = bound((b * vq * n + 9 * kzp * n) * size + ids_bytes + b * vs * kzp * size, ops, peak)
-        w_b = bound(b * vs * kzp * size + b * vq * n * 4 + ids_bytes + 9 * kzp * n * 4, ops, F32_PEAK)
+        w_b = bound(b * vs * kzp * size + b * vq * n * 4 + ids_bytes + 9 * kzp * n * 4, ops, peak)
         rows["dgrad"].append(dict(ms=d_ms, plain_ms=pd_ms, bound_ms=d_b[0], bound_by=d_b[1]))
-        rows["wgrad"].append(dict(ms=w_ms, plain_ms=pw_ms, bound_ms=w_b[0], bound_by=w_b[1]))
-        log(f"stencil backward: B={b} Vs={vs} Vq={vq} kzp={kzp} N={n} ({cin}->{cout}) {str(src.dtype)[6:]} "
-            f"hit_pairs={pairs} rows_read={rows_read} max_err/scale (d_src, d_wc) "
+        rows["wgrad"].append(dict(ms=w_ms, plain_ms=pw_ms, bound_ms=w_b[0], bound_by=w_b[1],
+                                  library_ms=lg_ms, einsum_ms=le_ms))
+        log(f"stencil backward ({cloud}): B={b} Vs={vs} Vq={vq} kzp={kzp} N={n} ({cin}->{cout}) {str(src.dtype)[6:]} "
+            f"hit_pairs={pairs} rows_read={rows_read} zero_cotangent_rows={zero_rows} of {b * vq} "
+            f"max_err/scale (d_src, d_wc) "
             + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in errs.items())
             + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (plain {pd_ms:.3f}, "
-            f"bound {d_b[0]:.5f} {d_b[1]}) d_wc_ms={w_ms:.4f} (plain {pw_ms:.3f}, bound {w_b[0]:.5f} "
-            f"{w_b[1]}) [{card}]")
+            f"bound {d_b[0]:.5f} {d_b[1]}) d_wc_ms={w_ms:.4f} (plain {pw_ms:.3f}, gather + einsum "
+            f"{lg_ms:.3f}, einsum on gathered rows {le_ms:.3f}, bound {w_b[0]:.5f} {w_b[1]}) [{card}]")
         del out, s32, w32, want_s, want_w
     records = {}
     for k in rows:
         total = {m: sum(r[m] for r in rows[k]) for m in ("ms", "plain_ms", "bound_ms")}
-        log(f"stencil backward: nine {k} launches: kernel_ms={total['ms']:.3f} "
-            f"plain_ms={total['plain_ms']:.3f} bound_ms={total['bound_ms']:.4f} [{card}]")
-        records[k] = dict(max(rows[k], key=lambda r: r["ms"]), max_abs_err=worst[k])
+        library = ""
+        if k == "wgrad":
+            library = (f" gather_einsum_ms={sum(r['library_ms'] for r in rows[k]):.3f} "
+                       f"einsum_on_gathered_rows_ms={sum(r['einsum_ms'] for r in rows[k]):.3f}")
+        log(f"stencil backward ({cloud}): nine {k} launches: kernel_ms={total['ms']:.3f} "
+            f"plain_ms={total['plain_ms']:.3f}{library} bound_ms={total['bound_ms']:.4f} [{card}]")
+        slowest = dict(max(rows[k], key=lambda r: r["ms"]), max_abs_err=worst[k])
+        slowest.pop("einsum_ms", None)
+        records[k] = slowest
     return records
 
 
@@ -1491,6 +1675,7 @@ def subm_backward_replay(fwd_calls, bwd_calls, card):
         f_, w_ = f_sorted.detach(), w.detach().to(f_sorted.dtype)
         d_ms = cuda_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, True, False), warmup=1, iters=5)
         w_ms = cuda_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, False, True), warmup=1, iters=5)
+        zero_rows = int((cot.abs().amax(-1) == 0).sum())
         pd_ms = retained_grad_ms(out, (f32,), cot.float())
         pw_ms = retained_grad_ms(out, (w32,), cot.float())
         # The library pair differentiated by autograd (index_add_ and matmuls).
@@ -1510,11 +1695,12 @@ def subm_backward_replay(fwd_calls, bwd_calls, card):
         rows["dgrad"].append(dict(ms=d_ms, plain_ms=pd_ms, bound_ms=d_b[0], bound_by=d_b[1], library_ms=ld_ms))
         rows["wgrad"].append(dict(ms=w_ms, plain_ms=pw_ms, bound_ms=w_b[0], bound_by=w_b[1], library_ms=lw_ms))
         log(f"subm backward: B={b} V={v} {c}->{cout} {str(f_sorted.dtype)[6:]} present={present} of "
-            f"{b * k * q} max_err/scale (df, dW) "
+            f"{b * k * q} zero_cotangent_rows={zero_rows} of {b * q} max_err/scale (df, dW) "
             + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in errs.items())
             + f" (tol float32 df 1e-5, dW {WGRAD_TOL}; 2^-7 bfloat16 outputs) df_ms={d_ms:.4f} (plain {pd_ms:.3f}, "
             f"index_select_einsum backward {ld_ms:.3f}, bound {d_b[0]:.5f} {d_b[1]}) dW_ms={w_ms:.4f} "
-            f"(plain {pw_ms:.3f}, library {lw_ms:.3f}, bound {w_b[0]:.5f} {w_b[1]}) [{card}]")
+            f"(plain {pw_ms:.3f}, library {lw_ms:.3f}, "
+            f"bound {w_b[0]:.5f} {w_b[1]}) [{card}]")
         del out, f32, w32, want_f, want_w
     records = {}
     for kk in rows:
@@ -1599,7 +1785,14 @@ def training_phases(dev, card):
         trainer.step_fn(state, batch)
     stencil_records = stencil_backward_replay(fwd.calls, wgrads.calls, card)
     fill_backward_replay(fill_bwds.calls, card, "sparse_units training step")
-    del state, trainer, fwd, wgrads, fill_bwds
+    # The same replay on a clustered cloud that fills no cap: hits are dense
+    # and nearly every cotangent row of a valid unit is non-zero there.
+    pts, pvalid = clustered_points(FHD_BATCH, CLUSTER_POINTS, CLUSTER_BLOBS, seed=31)
+    cbatch = to_dev({"points": pts, "points_valid": pvalid, **gt_batch(FHD_BATCH, seed=29)}, dev)
+    with recorded(cs, "stencil_conv_batched") as fwd, recorded(cs, "_stencil_wgrad_cuda") as wgrads:
+        trainer.step_fn(state, cbatch)
+    stencil_backward_replay(fwd.calls, wgrads.calls, card, cloud="clustered cloud")
+    del state, trainer, fwd, wgrads, fill_bwds, cbatch
     torch.cuda.empty_cache()
 
     # 17c. sparse FHD, per-voxel middle, batch 4; one more step recorded.
@@ -2119,6 +2312,9 @@ def main():
 
     del pnet, infer, pts, pvalid, boxes, scores, stack, rpn_out, props, roi_pts, counts
     torch.cuda.empty_cache()
+
+    # 10a. the sparse kernels at their edge shapes
+    sparse_kernel_edges(dev, card)
 
     # 11-14. sparse SECOND at the FHD geometry
     stencil_record, subm_record, sparse_launches, voxel_launches = sparse_phases(dev, card)

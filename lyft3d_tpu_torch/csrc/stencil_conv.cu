@@ -13,55 +13,75 @@
 // by its address, so the windows, their alignment rules and the coverage
 // fallback have no counterpart here.
 //
-// Design: one block owns a tile of kRows queries, one chunk c and up to
-// 4·NCG output columns. For each offset j every query of the tile finds its
-// source row with a binary search over the sample's ids (L2-resident: 300 KB
-// at 75,000 units); rows are gathered by address into shared memory kChunk
-// lanes at a time (converted to float32) beside the matching slice of wc[j],
-// and every thread accumulates an RM x 4 register tile with fused
-// multiply-adds. Threads whose RM queries all miss at this offset skip the
-// arithmetic; a block with no hit skips the offset (most off-centre
-// neighbours of a sparse cloud are absent). The (9, Vq, kzp) gather never
-// exists in device memory.
+// Bound: bytes (source rows read once, the output written once; the real
+// work, 27 taps a query with all neighbours present, is far below the
+// tensor cores' rate). What the kernel really fights is the traffic it adds
+// itself: a row gathered more than once, weights re-read by every block,
+// zeros multiplied.
 //
-// Bound: operations. The band weights are about two thirds zeros and the
-// kernel multiplies them; the real work is 27 taps, 2·27·z_out·Cin·Cout
-// operations a query with all neighbours present, against src rows read once
-// and the output written once.
+// bfloat16 takes the tensor-core route, three launches:
+//   1. `stencil_positions_kernel`: every (sample, offset, query) finds its
+//      source row once, a binary search over the sample's ids (L2-resident:
+//      300 KB at 75,000 units), into an int32 table; no tile searches again.
+//      With per-row flags of the source a hit on an all-zero row (a cotangent
+//      row the caps cut off) becomes a miss.
+//   2. `stencil_weight_prep_kernel`: the weights as (9, n_pad, kp), the
+//      contraction index contiguous, zero-padded, with one bit for every
+//      16 x 8 block that holds a non-zero: the band weights are two thirds
+//      zeros, and kzp pads (zs+2)·C to 128 lanes.
+//   3. `stencil_conv_mma_kernel`: a block owns 128 queries and ALL output
+//      columns (up to 128, or up to 256 with 16 warps), so a query's rows are
+//      gathered once. It walks the (offset, 64-lane slice) pairs that have
+//      both a hit in the tile and a non-zero weight block, through a ring of
+//      shared-memory stages filled by 16-byte `cp.async` (rows of misses are
+//      zero-filled, 16-query groups without a hit are not copied at all) two
+//      stages ahead of the `mma.sync.m16n8k16` that consume them. Queries are
+//      the M dimension, so a result row is its query's row and the float32
+//      accumulators stay in registers until the one store: hits are not
+//      compacted (on the tensor cores the products on zero rows cost little,
+//      and a compacted tile would have to scatter its rows back), but
+//      16-query groups without a hit at an offset and pairs of weight blocks
+//      (16 lanes x 16 columns) without a non-zero are skipped. bfloat16
+//      products are exact in float32: the result differs from the plain
+//      version by summation order only. What bounds it now is the ring's
+//      latency: with one hit in nine (offset, query) pairs a stage holds few
+//      MMAs, and two blocks an SM do not hide its copy.
+// Rows whose width is not a multiple of 64 lanes (the backward's cotangent
+// rows of 65, 66 or 68 lanes) are first copied into padded bfloat16 rows by
+// `stencil_rows_prep_kernel`, which also converts a float32 cotangent and
+// writes the row flags; it costs one pass over the rows, which the
+// conversion took anyway.
+//
+// float32 keeps the float32 FMA route (`stencil_conv_kernel`): float32 is
+// the type of the checks (1e-5), which TF32 would break. One block owns a
+// tile of kRows queries, one chunk c and up to 4·NCG output columns, searches
+// per offset, stages kChunk lanes at a time and accumulates an RM x 4
+// register tile a thread.
 //
 // Backward (the JAX package's `_stencil_bwd`, column_sparse.py:742):
 //   d_src  the same stencil launched a second time, as the JAX backward does
 //          (column_sparse.py:773): the cotangent rows are the source, the
 //          reverse queries pick them, the band weights are transposed and the
-//          output width is kzp, taken in several column tiles where kzp > 128.
-//          It is this file's stencil_conv_kernel; the wrapper prepares the
-//          arguments.
+//          output width is kzp (up to 256 columns in one pass).
 //   d_wc[j] = Σ_{b,q,c} src[b, pos(qids[b, j, q])][chunk c]ᵀ g[b, q][chunk c]
-//          stencil_wgrad_kernel: each block finds the source rows of its
-//          queries with find_id, compacts the hits and runs the shared
-//          outer-product tile of wgrad_tile.cuh, ending in float32 atomicAdds
-//          into a zeroed (9, kzp, N) buffer; the sum order varies.
+//          `wgrad::wgrad_mma_kernel` (bfloat16 sources, tensor cores, the
+//          float32 cotangent split in two bfloat16 halves) or
+//          `stencil_wgrad_kernel` (float32 sources, FMA), both of
+//          wgrad_tile.cuh's tiles, ending in float32 atomicAdds into a zeroed
+//          (9, kzp, N) buffer; the sum order varies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "wgrad_tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 16;  // source lanes staged at a time
+constexpr int kChunk = 16;  // source lanes staged at a time (float32 route)
 constexpr int kOffsets = 9;
-
-template <typename T>
-__device__ __forceinline__ float to_float(T v);
-template <>
-__device__ __forceinline__ float to_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // Position of `id` in ids[0, n) (ascending), or −1.
 __device__ __forceinline__ int find_id(const int32_t* ids, int n, int32_t id) {
@@ -77,11 +97,15 @@ __device__ __forceinline__ int find_id(const int32_t* ids, int n, int32_t id) {
   return (lo < n && __ldg(ids + lo) == id) ? lo : -1;
 }
 
+// ---------------------------------------------------------------------------
+// float32 route.
+// ---------------------------------------------------------------------------
+
 // NCG column groups of 4 columns; 256 / NCG row groups of RM queries.
-template <typename T, int NCG, int RM>
+template <int NCG, int RM>
 __global__ void __launch_bounds__(kThreads)
-stencil_conv_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
-                    const int32_t* __restrict__ src_ids, const T* __restrict__ wc,
+stencil_conv_kernel(const float* __restrict__ src, const int32_t* __restrict__ qids,
+                    const int32_t* __restrict__ src_ids, const float* __restrict__ wc,
                     float* __restrict__ out, int vs, int vq, int nc, int kzp, int n,
                     int col_tiles) {
   constexpr int kRowGroups = kThreads / NCG;
@@ -103,7 +127,7 @@ stencil_conv_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
   const bool computes = rg < kRowGroups;
 
   const long long width = static_cast<long long>(nc) * kzp;
-  const T* s = src + static_cast<long long>(b) * vs * width + static_cast<long long>(chunk) * kzp;
+  const float* s = src + static_cast<long long>(b) * vs * width + static_cast<long long>(chunk) * kzp;
   const int32_t* ids = src_ids + static_cast<long long>(b) * vs;
   const int32_t* qb = qids + static_cast<long long>(b) * kOffsets * vq;
 
@@ -134,7 +158,7 @@ stencil_conv_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
     __syncthreads();
     if (!block_any) continue;
     const bool mine = computes && group_any[rg] != 0;
-    const T* wj = wc + static_cast<long long>(j) * kzp * n;
+    const float* wj = wc + static_cast<long long>(j) * kzp * n;
 
     for (int k0 = 0; k0 < kzp; k0 += kChunk) {
       const int kw = min(kChunk, kzp - k0);
@@ -143,7 +167,7 @@ stencil_conv_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
         const int lane = item - r * kChunk;
         const int pos = pos_s[r];
         float v = 0.0f;
-        if (pos >= 0 && lane < kw) v = to_float<T>(s[static_cast<long long>(pos) * width + k0 + lane]);
+        if (pos >= 0 && lane < kw) v = s[static_cast<long long>(pos) * width + k0 + lane];
         rows_s[r][lane] = v;
       }
       for (int item = tid; item < kChunk * kCols; item += kThreads) {
@@ -151,7 +175,7 @@ stencil_conv_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
         const int col = item - lane * kCols;
         float v = 0.0f;
         if (lane < kw && col0 + col < n) {
-          v = to_float<T>(wj[static_cast<long long>(k0 + lane) * n + col0 + col]);
+          v = wj[static_cast<long long>(k0 + lane) * n + col0 + col];
         }
         w_s[lane][col] = v;
       }
@@ -189,7 +213,7 @@ stencil_conv_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
   }
 }
 
-template <typename T, int NCG, int RM>
+template <int NCG, int RM>
 cudaError_t launch_tile(const void* src, const void* qids, const void* src_ids, const void* wc,
                         void* out, int batch, int vs, int vq, int nc, int kzp, int n,
                         cudaStream_t stream) {
@@ -198,34 +222,32 @@ cudaError_t launch_tile(const void* src, const void* qids, const void* src_ids, 
   const int col_tiles = (n + kCols - 1) / kCols;
   if (static_cast<long long>(col_tiles) * nc > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((vq + kRows - 1) / kRows, col_tiles * nc, batch);
-  stencil_conv_kernel<T, NCG, RM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const int32_t*>(qids),
-      static_cast<const int32_t*>(src_ids), static_cast<const T*>(wc),
+  stencil_conv_kernel<NCG, RM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(src), static_cast<const int32_t*>(qids),
+      static_cast<const int32_t*>(src_ids), static_cast<const float*>(wc),
       static_cast<float*>(out), vs, vq, nc, kzp, n, col_tiles);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch(const void* src, const void* qids, const void* src_ids, const void* wc,
                    void* out, int batch, int vs, int vq, int nc, int kzp, int n,
                    cudaStream_t stream) {
-  if (batch == 0 || vq == 0 || n == 0 || nc == 0) return cudaSuccess;
+  if (batch <= 0 || vq <= 0 || n <= 0 || nc <= 0) return cudaErrorInvalidValue;  // nothing to launch
   if (batch > 65535) return cudaErrorInvalidConfiguration;
   // The smallest column tile that takes all n columns in one pass, so that a
   // query's rows are gathered once: 16, 32, 64, 68 (the strided layers' 64 +
   // mask channel widths) or 128 columns; wider outputs take several tiles.
-  if (n <= 16) return launch_tile<T, 4, 4>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
-  if (n <= 32) return launch_tile<T, 8, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
-  if (n <= 64) return launch_tile<T, 16, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
-  if (n <= 68) return launch_tile<T, 17, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
-  return launch_tile<T, 32, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
+  if (n <= 16) return launch_tile<4, 4>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
+  if (n <= 32) return launch_tile<8, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
+  if (n <= 64) return launch_tile<16, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
+  if (n <= 68) return launch_tile<17, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
+  return launch_tile<32, 8>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, stream);
 }
 
 // One block: one tile of wgrad::kQueries queries, one offset j, one
 // (kWgK x kWgN) tile of d_wc[j], one sample; it loops over the nc chunks.
-template <typename T>
 __global__ void __launch_bounds__(wgrad::kThreads)
-stencil_wgrad_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids,
+stencil_wgrad_kernel(const float* __restrict__ src, const int32_t* __restrict__ qids,
                      const int32_t* __restrict__ src_ids, const float* __restrict__ g,
                      float* __restrict__ dwc, int vs, int vq, int nc, int kzp, int n,
                      int k_tiles, int n_tiles) {
@@ -258,72 +280,492 @@ stencil_wgrad_kernel(const T* __restrict__ src, const int32_t* __restrict__ qids
   const int n0 = nt * wgrad::kWgN;
   const long long a_stride = static_cast<long long>(nc) * kzp;
   const long long g_stride = static_cast<long long>(nc) * n;
-  const T* a = src + static_cast<long long>(b) * vs * a_stride;
+  const float* a = src + static_cast<long long>(b) * vs * a_stride;
   const float* gb = g + static_cast<long long>(b) * vq * g_stride;
   for (int chunk = 0; chunk < nc; ++chunk) {
-    wgrad::accumulate_tile<T, float>(
+    wgrad::accumulate_tile(
         a + static_cast<long long>(chunk) * kzp, a_stride, gb + static_cast<long long>(chunk) * n,
         g_stride, hit_row, hit_q, nhits, k0, min(wgrad::kWgK, kzp - k0), n0,
         min(wgrad::kWgN, n - n0), dwc + static_cast<long long>(j) * kzp * n, n);
   }
 }
 
-template <typename T>
 cudaError_t launch_wgrad(const void* src, const void* qids, const void* src_ids, const void* g,
                          void* dwc, int batch, int vs, int vq, int nc, int kzp, int n,
                          cudaStream_t stream) {
-  if (batch == 0 || vq == 0 || n == 0 || nc == 0 || kzp == 0) return cudaSuccess;
+  if (batch <= 0 || vq <= 0 || n <= 0 || nc <= 0 || kzp <= 0) return cudaErrorInvalidValue;
   const int k_tiles = (kzp + wgrad::kWgK - 1) / wgrad::kWgK;
   const int n_tiles = (n + wgrad::kWgN - 1) / wgrad::kWgN;
   const long long gy = static_cast<long long>(kOffsets) * k_tiles * n_tiles;
   if (batch > 65535 || gy > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((vq + wgrad::kQueries - 1) / wgrad::kQueries, static_cast<unsigned int>(gy), batch);
-  stencil_wgrad_kernel<T><<<grid, wgrad::kThreads, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const int32_t*>(qids),
+  stencil_wgrad_kernel<<<grid, wgrad::kThreads, 0, stream>>>(
+      static_cast<const float*>(src), static_cast<const int32_t*>(qids),
       static_cast<const int32_t*>(src_ids), static_cast<const float*>(g),
       static_cast<float*>(dwc), vs, vq, nc, kzp, n, k_tiles, n_tiles);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 route: positions, weight and row preparation, tensor-core kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice = 64;          // contraction lanes a pipeline stage holds
+constexpr int kLd = kSlice + 8;     // shared-memory row stride (no ldmatrix bank conflicts)
+constexpr int kMaxSteps = 16;       // 16-lane steps of the contraction: kp ≤ 256
+constexpr int kMaxSlices = kMaxSteps * 16 / kSlice;
+
+// pos[b, j, q] = position of qids[b, j, q] in src_ids[b], −1 where absent or,
+// with `src_flags` (batch, vs), where the source row's flag is 0.
+__global__ void __launch_bounds__(kThreads)
+stencil_positions_kernel(const int32_t* __restrict__ qids, const int32_t* __restrict__ src_ids,
+                         const uint8_t* __restrict__ src_flags, int32_t* __restrict__ pos,
+                         int vs, int vq, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const long long b = i / (static_cast<long long>(kOffsets) * vq);
+  const int32_t id = qids[i];
+  int p = -1;
+  if (id >= 0) {
+    p = find_id(src_ids + b * vs, vs, id);
+    if (p >= 0 && src_flags != nullptr && src_flags[b * vs + p] == 0) p = -1;
+  }
+  pos[i] = p;
+}
+
+// wt[j, o, k] = w[j·sj + k·sk + o·so] for o < n_out, k < k_in, zero up to
+// (n_pad, kp); wmask[j·16 + k / 16] has bit o / 8 set where the 16 x 8 block
+// holds a non-zero. One block: one offset, one 16-lane step.
+__global__ void __launch_bounds__(kThreads)
+stencil_weight_prep_kernel(const __nv_bfloat16* __restrict__ w, long long sj, long long sk,
+                           long long so, __nv_bfloat16* __restrict__ wt,
+                           uint32_t* __restrict__ wmask, int k_in, int n_out, int kp, int n_pad) {
+  __shared__ unsigned int mask;
+  const int j = blockIdx.y;
+  const int step = blockIdx.x;
+  if (threadIdx.x == 0) mask = 0u;
+  __syncthreads();
+  unsigned int mine = 0u;
+  for (int item = threadIdx.x; item < n_pad * 16; item += kThreads) {
+    const int o = item / 16;
+    const int k = step * 16 + (item - o * 16);
+    __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
+    if (o < n_out && k < k_in) v = w[j * sj + k * sk + o * so];
+    wt[(static_cast<long long>(j) * n_pad + o) * kp + k] = v;
+    if (__bfloat162float(v) != 0.0f) mine |= 1u << (o / 8);
+  }
+  mine = __reduce_or_sync(0xffffffffu, mine);
+  if (threadIdx.x % 32 == 0 && mine != 0u) atomicOr(&mask, mine);
+  __syncthreads();
+  if (threadIdx.x == 0) wmask[j * kMaxSteps + step] = mask;
+}
+
+// out[r, c·kp + k] = bfloat16(in[r, c·k_in + k]) for k < k_in, zero up to kp;
+// flags[r] = any element of row r is non-zero. A warp a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stencil_rows_prep_kernel(const T* __restrict__ in, __nv_bfloat16* __restrict__ out,
+                         uint8_t* __restrict__ flags, long long n_rows, int nc, int k_in, int kp) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x % 32;
+  const T* r = in + row * nc * k_in;
+  bool nz = false;
+  __nv_bfloat16* o = out + row * nc * kp;
+  for (int i = lane; i < nc * kp; i += 32) {
+    const int c = i / kp;
+    const int k = i - c * kp;
+    float v = 0.0f;
+    if (k < k_in) v = wgrad::g_to_float(r[c * k_in + k]);
+    nz = nz || (v != 0.0f);
+    o[i] = __float2bfloat16_rn(v);
+  }
+  const unsigned any = __ballot_sync(0xffffffffu, nz);
+  if (lane == 0) flags[row] = any != 0u;
+}
+
+// WM x 2 warps; a warp owns MT m-tiles of 16 queries and NT n-tiles of 8
+// columns: the block 16·WM·MT queries and 16·NT columns.
+template <int WM, int MT, int NT, int STAGES>
+struct ConvTile {
+  static_assert(NT % 2 == 0, "n-tiles come in pairs (ldmatrix.x4)");
+  static constexpr int kThreadsT = WM * 2 * 32;
+  static constexpr int kQueries = WM * MT * 16;
+  static constexpr int kCols = 2 * NT * 8;
+  static constexpr int kStageElems = (kQueries + kCols) * kLd;
+  static constexpr int kSmemBytes = STAGES * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
+};
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// TO: the output's type, float32 (the forward) or bfloat16 (d_src of a
+// bfloat16 model: the float32 sums rounded once, here instead of in a pass
+// of their own).
+template <int WM, int MT, int NT, int STAGES, typename TO>
+__global__ void __launch_bounds__(WM * 2 * 32, 512 / (WM * 2 * 32))
+stencil_conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict__ pos,
+                        const __nv_bfloat16* __restrict__ wt, const uint32_t* __restrict__ wmask,
+                        TO* __restrict__ out, int vs, int vq, int nc, int kp, int n, int n_pad) {
+  using Tile = ConvTile<WM, MT, NT, STAGES>;
+  constexpr int kT = Tile::kThreadsT;
+  constexpr int kQ = Tile::kQueries;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __shared__ uint32_t wmask_s[kOffsets * kMaxSteps];
+  __shared__ unsigned int mt_any_s[kOffsets];
+  __shared__ int list_s[kOffsets * kMaxSlices];
+  __shared__ int n_it_s;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int wm = warp % WM;
+  const int wn = warp / WM;
+  const int b = blockIdx.z;
+  const int chunk = blockIdx.y;
+  const int q0 = blockIdx.x * kQ;
+  const int steps = kp / 16;
+  const long long width = static_cast<long long>(nc) * kp;
+  const __nv_bfloat16* src_b = src + static_cast<long long>(b) * vs * width + static_cast<long long>(chunk) * kp;
+  const int32_t* pos_b = pos + static_cast<long long>(b) * kOffsets * vq;
+
+  for (int i = tid; i < kOffsets * kMaxSteps; i += kT) {
+    wmask_s[i] = (i % kMaxSteps) < steps ? wmask[i] : 0u;
+  }
+  if (tid < kOffsets) mt_any_s[tid] = 0u;
+  __syncthreads();
+  for (int i = tid; i < kOffsets * kQ; i += kT) {
+    const int j = i / kQ;
+    const int r = i - j * kQ;
+    const int q = q0 + r;
+    if (q < vq && pos_b[static_cast<long long>(j) * vq + q] >= 0) atomicOr(&mt_any_s[j], 1u << (r / 16));
+  }
+  __syncthreads();
+  // The (offset, slice) pairs with a hit in the tile and a non-zero weight block.
+  if (tid == 0) {
+    int count = 0;
+    for (int j = 0; j < kOffsets; ++j) {
+      if (mt_any_s[j] == 0u) continue;
+      for (int sl = 0; sl < kp / kSlice; ++sl) {
+        const uint32_t* m = wmask_s + j * kMaxSteps + sl * (kSlice / 16);
+        if ((m[0] | m[1] | m[2] | m[3]) != 0u) list_s[count++] = j * kMaxSlices + sl;
+      }
+    }
+    n_it_s = count;
+  }
+  __syncthreads();
+  const int n_it = n_it_s;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+  // Copies the rows and the weights of pair `it` into its stage of the ring.
+  auto fill_stage = [&](int it) {
+    const int code = list_s[it];
+    const int j = code / kMaxSlices;
+    const int sl = code - j * kMaxSlices;
+    __nv_bfloat16* a_s = stages + (it % STAGES) * Tile::kStageElems;
+    __nv_bfloat16* b_s = a_s + kQ * kLd;
+    const unsigned int mt_mask = mt_any_s[j];
+    for (int i = tid; i < kQ * (kSlice / 8); i += kT) {
+      const int r = i / (kSlice / 8);
+      const int s = i - r * (kSlice / 8);
+      if (((mt_mask >> (r / 16)) & 1u) == 0u) continue;
+      // The table is read again here (an L2 hit, two stages ahead of its
+      // use) to leave the shared memory to two blocks an SM.
+      const int p = q0 + r < vq ? pos_b[static_cast<long long>(j) * vq + q0 + r] : -1;
+      const __nv_bfloat16* g = src_b + static_cast<long long>(p >= 0 ? p : 0) * width + sl * kSlice + s * 8;
+      mma::cp_async_16(mma::smem_addr(a_s + r * kLd + s * 8), g, p >= 0 ? 16 : 0);
+    }
+    // The whole slice of the weights: leaving out its zero blocks measured no
+    // faster (the ring waits on latency, not on bytes).
+    const __nv_bfloat16* wj = wt + static_cast<long long>(j) * n_pad * kp + sl * kSlice;
+    for (int i = tid; i < n_pad * (kSlice / 8); i += kT) {
+      const int o = i / (kSlice / 8);
+      const int s = i - o * (kSlice / 8);
+      mma::cp_async_16(mma::smem_addr(b_s + o * kLd + s * 8), wj + static_cast<long long>(o) * kp + s * 8, 16);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_it) fill_stage(s);
+    mma::cp_async_commit();
+  }
+  for (int it = 0; it < n_it; ++it) {
+    mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage `it` has landed; everyone is done with the stage refilled next
+    if (it + STAGES - 1 < n_it) fill_stage(it + STAGES - 1);
+    mma::cp_async_commit();
+
+    const int code = list_s[it];
+    const int j = code / kMaxSlices;
+    const int sl = code - j * kMaxSlices;
+    const __nv_bfloat16* a_s = stages + (it % STAGES) * Tile::kStageElems;
+    const __nv_bfloat16* b_s = a_s + kQ * kLd;
+    const unsigned int mt_mask = mt_any_s[j] >> (wm * MT);
+    if ((mt_mask & ((1u << MT) - 1u)) == 0u) continue;
+#pragma unroll
+    for (int ks = 0; ks < kSlice / 16; ++ks) {
+      const uint32_t m = (wmask_s[j * kMaxSteps + sl * (kSlice / 16) + ks] >> (wn * NT)) & ((1u << NT) - 1u);
+      if (m == 0u) continue;
+      uint32_t afr[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        if (((mt_mask >> mi) & 1u) == 0u) continue;
+        mma::ldmatrix_x4(afr[mi], mma::smem_addr(a_s + ((wm * MT + mi) * 16 + (lane & 15)) * kLd +
+                                                 ks * 16 + ((lane >> 4) << 3)));
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (((m >> (2 * np)) & 3u) == 0u) continue;
+        uint32_t bfr[4];
+        mma::ldmatrix_x4(bfr, mma::smem_addr(b_s + ((wn * NT + 2 * np) * 8 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                                             ks * 16 + (((lane >> 3) & 1) << 3)));
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          if (((mt_mask >> mi) & 1u) == 0u) continue;
+          mma::mma_bf16(acc[mi][2 * np], afr[mi], bfr[0], bfr[1]);
+          mma::mma_bf16(acc[mi][2 * np + 1], afr[mi], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+
+  const long long out_width = static_cast<long long>(nc) * n;
+  TO* o = out + static_cast<long long>(b) * vq * out_width + static_cast<long long>(chunk) * n;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + (wm * MT + mi) * 16 + gq + (e >> 1) * 8;
+        const int col = (wn * NT + ni) * 8 + tq * 2 + (e & 1);
+        if (q < vq && col < n) store_out(o + static_cast<long long>(q) * out_width + col, acc[mi][ni][e]);
+      }
+}
+
+template <int WM, int MT, int NT, int STAGES, typename TO>
+cudaError_t launch_mma_tile(const void* src, const void* pos, const void* wt, const void* wmask,
+                            void* out, int batch, int vs, int vq, int nc, int kp, int n, int n_pad,
+                            cudaStream_t stream) {
+  using Tile = ConvTile<WM, MT, NT, STAGES>;
+  auto kernel = stencil_conv_mma_kernel<WM, MT, NT, STAGES, TO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((vq + Tile::kQueries - 1) / Tile::kQueries, nc, batch);
+  kernel<<<grid, Tile::kThreadsT, Tile::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(src), static_cast<const int32_t*>(pos),
+      static_cast<const __nv_bfloat16*>(wt), static_cast<const uint32_t*>(wmask),
+      static_cast<TO*>(out), vs, vq, nc, kp, n, n_pad);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t launch_mma(const void* src, const void* pos, const void* wt, const void* wmask, void* out,
+                       int batch, int vs, int vq, int nc, int kp, int n, int n_pad,
+                       cudaStream_t stream) {
+  if (n_pad <= 128) {
+    return launch_mma_tile<4, 2, 8, 3, TO>(src, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, stream);
+  }
+  return launch_mma_tile<8, 1, 16, 2, TO>(src, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, stream);
+}
+
+// pos (batch, 9, vq) int32 from qids (batch, 9, vq) and src_ids (batch, vs);
+// src_flags (batch, vs) uint8 or null.
+cudaError_t positions(const void* qids, const void* src_ids, const void* src_flags, void* pos,
+                      int batch, int vs, int vq, cudaStream_t stream) {
+  const long long total = static_cast<long long>(batch) * kOffsets * vq;
+  if (total == 0) return cudaSuccess;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  stencil_positions_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(qids), static_cast<const int32_t*>(src_ids),
+      static_cast<const uint8_t*>(src_flags), static_cast<int32_t*>(pos), vs, vq, total);
+  return cudaGetLastError();
+}
+
+// wt (9, n_pad, kp) bfloat16 and wmask (9, 16) uint32 from bfloat16 weights
+// whose element (j, k, o) lies at w[j·sj + k·sk + o·so]; kp a multiple of 64
+// up to 256, n_pad a multiple of 16 up to 256.
+cudaError_t weight_prep(const void* w, long long sj, long long sk, long long so, void* wt,
+                        void* wmask, int k_in, int n_out, int kp, int n_pad, cudaStream_t stream) {
+  if (kp <= 0 || kp % kSlice != 0 || kp / 16 > kMaxSteps || n_pad <= 0 || n_pad % 16 != 0 ||
+      n_pad > 256 || k_in > kp || n_out > n_pad) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(kp / 16, kOffsets);
+  stencil_weight_prep_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(w), sj, sk, so, static_cast<__nv_bfloat16*>(wt),
+      static_cast<uint32_t*>(wmask), k_in, n_out, kp, n_pad);
+  return cudaGetLastError();
+}
+
+// Rows (n_rows, nc·k_in) of `dtype` (0 float32, 1 bfloat16) → out (n_rows,
+// nc·kp) bfloat16, each chunk zero-padded (a null `out`: flags only), and
+// flags (n_rows) uint8: 1 where the row holds a non-zero.
+cudaError_t rows_prep(const void* in, void* out, void* flags, long long n_rows, int nc, int k_in,
+                      int kp, int dtype, cudaStream_t stream) {
+  if (n_rows == 0) return cudaSuccess;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (out == nullptr) {
+    if (dtype == 0) return wgrad::launch_row_flags<float>(in, flags, n_rows, nc * k_in, stream);
+    return wgrad::launch_row_flags<__nv_bfloat16>(in, flags, n_rows, nc * k_in, stream);
+  }
+  const long long blocks = (n_rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  if (dtype == 0) {
+    stencil_rows_prep_kernel<float><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(in), static_cast<__nv_bfloat16*>(out),
+        static_cast<uint8_t*>(flags), n_rows, nc, k_in, kp);
+  } else {
+    stencil_rows_prep_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(in), static_cast<__nv_bfloat16*>(out),
+        static_cast<uint8_t*>(flags), n_rows, nc, k_in, kp);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// out (batch, vq, nc·n) float32 from src (batch, vs, nc·kzp), qids
-// (batch, 9, vq) int32 (−1 absent), src_ids (batch, vs) int32 ascending and
-// wc (9, kzp, n) on `stream`. `dtype` is 0 for float32 and 1 for bfloat16
-// (src and wc alike). All tensors contiguous. Returns the CUDA error of the
-// launch (0 on success).
+// float32 route. out (batch, vq, nc·n) float32 from src (batch, vs, nc·kzp),
+// qids (batch, 9, vq) int32 (−1 absent), src_ids (batch, vs) int32 ascending
+// and wc (9, kzp, n), all float32 and contiguous, on `stream`. Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int stencil_conv_launch(const void* src, const void* qids, const void* src_ids,
                                    const void* wc, void* out, int batch, int vs, int vq, int nc,
-                                   int kzp, int n, int dtype, int device, void* stream) {
+                                   int kzp, int n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// float32 route. dwc (9, kzp, n) float32, zeroed by the caller, += Σ over
+// samples, queries and chunks of src[pos(qids)]ᵀ g, with src (batch, vs,
+// nc·kzp) and the cotangent g (batch, vq, nc·n) float32.
+extern "C" int stencil_wgrad_launch(const void* src, const void* qids, const void* src_ids,
+                                    const void* g, void* dwc, int batch, int vs, int vq, int nc,
+                                    int kzp, int n, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_wgrad(src, qids, src_ids, g, dwc, batch, vs, vq, nc, kzp, n,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// The three preparation kernels on their own (positions, weight_prep and
+// rows_prep above), for checks against their plain versions.
+extern "C" int stencil_positions_launch(const void* qids, const void* src_ids, const void* src_flags,
+                                        void* pos, int batch, int vs, int vq, int device,
+                                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(positions(qids, src_ids, src_flags, pos, batch, vs, vq,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int stencil_weight_prep_launch(const void* w, long long sj, long long sk, long long so,
+                                          void* wt, void* wmask, int k_in, int n_out, int kp,
+                                          int n_pad, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(weight_prep(w, sj, sk, so, wt, wmask, k_in, n_out, kp, n_pad,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int stencil_rows_prep_launch(const void* in, void* out, void* flags, long long n_rows,
+                                        int nc, int k_in, int kp, int dtype, int device,
+                                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(rows_prep(in, out, flags, n_rows, nc, k_in, kp, dtype,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+// bfloat16 route, all its launches in one call. out (batch, vq, nc·n) float32
+// (`out_dtype` 0) or bfloat16 (1) from src (batch, vs, nc·k) of `src_dtype`
+// (0 float32, 1 bfloat16), qids (batch, 9, vq), src_ids (batch, vs) and
+// bfloat16 weights whose element (j, k, o) lies at w[j·sj + k·sk + o·so].
+// Scratch of the caller: pos (batch, 9, vq) int32, wt (9, n_pad, kp)
+// bfloat16, wmask (9, 16) uint32 and, unless src is bfloat16 with k = kp and
+// is to be read as it is (`rows` null), rows (batch, vs, nc·kp) bfloat16 and
+// flags (batch, vs) uint8: a hit on a row that is all zero is then a miss.
+// An empty shape is an error: nothing would be launched.
+// Up to 128 columns: 8 warps, 128 queries a block; up to 256: 16 warps.
+extern "C" int stencil_conv_mma_launch(const void* src, int src_dtype, void* rows, void* flags,
+                                       const void* qids, const void* src_ids, void* pos,
+                                       const void* w, long long sj, long long sk, long long so,
+                                       void* wt, void* wmask, void* out, int out_dtype, int batch,
+                                       int vs, int vq, int nc, int k, int n, int kp, int n_pad,
+                                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0 || vs <= 0 || vq <= 0 || nc <= 0 || k <= 0 || n <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch > 65535 || nc > 65535 || n > n_pad || k > kp || (rows == nullptr && (src_dtype != 1 || k != kp))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = launch<float>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(src, qids, src_ids, wc, out, batch, vs, vq, nc, kzp, n, s);
+  if (rows != nullptr) {
+    err = rows_prep(src, rows, flags, static_cast<long long>(batch) * vs, nc, k, kp, src_dtype, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = positions(qids, src_ids, rows != nullptr ? flags : nullptr, pos, batch, vs, vq, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = weight_prep(w, sj, sk, so, wt, wmask, k, n, kp, n_pad, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* a = rows != nullptr ? rows : src;
+  if (out_dtype == 0) {
+    err = launch_mma<float>(a, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, s);
+  } else if (out_dtype == 1) {
+    err = launch_mma<__nv_bfloat16>(a, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// dwc (9, kzp, n) float32, zeroed by the caller, += Σ over samples, queries and
-// chunks of src[pos(qids)]ᵀ g, with src (batch, vs, nc·kzp) in the type
-// `dtype` names and the cotangent g (batch, vq, nc·n) float32. Returns the
-// CUDA error of the launch (0 on success).
-extern "C" int stencil_wgrad_launch(const void* src, const void* qids, const void* src_ids,
-                                    const void* g, void* dwc, int batch, int vs, int vq, int nc,
-                                    int kzp, int n, int dtype, int device, void* stream) {
+// bfloat16 route, all its launches in one call. dwc (9, kzp, n) float32,
+// zeroed by the caller, += Σ over samples, queries and chunks of
+// src[pos(qids)]ᵀ g with src (batch, vs, nc·kzp) bfloat16 and the cotangent g
+// (batch, vq, nc·n) float32. flags (batch, vq) uint8, 0 drops the query (its
+// cotangent row is zero): the caller's when `flags_given`, else scratch that
+// is filled here from g. Scratch of the caller: pos (batch, 9, vq) int32;
+// `queues`, 9 zeroed int32 for each of the `tiles` tiles of a weight matrix
+// (a count that differs from the launch's own is an error, as is an empty
+// shape).
+extern "C" int stencil_wgrad_mma_launch(const void* src, const void* qids, const void* src_ids,
+                                        const void* g, void* flags, int flags_given, void* pos,
+                                        void* dwc, void* queues, int tiles, int batch, int vs,
+                                        int vq, int nc, int kzp, int n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = launch_wgrad<float>(src, qids, src_ids, g, dwc, batch, vs, vq, nc, kzp, n, s);
-  } else if (dtype == 1) {
-    err = launch_wgrad<__nv_bfloat16>(src, qids, src_ids, g, dwc, batch, vs, vq, nc, kzp, n, s);
-  } else {
-    err = cudaErrorInvalidValue;
+  int sm_count = 0;
+  err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0 || vs <= 0 || vq <= 0 || nc <= 0 || kzp <= 0 || n <= 0 || flags == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!flags_given) {
+    err = rows_prep(g, nullptr, flags, static_cast<long long>(batch) * vq, nc, n, n, 0, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = positions(qids, src_ids, nullptr, pos, batch, vs, vq, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(wgrad::launch_mma<float>(src, g, pos, flags, dwc, queues, tiles, batch, vs,
+                                                   vq, kOffsets, nc, kzp, n, sm_count, s));
 }

@@ -26,8 +26,16 @@
 // Backward (the JAX package's `_bwd`, subm_conv_kernel.py:106, is XLA code):
 //   dW[k] = Σ_{b,q} f[b, ranks[b, k, q]]ᵀ g[b, q]      subm_wgrad_kernel
 //   df[b, ranks[b, k, q]] += g[b, q] @ W[k]ᵀ            subm_dgrad_kernel
-// The weight gradient compacts each block's present neighbours and runs the
-// shared outer-product tile of wgrad_tile.cuh. The feature gradient keeps the
+// The weight gradient is bound by bytes (a feature row and a cotangent row of
+// 32 to 128 bytes a present neighbour against 2·C·Cout operations) and runs
+// the tiles of wgrad_tile.cuh: bfloat16 on the tensor cores
+// (`wgrad::wgrad_mma_kernel`: a block owns the whole C x Cout matrix of one
+// offset at a time, pulls units of a few thousand queries from that offset's
+// queue, compacts their present neighbours, drops those whose cotangent row
+// is zero by a flag a row (`wgrad::row_flags_kernel`), and puts its sums out
+// with one set of atomicAdds when the queue is empty), float32 on
+// the FMA tile (`subm_wgrad_kernel`; float32 is the type of the gradient
+// checks, which TF32 would break). The feature gradient keeps the
 // forward's tiling with the roles of C and Cout exchanged and scatters each
 // offset's rows with float32 atomicAdds into a zeroed buffer, which holds for
 // any rank table (no reverse ranks are needed); the sum order varies.
@@ -185,7 +193,7 @@ template <typename T>
 cudaError_t launch(const void* feats, const void* ranks, const void* weights, void* out,
                    int batch, int vs, int vq, int k_offsets, int c, int cout,
                    cudaStream_t stream) {
-  if (batch == 0 || vq == 0 || cout == 0) return cudaSuccess;
+  if (batch <= 0 || vq <= 0 || cout <= 0) return cudaErrorInvalidValue;  // nothing to launch
   if (batch > 65535) return cudaErrorInvalidConfiguration;
   if (cout <= 16) {
     return launch_tile<T, 4, 4>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
@@ -196,12 +204,11 @@ cudaError_t launch(const void* feats, const void* ranks, const void* weights, vo
   return launch_tile<T, 16, 8>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
 }
 
-// One block: one tile of wgrad::kQueries queries, one offset k, one
-// (kWgK x kWgN) tile of dW[k], one sample.
-template <typename T>
+// float32 route. One block: one tile of wgrad::kQueries queries, one offset
+// k, one (kWgK x kWgN) tile of dW[k], one sample.
 __global__ void __launch_bounds__(wgrad::kThreads)
-subm_wgrad_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
-                  const T* __restrict__ g, float* __restrict__ dw, int vs, int vq,
+subm_wgrad_kernel(const float* __restrict__ feats, const int32_t* __restrict__ ranks,
+                  const float* __restrict__ g, float* __restrict__ dw, int vs, int vq,
                   int k_offsets, int c, int cout, int k_tiles, int n_tiles) {
   __shared__ int hit_row[wgrad::kQueries];
   __shared__ int hit_q[wgrad::kQueries];
@@ -227,7 +234,7 @@ subm_wgrad_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks
   if (nhits == 0) return;
   const int k0 = kt * wgrad::kWgK;
   const int n0 = nt * wgrad::kWgN;
-  wgrad::accumulate_tile<T, T>(
+  wgrad::accumulate_tile(
       feats + static_cast<long long>(b) * vs * c, c, g + static_cast<long long>(b) * vq * cout,
       cout, hit_row, hit_q, nhits, k0, min(wgrad::kWgK, c - k0), n0, min(wgrad::kWgN, cout - n0),
       dw + static_cast<long long>(k) * c * cout, cout);
@@ -343,19 +350,19 @@ subm_dgrad_kernel(const T* __restrict__ g, const int32_t* __restrict__ ranks,
   }
 }
 
-template <typename T>
 cudaError_t launch_wgrad(const void* feats, const void* ranks, const void* g, void* dw,
                          int batch, int vs, int vq, int k_offsets, int c, int cout,
                          cudaStream_t stream) {
-  if (batch == 0 || vq == 0 || c == 0 || cout == 0 || k_offsets == 0) return cudaSuccess;
+  if (batch <= 0 || vq <= 0 || c <= 0 || cout <= 0 || k_offsets <= 0) return cudaErrorInvalidValue;
   const int k_tiles = (c + wgrad::kWgK - 1) / wgrad::kWgK;
   const int n_tiles = (cout + wgrad::kWgN - 1) / wgrad::kWgN;
   const long long gy = static_cast<long long>(k_offsets) * k_tiles * n_tiles;
   if (batch > 65535 || gy > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((vq + wgrad::kQueries - 1) / wgrad::kQueries, static_cast<unsigned int>(gy), batch);
-  subm_wgrad_kernel<T><<<grid, wgrad::kThreads, 0, stream>>>(
-      static_cast<const T*>(feats), static_cast<const int32_t*>(ranks), static_cast<const T*>(g),
-      static_cast<float*>(dw), vs, vq, k_offsets, c, cout, k_tiles, n_tiles);
+  subm_wgrad_kernel<<<grid, wgrad::kThreads, 0, stream>>>(
+      static_cast<const float*>(feats), static_cast<const int32_t*>(ranks),
+      static_cast<const float*>(g), static_cast<float*>(dw), vs, vq, k_offsets, c, cout, k_tiles,
+      n_tiles);
   return cudaGetLastError();
 }
 
@@ -376,7 +383,7 @@ template <typename T>
 cudaError_t launch_dgrad(const void* g, const void* ranks, const void* weights, void* df,
                          int batch, int vs, int vq, int k_offsets, int c, int cout,
                          cudaStream_t stream) {
-  if (batch == 0 || vq == 0 || c == 0 || cout == 0) return cudaSuccess;
+  if (batch <= 0 || vq <= 0 || c <= 0 || cout <= 0) return cudaErrorInvalidValue;
   if (batch > 65535) return cudaErrorInvalidConfiguration;
   if (c <= 16) {
     return launch_dgrad_tile<T, 4, 4>(g, ranks, weights, df, batch, vs, vq, k_offsets, c, cout, stream);
@@ -411,18 +418,32 @@ extern "C" int subm_conv_launch(const void* feats, const void* ranks, const void
 }
 
 // dw (k_offsets, c, cout) float32, zeroed by the caller, += Σ over samples and
-// queries of feats[ranks]ᵀ g, with g (batch, vq, cout) in the features' type.
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int subm_wgrad_launch(const void* feats, const void* ranks, const void* g, void* dw,
-                                 int batch, int vs, int vq, int k_offsets, int c, int cout,
-                                 int dtype, int device, void* stream) {
+// queries of feats[ranks]ᵀ g, with g (batch, vq, cout) in the features' type:
+// float32 (`dtype` 0) on the FMA tile, bfloat16 (1) on the tensor cores.
+// The bfloat16 route alone uses `flags` (batch, vq) uint8, scratch of the
+// caller that is filled here (0 drops the query: its cotangent row is zero),
+// and `queues` (k_offsets zeroed int32 for each of the `tiles` tiles of a
+// weight matrix; a count that differs from the launch's own is an error).
+// Returns the CUDA error of the launch (0 on success); an empty shape is an
+// error, nothing would be launched.
+extern "C" int subm_wgrad_launch(const void* feats, const void* ranks, const void* g, void* flags,
+                                 void* dw, void* queues, int tiles, int batch, int vs, int vq,
+                                 int k_offsets, int c, int cout, int dtype, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = launch_wgrad<float>(feats, ranks, g, dw, batch, vs, vq, k_offsets, c, cout, s);
+    err = launch_wgrad(feats, ranks, g, dw, batch, vs, vq, k_offsets, c, cout, s);
   } else if (dtype == 1) {
-    err = launch_wgrad<__nv_bfloat16>(feats, ranks, g, dw, batch, vs, vq, k_offsets, c, cout, s);
+    int sm_count = 0;
+    err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (flags == nullptr || batch <= 0 || vq <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = wgrad::launch_row_flags<__nv_bfloat16>(g, flags, static_cast<long long>(batch) * vq, cout, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = wgrad::launch_mma<__nv_bfloat16>(feats, g, ranks, flags, dw, queues, tiles, batch, vs, vq,
+                                           k_offsets, 1, c, cout, sm_count, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -15,8 +15,9 @@ sin-error smooth-L1 localization, direction cross-entropy). The model has no
 layer that behaves differently in ``train()`` mode (GroupNorm and LayerNorm
 only), and every kernel wrapper on its path is differentiable.
 
-The ``vfe`` encoder and the ``sparse_columns`` middle are not ported yet:
-building a model that needs them raises.
+The ``vfe`` encoder is not ported yet, and the ``sparse_columns`` middle (the
+dense-z columns the JAX package keeps for comparison) is not to be ported:
+building a model that needs either raises.
 """
 
 from __future__ import annotations

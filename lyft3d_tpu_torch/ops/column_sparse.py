@@ -22,11 +22,14 @@ the reverse queries ``rev_qids``/``rev_src_ids`` (for each source row and
 offset, the id of the query that reads it: index arithmetic in
 :func:`subm_conv_units_batched` and :func:`strided_conv_units_batched`) and
 transposed band weights, as in the JAX package. ``d_wc`` is
-``stencil_wgrad_kernel`` of the same source file. On a CPU tensor the plain
-versions run: :func:`stencil_conv_ref` on the reverse queries, and
-:func:`stencil_conv_bwd_ref` (the plain forward differentiated by autograd).
-Everything around the kernel (masks, halos, band weights, the fill) is plain
-autograd.
+the weight-gradient kernel of the same source file. bfloat16 tensors take the
+tensor-core kernels (``mma.sync``), float32 tensors the float32 FMA kernels;
+the host side of the former (padding, tile choice, the plain versions of the
+small preparation kernels) is :func:`stencil_mma_variant` and its neighbours.
+On a CPU tensor the plain versions run: :func:`stencil_conv_ref` on the reverse
+queries, and :func:`stencil_conv_bwd_ref` (the plain forward differentiated by
+autograd). Everything around the kernel (masks, halos, band weights, the fill)
+is plain autograd.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from lyft3d_tpu_torch import _build
+from lyft3d_tpu_torch.ops._wgrad import wgrad_buffers, wgrad_mma_variant
 from lyft3d_tpu_torch.ops.dense_fill import fill_rows_by_id
 from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet, take_rows
 
@@ -58,6 +62,14 @@ __all__ = [
     "stencil_conv_bwd_ref",
     "StencilConv",
     "rev_qids_strided",
+    "stencil_mma_variant",
+    "wgrad_mma_variant",
+    "wgrad_buffers",
+    "bf16_split",
+    "stencil_weight_prep_ref",
+    "stencil_rows_prep_ref",
+    "stencil_positions_ref",
+    "stencil_conv_mma_ref",
     "PAD_ID",
     "KERNEL_LAUNCHES",
     "DGRAD_KERNEL_LAUNCHES",
@@ -75,7 +87,6 @@ WGRAD_KERNEL_LAUNCHES = 0
 PAD_ID = 2 ** 28
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 @dataclass(frozen=True)
 class ColumnSet:
@@ -497,14 +508,10 @@ def units_to_dense_bev(colf, cols: ColumnSet, ncs: int, nz: int):
 def stencil_conv_ref(src, qids, src_ids, wc, nc: int):
     """Plain version: ``torch.searchsorted`` positions → row gather → one
     einsum in float32."""
-    vs = src.shape[-2]
     kzp, n = wc.shape[1:]
     vq = qids.shape[-1]
-    ids = src_ids.long().contiguous()
-    flat = qids.long().reshape(*qids.shape[:-2], 9 * vq)
-    pos = torch.searchsorted(ids, flat.contiguous()).clamp_(max=vs - 1)
-    hit = (torch.gather(ids, -1, pos) == flat) & (flat >= 0)
-    g = take_rows(src, pos) * hit[..., None].to(src.dtype)
+    pos = stencil_positions_ref(qids, src_ids).long().flatten(-2)
+    g = take_rows(src, pos.clamp(min=0)) * (pos >= 0)[..., None].to(src.dtype)
     g = g.reshape(*qids.shape[:-2], 9, vq, nc, kzp).float()
     out = torch.einsum("...jvck,jkn->...vcn", g, wc.to(src.dtype).float())
     return out.reshape(*qids.shape[:-2], vq, nc * n)
@@ -544,53 +551,265 @@ def _check_args(src, qids, src_ids, wc, nc: int):
         )
 
 
+# Host side of the bfloat16 (tensor-core) route: what the kernels are told, and
+# plain versions of the small preparation kernels.
+
+MMA_SLICE = 64   # contraction lanes a pipeline stage of the kernel holds
+MMA_MAX_K = 256  # widest contraction (16 steps of 16 lanes)
+MMA_MAX_N = 256  # most output columns a block owns
+
+
+def stencil_mma_variant(k: int, n: int) -> dict:
+    """What ``stencil_conv_mma_kernel`` is launched with for a contraction of
+    ``k`` lanes and ``n`` output columns: ``kp`` (``k`` padded to whole
+    64-lane slices), ``n_pad`` (``n`` padded to pairs of 8-column tiles), the
+    warps, queries and pipeline stages of a block and its dynamic shared
+    memory. Up to 128 columns a block is 8 warps (4 x 2, a warp 32 queries x
+    64 columns); up to 256 it is 16 warps (8 x 2, a warp 16 queries x 128
+    columns). Raises for shapes the kernel does not take."""
+    if k < 1 or n < 1:
+        raise ValueError(f"the stencil kernel needs k ≥ 1 and n ≥ 1, got {k} and {n}")
+    kp = -(-k // MMA_SLICE) * MMA_SLICE
+    n_pad = -(-n // 16) * 16
+    if kp > MMA_MAX_K or n_pad > MMA_MAX_N:
+        raise ValueError(
+            f"the bfloat16 stencil kernel takes up to {MMA_MAX_K} contraction lanes and "
+            f"{MMA_MAX_N} output columns, got {k} and {n}"
+        )
+    warps, stages = (8, 3) if n_pad <= 128 else (16, 2)
+    cols = 128 if n_pad <= 128 else 256
+    return dict(kp=kp, n_pad=n_pad, warps=warps, queries=128, cols=cols, stages=stages,
+                smem_bytes=stages * (128 + cols) * (MMA_SLICE + 8) * 2)
+
+
+def bf16_split(x):
+    """``x`` float32 → ``(hi, lo)`` bfloat16 with ``hi + lo`` within 2^-16 of
+    ``x``: what the weight-gradient kernel does to a float32 cotangent (two
+    MMAs) instead of rounding it once."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def stencil_weight_prep_ref(wc, kp: int, n_pad: int, dtype=torch.bfloat16):
+    """Plain version of ``stencil_weight_prep_kernel``: ``wc`` ``(9, k, n)`` →
+    ``wt`` ``(9, n_pad, kp)`` bfloat16 (contraction index last, zero-padded)
+    and ``wmask`` ``(9, 16)`` int64 whose bit ``o // 8`` of entry ``[j, k //
+    16]`` says that the 16 x 8 block holds a non-zero. ``dtype`` float32 keeps
+    the values unrounded (for tests of the layout alone)."""
+    k, n = wc.shape[1:]
+    wt = F.pad(wc.to(dtype).transpose(1, 2), (0, kp - k, 0, n_pad - n))
+    blocks = (wt.float() != 0).reshape(9, n_pad // 8, 8, kp // 16, 16).any(dim=4).any(dim=2)
+    bits = (blocks.long() << torch.arange(n_pad // 8, device=wc.device)[None, :, None]).sum(dim=1)
+    return wt.contiguous(), F.pad(bits, (0, 16 - kp // 16))
+
+
+def stencil_rows_prep_ref(rows, nc: int, k: int, kp: int, dtype=torch.bfloat16):
+    """Plain version of ``stencil_rows_prep_kernel``: ``rows`` ``(…, nc·k)`` →
+    ``(…, nc·kp)`` bfloat16 (or ``dtype``), each chunk zero-padded, and a uint8
+    flag a row (1: the row holds a non-zero)."""
+    padded = F.pad(rows.unflatten(-1, (nc, k)), (0, kp - k)).flatten(-2).to(dtype)
+    return padded, (rows != 0).any(dim=-1).to(torch.uint8)
+
+
+def stencil_positions_ref(qids, src_ids, src_flags=None):
+    """Plain version of ``stencil_positions_kernel``: ``(…, 9, Vq)`` int32
+    positions of ``qids`` in the ascending ``src_ids``; −1 where absent or
+    where the source row's flag is 0."""
+    vs = src_ids.shape[-1]
+    if vs == 0:
+        return torch.full_like(qids, -1)
+    ids = src_ids.long().contiguous()
+    flat = qids.long().flatten(-2)
+    pos = torch.searchsorted(ids, flat.contiguous()).clamp_(max=vs - 1)
+    hit = (torch.gather(ids, -1, pos) == flat) & (flat >= 0)
+    if src_flags is not None:
+        hit = hit & (torch.gather(src_flags, -1, pos) != 0)
+    return torch.where(hit, pos, -1).to(torch.int32).reshape(qids.shape)
+
+
+def stencil_conv_mma_ref(src, qids, src_ids, wc, nc: int, dtype=torch.bfloat16):
+    """Plain version of the bfloat16 route as a whole, step by step as the
+    kernels take it: rows rounded to bfloat16 and padded, zero rows flagged
+    and turned into misses, weights transposed, padded and only their
+    non-zero 16 x 8 blocks multiplied, float32 sums. Equal to
+    :func:`stencil_conv_ref` on bfloat16 inputs up to summation order.
+    ``dtype`` float32 skips the rounding (for tests of the route's padding,
+    flags and block masks alone)."""
+    k, n = wc.shape[1:]
+    var = stencil_mma_variant(k, n)
+    kp, n_pad = var["kp"], var["n_pad"]
+    rows, flags = stencil_rows_prep_ref(src, nc, k, kp, dtype)
+    pos = stencil_positions_ref(qids, src_ids, flags)
+    wt, wmask = stencil_weight_prep_ref(wc, kp, n_pad, dtype)
+    keep = (wmask[:, : kp // 16, None] >> torch.arange(n_pad // 8, device=wc.device)) & 1
+    keep = keep.repeat_interleave(16, dim=1).repeat_interleave(8, dim=2)  # (9, kp, n_pad)
+    w = wt.float().transpose(1, 2) * keep.to(torch.float32)
+    vq = qids.shape[-1]
+    flat = pos.long().flatten(-2)
+    g = take_rows(rows, flat.clamp(min=0)) * (flat >= 0)[..., None].to(rows.dtype)
+    g = g.reshape(*qids.shape[:-2], 9, vq, nc, kp).float()
+    out = torch.einsum("...jvck,jkn->...vcn", g, w)[..., :n]
+    return out.reshape(*qids.shape[:-2], vq, nc * n)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The launch functions of csrc/stencil_conv.cu; the last argument is the stream.
+_SIGNATURES = {
+    "stencil_conv_launch": [_P] * 5 + [_I] * 7,
+    "stencil_wgrad_launch": [_P] * 5 + [_I] * 7,
+    "stencil_positions_launch": [_P] * 4 + [_I] * 4,
+    "stencil_weight_prep_launch": [_P] + [_LL] * 3 + [_P] * 2 + [_I] * 5,
+    "stencil_rows_prep_launch": [_P] * 3 + [_LL] + [_I] * 5,
+    "stencil_conv_mma_launch": [_P, _I] + [_P] * 6 + [_LL] * 3 + [_P] * 3 + [_I] * 10,
+    "stencil_wgrad_mma_launch": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 8,
+}
+
+
 def _kernel_library(entry: str = "stencil_conv_launch"):
-    """Both launch functions of ``csrc/stencil_conv.cu`` have one signature:
-    five pointers, eight ints, the stream."""
-    lib = _build.load_library("stencil_conv")
-    fn = getattr(lib, entry)
+    """The launch function ``entry`` of ``csrc/stencil_conv.cu`` (built at
+    first use)."""
+    fn = getattr(_build.load_library("stencil_conv"), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = _SIGNATURES[entry] + [_P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int, dgrad: bool = False):
-    """Launch ``csrc/stencil_conv.cu`` on PyTorch's current stream. ``dgrad``
-    says that this is the backward's launch on the reverse queries, counted
-    apart."""
+def _launch(entry: str, tensor, *args):
+    """Call ``entry`` of ``csrc/stencil_conv.cu`` on PyTorch's current stream
+    of ``tensor``'s device; tensors become pointers (``None`` a null pointer),
+    the device index and the stream are appended. Raises on a CUDA error."""
+    fn = _kernel_library(entry)
+    dev = tensor.device.index if tensor.device.index is not None else torch.cuda.current_device()
+    values = [_P(a.data_ptr()) if isinstance(a, torch.Tensor) else (_P(None) if a is None else a)
+              for a in args]
+    err = fn(*values, dev, _P(torch.cuda.current_stream(tensor.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{entry} failed with CUDA error {err}")
+
+
+def _rows_prep_cuda(rows, nc: int, k: int, kp: int, want_rows: bool = True):
+    """``stencil_rows_prep_kernel``: ``rows`` (b, v, nc·k) float32 or bfloat16 →
+    ((b, v, nc·kp) bfloat16 or None, (b, v) uint8 flags)."""
+    b, v, _ = rows.shape
+    out = torch.empty((b, v, nc * kp), dtype=torch.bfloat16, device=rows.device) if want_rows else None
+    flags = torch.empty((b, v), dtype=torch.uint8, device=rows.device)
+    _launch("stencil_rows_prep_launch", rows, rows, out, flags, b * v, nc, k, kp, _DTYPE_CODES[rows.dtype])
+    return out, flags
+
+
+def _positions_cuda(qids, src_ids, src_flags=None):
+    """``stencil_positions_kernel``: (b, 9, vq) int32 positions."""
+    b, _, vq = qids.shape
+    pos = torch.empty_like(qids)
+    _launch("stencil_positions_launch", qids, qids, src_ids, src_flags, pos, b, src_ids.shape[-1], vq)
+    return pos
+
+
+def _weight_prep_cuda(wc, kp: int, n_pad: int):
+    """``stencil_weight_prep_kernel``: ``wc`` (9, k, n) bfloat16 of any strides →
+    (9, n_pad, kp) bfloat16 and the (9, 16) int32 block bitmap."""
+    k, n = wc.shape[1:]
+    wt = torch.empty((9, n_pad, kp), dtype=torch.bfloat16, device=wc.device)
+    wmask = torch.empty((9, 16), dtype=torch.int32, device=wc.device)
+    _launch("stencil_weight_prep_launch", wc, wc, *wc.stride(), wt, wmask, k, n, kp, n_pad)
+    return wt, wmask
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels' vector accesses)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _scratch(device, *sizes):
+    """One uninitialised allocation cut into 16-byte aligned uint8 views of
+    ``sizes`` bytes (0: ``None``)."""
+    starts, total = [], 0
+    for size in sizes:
+        starts.append(total)
+        total += -(-size // 16) * 16
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    return [buf[o:o + n] if n else None for o, n in zip(starts, sizes)]
+
+
+def _check_not_empty(what: str, **sizes):
+    """The kernels take no empty shape (nothing would be launched)."""
+    if min(sizes.values()) < 1:
+        raise ValueError(f"{what} takes no empty shape on a CUDA tensor, got "
+                         + ", ".join(f"{k} = {v}" for k, v in sizes.items()))
+
+
+def _stencil_conv_mma(s, q, ids, wc, nc: int, dgrad: bool, out_dtype):
+    """The bfloat16 route on batched, contiguous arguments: one call launches
+    the row preparation (where ``s`` is not bfloat16 rows of whole 64-lane
+    slices, or is the cotangent of ``d_src``, ``dgrad``, whose zero rows are
+    worth flagging), the positions, the weight preparation and the
+    tensor-core kernel, and is counted as one launch of the forward or of
+    ``d_src``. Returns the output and the rows' flags (b, vs) uint8 (``None``
+    without preparation)."""
     global KERNEL_LAUNCHES, DGRAD_KERNEL_LAUNCHES
-    launch = _kernel_library()
-    batched = src.dim() == 3
-    s = (src if batched else src[None]).contiguous()
-    q = (qids if batched else qids[None]).contiguous()
-    ids = (src_ids if batched else src_ids[None]).contiguous()
-    w = wc.to(s.dtype).contiguous()
     b, vs, _ = s.shape
     vq = q.shape[-1]
-    kzp, n = w.shape[1:]
-    out = torch.empty((b, vq, nc * n), dtype=torch.float32, device=s.device)
-    dev = s.device.index if s.device.index is not None else torch.cuda.current_device()
-    err = launch(
-        ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(ids.data_ptr()),
-        ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        b, vs, vq, nc, kzp, n, _DTYPE_CODES[s.dtype], dev,
-        ctypes.c_void_p(torch.cuda.current_stream(s.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"stencil_conv kernel launch failed with CUDA error {err}")
+    k, n = wc.shape[1:]
+    var = stencil_mma_variant(k, n)
+    kp, n_pad = var["kp"], var["n_pad"]
+    _check_not_empty("the stencil kernel", b=b, vs=vs, vq=vq, nc=nc)
+    prep = dgrad or kp != k or s.dtype != torch.bfloat16
+    w = wc.to(torch.bfloat16)
+    pos, wt, wmask, flags, rows = _scratch(
+        s.device, 4 * b * 9 * vq, 2 * 9 * n_pad * kp, 4 * 9 * 16, b * vs if prep else 0,
+        2 * b * vs * nc * kp if prep else 0)
+    out = torch.empty((b, vq, nc * n), dtype=out_dtype, device=s.device)
+    _launch("stencil_conv_mma_launch", s, _aligned(s), _DTYPE_CODES[s.dtype], rows, flags,
+            q, ids, pos, w, *w.stride(), wt, wmask, out, _DTYPE_CODES[out_dtype],
+            b, vs, vq, nc, k, n, kp, n_pad)
     if dgrad:
         DGRAD_KERNEL_LAUNCHES += 1
     else:
         KERNEL_LAUNCHES += 1
+    return out, (flags.view(b, vs) if prep else None)
+
+
+def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int, dgrad: bool = False, out_dtype=torch.float32):
+    """Launch the stencil kernel of ``csrc/stencil_conv.cu`` on PyTorch's
+    current stream: the float32 FMA kernel for float32 ``src``, the bfloat16
+    tensor-core kernel (with its preparation kernels) for bfloat16 ``src``;
+    ``wc`` may have any strides there. ``dgrad`` says that this is the
+    backward's launch on the reverse queries, counted apart. The output is
+    float32; the bfloat16 route can also round its float32 sums to bfloat16
+    itself (``out_dtype``), which saves ``d_src`` a pass."""
+    global KERNEL_LAUNCHES, DGRAD_KERNEL_LAUNCHES
+    batched = src.dim() == 3
+    s = (src if batched else src[None]).contiguous()
+    q = (qids if batched else qids[None]).contiguous()
+    ids = (src_ids if batched else src_ids[None]).contiguous()
+    if s.dtype == torch.float32:
+        if out_dtype != torch.float32:
+            raise ValueError("the float32 stencil kernel writes float32")
+        b, vs, _ = s.shape
+        k, n = wc.shape[1:]
+        _check_not_empty("the stencil kernel", b=b, vs=vs, vq=q.shape[-1], nc=nc, k=k, n=n)
+        out = torch.empty((b, q.shape[-1], nc * n), dtype=torch.float32, device=s.device)
+        _launch("stencil_conv_launch", s, s, q, ids, wc.to(s.dtype).contiguous(), out,
+                b, vs, q.shape[-1], nc, k, n)
+        if dgrad:
+            DGRAD_KERNEL_LAUNCHES += 1
+        else:
+            KERNEL_LAUNCHES += 1
+    else:
+        out, _ = _stencil_conv_mma(s, q, ids, wc, nc, dgrad, out_dtype)
     return out if batched else out[0]
 
 
-def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int):
-    """Launch ``stencil_wgrad_kernel`` on PyTorch's current stream: ``(9, kzp,
-    n)`` float32 from the source rows and the float32 cotangent."""
+def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int, flags=None):
+    """Launch the weight-gradient kernel on PyTorch's current stream: ``(9,
+    kzp, n)`` float32 from the source rows and the float32 cotangent; the FMA
+    tile for float32 ``src``, the tensor-core tile for bfloat16 ``src``, which
+    skips queries whose cotangent row is zero by ``flags`` (b, vq) uint8
+    (computed in the same call when not given)."""
     global WGRAD_KERNEL_LAUNCHES
-    launch = _kernel_library("stencil_wgrad_launch")
     batched = src.dim() == 3
     s = (src if batched else src[None]).contiguous()
     q = (qids if batched else qids[None]).contiguous()
@@ -598,16 +817,15 @@ def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int)
     g = (grad_out if batched else grad_out[None]).float().contiguous()
     b, vs, _ = s.shape
     vq = q.shape[-1]
-    out = torch.zeros((9, kzp, n), dtype=torch.float32, device=s.device)
-    dev = s.device.index if s.device.index is not None else torch.cuda.current_device()
-    err = launch(
-        ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(ids.data_ptr()),
-        ctypes.c_void_p(g.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        b, vs, vq, nc, kzp, n, _DTYPE_CODES[s.dtype], dev,
-        ctypes.c_void_p(torch.cuda.current_stream(s.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"stencil_wgrad kernel launch failed with CUDA error {err}")
+    _check_not_empty("the stencil's weight-gradient kernel", b=b, vs=vs, vq=vq, nc=nc, kzp=kzp, n=n)
+    out, queues, tiles = wgrad_buffers(9, kzp, n, s.device)
+    if s.dtype == torch.float32:
+        _launch("stencil_wgrad_launch", s, s, q, ids, g, out, b, vs, vq, nc, kzp, n)
+    else:
+        pos, own_flags = _scratch(s.device, 4 * b * 9 * vq, b * vq if flags is None else 0)
+        _launch("stencil_wgrad_mma_launch", s, _aligned(s), q, ids, _aligned(g),
+                own_flags if flags is None else flags, int(flags is not None), pos, out, queues, tiles,
+                b, vs, vq, nc, kzp, n)
     WGRAD_KERNEL_LAUNCHES += 1
     return out
 
@@ -619,7 +837,13 @@ class StencilConv(torch.autograd.Function):
     ascending ids of the queries). On a CUDA tensor ``d_src`` is the stencil
     kernel on them and ``d_wc`` the weight-gradient kernel; without reverse
     queries the backward raises there. On a CPU tensor the plain versions run
-    (without reverse queries, autograd of the plain forward)."""
+    (without reverse queries, autograd of the plain forward).
+
+    In bfloat16 on the card ``d_src``'s call first rounds the float32
+    cotangent to bfloat16 rows padded to whole 64-lane slices (the strided
+    layers' 65, 66 and 68 lanes are not 16-byte aligned) and flags its
+    non-zero rows (``stencil_rows_prep_kernel``, one pass); both kernels skip
+    the zero rows the capacity caps leave."""
 
     @staticmethod
     def forward(ctx, src, qids, src_ids, wc, nc, rev_qids, rev_src_ids):
@@ -645,20 +869,28 @@ class StencilConv(torch.autograd.Function):
             return (d_src if need_src else None), None, None, (d_wc if need_wc else None), None, None, None
         kzp, n = wc.shape[1:]
         d_src = d_wc = None
+        flags = None
         if need_src:
             # The transposed conv is a 9-offset stencil over the cotangent
             # rows (chunk width N, output width kzp), picked by the reverse
             # queries; the cotangent rows' ids are the forward's query ids.
-            g_rows = grad_out.to(src.dtype)
-            wct = wc.transpose(1, 2).contiguous()
-            if on_card:
-                d_src = _stencil_conv_cuda(g_rows, rev_qids, rev_src_ids, wct, nc, dgrad=True)
+            wct = wc.transpose(1, 2)
+            if on_card and src.dtype == torch.bfloat16:
+                batched = grad_out.dim() == 3
+                d_src, flags = _stencil_conv_mma(
+                    grad_out if batched else grad_out[None],
+                    (rev_qids if batched else rev_qids[None]).contiguous(),
+                    (rev_src_ids if batched else rev_src_ids[None]).contiguous(),
+                    wct, nc, True, src.dtype)
+                d_src = d_src if batched else d_src[0]
+            elif on_card:
+                d_src = _stencil_conv_cuda(grad_out.to(src.dtype), rev_qids, rev_src_ids, wct, nc, dgrad=True)
             else:
-                d_src = stencil_conv_ref(g_rows, rev_qids, rev_src_ids, wct, nc)
+                d_src = stencil_conv_ref(grad_out.to(src.dtype), rev_qids, rev_src_ids, wct.contiguous(), nc)
             d_src = d_src.to(src.dtype)
         if need_wc:
             if on_card:
-                d_wc = _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc, kzp, n).to(wc.dtype)
+                d_wc = _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc, kzp, n, flags=flags).to(wc.dtype)
             else:
                 d_wc = stencil_conv_bwd_ref(src, qids, src_ids, wc, nc, grad_out)[1]
         return d_src, None, None, d_wc, None, None, None

@@ -9,7 +9,8 @@ the shoelace formula, all as elementwise tensor math over any leading
 shape. Pairwise functions take ``(N, 5)`` × ``(M, 5)`` or batched
 ``(B, N, 5)`` × ``(B, M, 5)`` BEV boxes ``[x, y, w, l, yaw]`` and work on
 blocks of rows, so that the (B, rows, M, 24) candidates never exist for
-all rows at once. ``rotated_iou_3d`` comes with PointRCNN.
+all rows at once. ``rotated_iou_3d`` of the JAX package is not ported: no
+path of the port calls it yet (PointRCNN inference needs the BEV IoU only).
 """
 
 from __future__ import annotations

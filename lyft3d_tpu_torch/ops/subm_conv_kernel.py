@@ -17,7 +17,9 @@ dimension where the JAX package ``vmap``s.
 
 The gradient (:class:`SubmConv`; XLA code in the JAX package) has two sides,
 each a hand-written kernel of the same source file on a CUDA tensor:
-``dW[k] = Σ f_sorted[ranks[k]]ᵀ g`` (``subm_wgrad_kernel``) and
+``dW[k] = Σ f_sorted[ranks[k]]ᵀ g`` (the tiles of ``csrc/wgrad_tile.cuh``:
+tensor cores for bfloat16, which skip queries whose cotangent row is zero by a
+flag a row; float32 FMAs for float32) and
 ``df[ranks[k, v]] += g[v] @ W[k]ᵀ`` (``subm_dgrad_kernel``, a scatter with
 float32 atomics that holds for any rank table). On a CPU tensor both come
 from :func:`subm_conv_bwd_ref`, the plain forward differentiated by autograd.
@@ -30,6 +32,7 @@ import ctypes
 import torch
 
 from lyft3d_tpu_torch import _build
+from lyft3d_tpu_torch.ops._wgrad import wgrad_buffers
 from lyft3d_tpu_torch.ops.sparse_conv import take_rows
 
 __all__ = [
@@ -50,7 +53,6 @@ DGRAD_KERNEL_LAUNCHES = 0
 WGRAD_KERNEL_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def subm_conv_ref(f_sorted, ranks, weights):
     """Plain version: gather by rank, zero the absent rows, one einsum in
@@ -97,21 +99,34 @@ def _check_args(f_sorted, ranks, weights):
         )
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The launch functions of csrc/subm_conv.cu; the last argument is the stream.
+_SIGNATURES = {
+    "subm_conv_launch": [_P] * 4 + [_I] * 8,
+    "subm_dgrad_launch": [_P] * 4 + [_I] * 8,
+    "subm_wgrad_launch": [_P] * 6 + [_I] * 9,
+}
+
+
 def _kernel_library(entry: str = "subm_conv_launch"):
-    """Every launch function of ``csrc/subm_conv.cu`` has one signature: four
-    pointers, eight ints, the stream."""
     lib = _build.load_library("subm_conv")
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = _SIGNATURES[entry] + [_P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_not_empty(**sizes):
+    """The kernels take no empty shape (nothing would be launched)."""
+    if min(sizes.values()) < 1:
+        raise ValueError("the rank gather kernels take no empty shape on a CUDA tensor, got "
+                         + ", ".join(f"{k} = {v}" for k, v in sizes.items()))
 
 
 def _subm_conv_cuda(f_sorted, ranks, weights):
     """Launch ``csrc/subm_conv.cu`` on PyTorch's current stream."""
     global KERNEL_LAUNCHES
-    launch = _kernel_library()
     batched = f_sorted.dim() == 3
     feats = (f_sorted if batched else f_sorted[None]).contiguous()
     rk = (ranks if batched else ranks[None]).to(torch.int32).contiguous()
@@ -119,7 +134,9 @@ def _subm_conv_cuda(f_sorted, ranks, weights):
     b, vs, c = feats.shape
     k, vq = rk.shape[1:]
     cout = w.shape[-1]
+    _check_not_empty(b=b, vs=vs, vq=vq, k=k, c=c, cout=cout)
     out = torch.empty((b, vq, cout), dtype=feats.dtype, device=feats.device)
+    launch = _kernel_library()
     dev = feats.device.index if feats.device.index is not None else torch.cuda.current_device()
     err = launch(
         ctypes.c_void_p(feats.data_ptr()), ctypes.c_void_p(rk.data_ptr()),
@@ -133,15 +150,16 @@ def _subm_conv_cuda(f_sorted, ranks, weights):
     return out if batched else out[0]
 
 
-def _subm_bwd_cuda(entry: str, a, ranks, other, out, dims):
+def _subm_bwd_cuda(entry: str, *args):
+    """Call a backward launch function: tensors become pointers (``None`` a
+    null pointer), ints stay; the device and current stream of the first
+    tensor are appended."""
     launch = _kernel_library(entry)
+    a = args[0]
     dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    err = launch(
-        ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(ranks.data_ptr()),
-        ctypes.c_void_p(other.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        *dims, _DTYPE_CODES[a.dtype], dev,
-        ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream),
-    )
+    values = [ctypes.c_void_p(t.data_ptr()) if isinstance(t, torch.Tensor)
+              else (ctypes.c_void_p(None) if t is None else t) for t in args]
+    err = launch(*values, dev, ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{entry} failed with CUDA error {err}")
 
@@ -158,16 +176,24 @@ def _subm_conv_bwd_cuda(f_sorted, ranks, weights, grad_out, need_df: bool, need_
     b, vs, c = feats.shape
     k, vq = rk.shape[1:]
     cout = w.shape[-1]
-    dims = (b, vs, vq, k, c, cout)
+    _check_not_empty(b=b, vs=vs, vq=vq, k=k, c=c, cout=cout)
+    dims = (b, vs, vq, k, c, cout, _DTYPE_CODES[feats.dtype])
     df = dw = None
     if need_df:
         df = torch.zeros((b, vs, c), dtype=torch.float32, device=feats.device)
-        _subm_bwd_cuda("subm_dgrad_launch", g, rk, w, df, dims)
+        _subm_bwd_cuda("subm_dgrad_launch", g, rk, w, df, *dims)
         DGRAD_KERNEL_LAUNCHES += 1
         df = (df if batched else df[0]).to(f_sorted.dtype)
     if need_dw:
-        dw = torch.zeros((k, c, cout), dtype=torch.float32, device=feats.device)
-        _subm_bwd_cuda("subm_wgrad_launch", feats, rk, g, dw, dims)
+        dw, queues, tiles = wgrad_buffers(k, c, cout, feats.device)
+        flags = None
+        if feats.dtype == torch.bfloat16:
+            # The tensor-core tile reads 16-byte vectors where rows allow it,
+            # and drops queries whose cotangent row is zero by a flag a row.
+            if feats.data_ptr() % 16:
+                feats = feats.clone()
+            flags = torch.empty((b, vq), dtype=torch.uint8, device=feats.device)
+        _subm_bwd_cuda("subm_wgrad_launch", feats, rk, g, flags, dw, queues, tiles, *dims)
         WGRAD_KERNEL_LAUNCHES += 1
         dw = dw.to(weights.dtype)
     return df, dw

@@ -303,6 +303,18 @@ def test_stencil_kernel_on_card_matches_plain():
     torch.cuda.synchronize()
     want = tcs.stencil_conv_ref(src, qids, ids, wc, 2)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # The tensor-core route at widths that need padding (68 → 80 columns, 30 →
+    # 64 lanes) and at 256 columns; its preparation kernels are held to their
+    # plain versions in tests/test_torch_sparse_kernels_dispatch.py.
+    for nc, kzp, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256)):
+        src, qids, ids, wc = (t(a).cuda() for a in stencil_case(3, 2, 300, 260, nc, kzp, n))
+        src16, wc16 = src.bfloat16(), wc.bfloat16()
+        got = tcs.stencil_conv_batched(src16, qids, ids, wc16, nc)
+        want = tcs.stencil_conv_ref(src16, qids, ids, wc16, nc)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError):
+        tcs.stencil_conv_batched(torch.zeros(2, 300, 300, device="cuda", dtype=torch.bfloat16), qids, ids,
+                                 torch.zeros(9, 300, 8, device="cuda"), 1)
 
 
 # ------------------------------------------------------------------ gradients
@@ -354,6 +366,36 @@ def test_stencil_conv_gradients_match_jax(method, rev):
     close(src.grad, want_s, GRAD_TOL)
     close(w.grad, want_w, GRAD_TOL)
     assert float(np.abs(want_s).max()) > 0 and float(np.abs(want_w).max()) > 0
+
+
+@pytest.mark.parametrize("method", ["ref", "pallas_interpret"])
+def test_padded_cotangent_route_of_d_src_matches_jax(method):
+    """d_src as the tensor-core route takes it (cotangent rows padded from 16
+    lanes to a whole 64-lane slice, zero rows turned into misses, transposed
+    weights through the block bitmap), in float32 values, against the JAX
+    package's ``_stencil_bwd`` on the reverse queries."""
+    shape, z_slab, ncs, cout = (10, 11, 8), 4, 2, 4
+    jcols, jf, tcols = unit_batch((3, 13), shape, z_slab, 56, 80)
+    rng = np.random.RandomState(0)
+    kzp, n = 128, z_slab * cout
+    jsrc = jax.vmap(lambda f, i, v: jcs._unit_rows_padded(f, i, v, ncs, bottom=True))(
+        jf * jcols.mask[..., None], jcols.col_ids, jcols.valid)
+    wc = (rng.randn(9, kzp, n) * 0.3).astype(np.float32)
+    jq = jax.vmap(lambda c: jcs.unit_qids_subm(c, ncs))(jcols)
+    cot = rng.randn(*jsrc.shape[:2], n).astype(np.float32)
+    cot[:, ::3] = 0
+
+    def jout(s):
+        return jcs.stencil_conv_batched(s, jq, jcols.col_ids, jnp.asarray(wc), 1, 256, 384, method,
+                                        rev_qids=jq[:, ::-1], rev_src_ids=jcols.col_ids)
+
+    want, = jax.vjp(jout, jsrc)[1](jnp.asarray(cot))
+    tq = t(jq)
+    assert tcs.stencil_mma_variant(n, kzp)["kp"] == 64
+    got = tcs.stencil_conv_mma_ref(t(cot), tq.flip(-2), tcols.col_ids, t(wc).transpose(1, 2), 1,
+                                   dtype=torch.float32)
+    close(got, want, GRAD_TOL)
+    assert float(np.abs(want).max()) > 0
 
 
 def test_stencil_backward_rev_equals_plain_autograd(monkeypatch):
@@ -493,3 +535,9 @@ def test_stencil_backward_kernels_on_card_match_plain():
         grads.append((f.grad.cpu(), wt.grad.cpu()))
     close(grads[0][0], grads[1][0].numpy(), GRAD_TOL)
     close(grads[0][1], grads[1][1].numpy(), GRAD_TOL)
+    # Forward, d_src and d_wc at the edge shapes (ragged tiles, tiles without a
+    # hit, all nine offsets hit, one hit, an empty sample, 65 to 256 columns,
+    # one and two chunks, dense weights), bfloat16 and float32.
+    import chip_smoke
+
+    assert chip_smoke.stencil_edge_checks(torch.device("cuda")) <= 1.0

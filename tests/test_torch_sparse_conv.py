@@ -280,3 +280,8 @@ def test_subm_conv_backward_kernels_on_card_match_plain():
     want_f, want_w = tk.subm_conv_bwd_ref(f, ranks, w, go)
     assert float((df - want_f).abs().max()) <= TOL * float(want_f.abs().max())
     assert float((dw - want_w).abs().max()) <= TOL * float(want_w.abs().max())
+    # df and dW at 3 to 96 channels with an empty sample and zero cotangent
+    # rows, bfloat16 (tensor cores, flagged rows skipped) and float32.
+    import chip_smoke
+
+    assert chip_smoke.subm_edge_checks(torch.device("cuda")) <= 1.0
