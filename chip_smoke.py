@@ -51,7 +51,12 @@ Phases, one line of numbers each:
    x 16,384 points, k 512, extra width 1.0), with 5% invalid points,
    duplicated points, a far-away centre (an empty row), a box with more
    points than k and an empty box: indices and counts ``torch.equal``,
-   distances within 1e-6; both timed with CUDA events;
+   distances within 1e-6; both timed with CUDA events. FPS runs a cluster of
+   16 CTAs a cloud at 4 x 16,384 (timed beside one block a cloud) and one
+   block a cloud for the 400 RoI clouds, and is also held to its plain
+   version at :data:`FPS_EDGES` (ties across CTAs, a cloud without a valid
+   point, fewer valid points than npoint, N no multiple of the cluster's
+   span, N = 65,536, batch 1, more clusters than the card keeps resident);
 9. pointrcnn check: the ``PointRCNN`` of ``lyft_pointrcnn_config("test")`` in
    float32 at batch 1 with TF32 off, card against CPU with the same seeded
    weights, stage by stage on the CPU's inputs: FPS indices and proposal
@@ -63,17 +68,23 @@ Phases, one line of numbers each:
     bfloat16 with folded norms at batch 4 x 16,384 points: the four launch
     counts are reset before it and must be 6, 6, 4 and 1 a call after it;
     output shapes, finite boxes, scores in [0, 1]; samples/s from CUDA events
-    (2 warm-up, 10 timed iterations), a stage split, and peak memory.
+    (2 warm-up, 10 timed iterations), a stage split, and peak memory. The six
+    FPS launches of one more call are recorded and replayed: each
+    ``torch.equal`` to the plain version, timed, in µs a dependent step.
 
 10a. sparse kernel edges: the stencil kernel, its two backward sides and the
-    rank gather's backward against their plain versions at the shapes a tiled
-    tensor-core kernel gets wrong first (:data:`STENCIL_EDGES`,
-    :data:`SUBM_EDGES`): query counts that are no multiple of the 128-query
+    rank gather (forward, ``df``, ``dW``) against their plain versions at the
+    shapes a tiled tensor-core kernel gets wrong first (:data:`STENCIL_EDGES`,
+    :data:`SUBM_EDGES`, :data:`SUBM_TABLES`; the rank gather's bfloat16
+    forward also as its float32 sums, 1e-5; the reverse table it builds for
+    ``df`` against ``reverse_ranks``, and its flag on a table that repeats an
+    (offset, row) pair): query counts that are no multiple of the 128-query
     tile, tiles without a hit, every query hitting at all nine offsets, one
     hit in the whole launch, an empty sample, 65, 66, 68, 128 and 256 columns,
     128 and 256 lanes, one and two chunks, dense random weights and banded
-    ones, 3 to 64 channels; bfloat16 (tensor cores) and float32 (FMA), with
-    the tolerances of phases 12 and 18;
+    ones, 3 to 96 channels, tables without a hit, with one present neighbour
+    and with the centre offset alone; bfloat16 (tensor cores) and float32
+    (FMA), with the tolerances of phases 12 and 18;
 11. sparse check: the sparse ``VoxelNet`` of
     ``configs/second_lyft_9class_sparse.yaml`` (spelled out in
     :func:`fhd_config`: 0.05 x 0.05 x 0.2 m voxels on a 1984 x 1984 x 40
@@ -96,8 +107,9 @@ Phases, one line of numbers each:
 13. per-voxel e2e: the second sparse path, ``middle="sparse"``, same geometry
     and caps, bfloat16: the rank gather kernel's count must be 6 a call and
     the fill kernel's 1; samples/s and a stage split; the six recorded calls
-    replayed against the plain version (1e-5 of scale) and timed beside
-    ``index_select`` + ``einsum``;
+    replayed against the plain version (1e-5 of scale in float32 and for the
+    bfloat16 route's float32 sums, 2^-7 for its rounded output) and timed
+    beside ``index_select`` + ``einsum``;
 14. cross-check: with the same float32 weights, and a cloud and caps under
     which no stage truncates (asserted), both middles give the same dense BEV
     map within 1e-3 of its scale.
@@ -132,14 +144,15 @@ Phases, one line of numbers each:
     recorded with its cotangent and replayed, kernel against plain version
     (the plain forward differentiated by autograd, in float32 on the same
     values): the stencil's ``d_src`` (the forward kernel on the reverse
-    queries) and ``d_wc`` at the nine launches, the rank gather's ``df`` and
-    ``dW`` at the six, the fill's gather at its recorded shapes; 1e-5 of
-    scale in float32 (5e-5 for the weight gradients, sums of up to 300,000
-    outer products whose atomics vary in order), 2^-7 where the result is
-    rounded to bfloat16. The weight gradient of the stencil is timed beside
-    cuBLAS (``torch.einsum``) on rows gathered beforehand, with and without
-    the gather; the stencil's two are replayed once more on a clustered cloud
-    that fills no cap (dense hits, few zero cotangent rows);
+    queries) and ``d_wc`` at the nine launches, the rank gather's ``df``
+    (the forward kernel on the reverse ranks; the step's five launches also
+    as a total) and ``dW`` at the six, the fill's gather at its recorded
+    shapes; 1e-5 of scale in float32 (5e-5 for the weight gradients, sums of
+    up to 300,000 outer products whose atomics vary in order), 2^-7 where the
+    result is rounded to bfloat16. The weight gradient of the stencil is
+    timed beside cuBLAS (``torch.einsum``) on rows gathered beforehand, with
+    and without the gather; the stencil's two are replayed once more on a
+    clustered cloud that fills no cap (dense hits, few zero cotangent rows);
 19. fit: a short ``Trainer.fit`` on the bench-shaped tensors that writes
     checkpoints into a temporary directory, resumes from them in a fresh
     trainer at the right step with equal parameters, and trains on.
@@ -251,6 +264,22 @@ def cuda_ms(fn, warmup=2, iters=TIMED_ITERS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=5):
+    """Mean milliseconds of device time a call of ``fn``: every kernel and
+    copy ``torch.profiler`` sees, summed, without the gaps in which the card
+    waits for the host (which ``cuda_ms`` counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
 
 
 def sweep_points(batch, n, seed):
@@ -498,8 +527,59 @@ STENCIL_EDGES = (
     (2, 400, 400, 1, 256, 256, 0.2), (3, 640, 640, 1, 128, 128, "holes"), (2, 500, 500, 1, 256, 128, "one"),
     (2, 100, 90, 1, 30, 16, 0.5),
 )
-# (C, Cout) of the rank gather's backward edge checks.
-SUBM_EDGES = ((3, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (20, 40), (96, 80))
+# (C, Cout) of the rank gather's edge checks: every width of the per-voxel
+# middle (3 to 5 point features in, 16 to 64 channels) and two shapes that are
+# no multiple of 16; and the tables checked besides the random one.
+SUBM_EDGES = tuple((c, cout) for c in (3, 4, 5, 16, 32, 64) for cout in (16, 32, 64)) + ((20, 40), (96, 80))
+SUBM_TABLES = ("no hit", "one row", "centre only")
+# (what, batch, N, npoint) of the FPS edge checks: what the cluster kernel
+# gets wrong first. The RCNN's one-block shapes are checked in phases 8 and 10.
+FPS_EDGES = (
+    ("ties across CTAs", 4, 16384, 1024), ("a cloud all invalid", 2, 16384, 300),
+    ("fewer valid points than npoint", 2, 9000, 600), ("N no multiple of the cluster's span", 3, 12289, 700),
+    ("N = 65,536", 1, 65536, 512), ("batch 1", 1, 16384, 1024), ("more clusters than fit at once", 40, 16384, 256),
+)
+
+
+def fps_edge_cloud(what, batch, n, seed):
+    """:func:`rcnn_cloud` (1% exact copies half a cloud apart), with copies of
+    64 points of CTA 0's share in every other CTA's share ("ties"), one
+    cloud without a valid point, or 400 valid points in all."""
+    pts, valid = rcnn_cloud(batch, n, seed)
+    if what.startswith("ties"):
+        share = n // 16
+        for r in range(1, 16):
+            pts[:, r * share + 5: r * share + 69] = pts[:, 10:74]
+    elif what.startswith("a cloud all invalid"):
+        valid[0] = False
+    elif what.startswith("fewer valid"):
+        valid[:] = False
+        valid[:, :: n // 400] = True
+    return pts, valid
+
+
+def subm_edge_table(kind, b, v, seed):
+    """A ``(b, 27, v)`` rank table in which each offset reads each source row
+    at most once (every ``subm_neighbors`` table does, and the reverse-rank
+    ``df`` needs it): 20% of the off-centre neighbours present, the centre
+    offset everywhere, the last sample empty; or no hit at all, one present
+    neighbour in the whole table, or the centre offset alone."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    if kind == "no hit":
+        return torch.full((b, 27, v), -1, dtype=torch.int32)
+    perm = torch.argsort(torch.rand(b, 27, v, generator=g), dim=-1)
+    ranks = torch.where(torch.rand(b, 27, v, generator=g) < 0.2, perm, -1).int()
+    ranks[:, 13] = torch.arange(v)
+    ranks[-1] = -1
+    if kind == "centre only":
+        ranks[:, :13] = -1
+        ranks[:, 14:] = -1
+    elif kind == "one row":
+        ranks[:] = -1
+        ranks[0, 5, 17] = 3
+    return ranks.contiguous()
 
 
 def stencil_edge_case(b, vs, vq, nc, kzp, n, hits, seed, dev):
@@ -585,42 +665,96 @@ def stencil_edge_checks(dev):
 
 
 def subm_edge_checks(dev):
-    """Phase 10a for the rank gather: ``df`` and ``dW`` at :data:`SUBM_EDGES`
-    (3 samples of 2,000 rows, 20% of the off-centre neighbours present, the
-    last sample empty, every fourth cotangent row zero) against the plain
-    backward. Returns the largest error over its tolerance."""
+    """Phase 10a for the rank gather: forward, ``df`` and ``dW`` at every
+    :data:`SUBM_EDGES` shape (3 samples of 2,000 rows, the last sample empty,
+    every fourth cotangent row zero) and at the :data:`SUBM_TABLES` tables,
+    against the plain versions: bfloat16 (tensor cores; the forward's float32
+    sums before they are rounded, 1e-5) and float32 (FMA). Returns the
+    largest error over its tolerance."""
     import torch
 
     from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
 
     worst = 0.0
+
+    def hold(what, got, want, tol):
+        nonlocal worst
+        scale = float(want.float().abs().max())
+        err = rel_diff(got, want) if scale > 0 else float(got.float().abs().max())
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"sparse kernel edges: rank gather {what} differs from the plain version by "
+                                 f"{err} of its scale (tol {tol})")
+
     b, v = 3, 2000
-    for c, cout in SUBM_EDGES:
+    cases = [(c, cout, "random") for c, cout in SUBM_EDGES] + [(16, 32, kind) for kind in SUBM_TABLES]
+    for c, cout, kind in cases:
         g = torch.Generator().manual_seed(100 * c + cout)
-        ranks = torch.where(torch.rand(b, 27, v, generator=g) < 0.2,
-                            torch.randint(0, v, (b, 27, v), generator=g), -1).int()
-        ranks[:, 13] = torch.arange(v)
-        ranks[-1] = -1
-        f = torch.randn(b, v, c, generator=g)
-        w = torch.randn(27, c, cout, generator=g) * 0.3
+        ranks = subm_edge_table(kind, b, v, seed=100 * c + cout).to(dev)
+        f = torch.randn(b, v, c, generator=g).to(dev)
+        w = (torch.randn(27, c, cout, generator=g) * 0.3).to(dev)
         cot = torch.randn(b, v, cout, generator=g)
         cot[:, ::4] = 0
-        f, w, cot, ranks = f.to(dev), w.to(dev), cot.to(dev), ranks.to(dev)
+        cot = cot.to(dev)
+        what = f"{c}->{cout} {kind}"
         for dtype in (torch.bfloat16, torch.float32):
             f_ = f.to(dtype).requires_grad_(True)
             w_ = w.to(dtype).requires_grad_(True)
-            got = torch.autograd.grad(sk.subm_conv(f_, ranks, w_), (f_, w_), cot.to(dtype))
+            out = sk.subm_conv(f_, ranks, w_)
             f32 = f_.detach().float().requires_grad_(True)
             w32 = w_.detach().float().requires_grad_(True)
-            want = torch.autograd.grad(sk.subm_conv_ref(f32, ranks, w32), (f32, w32), cot.to(dtype).float())
+            want = sk.subm_conv_ref(f32, ranks, w32)
+            if dtype == torch.bfloat16:
+                sums = sk._subm_conv_cuda(f_.detach(), ranks, w_.detach(), out_dtype=torch.float32)
+                hold(f"forward sums {what} {dtype}", sums, want.detach(), 1e-5)
+                hold(f"forward {what} {dtype}", out.detach(), want.detach(), 2.0 ** -7)
+            else:
+                hold(f"forward {what} {dtype}", out.detach(), want.detach(), 1e-5)
+            if kind == "one row" and int((out.detach().abs().sum(-1) > 0).sum()) != 1:
+                raise AssertionError("sparse kernel edges: one present neighbour must write one non-zero row")
+            got = torch.autograd.grad(out, (f_, w_), cot.to(dtype))
+            want_g = torch.autograd.grad(want, (f32, w32), cot.to(dtype).float())
             tols = (1e-5, WGRAD_TOL) if dtype == torch.float32 else (2.0 ** -7, 2.0 ** -7)
-            for name, a, bb, tol in zip(("df", "dW"), got, want, tols):
-                err = rel_diff(a, bb)
-                worst = max(worst, err / tol)
-                if not err <= tol:
-                    raise AssertionError(f"sparse kernel edges: rank gather {name} {c}->{cout} {dtype} "
-                                         f"differs from the plain backward by {err} of its scale (tol {tol})")
+            for name, a, bb, tol in zip(("df", "dW"), got, want_g, tols):
+                hold(f"{name} {what} {dtype}", a, bb, tol)
     return worst
+
+
+def subm_contract_flag(dev):
+    """The feature gradient's launch flags a table that reads an (offset, row)
+    pair twice, and only such a table. The flag is read straight from the
+    launch function: the wrapper asserts on it on the card, which would end
+    this process."""
+    import ctypes
+
+    import torch
+
+    from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
+
+    launch = sk._kernel_library()
+    flags = []
+    for repeat in (False, True):
+        ranks = subm_edge_table("random", 2, 1000, seed=5).to(dev)
+        if repeat:
+            ranks[0, 4, 7] = ranks[0, 4, 9] = 3
+        g = torch.randn(2, 1000, 16, device=dev)
+        w = torch.randn(27, 16, 16, device=dev)
+        out = torch.empty(2, 1000, 16, device=dev)
+        rev = torch.empty(2, 27, 1000, dtype=torch.int32, device=dev)
+        bad = torch.full((1,), 7, dtype=torch.int32, device=dev)
+        ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr())
+                for t in (g, ranks, w, out, None, None, None, rev, bad)]
+        err = launch(*ptrs, 2, 1000, 1000, 27, 16, 16, 0, 0, 0, 0, 0,
+                     ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"subm_conv_launch failed with CUDA error {err}")
+        flags.append(int(bad[0]))
+        if not repeat and not torch.equal(rev, sk.reverse_ranks(ranks, 1000)):
+            raise AssertionError("the reverse table built on the card differs from reverse_ranks")
+    if flags != [0, 1]:
+        raise AssertionError(f"the feature gradient's contract flag reads {flags} for a table without "
+                             "and with a repeated pair, expected [0, 1]")
 
 
 def sparse_kernel_edges(dev, card):
@@ -628,10 +762,14 @@ def sparse_kernel_edges(dev, card):
     t0 = time.perf_counter()
     stencil = stencil_edge_checks(dev)
     subm = subm_edge_checks(dev)
+    subm_contract_flag(dev)
     log(f"sparse kernel edges: {len(STENCIL_EDGES)} stencil cases (forward, d_src, d_wc) and "
-        f"{len(SUBM_EDGES)} rank gather cases (df, dW), bfloat16 and float32, all within tolerance "
-        f"(largest error / tolerance: stencil {stencil:.3g}, rank gather {subm:.3g}; tol 1e-5 float32, "
-        f"2^-7 rounded to bfloat16, weight gradients {WGRAD_TOL}) in {time.perf_counter() - t0:.1f} s [{card}]")
+        f"{len(SUBM_EDGES) + len(SUBM_TABLES)} rank gather cases (forward, df, dW; tables: random, "
+        f"{', '.join(SUBM_TABLES)}), bfloat16 and float32, all within tolerance "
+        f"(largest error / tolerance: stencil {stencil:.3g}, rank gather {subm:.3g}; tol 1e-5 float32 and "
+        f"bfloat16 forward sums, 2^-7 rounded to bfloat16, weight gradients {WGRAD_TOL}); the reverse table "
+        f"built on the card equals reverse_ranks and a repeated (offset, row) pair raises its flag "
+        f"in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def stencil_replay(calls, card):
@@ -698,7 +836,7 @@ def subm_replay(calls, card):
     from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
 
     assert len(calls) == 6, len(calls)
-    rows, worst = [], 0.0
+    rows, worst, devs = [], 0.0, []
     for args, _ in calls:
         f_sorted, ranks, w = args
         b, v, c = f_sorted.shape
@@ -711,6 +849,15 @@ def subm_replay(calls, card):
             got = sk.subm_conv(f_, ranks, w_)
             torch.cuda.synchronize()
             want = sk.subm_conv_ref(f_, ranks, w_)
+            if dtype == torch.bfloat16:
+                # The tensor cores' float32 sums before they are rounded: the
+                # products are exact, so they differ from the plain sums by order.
+                sums = sk._subm_conv_cuda(f_, ranks, w_, out_dtype=torch.float32)
+                errs["sums"] = rel_diff(sums, sk.subm_conv_ref(f_.float(), ranks, w_.float()))
+                if not errs["sums"] <= 1e-5:
+                    raise AssertionError(f"rank gather kernel {b}x{v} {c}->{cout}: its float32 sums differ from "
+                                         f"the plain version by {errs['sums']} of their scale")
+                del sums
             # The output is rounded to the working type on both sides: in
             # bfloat16 a sum that differs in its last float32 bits may round
             # to the neighbouring value, one part in 256.
@@ -723,6 +870,7 @@ def subm_replay(calls, card):
                                      f"the plain version by {errs[dtype]} of its scale")
             del got, want, f_, w_
         k_ms = cuda_ms(lambda: sk.subm_conv(f_sorted, ranks, w), warmup=1, iters=5)
+        dev_ms = device_ms(lambda: sk.subm_conv(f_sorted, ranks, w))
         p_ms = cuda_ms(lambda: sk.subm_conv_ref(f_sorted, ranks, w), warmup=1, iters=2)
         # The library pair: rows by index (absent neighbours point at an
         # appended zero row), then one contraction.
@@ -743,13 +891,16 @@ def subm_replay(calls, card):
         peak = BF16_PEAK if f_sorted.dtype == torch.bfloat16 else F32_PEAK
         b_ms, b_by = bound(io, hits * 2 * c * cout, peak)
         rows.append(dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
+        devs.append(dev_ms)
         log(f"subm: B={b} V={v} {c}->{cout} {str(f_sorted.dtype)[6:]} present={hits} of {b * k * q} "
-            "max_err/scale " + " ".join(f"{str(d)[6:]}={e:.3g}" for d, e in errs.items())
-            + f" (tol 1e-5 float32, 2^-7 bfloat16 outputs) kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
+            "max_err/scale " + " ".join(f"{str(d).replace('torch.', '')}={e:.3g}" for d, e in errs.items())
+            + f" (tol 1e-5 float32 and bfloat16 sums, 2^-7 bfloat16 outputs) kernel_ms={k_ms:.4f} "
+            f"(device {dev_ms:.4f}) plain_ms={p_ms:.3f} "
             f"index_select_einsum_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) [{card}]")
         del table, index
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    log(f"subm: six launches of one call: kernel_ms={total['ms']:.3f} plain_ms={total['plain_ms']:.3f} "
+    log(f"subm: six launches of one call: kernel_ms={total['ms']:.3f} (device {sum(devs):.3f}) "
+        f"plain_ms={total['plain_ms']:.3f} "
         f"index_select_einsum_ms={total['library_ms']:.3f} bound_ms={total['bound_ms']:.4f} [{card}]")
     slowest = max(rows, key=lambda r: r["ms"])
     return dict(slowest, max_abs_err=worst), total
@@ -1039,10 +1190,58 @@ def select_kernels_phase(dev, card):
     b_ms, b_by = bound(PRC_BATCH * (PRC_POINTS * 13 + npoint * 4),
                        PRC_BATCH * (npoint - 1) * PRC_POINTS * 10)
     records["fps"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-    log(f"fps: B={PRC_BATCH} {PRC_POINTS}->{npoint} ({n_valid} valid) torch.equal=True "
-        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) | "
-        f"B={PRC_BATCH * PRC_ROIS} {PRC_ROI_POINTS}->128 torch.equal=True kernel_ms={small_ms:.4f} "
-        f"plain_ms={small_plain_ms:.3f} [{card}]")
+    # The one-block kernel at the same shape, for the record of what the cluster gains.
+    one_block = (1, *p2._fps_launch_shape(p2.FPS_SMS, PRC_POINTS)[1:])
+    ob = torch.empty_like(sel)
+
+    def fps_one_block():
+        err = p2._fps_library()(p2._ptr(pts), p2._ptr(valid), p2._ptr(ob), PRC_BATCH, PRC_POINTS, npoint,
+                                *one_block, 0 if dev.index is None else dev.index, p2._stream(pts))
+        p2._raise_on(err, "fps (one block a cloud)")
+
+    fps_one_block()
+    same(ob, sel, "fps one block a cloud 16384->4096")
+    ob_ms = cuda_ms(fps_one_block, warmup=1, iters=5)
+    log(f"fps: B={PRC_BATCH} {PRC_POINTS}->{npoint} ({n_valid} valid) launch shape (CTAs, threads, slots) "
+        f"{p2._fps_launch_shape(PRC_BATCH, PRC_POINTS)} torch.equal=True kernel_ms={k_ms:.4f} "
+        f"({k_ms * 1e3 / (npoint - 1):.3f} us a step; one block a cloud {one_block}: {ob_ms:.4f} ms, "
+        f"{ob_ms * 1e3 / (npoint - 1):.3f} us a step) plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) | "
+        f"B={PRC_BATCH * PRC_ROIS} {PRC_ROI_POINTS}->128 {p2._fps_launch_shape(PRC_BATCH * PRC_ROIS, PRC_ROI_POINTS)} "
+        f"torch.equal=True kernel_ms={small_ms:.4f} plain_ms={small_plain_ms:.3f} [{card}]")
+    # The rule's evidence: one block a cloud against clusters of 8 and 16 CTAs
+    # at the four cloud sizes of the SA levels (npoint = N / 4).
+    rule = []
+    for n in (PRC_POINTS, PRC_POINTS // 2, PRC_POINTS // 4, PRC_POINTS // 16):
+        p_, v_ = pts[:, :n].contiguous(), valid[:, :n].contiguous()
+        k = n // 4
+        want = p2.furthest_point_sample(p_, v_, k)
+        shapes = [(1, *p2._fps_launch_shape(p2.FPS_SMS, n)[1:])]
+        for ctas in (8, 16):
+            slots = 1
+            while ctas * p2.FPS_CLUSTER_THREADS * slots < n:
+                slots *= 2
+            shapes.append((ctas, p2.FPS_CLUSTER_THREADS, slots))
+        parts = []
+        for shape in shapes:
+            got = torch.empty_like(want)
+
+            def run(shape=shape, got=got):
+                err = p2._fps_library()(p2._ptr(p_), p2._ptr(v_), p2._ptr(got), PRC_BATCH, n, k, *shape,
+                                        0 if dev.index is None else dev.index, p2._stream(p_))
+                p2._raise_on(err, f"fps {shape}")
+
+            run()
+            same(got, want, f"fps {n}->{k} at {shape}")
+            parts.append(f"{shape[0]} CTA(s) {cuda_ms(run, warmup=1, iters=3) * 1e3 / (k - 1):.3f}")
+        rule.append(f"N={n}: " + ", ".join(parts) + f" (rule: {p2._fps_launch_shape(PRC_BATCH, n)[0]})")
+    log(f"fps rule, B={PRC_BATCH}, us a step, each torch.equal to the plain version: {'; '.join(rule)} [{card}]")
+    for i, (what, b, n, k) in enumerate(FPS_EDGES):
+        ep, ev = (a.to(dev) for a in fps_edge_cloud(what, b, n, seed=20 + i))
+        same(p2.fps(ep, ev, k), p2.furthest_point_sample(ep, ev, k), f"fps edge: {what}")
+    ctas, _, slots = p2._fps_launch_shape(40, PRC_POINTS)
+    log(f"fps edges: {'; '.join(f'{w} (B={b} {n}->{k}, {p2._fps_launch_shape(b, n)})' for w, b, n, k in FPS_EDGES)}: "
+        f"all torch.equal to the plain version; the card keeps "
+        f"{p2.fps_max_active_clusters(ctas, slots, dev)} clusters of {ctas} CTAs resident at once [{card}]")
 
     # B6 ball query: stage 0 (no radius fills: full scans), the same cloud at
     # the stage-3 radii (most rows fill and stop early), and the RoI clouds.
@@ -1146,6 +1345,29 @@ def select_kernels_phase(dev, card):
         f"torch.equal=True mean_count={float(w_cnt.float().mean()):.1f} scanned_pairs={scanned} "
         f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
     return records
+
+
+def fps_replay(calls, card):
+    """Phase 10: the six FPS launches of one PointRCNN call, recorded, kernel
+    ``torch.equal`` to the plain version and timed. Returns their total ms."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    assert len(calls) == 6, len(calls)
+    parts, total = [], 0.0
+    for args, _ in calls:
+        pts, valid, npoint = args
+        if not torch.equal(p2.fps(pts, valid, npoint), p2.furthest_point_sample(pts, valid, npoint)):
+            raise AssertionError(f"fps kernel differs from the plain version at {tuple(pts.shape)} -> {npoint}")
+        ms = cuda_ms(lambda: p2.fps(pts, valid, npoint), warmup=1, iters=5)
+        total += ms
+        b, n = pts.shape[:2]
+        parts.append(f"B={b} {n}->{npoint} {p2._fps_launch_shape(b, n)} {ms:.4f} ms "
+                     f"({ms * 1e3 / max(1, npoint - 1):.3f} us a step)")
+    log(f"fps: six launches of one PointRCNN call, each torch.equal to the plain version: {'; '.join(parts)}; "
+        f"total kernel_ms={total:.3f} [{card}]")
+    return total
 
 
 def gt_batch(batch, seed):
@@ -1647,9 +1869,12 @@ def subm_backward_replay(fwd_calls, bwd_calls, card):
     assert len(fwd_calls) == len(bwd_calls) == 6, (len(fwd_calls), len(bwd_calls))
     rows = {"dgrad": [], "wgrad": []}
     worst = {"dgrad": 0.0, "wgrad": 0.0}
+    stepped = []  # whether the step itself asked for df at this layer (the first layer's input has no gradient)
+    d_dev = []  # df's device time at each layer
     for (args, _), (bargs, _) in zip(fwd_calls, reversed(bwd_calls)):
         f_sorted, ranks, w = args
         cot = bargs[3]
+        stepped.append(bool(bargs[4]))
         b, v, c = f_sorted.shape
         k, q = ranks.shape[1:]
         cout = w.shape[-1]
@@ -1674,6 +1899,7 @@ def subm_backward_replay(fwd_calls, bwd_calls, card):
             del got_f, got_w
         f_, w_ = f_sorted.detach(), w.detach().to(f_sorted.dtype)
         d_ms = cuda_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, True, False), warmup=1, iters=5)
+        d_dev.append(device_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, True, False)))
         w_ms = cuda_ms(lambda: sk._subm_conv_bwd_cuda(f_, ranks, w_, cot, False, True), warmup=1, iters=5)
         zero_rows = int((cot.abs().amax(-1) == 0).sum())
         pd_ms = retained_grad_ms(out, (f32,), cot.float())
@@ -1697,11 +1923,16 @@ def subm_backward_replay(fwd_calls, bwd_calls, card):
         log(f"subm backward: B={b} V={v} {c}->{cout} {str(f_sorted.dtype)[6:]} present={present} of "
             f"{b * k * q} zero_cotangent_rows={zero_rows} of {b * q} max_err/scale (df, dW) "
             + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in errs.items())
-            + f" (tol float32 df 1e-5, dW {WGRAD_TOL}; 2^-7 bfloat16 outputs) df_ms={d_ms:.4f} (plain {pd_ms:.3f}, "
+            + f" (tol float32 df 1e-5, dW {WGRAD_TOL}; 2^-7 bfloat16 outputs) df_ms={d_ms:.4f} (device "
+            f"{d_dev[-1]:.4f}, plain {pd_ms:.3f}, "
             f"index_select_einsum backward {ld_ms:.3f}, bound {d_b[0]:.5f} {d_b[1]}) dW_ms={w_ms:.4f} "
             f"(plain {pw_ms:.3f}, library {lw_ms:.3f}, "
             f"bound {w_b[0]:.5f} {w_b[1]}) [{card}]")
         del out, f32, w32, want_f, want_w
+    df_step = sum(r["ms"] for r, asked in zip(rows["dgrad"], stepped) if asked)
+    df_dev = sum(d for d, asked in zip(d_dev, stepped) if asked)
+    log(f"subm backward: the {sum(stepped)} df launches of one step (the forward kernel on the reverse ranks, "
+        f"the reverse table built in the same call): kernel_ms={df_step:.3f} (device {df_dev:.3f}) [{card}]")
     records = {}
     for kk in rows:
         total = {m: sum(r[m] for r in rows[kk]) for m in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -1882,6 +2113,7 @@ def main():
     from lyft3d_tpu_torch import _build
     from lyft3d_tpu_torch.models import build_model
     from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.models.pointrcnn import modules as prc_modules
     from lyft3d_tpu_torch.models.pointrcnn.net import (
         PointRCNN,
         canonical_transform,
@@ -1913,7 +2145,7 @@ def main():
     with ThreadPoolExecutor(len(loaders)) as pool:
         list(pool.map(lambda load: load(), loaders))
     log(f"build: bev_raster.cu dense_fill.cu fps.cu ball_query.cu knn.cu roi_select.cu "
-        f"stencil_conv.cu subm_conv.cu -> "
+        f"stencil_conv.cu subm_conv.cu (with conv_mma.cuh, wgrad_tile.cuh, mma.cuh) -> "
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc each, in parallel: nvcc {' '.join(_build.NVCC_FLAGS)})")
 
@@ -2262,6 +2494,9 @@ def main():
     if not bool(((scores >= 0) & (scores <= 1)).all()):
         raise AssertionError("PointRCNN scores outside [0, 1]")
     prc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with recorded(prc_modules, "fps") as fps_calls:
+        infer(pts, pvalid)
+    fps_replay(fps_calls.calls, card)
 
     # Stage split of the same path (each stage timed alone).
     with torch.inference_mode():
@@ -2359,6 +2594,8 @@ def main():
                stencil_bwd["dgrad"], source="stencil_conv"),
         record("stencil_wgrad", "lyft3d_tpu/ops/column_sparse.py:777", trained("stencil_wgrad"),
                stencil_bwd["wgrad"], source="stencil_conv"),
+        # df is the forward rank gather kernel launched on the reverse ranks,
+        # as d_src is the forward stencil on the reverse queries.
         record("subm_dgrad", "lyft3d_tpu/ops/subm_conv_kernel.py:106", trained("subm_dgrad"),
                subm_bwd["dgrad"], source="subm_conv"),
         record("subm_wgrad", "lyft3d_tpu/ops/subm_conv_kernel.py:106", trained("subm_wgrad"),

@@ -19,36 +19,26 @@
 // itself: a row gathered more than once, weights re-read by every block,
 // zeros multiplied.
 //
-// bfloat16 takes the tensor-core route, three launches:
+// bfloat16 takes the tensor-core route of conv_mma.cuh, three launches:
 //   1. `stencil_positions_kernel`: every (sample, offset, query) finds its
 //      source row once, a binary search over the sample's ids (L2-resident:
 //      300 KB at 75,000 units), into an int32 table; no tile searches again.
 //      With per-row flags of the source a hit on an all-zero row (a cotangent
 //      row the caps cut off) becomes a miss.
-//   2. `stencil_weight_prep_kernel`: the weights as (9, n_pad, kp), the
+//   2. `convmma::weight_prep_kernel`: the weights as (9, n_pad, kp), the
 //      contraction index contiguous, zero-padded, with one bit for every
 //      16 x 8 block that holds a non-zero: the band weights are two thirds
 //      zeros, and kzp pads (zs+2)·C to 128 lanes.
-//   3. `stencil_conv_mma_kernel`: a block owns 128 queries and ALL output
-//      columns (up to 128, or up to 256 with 16 warps), so a query's rows are
-//      gathered once. It walks the (offset, 64-lane slice) pairs that have
-//      both a hit in the tile and a non-zero weight block, through a ring of
-//      shared-memory stages filled by 16-byte `cp.async` (rows of misses are
-//      zero-filled, 16-query groups without a hit are not copied at all) two
-//      stages ahead of the `mma.sync.m16n8k16` that consume them. Queries are
-//      the M dimension, so a result row is its query's row and the float32
-//      accumulators stay in registers until the one store: hits are not
-//      compacted (on the tensor cores the products on zero rows cost little,
-//      and a compacted tile would have to scatter its rows back), but
-//      16-query groups without a hit at an offset and pairs of weight blocks
-//      (16 lanes x 16 columns) without a non-zero are skipped. bfloat16
-//      products are exact in float32: the result differs from the plain
-//      version by summation order only. What bounds it now is the ring's
-//      latency: with one hit in nine (offset, query) pairs a stage holds few
-//      MMAs, and two blocks an SM do not hide its copy.
+//   3. `convmma::conv_mma_kernel` over 9 offsets and 64-lane slices: a block
+//      owns 128 queries and ALL output columns (up to 128, or up to 256 with
+//      16 warps), so a query's rows are gathered once; a `cp.async` ring of
+//      (offset, slice) stages feeds `mma.sync.m16n8k16`, and 16-query groups
+//      without a hit and zero weight block pairs are skipped. What bounds it
+//      now is the ring's latency: with one hit in nine (offset, query) pairs
+//      a stage holds few MMAs, and two blocks an SM do not hide its copy.
 // Rows whose width is not a multiple of 64 lanes (the backward's cotangent
 // rows of 65, 66 or 68 lanes) are first copied into padded bfloat16 rows by
-// `stencil_rows_prep_kernel`, which also converts a float32 cotangent and
+// `convmma::rows_prep_kernel`, which also converts a float32 cotangent and
 // writes the row flags; it costs one pass over the rows, which the
 // conversion took anyway.
 //
@@ -74,7 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "conv_mma.cuh"
 #include "wgrad_tile.cuh"
 
 namespace {
@@ -310,10 +300,7 @@ cudaError_t launch_wgrad(const void* src, const void* qids, const void* src_ids,
 // bfloat16 route: positions, weight and row preparation, tensor-core kernel.
 // ---------------------------------------------------------------------------
 
-constexpr int kSlice = 64;          // contraction lanes a pipeline stage holds
-constexpr int kLd = kSlice + 8;     // shared-memory row stride (no ldmatrix bank conflicts)
-constexpr int kMaxSteps = 16;       // 16-lane steps of the contraction: kp ≤ 256
-constexpr int kMaxSlices = kMaxSteps * 16 / kSlice;
+constexpr int kSlice = 64;  // contraction lanes a pipeline stage holds (conv_mma.cuh)
 
 // pos[b, j, q] = position of qids[b, j, q] in src_ids[b], −1 where absent or,
 // with `src_flags` (batch, vs), where the source row's flag is 0.
@@ -333,253 +320,18 @@ stencil_positions_kernel(const int32_t* __restrict__ qids, const int32_t* __rest
   pos[i] = p;
 }
 
-// wt[j, o, k] = w[j·sj + k·sk + o·so] for o < n_out, k < k_in, zero up to
-// (n_pad, kp); wmask[j·16 + k / 16] has bit o / 8 set where the 16 x 8 block
-// holds a non-zero. One block: one offset, one 16-lane step.
-__global__ void __launch_bounds__(kThreads)
-stencil_weight_prep_kernel(const __nv_bfloat16* __restrict__ w, long long sj, long long sk,
-                           long long so, __nv_bfloat16* __restrict__ wt,
-                           uint32_t* __restrict__ wmask, int k_in, int n_out, int kp, int n_pad) {
-  __shared__ unsigned int mask;
-  const int j = blockIdx.y;
-  const int step = blockIdx.x;
-  if (threadIdx.x == 0) mask = 0u;
-  __syncthreads();
-  unsigned int mine = 0u;
-  for (int item = threadIdx.x; item < n_pad * 16; item += kThreads) {
-    const int o = item / 16;
-    const int k = step * 16 + (item - o * 16);
-    __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
-    if (o < n_out && k < k_in) v = w[j * sj + k * sk + o * so];
-    wt[(static_cast<long long>(j) * n_pad + o) * kp + k] = v;
-    if (__bfloat162float(v) != 0.0f) mine |= 1u << (o / 8);
-  }
-  mine = __reduce_or_sync(0xffffffffu, mine);
-  if (threadIdx.x % 32 == 0 && mine != 0u) atomicOr(&mask, mine);
-  __syncthreads();
-  if (threadIdx.x == 0) wmask[j * kMaxSteps + step] = mask;
-}
-
-// out[r, c·kp + k] = bfloat16(in[r, c·k_in + k]) for k < k_in, zero up to kp;
-// flags[r] = any element of row r is non-zero. A warp a row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stencil_rows_prep_kernel(const T* __restrict__ in, __nv_bfloat16* __restrict__ out,
-                         uint8_t* __restrict__ flags, long long n_rows, int nc, int k_in, int kp) {
-  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= n_rows) return;
-  const int lane = threadIdx.x % 32;
-  const T* r = in + row * nc * k_in;
-  bool nz = false;
-  __nv_bfloat16* o = out + row * nc * kp;
-  for (int i = lane; i < nc * kp; i += 32) {
-    const int c = i / kp;
-    const int k = i - c * kp;
-    float v = 0.0f;
-    if (k < k_in) v = wgrad::g_to_float(r[c * k_in + k]);
-    nz = nz || (v != 0.0f);
-    o[i] = __float2bfloat16_rn(v);
-  }
-  const unsigned any = __ballot_sync(0xffffffffu, nz);
-  if (lane == 0) flags[row] = any != 0u;
-}
-
-// WM x 2 warps; a warp owns MT m-tiles of 16 queries and NT n-tiles of 8
-// columns: the block 16·WM·MT queries and 16·NT columns.
-template <int WM, int MT, int NT, int STAGES>
-struct ConvTile {
-  static_assert(NT % 2 == 0, "n-tiles come in pairs (ldmatrix.x4)");
-  static constexpr int kThreadsT = WM * 2 * 32;
-  static constexpr int kQueries = WM * MT * 16;
-  static constexpr int kCols = 2 * NT * 8;
-  static constexpr int kStageElems = (kQueries + kCols) * kLd;
-  static constexpr int kSmemBytes = STAGES * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
-};
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// TO: the output's type, float32 (the forward) or bfloat16 (d_src of a
-// bfloat16 model: the float32 sums rounded once, here instead of in a pass
-// of their own).
-template <int WM, int MT, int NT, int STAGES, typename TO>
-__global__ void __launch_bounds__(WM * 2 * 32, 512 / (WM * 2 * 32))
-stencil_conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict__ pos,
-                        const __nv_bfloat16* __restrict__ wt, const uint32_t* __restrict__ wmask,
-                        TO* __restrict__ out, int vs, int vq, int nc, int kp, int n, int n_pad) {
-  using Tile = ConvTile<WM, MT, NT, STAGES>;
-  constexpr int kT = Tile::kThreadsT;
-  constexpr int kQ = Tile::kQueries;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __shared__ uint32_t wmask_s[kOffsets * kMaxSteps];
-  __shared__ unsigned int mt_any_s[kOffsets];
-  __shared__ int list_s[kOffsets * kMaxSlices];
-  __shared__ int n_it_s;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  const int b = blockIdx.z;
-  const int chunk = blockIdx.y;
-  const int q0 = blockIdx.x * kQ;
-  const int steps = kp / 16;
-  const long long width = static_cast<long long>(nc) * kp;
-  const __nv_bfloat16* src_b = src + static_cast<long long>(b) * vs * width + static_cast<long long>(chunk) * kp;
-  const int32_t* pos_b = pos + static_cast<long long>(b) * kOffsets * vq;
-
-  for (int i = tid; i < kOffsets * kMaxSteps; i += kT) {
-    wmask_s[i] = (i % kMaxSteps) < steps ? wmask[i] : 0u;
-  }
-  if (tid < kOffsets) mt_any_s[tid] = 0u;
-  __syncthreads();
-  for (int i = tid; i < kOffsets * kQ; i += kT) {
-    const int j = i / kQ;
-    const int r = i - j * kQ;
-    const int q = q0 + r;
-    if (q < vq && pos_b[static_cast<long long>(j) * vq + q] >= 0) atomicOr(&mt_any_s[j], 1u << (r / 16));
-  }
-  __syncthreads();
-  // The (offset, slice) pairs with a hit in the tile and a non-zero weight block.
-  if (tid == 0) {
-    int count = 0;
-    for (int j = 0; j < kOffsets; ++j) {
-      if (mt_any_s[j] == 0u) continue;
-      for (int sl = 0; sl < kp / kSlice; ++sl) {
-        const uint32_t* m = wmask_s + j * kMaxSteps + sl * (kSlice / 16);
-        if ((m[0] | m[1] | m[2] | m[3]) != 0u) list_s[count++] = j * kMaxSlices + sl;
-      }
-    }
-    n_it_s = count;
-  }
-  __syncthreads();
-  const int n_it = n_it_s;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  // Copies the rows and the weights of pair `it` into its stage of the ring.
-  auto fill_stage = [&](int it) {
-    const int code = list_s[it];
-    const int j = code / kMaxSlices;
-    const int sl = code - j * kMaxSlices;
-    __nv_bfloat16* a_s = stages + (it % STAGES) * Tile::kStageElems;
-    __nv_bfloat16* b_s = a_s + kQ * kLd;
-    const unsigned int mt_mask = mt_any_s[j];
-    for (int i = tid; i < kQ * (kSlice / 8); i += kT) {
-      const int r = i / (kSlice / 8);
-      const int s = i - r * (kSlice / 8);
-      if (((mt_mask >> (r / 16)) & 1u) == 0u) continue;
-      // The table is read again here (an L2 hit, two stages ahead of its
-      // use) to leave the shared memory to two blocks an SM.
-      const int p = q0 + r < vq ? pos_b[static_cast<long long>(j) * vq + q0 + r] : -1;
-      const __nv_bfloat16* g = src_b + static_cast<long long>(p >= 0 ? p : 0) * width + sl * kSlice + s * 8;
-      mma::cp_async_16(mma::smem_addr(a_s + r * kLd + s * 8), g, p >= 0 ? 16 : 0);
-    }
-    // The whole slice of the weights: leaving out its zero blocks measured no
-    // faster (the ring waits on latency, not on bytes).
-    const __nv_bfloat16* wj = wt + static_cast<long long>(j) * n_pad * kp + sl * kSlice;
-    for (int i = tid; i < n_pad * (kSlice / 8); i += kT) {
-      const int o = i / (kSlice / 8);
-      const int s = i - o * (kSlice / 8);
-      mma::cp_async_16(mma::smem_addr(b_s + o * kLd + s * 8), wj + static_cast<long long>(o) * kp + s * 8, 16);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_it) fill_stage(s);
-    mma::cp_async_commit();
-  }
-  for (int it = 0; it < n_it; ++it) {
-    mma::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage `it` has landed; everyone is done with the stage refilled next
-    if (it + STAGES - 1 < n_it) fill_stage(it + STAGES - 1);
-    mma::cp_async_commit();
-
-    const int code = list_s[it];
-    const int j = code / kMaxSlices;
-    const int sl = code - j * kMaxSlices;
-    const __nv_bfloat16* a_s = stages + (it % STAGES) * Tile::kStageElems;
-    const __nv_bfloat16* b_s = a_s + kQ * kLd;
-    const unsigned int mt_mask = mt_any_s[j] >> (wm * MT);
-    if ((mt_mask & ((1u << MT) - 1u)) == 0u) continue;
-#pragma unroll
-    for (int ks = 0; ks < kSlice / 16; ++ks) {
-      const uint32_t m = (wmask_s[j * kMaxSteps + sl * (kSlice / 16) + ks] >> (wn * NT)) & ((1u << NT) - 1u);
-      if (m == 0u) continue;
-      uint32_t afr[MT][4];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        if (((mt_mask >> mi) & 1u) == 0u) continue;
-        mma::ldmatrix_x4(afr[mi], mma::smem_addr(a_s + ((wm * MT + mi) * 16 + (lane & 15)) * kLd +
-                                                 ks * 16 + ((lane >> 4) << 3)));
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        if (((m >> (2 * np)) & 3u) == 0u) continue;
-        uint32_t bfr[4];
-        mma::ldmatrix_x4(bfr, mma::smem_addr(b_s + ((wn * NT + 2 * np) * 8 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                                             ks * 16 + (((lane >> 3) & 1) << 3)));
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          if (((mt_mask >> mi) & 1u) == 0u) continue;
-          mma::mma_bf16(acc[mi][2 * np], afr[mi], bfr[0], bfr[1]);
-          mma::mma_bf16(acc[mi][2 * np + 1], afr[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-  }
-  mma::cp_async_wait<0>();
-
-  const long long out_width = static_cast<long long>(nc) * n;
-  TO* o = out + static_cast<long long>(b) * vq * out_width + static_cast<long long>(chunk) * n;
-  const int gq = lane / 4;
-  const int tq = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = q0 + (wm * MT + mi) * 16 + gq + (e >> 1) * 8;
-        const int col = (wn * NT + ni) * 8 + tq * 2 + (e & 1);
-        if (q < vq && col < n) store_out(o + static_cast<long long>(q) * out_width + col, acc[mi][ni][e]);
-      }
-}
-
-template <int WM, int MT, int NT, int STAGES, typename TO>
-cudaError_t launch_mma_tile(const void* src, const void* pos, const void* wt, const void* wmask,
-                            void* out, int batch, int vs, int vq, int nc, int kp, int n, int n_pad,
-                            cudaStream_t stream) {
-  using Tile = ConvTile<WM, MT, NT, STAGES>;
-  auto kernel = stencil_conv_mma_kernel<WM, MT, NT, STAGES, TO>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Tile::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((vq + Tile::kQueries - 1) / Tile::kQueries, nc, batch);
-  kernel<<<grid, Tile::kThreadsT, Tile::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(src), static_cast<const int32_t*>(pos),
-      static_cast<const __nv_bfloat16*>(wt), static_cast<const uint32_t*>(wmask),
-      static_cast<TO*>(out), vs, vq, nc, kp, n, n_pad);
-  return cudaGetLastError();
-}
-
+// Up to 128 columns: 8 warps (4 x 2, a warp 32 queries x 64 columns), three
+// stages; up to 256: 16 warps (8 x 2, a warp 16 queries x 128 columns), two.
 template <typename TO>
 cudaError_t launch_mma(const void* src, const void* pos, const void* wt, const void* wmask, void* out,
                        int batch, int vs, int vq, int nc, int kp, int n, int n_pad,
                        cudaStream_t stream) {
   if (n_pad <= 128) {
-    return launch_mma_tile<4, 2, 8, 3, TO>(src, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, stream);
+    return convmma::launch_conv_mma<kOffsets, kSlice, 4, 2, 2, 8, 3, false, TO>(
+        src, pos, wt, wmask, out, batch, kOffsets, vs, vq, nc, kp, n, n_pad, stream);
   }
-  return launch_mma_tile<8, 1, 16, 2, TO>(src, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, stream);
+  return convmma::launch_conv_mma<kOffsets, kSlice, 8, 2, 1, 16, 2, false, TO>(
+      src, pos, wt, wmask, out, batch, kOffsets, vs, vq, nc, kp, n, n_pad, stream);
 }
 
 // pos (batch, 9, vq) int32 from qids (batch, 9, vq) and src_ids (batch, vs);
@@ -596,20 +348,12 @@ cudaError_t positions(const void* qids, const void* src_ids, const void* src_fla
   return cudaGetLastError();
 }
 
-// wt (9, n_pad, kp) bfloat16 and wmask (9, 16) uint32 from bfloat16 weights
-// whose element (j, k, o) lies at w[j·sj + k·sk + o·so]; kp a multiple of 64
-// up to 256, n_pad a multiple of 16 up to 256.
+// wt (9, n_pad, kp) bfloat16 and wmask (9, 16) uint32 (conv_mma.cuh); kp
+// whole 64-lane slices.
 cudaError_t weight_prep(const void* w, long long sj, long long sk, long long so, void* wt,
                         void* wmask, int k_in, int n_out, int kp, int n_pad, cudaStream_t stream) {
-  if (kp <= 0 || kp % kSlice != 0 || kp / 16 > kMaxSteps || n_pad <= 0 || n_pad % 16 != 0 ||
-      n_pad > 256 || k_in > kp || n_out > n_pad) {
-    return cudaErrorInvalidValue;
-  }
-  const dim3 grid(kp / 16, kOffsets);
-  stencil_weight_prep_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(w), sj, sk, so, static_cast<__nv_bfloat16*>(wt),
-      static_cast<uint32_t*>(wmask), k_in, n_out, kp, n_pad);
-  return cudaGetLastError();
+  if (kp % kSlice != 0) return cudaErrorInvalidValue;
+  return convmma::weight_prep(w, sj, sk, so, wt, wmask, kOffsets, k_in, n_out, kp, n_pad, stream);
 }
 
 // Rows (n_rows, nc·k_in) of `dtype` (0 float32, 1 bfloat16) → out (n_rows,
@@ -623,19 +367,7 @@ cudaError_t rows_prep(const void* in, void* out, void* flags, long long n_rows, 
     if (dtype == 0) return wgrad::launch_row_flags<float>(in, flags, n_rows, nc * k_in, stream);
     return wgrad::launch_row_flags<__nv_bfloat16>(in, flags, n_rows, nc * k_in, stream);
   }
-  const long long blocks = (n_rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  const unsigned int grid = static_cast<unsigned int>(blocks);
-  if (dtype == 0) {
-    stencil_rows_prep_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(in), static_cast<__nv_bfloat16*>(out),
-        static_cast<uint8_t*>(flags), n_rows, nc, k_in, kp);
-  } else {
-    stencil_rows_prep_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(in), static_cast<__nv_bfloat16*>(out),
-        static_cast<uint8_t*>(flags), n_rows, nc, k_in, kp);
-  }
-  return cudaGetLastError();
+  return convmma::rows_prep(in, out, flags, n_rows, nc, k_in, kp, dtype, stream);
 }
 
 }  // namespace

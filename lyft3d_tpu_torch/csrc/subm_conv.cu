@@ -9,23 +9,42 @@
 // never reached HBM. Here the table (7.7 MB at 60,000 x 64 bf16) stays in
 // L2, and the neighbour rows exist only as a shared-memory tile.
 //
-// Design: one block owns a tile of kRows output rows and up to 4·NCG output
-// columns. For each of the K offsets it loads the tile's ranks, gathers the
-// rows by address into shared memory kChunk channels at a time (converted
-// to float32), stages the matching slice of W[k], and every thread
-// accumulates an RM x 4 register tile with fused multiply-adds. A thread
-// whose RM rows have no neighbour at this offset skips the arithmetic, and a
-// block where no row has one skips the offset: on sparse clouds most of the
-// 26 off-centre taps are absent.
+// Bound: at 4 x 16,384 queries, 64 → 64 channels in bfloat16, the function
+// reads 8.4 MB of rows and 7.1 MB of ranks and writes 8.4 MB (0.007 ms of
+// HBM bandwidth), against 2·64·64 operations a present neighbour: 14.5
+// GFLOP when all 27 exist, 0.015 ms on the tensor cores, 0.22 ms in float32
+// FMAs. The rows a block gathers from L2 and the latency of that gather are
+// what a kernel really pays.
 //
-// Bound: operations. At 4 x 60,000 rows, 16 → 16 channels, the function
-// reads 7.7 MB of rows, 25.9 MB of ranks and writes 7.7 MB (0.012 ms of HBM
-// bandwidth) against 2·27·16·16 operations a row (3.3 GFLOP, 0.05 ms at
-// the float32 rate) when every neighbour exists.
+// bfloat16 runs on the tensor cores (`convmma::conv_mma_kernel` of
+// conv_mma.cuh, the stencil's device code over 27 offsets): the weights are
+// re-laid once a launch as (K, n_pad, kp) bfloat16 (`weight_prep_kernel`); a
+// block owns 128 queries and all output columns (16 to 256), keeps its 27 x
+// 128 ranks in shared memory, fetches the rows of each offset with a hit by
+// rank into a `cp.async` ring (zero fill where the rank is −1), and runs
+// `mma.sync.m16n8k16` with float32 accumulators; 16-query groups and
+// offsets without a hit are skipped. The contraction of a stage is 16, 32
+// or 64 channels (the largest that divides C padded to 16), so the 16- and
+// 32-channel layers are not padded to 64.
+// Rows whose width is not a multiple of 16 (the first layer's 3, 4 or 5
+// point features) are copied once into zero-padded bfloat16 rows of 16
+// (`rows_prep_kernel`): 16-byte `cp.async` needs rows of whole 16 bytes.
+// float32 keeps the FMA kernel (`subm_conv_kernel`): float32 is the type of
+// the 1e-5 gradient checks, which TF32 would break. One block owns a tile of
+// kRows output rows and up to 4·NCG output columns; for each offset it loads
+// the tile's ranks, gathers the rows into shared memory kChunk channels at a
+// time, stages the matching slice of W[k], and every thread accumulates an
+// RM x 4 register tile; offsets without a hit in the block are skipped.
 //
 // Backward (the JAX package's `_bwd`, subm_conv_kernel.py:106, is XLA code):
+//   df[b, u] = Σ_k g[b, rev[b, k, u]] @ W[k]ᵀ   the forward route again
 //   dW[k] = Σ_{b,q} f[b, ranks[b, k, q]]ᵀ g[b, q]      subm_wgrad_kernel
-//   df[b, ranks[b, k, q]] += g[b, q] @ W[k]ᵀ            subm_dgrad_kernel
+// On a submanifold table each offset maps at most one query to a source row,
+// so the scatter df[ranks[k, q]] += g[q] @ W[k]ᵀ is a gather over the reverse
+// ranks (rev[b, k, ranks[b, k, q]] = q, built in the same call by a scatter
+// pass and a gather-back check that raises a flag the wrapper asserts on):
+// the forward's launch on (g, rev, Wᵀ), with no atomics, no zeroed buffer and
+// a fixed sum order; in bfloat16 the kernel rounds the float32 sums once.
 // The weight gradient is bound by bytes (a feature row and a cotangent row of
 // 32 to 128 bytes a present neighbour against 2·C·Cout operations) and runs
 // the tiles of wgrad_tile.cuh: bfloat16 on the tensor cores
@@ -34,16 +53,13 @@
 // queue, compacts their present neighbours, drops those whose cotangent row
 // is zero by a flag a row (`wgrad::row_flags_kernel`), and puts its sums out
 // with one set of atomicAdds when the queue is empty), float32 on
-// the FMA tile (`subm_wgrad_kernel`; float32 is the type of the gradient
-// checks, which TF32 would break). The feature gradient keeps the
-// forward's tiling with the roles of C and Cout exchanged and scatters each
-// offset's rows with float32 atomicAdds into a zeroed buffer, which holds for
-// any rank table (no reverse ranks are needed); the sum order varies.
+// the FMA tile (`subm_wgrad_kernel`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_mma.cuh"
 #include "wgrad_tile.cuh"
 
 namespace {
@@ -51,29 +67,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChunk = 16;  // channels staged at a time
 
-template <typename T>
-__device__ __forceinline__ float to_float(T v);
-template <>
-__device__ __forceinline__ float to_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// NCG column groups of 4 columns; 256 / NCG row groups of RM rows.
-template <typename T, int NCG, int RM>
+// float32 route. NCG column groups of 4 columns; 256 / NCG row groups of RM
+// rows.
+template <int NCG, int RM>
 __global__ void __launch_bounds__(kThreads)
-subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
-                 const T* __restrict__ weights, T* __restrict__ out,
+subm_conv_kernel(const float* __restrict__ feats, const int32_t* __restrict__ ranks,
+                 const float* __restrict__ weights, float* __restrict__ out,
                  int vs, int vq, int k_offsets, int c, int cout) {
   constexpr int kRowGroups = kThreads / NCG;
   constexpr int kRows = kRowGroups * RM;
@@ -92,7 +91,7 @@ subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
   const int rg = tid / NCG;
   const bool computes = rg < kRowGroups;
 
-  const T* f = feats + static_cast<long long>(b) * vs * c;
+  const float* f = feats + static_cast<long long>(b) * vs * c;
   const int32_t* rk = ranks + static_cast<long long>(b) * k_offsets * vq;
 
   float acc[RM][4];
@@ -122,7 +121,7 @@ subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
     __syncthreads();
     if (!block_any) continue;
     const bool mine = computes && group_any[rg] != 0;
-    const T* wk = weights + static_cast<long long>(k) * c * cout;
+    const float* wk = weights + static_cast<long long>(k) * c * cout;
 
     for (int c0 = 0; c0 < c; c0 += kChunk) {
       const int cw = min(kChunk, c - c0);
@@ -131,7 +130,7 @@ subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
         const int ch = item - r * kChunk;
         const int rank = rank_s[r];
         float v = 0.0f;
-        if (rank >= 0 && ch < cw) v = to_float<T>(f[static_cast<long long>(rank) * c + c0 + ch]);
+        if (rank >= 0 && ch < cw) v = f[static_cast<long long>(rank) * c + c0 + ch];
         rows_s[r][ch] = v;
       }
       for (int item = tid; item < kChunk * kCols; item += kThreads) {
@@ -139,7 +138,7 @@ subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
         const int col = item - ch * kCols;
         float v = 0.0f;
         if (ch < cw && col0 + col < cout) {
-          v = to_float<T>(wk[static_cast<long long>(c0 + ch) * cout + col0 + col]);
+          v = wk[static_cast<long long>(c0 + ch) * cout + col0 + col];
         }
         w_s[ch][col] = v;
       }
@@ -163,7 +162,7 @@ subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
   }
 
   if (!computes) return;
-  T* o = out + static_cast<long long>(b) * vq * cout;
+  float* o = out + static_cast<long long>(b) * vq * cout;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int q = row0 + rg * RM + i;
@@ -171,37 +170,37 @@ subm_conv_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int col = col0 + cg * 4 + n;
-      if (col < cout) o[static_cast<long long>(q) * cout + col] = from_float<T>(acc[i][n]);
+      if (col < cout) o[static_cast<long long>(q) * cout + col] = acc[i][n];
     }
   }
 }
 
-template <typename T, int NCG, int RM>
+template <int NCG, int RM>
 cudaError_t launch_tile(const void* feats, const void* ranks, const void* weights, void* out,
                         int batch, int vs, int vq, int k_offsets, int c, int cout,
                         cudaStream_t stream) {
   constexpr int kRows = (kThreads / NCG) * RM;
   constexpr int kCols = NCG * 4;
   const dim3 grid((vq + kRows - 1) / kRows, (cout + kCols - 1) / kCols, batch);
-  subm_conv_kernel<T, NCG, RM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(feats), static_cast<const int32_t*>(ranks),
-      static_cast<const T*>(weights), static_cast<T*>(out), vs, vq, k_offsets, c, cout);
+  subm_conv_kernel<NCG, RM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(feats), static_cast<const int32_t*>(ranks),
+      static_cast<const float*>(weights), static_cast<float*>(out), vs, vq, k_offsets, c, cout);
   return cudaGetLastError();
 }
 
-template <typename T>
+// The float32 route's launch.
 cudaError_t launch(const void* feats, const void* ranks, const void* weights, void* out,
                    int batch, int vs, int vq, int k_offsets, int c, int cout,
                    cudaStream_t stream) {
   if (batch <= 0 || vq <= 0 || cout <= 0) return cudaErrorInvalidValue;  // nothing to launch
   if (batch > 65535) return cudaErrorInvalidConfiguration;
   if (cout <= 16) {
-    return launch_tile<T, 4, 4>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
+    return launch_tile<4, 4>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
   }
   if (cout <= 32) {
-    return launch_tile<T, 8, 8>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
+    return launch_tile<8, 8>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
   }
-  return launch_tile<T, 16, 8>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
+  return launch_tile<16, 8>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, stream);
 }
 
 // float32 route. One block: one tile of wgrad::kQueries queries, one offset
@@ -240,116 +239,6 @@ subm_wgrad_kernel(const float* __restrict__ feats, const int32_t* __restrict__ r
       dw + static_cast<long long>(k) * c * cout, cout);
 }
 
-// The forward's tiling with g as the rows and W[k]ᵀ as the weights: a block
-// owns kRows queries and up to 4·NCG of the C input channels; per offset it
-// computes g[q] @ W[k]ᵀ for the queries whose neighbour exists and adds each
-// row into df at the neighbour's rank.
-template <typename T, int NCG, int RM>
-__global__ void __launch_bounds__(kThreads)
-subm_dgrad_kernel(const T* __restrict__ g, const int32_t* __restrict__ ranks,
-                  const T* __restrict__ weights, float* __restrict__ df,
-                  int vs, int vq, int k_offsets, int c, int cout) {
-  constexpr int kRowGroups = kThreads / NCG;
-  constexpr int kRows = kRowGroups * RM;
-  constexpr int kCols = NCG * 4;
-  __shared__ float rows_s[kRows][kChunk + 1];
-  __shared__ __align__(16) float w_s[kChunk][kCols];
-  __shared__ int rank_s[kRows];
-  __shared__ int group_any[kRowGroups];
-  __shared__ int block_any;
-
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kRows;
-  const int col0 = blockIdx.y * kCols;
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int rg = tid / NCG;
-
-  const T* gb = g + static_cast<long long>(b) * vq * cout;
-  const int32_t* rk = ranks + static_cast<long long>(b) * k_offsets * vq;
-  float* out = df + static_cast<long long>(b) * vs * c;
-
-  for (int k = 0; k < k_offsets; ++k) {
-    __syncthreads();  // the previous offset's reads of rank_s and the flags are done
-    if (tid == 0) block_any = 0;
-    for (int gi = tid; gi < kRowGroups; gi += kThreads) group_any[gi] = 0;
-    __syncthreads();
-    for (int r = tid; r < kRows; r += kThreads) {
-      const int q = row0 + r;
-      int rank = -1;
-      if (q < vq) {
-        rank = rk[static_cast<long long>(k) * vq + q];
-        if (rank >= vs) rank = -1;
-      }
-      rank_s[r] = rank;
-      if (rank >= 0) {
-        group_any[r / RM] = 1;
-        block_any = 1;
-      }
-    }
-    __syncthreads();
-    if (!block_any) continue;
-    const bool mine = group_any[rg] != 0;
-    const T* wk = weights + static_cast<long long>(k) * c * cout;
-
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[i][n] = 0.0f;
-
-    for (int d0 = 0; d0 < cout; d0 += kChunk) {
-      const int dw = min(kChunk, cout - d0);
-      for (int item = tid; item < kRows * kChunk; item += kThreads) {
-        const int r = item / kChunk;
-        const int ch = item - r * kChunk;
-        float v = 0.0f;
-        if (rank_s[r] >= 0 && ch < dw) {
-          v = to_float<T>(gb[static_cast<long long>(row0 + r) * cout + d0 + ch]);
-        }
-        rows_s[r][ch] = v;
-      }
-      for (int item = tid; item < kChunk * kCols; item += kThreads) {
-        const int ch = item / kCols;
-        const int col = item - ch * kCols;
-        float v = 0.0f;
-        if (ch < dw && col0 + col < c) {
-          v = to_float<T>(wk[static_cast<long long>(col0 + col) * cout + d0 + ch]);
-        }
-        w_s[ch][col] = v;
-      }
-      __syncthreads();
-      if (mine) {
-#pragma unroll 4
-        for (int ch = 0; ch < kChunk; ++ch) {
-          const float4 w4 = *reinterpret_cast<const float4*>(&w_s[ch][cg * 4]);
-#pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            const float a = rows_s[rg * RM + i][ch];
-            acc[i][0] = fmaf(a, w4.x, acc[i][0]);
-            acc[i][1] = fmaf(a, w4.y, acc[i][1]);
-            acc[i][2] = fmaf(a, w4.z, acc[i][2]);
-            acc[i][3] = fmaf(a, w4.w, acc[i][3]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    if (mine) {
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int rank = rank_s[rg * RM + i];
-        if (rank < 0) continue;
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int col = col0 + cg * 4 + n;
-          if (col < c) atomicAdd(out + static_cast<long long>(rank) * c + col, acc[i][n]);
-        }
-      }
-    }
-  }
-}
-
 cudaError_t launch_wgrad(const void* feats, const void* ranks, const void* g, void* dw,
                          int batch, int vs, int vq, int k_offsets, int c, int cout,
                          cudaStream_t stream) {
@@ -366,51 +255,162 @@ cudaError_t launch_wgrad(const void* feats, const void* ranks, const void* g, vo
   return cudaGetLastError();
 }
 
-template <typename T, int NCG, int RM>
-cudaError_t launch_dgrad_tile(const void* g, const void* ranks, const void* weights, void* df,
-                              int batch, int vs, int vq, int k_offsets, int c, int cout,
-                              cudaStream_t stream) {
-  constexpr int kRows = (kThreads / NCG) * RM;
-  constexpr int kCols = NCG * 4;
-  const dim3 grid((vq + kRows - 1) / kRows, (c + kCols - 1) / kCols, batch);
-  subm_dgrad_kernel<T, NCG, RM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const int32_t*>(ranks),
-      static_cast<const T*>(weights), static_cast<float*>(df), vs, vq, k_offsets, c, cout);
+// The feature gradient's positions: rev[b, k, table[b, k, u]] = u for the
+// forward's table (batch, k_offsets, n) with values in [0, vq), on rev filled
+// with −1. A table that gives one (offset, row) pair to two entries leaves
+// only one of them in rev; `reverse_check_kernel` then finds the other and
+// sets *bad (no atomics: any writer stores the same 1).
+__global__ void __launch_bounds__(kThreads)
+reverse_scatter_kernel(const int32_t* __restrict__ table, int32_t* __restrict__ rev, long long total,
+                       int n, int vq) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const int r = table[i];
+  if (r >= 0 && r < vq) rev[(i / n) * vq + r] = static_cast<int32_t>(i % n);
+}
+
+__global__ void __launch_bounds__(kThreads)
+reverse_check_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ rev,
+                     int32_t* __restrict__ bad, long long total, int n, int vq) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const int r = table[i];
+  if (r >= 0 && r < vq && rev[(i / n) * vq + r] != static_cast<int32_t>(i % n)) *bad = 1;
+}
+
+cudaError_t reverse_table(const void* table, void* rev, void* bad, int batch, int k_offsets, int n, int vq,
+                          cudaStream_t s) {
+  const long long total = static_cast<long long>(batch) * k_offsets * n;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaMemsetAsync(rev, 0xff, static_cast<size_t>(batch) * k_offsets * vq * 4, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(bad, 0, 4, s);
+  if (err != cudaSuccess) return err;
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  reverse_scatter_kernel<<<grid, kThreads, 0, s>>>(static_cast<const int32_t*>(table),
+                                                   static_cast<int32_t*>(rev), total, n, vq);
+  reverse_check_kernel<<<grid, kThreads, 0, s>>>(static_cast<const int32_t*>(table),
+                                                 static_cast<const int32_t*>(rev), static_cast<int32_t*>(bad),
+                                                 total, n, vq);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dgrad(const void* g, const void* ranks, const void* weights, void* df,
-                         int batch, int vs, int vq, int k_offsets, int c, int cout,
-                         cudaStream_t stream) {
-  if (batch <= 0 || vq <= 0 || c <= 0 || cout <= 0) return cudaErrorInvalidValue;
-  if (batch > 65535) return cudaErrorInvalidConfiguration;
-  if (c <= 16) {
-    return launch_dgrad_tile<T, 4, 4>(g, ranks, weights, df, batch, vs, vq, k_offsets, c, cout, stream);
+constexpr int kMaxOffsets = 27;
+
+// Pipeline stages of the ring: deeper for narrow slices (a stage holds fewer
+// bytes), fewer for the 16-warp tile of up to 256 columns.
+constexpr int stages_for(int slice, bool wide) {
+  return slice == 64 ? (wide ? 2 : 3) : slice == 32 ? (wide ? 3 : 4) : (wide ? 4 : 6);
+}
+
+// Up to 16 and 32 columns: 8 x 1 warps, a warp 16 queries x all columns; up
+// to 64 and 128: 4 x 2 warps, a warp 32 queries x half the columns; up to
+// 256: 8 x 2 warps of 16 queries x 128 columns.
+template <int SLICE, typename TO>
+cudaError_t launch_mma_slice(const void* rows, const void* ranks, const void* wt, const void* wmask,
+                             void* out, int batch, int vs, int vq, int k_offsets, int kp, int cout,
+                             int n_pad, cudaStream_t s) {
+  constexpr int kS = stages_for(SLICE, false);
+  if (n_pad <= 16) {
+    return convmma::launch_conv_mma<kMaxOffsets, SLICE, 8, 1, 1, 2, kS, true, TO>(
+        rows, ranks, wt, wmask, out, batch, k_offsets, vs, vq, 1, kp, cout, n_pad, s);
   }
-  if (c <= 32) {
-    return launch_dgrad_tile<T, 8, 8>(g, ranks, weights, df, batch, vs, vq, k_offsets, c, cout, stream);
+  if (n_pad <= 32) {
+    return convmma::launch_conv_mma<kMaxOffsets, SLICE, 8, 1, 1, 4, kS, true, TO>(
+        rows, ranks, wt, wmask, out, batch, k_offsets, vs, vq, 1, kp, cout, n_pad, s);
   }
-  return launch_dgrad_tile<T, 16, 8>(g, ranks, weights, df, batch, vs, vq, k_offsets, c, cout, stream);
+  if (n_pad <= 64) {
+    return convmma::launch_conv_mma<kMaxOffsets, SLICE, 4, 2, 2, 4, kS, true, TO>(
+        rows, ranks, wt, wmask, out, batch, k_offsets, vs, vq, 1, kp, cout, n_pad, s);
+  }
+  if (n_pad <= 128) {
+    return convmma::launch_conv_mma<kMaxOffsets, SLICE, 4, 2, 2, 8, kS, true, TO>(
+        rows, ranks, wt, wmask, out, batch, k_offsets, vs, vq, 1, kp, cout, n_pad, s);
+  }
+  return convmma::launch_conv_mma<kMaxOffsets, SLICE, 8, 2, 1, 16, stages_for(SLICE, true), true, TO>(
+      rows, ranks, wt, wmask, out, batch, k_offsets, vs, vq, 1, kp, cout, n_pad, s);
+}
+
+template <typename TO>
+cudaError_t launch_mma_kp(const void* a, const void* ranks, const void* wt, const void* wmask, void* out,
+                          int batch, int vs, int vq, int k_offsets, int kp, int cout, int n_pad,
+                          cudaStream_t s) {
+  if (kp % 64 == 0) {
+    return launch_mma_slice<64, TO>(a, ranks, wt, wmask, out, batch, vs, vq, k_offsets, kp, cout, n_pad, s);
+  }
+  if (kp % 32 == 0) {
+    return launch_mma_slice<32, TO>(a, ranks, wt, wmask, out, batch, vs, vq, k_offsets, kp, cout, n_pad, s);
+  }
+  return launch_mma_slice<16, TO>(a, ranks, wt, wmask, out, batch, vs, vq, k_offsets, kp, cout, n_pad, s);
+}
+
+// The bfloat16 route, all its launches: rows padded to kp where C is not
+// (`rows` non-null), weights re-laid, the tensor-core kernel, whose float32
+// sums are written as float32 (`out_dtype` 0) or rounded to bfloat16 (1).
+cudaError_t launch_mma(const void* feats, void* rows, const void* ranks, const void* weights, void* wt,
+                       void* wmask, void* out, int out_dtype, int batch, int vs, int vq, int k_offsets,
+                       int c, int cout, int kp, int n_pad, cudaStream_t s) {
+  if (batch <= 0 || vs <= 0 || vq <= 0 || c <= 0 || cout <= 0 || k_offsets <= 0 ||
+      k_offsets > kMaxOffsets || kp != (c + 15) / 16 * 16 || kp > 256 || n_pad != (cout + 15) / 16 * 16 ||
+      n_pad > 256 || (rows != nullptr) != (kp != c) || (out_dtype != 0 && out_dtype != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err;
+  if (rows != nullptr) {
+    err = convmma::rows_prep(feats, rows, nullptr, static_cast<long long>(batch) * vs, 1, c, kp, 1, s);
+    if (err != cudaSuccess) return err;
+  }
+  err = convmma::weight_prep(weights, static_cast<long long>(c) * cout, cout, 1, wt, wmask, k_offsets, c,
+                             cout, kp, n_pad, s);
+  if (err != cudaSuccess) return err;
+  const void* a = rows != nullptr ? rows : feats;
+  if (out_dtype == 0) {
+    return launch_mma_kp<float>(a, ranks, wt, wmask, out, batch, vs, vq, k_offsets, kp, cout, n_pad, s);
+  }
+  return launch_mma_kp<__nv_bfloat16>(a, ranks, wt, wmask, out, batch, vs, vq, k_offsets, kp, cout, n_pad, s);
 }
 
 }  // namespace
 
-// out (batch, vq, cout) = Σ_k feats (batch, vs, c)[ranks (batch, k_offsets, vq)] @
-// weights (k_offsets, c, cout) on `stream`; a rank outside [0, vs) contributes
-// zeros. `dtype` is 0 for float32 and 1 for bfloat16 (features, weights and
-// output alike; the sums are float32). All tensors contiguous. Returns the
-// CUDA error of the launch (0 on success).
-extern "C" int subm_conv_launch(const void* feats, const void* ranks, const void* weights,
-                                void* out, int batch, int vs, int vq, int k_offsets, int c,
-                                int cout, int dtype, int device, void* stream) {
+// out (batch, vq, cout) = Σ_k feats (batch, vs, c)[pos (batch, k_offsets, vq)] @
+// weights (k_offsets, c, cout) on `stream`; a position outside [0, vs)
+// contributes zeros. With `rev` null the positions are `ranks` (the
+// forward). With `rev` (batch, k_offsets, vq) int32 scratch, `ranks` is a
+// forward table (batch, k_offsets, vs) with values in [0, vq), and the
+// positions are its reverse, built here into `rev` (the feature gradient:
+// feats the cotangent, weights transposed); `bad` (one int32) is set to 1
+// where the table reads an (offset, row) pair twice, and the result is then
+// wrong. `dtype` is 0 for float32 (the FMA kernel) and 1 for bfloat16 (the
+// tensor cores; at most 27 offsets and 256 channels in and out): features
+// and weights alike, the sums float32. The output is of `out_dtype` (same
+// codes): the features' type, or float32 sums of the bfloat16 route, which
+// the checks hold to the plain version unrounded. All tensors contiguous,
+// feats 16-byte aligned in bfloat16. Scratch of the caller in bfloat16: wt
+// (k_offsets, n_pad, kp) bfloat16 and wmask (k_offsets, 16) int32, with kp
+// and n_pad c and cout rounded up to 16; rows (batch, vs, kp) bfloat16 where
+// kp != c, else null. Returns the CUDA error of the launch (0 on success);
+// an empty shape is an error, nothing would be launched.
+extern "C" int subm_conv_launch(const void* feats, const void* ranks, const void* weights, void* out,
+                                void* rows, void* wt, void* wmask, void* rev, void* bad, int batch, int vs,
+                                int vq, int k_offsets, int c, int cout, int kp, int n_pad, int dtype,
+                                int out_dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = launch<float>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, s);
+  if (batch <= 0 || vs <= 0 || vq <= 0 || k_offsets <= 0 || (rev != nullptr && bad == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* pos = ranks;
+  if (rev != nullptr) {
+    err = reverse_table(ranks, rev, bad, batch, k_offsets, vs, vq, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pos = rev;
+  }
+  if (dtype == 0 && out_dtype == 0) {
+    err = launch(feats, pos, weights, out, batch, vs, vq, k_offsets, c, cout, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(feats, ranks, weights, out, batch, vs, vq, k_offsets, c, cout, s);
+    err = launch_mma(feats, rows, pos, weights, wt, wmask, out, out_dtype, batch, vs, vq, k_offsets, c,
+                     cout, kp, n_pad, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -444,25 +444,6 @@ extern "C" int subm_wgrad_launch(const void* feats, const void* ranks, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
     err = wgrad::launch_mma<__nv_bfloat16>(feats, g, ranks, flags, dw, queues, tiles, batch, vs, vq,
                                            k_offsets, 1, c, cout, sm_count, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
-}
-
-// df (batch, vs, c) float32, zeroed by the caller, += g (batch, vq, cout) @
-// weights[k]ᵀ scattered to ranks (batch, k_offsets, vq); g and weights in the
-// type `dtype` names. Returns the CUDA error of the launch (0 on success).
-extern "C" int subm_dgrad_launch(const void* g, const void* ranks, const void* weights, void* df,
-                                 int batch, int vs, int vq, int k_offsets, int c, int cout,
-                                 int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = launch_dgrad<float>(g, ranks, weights, df, batch, vs, vq, k_offsets, c, cout, s);
-  } else if (dtype == 1) {
-    err = launch_dgrad<__nv_bfloat16>(g, ranks, weights, df, batch, vs, vq, k_offsets, c, cout, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -560,11 +560,11 @@ MMA_MAX_N = 256  # most output columns a block owns
 
 
 def stencil_mma_variant(k: int, n: int) -> dict:
-    """What ``stencil_conv_mma_kernel`` is launched with for a contraction of
-    ``k`` lanes and ``n`` output columns: ``kp`` (``k`` padded to whole
-    64-lane slices), ``n_pad`` (``n`` padded to pairs of 8-column tiles), the
-    warps, queries and pipeline stages of a block and its dynamic shared
-    memory. Up to 128 columns a block is 8 warps (4 x 2, a warp 32 queries x
+    """What the stencil launches ``conv_mma_kernel`` (``csrc/conv_mma.cuh``)
+    with for a contraction of ``k`` lanes and ``n`` output columns: ``kp``
+    (``k`` padded to whole 64-lane slices), ``n_pad`` (``n`` padded to pairs
+    of 8-column tiles), the warps, queries and pipeline stages of a block and
+    its dynamic shared memory. Up to 128 columns a block is 8 warps (4 x 2, a warp 32 queries x
     64 columns); up to 256 it is 16 warps (8 x 2, a warp 16 queries x 128
     columns). Raises for shapes the kernel does not take."""
     if k < 1 or n < 1:
@@ -592,7 +592,7 @@ def bf16_split(x):
 
 
 def stencil_weight_prep_ref(wc, kp: int, n_pad: int, dtype=torch.bfloat16):
-    """Plain version of ``stencil_weight_prep_kernel``: ``wc`` ``(9, k, n)`` →
+    """Plain version of ``weight_prep_kernel`` (``csrc/conv_mma.cuh``): ``wc`` ``(9, k, n)`` →
     ``wt`` ``(9, n_pad, kp)`` bfloat16 (contraction index last, zero-padded)
     and ``wmask`` ``(9, 16)`` int64 whose bit ``o // 8`` of entry ``[j, k //
     16]`` says that the 16 x 8 block holds a non-zero. ``dtype`` float32 keeps
@@ -605,7 +605,7 @@ def stencil_weight_prep_ref(wc, kp: int, n_pad: int, dtype=torch.bfloat16):
 
 
 def stencil_rows_prep_ref(rows, nc: int, k: int, kp: int, dtype=torch.bfloat16):
-    """Plain version of ``stencil_rows_prep_kernel``: ``rows`` ``(…, nc·k)`` →
+    """Plain version of ``rows_prep_kernel`` (``csrc/conv_mma.cuh``): ``rows`` ``(…, nc·k)`` →
     ``(…, nc·kp)`` bfloat16 (or ``dtype``), each chunk zero-padded, and a uint8
     flag a row (1: the row holds a non-zero)."""
     padded = F.pad(rows.unflatten(-1, (nc, k)), (0, kp - k)).flatten(-2).to(dtype)
@@ -690,7 +690,7 @@ def _launch(entry: str, tensor, *args):
 
 
 def _rows_prep_cuda(rows, nc: int, k: int, kp: int, want_rows: bool = True):
-    """``stencil_rows_prep_kernel``: ``rows`` (b, v, nc·k) float32 or bfloat16 →
+    """``rows_prep_kernel``: ``rows`` (b, v, nc·k) float32 or bfloat16 →
     ((b, v, nc·kp) bfloat16 or None, (b, v) uint8 flags)."""
     b, v, _ = rows.shape
     out = torch.empty((b, v, nc * kp), dtype=torch.bfloat16, device=rows.device) if want_rows else None
@@ -708,7 +708,7 @@ def _positions_cuda(qids, src_ids, src_flags=None):
 
 
 def _weight_prep_cuda(wc, kp: int, n_pad: int):
-    """``stencil_weight_prep_kernel``: ``wc`` (9, k, n) bfloat16 of any strides →
+    """``weight_prep_kernel``: ``wc`` (9, k, n) bfloat16 of any strides →
     (9, n_pad, kp) bfloat16 and the (9, 16) int32 block bitmap."""
     k, n = wc.shape[1:]
     wt = torch.empty((9, n_pad, kp), dtype=torch.bfloat16, device=wc.device)
@@ -842,7 +842,7 @@ class StencilConv(torch.autograd.Function):
     In bfloat16 on the card ``d_src``'s call first rounds the float32
     cotangent to bfloat16 rows padded to whole 64-lane slices (the strided
     layers' 65, 66 and 68 lanes are not 16-byte aligned) and flags its
-    non-zero rows (``stencil_rows_prep_kernel``, one pass); both kernels skip
+    non-zero rows (``rows_prep_kernel``, one pass); both kernels skip
     the zero rows the capacity caps leave."""
 
     @staticmethod

@@ -71,6 +71,9 @@ _BIG = 1e10
 MISS_DISTANCE = 1e5  # distance of an open 3-NN slot (sqrt of the JAX kernel's 1e10)
 MAX_RADII = 4  # csrc/ball_query.cu kMaxRadii
 FPS_MAX_POINTS = 65536  # 1,024 threads x 64 register slots in csrc/fps.cu
+FPS_CLUSTER = 16  # CTAs a cloud of the cluster kernel (at most csrc/fps.cu kMaxCluster)
+FPS_CLUSTER_THREADS = 256  # csrc/fps.cu kClusterThreads
+FPS_SMS = 132  # an H100 SXM's SMs: from this many clouds on, one block a cloud fills the card
 
 
 # ----------------------------------------------------------------- helpers
@@ -181,24 +184,55 @@ def furthest_point_sample(points, valid, npoint: int):
     return sel.to(torch.int32)
 
 
-def _fps_library():
-    fn = _build.load_library("fps").fps_launch
+def _fps_library(entry: str = "fps_launch"):
+    fn = getattr(_build.load_library("fps"), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = {
+            "fps_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+            "fps_max_active_clusters": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
+        }[entry]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _fps_launch_shape(n: int) -> Tuple[int, int]:
-    """Threads a block and register slots a thread for a cloud of ``n``
-    points: about 8 points a thread, whole warps, at most 1,024 threads."""
+def _fps_launch_shape(batch: int, n: int) -> Tuple[int, int, int]:
+    """The one rule that picks the FPS kernel and its shape for ``batch``
+    clouds of ``n`` points: ``(ctas, threads, slots)`` with ``ctas · threads ·
+    slots ≥ n``.
+
+    The cluster kernel, :data:`FPS_CLUSTER` CTAs of 256 threads a cloud, where
+    one block a cloud would leave SMs idle (fewer clouds than :data:`FPS_SMS`)
+    and each of the cluster's threads holds more than one point (``n`` above
+    4,096): there a step's exchange across the cluster costs less than the
+    arithmetic and reductions it spreads. Otherwise the one-block kernel, one
+    block a cloud with about 8 points a thread, whole warps, at most 1,024
+    threads: the RCNN's 400 RoI clouds fill the card, and on 4,096 points or
+    fewer one block's step is the shorter (both measured on an H100 by
+    ``chip_smoke.py``, phase 8)."""
+    if batch < FPS_SMS and n > FPS_CLUSTER * FPS_CLUSTER_THREADS:
+        slots = 1
+        while FPS_CLUSTER * FPS_CLUSTER_THREADS * slots < n:
+            slots *= 2
+        return FPS_CLUSTER, FPS_CLUSTER_THREADS, slots
     threads = 32
     while threads < 1024 and threads * 8 < n:
         threads *= 2
     slots = 1
     while threads * slots < n:
         slots *= 2
-    return threads, slots
+    return 1, threads, slots
+
+
+def fps_max_active_clusters(ctas: int, slots: int, device=None) -> int:
+    """How many clouds the cluster kernel with ``ctas`` CTAs of ``slots``
+    slots a thread keeps resident on the card at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    count = ctypes.c_int(0)
+    dev = torch.device(device if device is not None else "cuda")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    _raise_on(_fps_library("fps_max_active_clusters")(ctas, slots, index, ctypes.byref(count)),
+              "fps occupancy query")
+    return count.value
 
 
 def _fps_cuda(points, valid, npoint: int):
@@ -208,8 +242,8 @@ def _fps_cuda(points, valid, npoint: int):
         raise ValueError(f"fps: the kernel takes at most {FPS_MAX_POINTS} points, got {n}")
     points, valid = points.contiguous(), valid.contiguous()
     out = torch.empty((b, npoint), dtype=torch.int32, device=points.device)
-    threads, slots = _fps_launch_shape(n)
-    err = launch(_ptr(points), _ptr(valid), _ptr(out), b, n, npoint, threads, slots,
+    ctas, threads, slots = _fps_launch_shape(b, n)
+    err = launch(_ptr(points), _ptr(valid), _ptr(out), b, n, npoint, ctas, threads, slots,
                  _device_index(points), _stream(points))
     _raise_on(err, "fps")
     KERNEL_LAUNCHES["fps"] += 1

@@ -37,11 +37,20 @@ __all__ = [
 ]
 
 
-def make_second_targets_fn(vcfg: VoxelNetConfig, device=None) -> Callable:
+def _training_device(device, what: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device found (pass device='cpu' to run on the CPU)")
+    return device
+
+
+def make_second_targets_fn(vcfg: VoxelNetConfig, device="cuda") -> Callable:
     """``targets(batch) -> (vox, targets)`` on ``device``: the voxelized batch
     and the per-anchor targets, under ``torch.no_grad()`` (neither carries a
     gradient). ``batch``: points ``(B, N, D)``, points_valid ``(B, N)``,
-    gt_boxes ``(B, G, 7)``, gt_classes ``(B, G)``, gt_valid ``(B, G)``."""
+    gt_boxes ``(B, G, 7)``, gt_classes ``(B, G)``, gt_valid ``(B, G)``.
+    ``device`` defaults to the card; pass ``"cpu"`` to run without one."""
+    device = _training_device(device, "make_second_targets_fn")
     anchors, mt, ut, acls = vcfg.make_anchors(device)
     abev = torch.cat([anchors[:, 0:2], anchors[:, 3:5], anchors[:, 6:7]], dim=-1)
     anchor_standup = corners_to_standup_2d(box_corners_2d(abev))
@@ -70,11 +79,12 @@ def make_second_targets_fn(vcfg: VoxelNetConfig, device=None) -> Callable:
     return targets_fn
 
 
-def make_second_loss_fn(vcfg: VoxelNetConfig, device=None) -> Callable:
+def make_second_loss_fn(vcfg: VoxelNetConfig, device="cuda") -> Callable:
     """``loss_fn(model, batch, generator) -> (loss, metrics)`` for the
     :class:`~lyft3d_tpu_torch.train.trainer.Trainer`; ``device`` is where the
-    anchors live (the model's). The generator is not used (no dropout)."""
-    targets_fn = make_second_targets_fn(vcfg, device)
+    anchors live (the model's): the card by default, ``"cpu"`` to run without
+    one. The generator is not used (no dropout)."""
+    targets_fn = make_second_targets_fn(vcfg, _training_device(device, "make_second_loss_fn"))
 
     def loss_fn(model, batch, generator=None):
         vox, tgts = targets_fn(batch)
@@ -90,9 +100,7 @@ def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens
     """Train SECOND on ``train_tokens``; returns ``(state, model, vcfg)``.
     ``device`` defaults to the card; pass ``"cpu"`` (with float32) to run
     without one."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_second: no CUDA device found (pass device='cpu' to run on the CPU)")
+    device = _training_device(device, "train_second")
     vcfg = vcfg or voxelnet_config_from_experiment(exp)
     sample0 = loader.batch(list(train_tokens)[: exp.batch_size])
     model = VoxelNet(vcfg, in_features=sample0["points"].shape[-1], dtype=dtype, device=device,

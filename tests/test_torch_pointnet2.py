@@ -79,12 +79,27 @@ def test_fps_batched_equals_per_sample():
         assert torch.equal(got[i:i + 1], p2.fps(t(pts[i:i + 1]), t(valid[i:i + 1]), 32))
 
 
-@pytest.mark.parametrize("n,threads,slots", [(16384, 1024, 16), (4096, 512, 8), (1024, 128, 8),
-                                             (512, 64, 8), (256, 32, 8), (128, 32, 4),
-                                             (300, 64, 8), (65536, 1024, 64), (1, 32, 1)])
-def test_fps_launch_shape_covers_the_cloud(n, threads, slots):
-    assert p2._fps_launch_shape(n) == (threads, slots)
-    assert threads * slots >= n and threads % 32 == 0
+@pytest.mark.parametrize("batch,n,shape", [
+    # Many clouds (the RCNN's 400 RoI clouds): one block a cloud fills the card.
+    (400, 16384, (1, 1024, 16)), (400, 4096, (1, 512, 8)), (400, 1024, (1, 128, 8)),
+    (400, 512, (1, 64, 8)), (400, 256, (1, 32, 8)), (400, 128, (1, 32, 4)),
+    (400, 300, (1, 64, 8)), (400, 65536, (1, 1024, 64)), (400, 1, (1, 32, 1)),
+    # Few clouds of more than 4,096 points: a cluster of 16 CTAs a cloud.
+    (4, 16384, (16, 256, 4)), (4, 8192, (16, 256, 2)), (2, 4097, (16, 256, 2)),
+    (1, 65536, (16, 256, 16)), (40, 16384, (16, 256, 4)), (131, 4100, (16, 256, 2)),
+    # Few small clouds, and many clouds: one block a cloud.
+    (4, 4096, (1, 512, 8)), (4, 1024, (1, 128, 8)), (4, 256, (1, 32, 8)), (1, 1, (1, 32, 1)),
+    (132, 16384, (1, 1024, 16)),
+])
+def test_fps_launch_shape_covers_the_cloud(batch, n, shape):
+    ctas, threads, slots = p2._fps_launch_shape(batch, n)
+    assert (ctas, threads, slots) == shape
+    assert ctas * threads * slots >= n and threads % 32 == 0 and slots & (slots - 1) == 0
+    assert ctas in (1, 16)
+    if batch >= p2.FPS_SMS or n <= 4096:
+        assert ctas == 1  # many clouds, and small ones, keep the one-block kernel
+    if ctas > 1:
+        assert threads == p2.FPS_CLUSTER_THREADS and slots <= 32 and ctas * threads * slots < 2 * n
 
 
 # ----------------------------------------------------------------- ball query

@@ -400,7 +400,7 @@ def test_second_loss_fn_loss_metrics_and_every_gradient_match_jax(name):
 
     cfg = port_config(jcfg)
     model = load_flax_params(VoxelNet(cfg, in_features=batch["points"].shape[-1]), variables).train()
-    loss_fn = ttrain.make_second_loss_fn(cfg)
+    loss_fn = ttrain.make_second_loss_fn(cfg, device="cpu")
     got, gm = loss_fn(model, {k: t(v) for k, v in batch.items()})
     got.backward()
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
@@ -425,7 +425,7 @@ def test_trained_model_is_put_in_eval_and_detects_as_before():
     model = VoxelNet(cfg, generator=torch.Generator().manual_seed(3))
     before = tsecond.make_second_infer_fn(model, cfg)(batch["points"], batch["points_valid"])
     model.train()
-    loss, _ = ttrain.make_second_loss_fn(cfg)(model, batch)
+    loss, _ = ttrain.make_second_loss_fn(cfg, device="cpu")(model, batch)
     loss.backward()
     assert model.training and all(p.grad is not None for p in model.parameters())
     infer = tsecond.make_second_infer_fn(model, cfg)
@@ -433,3 +433,28 @@ def test_trained_model_is_put_in_eval_and_detects_as_before():
     after = infer(batch["points"], batch["points_valid"])
     for k in before:
         assert torch.equal(before[k], after[k]) and not after[k].requires_grad
+
+
+@pytest.mark.parametrize("make", ["make_second_targets_fn", "make_second_loss_fn"])
+def test_training_fns_take_the_card_by_default(make, monkeypatch):
+    """Without a device the targets and loss functions are for the card, as
+    ``train_second`` is: without one they raise; ``device="cpu"`` builds the
+    anchors on the CPU."""
+    cfg = port_config(JPILLARS)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=f"{make}: no CUDA device found"):
+        getattr(ttrain, make)(cfg)
+    made = []
+    make_anchors = type(cfg).make_anchors
+
+    def recording(self, device=None):
+        made.append(make_anchors(self, device))
+        return made[-1]
+
+    monkeypatch.setattr(type(cfg), "make_anchors", recording)
+    fn = getattr(ttrain, make)(cfg, device="cpu")
+    assert len(made) == 1 and all(a.device.type == "cpu" for a in made[0])
+    batch = {k: t(v) for k, v in pillars_batch().items()}
+    if make == "make_second_targets_fn":
+        vox, tgts = fn(batch)
+        assert all(v.device.type == "cpu" for v in tgts.values() if isinstance(v, torch.Tensor))

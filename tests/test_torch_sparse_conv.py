@@ -271,9 +271,12 @@ def test_subm_conv_backward_cuda_path_has_no_fallback(monkeypatch):
 def test_subm_conv_backward_kernels_on_card_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
+    import chip_smoke
+
     g = torch.Generator().manual_seed(0)
     f = torch.randn(2, 3000, 16, generator=g).cuda()
-    ranks = torch.randint(-1, 3000, (2, 27, 3000), generator=g).int().cuda()
+    # df is the forward over the reverse ranks: each offset reads a row at most once.
+    ranks = chip_smoke.subm_edge_table("random", 2, 3000, seed=0).cuda()
     w = torch.randn(27, 16, 32, generator=g).cuda()
     go = torch.randn(2, 3000, 32, generator=g).cuda()
     df, dw = tk._subm_conv_bwd_cuda(f, ranks, w, go, True, True)
@@ -282,6 +285,108 @@ def test_subm_conv_backward_kernels_on_card_match_plain():
     assert float((dw - want_w).abs().max()) <= TOL * float(want_w.abs().max())
     # df and dW at 3 to 96 channels with an empty sample and zero cotangent
     # rows, bfloat16 (tensor cores, flagged rows skipped) and float32.
-    import chip_smoke
-
     assert chip_smoke.subm_edge_checks(torch.device("cuda")) <= 1.0
+
+
+# --------------------------------------------------------- reverse-rank df
+
+
+def cloud_case(name):
+    """(coords (B, cap, 3), valid (B, cap), shape) of the reverse-rank clouds.
+    Invalid rows keep coords (0, 0, 0), colliding with each other and with
+    a valid voxel there."""
+    shape = (8, 8, 4)
+    if name == "random":
+        coords, valid = random_set(10, shape, 60, 80)
+    elif name == "clustered":  # every cell of a 4 x 4 x 3 block: up to 27 neighbours
+        grid = np.stack(np.meshgrid(np.arange(2, 6), np.arange(3, 7), np.arange(0, 3), indexing="ij"), -1)
+        coords = np.zeros((64, 3), np.int32)
+        coords[:48] = np.random.RandomState(11).permutation(grid.reshape(-1, 3))
+        valid = np.arange(64) < 48
+    elif name == "invalid_rows":  # as many invalid rows as valid ones, one valid voxel at the origin
+        coords, valid = random_set(12, shape, 30, 60)
+        coords[0] = 0
+    elif name == "grid_edges":  # the boundary cells only: offsets point out of the grid
+        cells = np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(4), indexing="ij"), -1).reshape(-1, 3)
+        edge = cells[(cells[:, 0] % 7 == 0) | (cells[:, 1] % 7 == 0) | (cells[:, 2] % 3 == 0)]
+        coords = np.random.RandomState(13).permutation(edge)[:70].astype(np.int32)
+        valid = np.ones(70, bool)
+    else:  # "batch": two samples of different sizes
+        sets = [random_set(s, shape, n, 64) for s, n in ((14, 50), (15, 20))]
+        coords, valid = (np.stack(a) for a in zip(*sets))
+        return coords, valid, shape
+    return coords[None], valid[None], shape
+
+
+REV_CLOUDS = ["random", "clustered", "invalid_rows", "grid_edges", "batch"]
+
+
+@pytest.mark.parametrize("cloud", REV_CLOUDS)
+def test_reverse_ranks_invert_subm_neighbors_tables(cloud):
+    coords, valid, shape = cloud_case(cloud)
+    ta = tsp.ActiveSet(t(coords), t(valid), shape)
+    ranks = tsp.subm_neighbors(ta, tsp.build_hash(ta), tsp.kernel_offsets(3))
+    vs = coords.shape[1]
+    rev = tk.reverse_ranks(ranks, vs)
+    assert rev.shape == (coords.shape[0], 27, vs) and rev.dtype == torch.int32
+    r, v = ranks.long().numpy(), rev.numpy()
+    for b in range(coords.shape[0]):
+        for k in range(27):
+            want = np.full(vs, -1)
+            hit = np.nonzero((r[b, k] >= 0) & (r[b, k] < vs))[0]
+            want[r[b, k, hit]] = hit
+            assert len(np.unique(r[b, k, hit])) == len(hit)  # each offset is injective
+            np.testing.assert_array_equal(v[b, k], want)
+    present = int(((r >= 0) & (r < vs)).sum())
+    assert present == int((v >= 0).sum()) and present > coords.shape[0] * int(valid.sum(-1).min())
+    if cloud == "clustered":
+        assert (rev[0, :, 0] >= 0).sum() >= 8  # a corner of the block has 8 neighbours
+
+
+@pytest.mark.parametrize("cloud", REV_CLOUDS)
+def test_reverse_rank_df_equals_autograd_and_jax_vjp(cloud):
+    """``df`` as the kernels compute it (the forward over reverse ranks, the
+    weights transposed) against autograd of the plain forward (1e-6 of scale)
+    and ``jax.vjp`` of the interpret-mode Pallas kernel (1e-5, float32), the
+    JAX side jitted with the batch as its argument."""
+    import jax
+
+    coords, valid, shape = cloud_case(cloud)
+    b, vs = valid.shape
+    rng = np.random.RandomState(len(cloud))
+    feats = (rng.randn(b, vs, 5) * valid[..., None]).astype(np.float32)
+    w = (rng.randn(27, 5, 16) * 0.3).astype(np.float32)
+    cot = rng.randn(b, vs, 16).astype(np.float32)
+    ta = tsp.ActiveSet(t(coords), t(valid), shape)
+    th = tsp.build_hash(ta)
+    ranks = tsp.subm_neighbors(ta, th, tsp.kernel_offsets(3))
+    f_sorted = torch.stack([t(feats[i])[th[1][i]] for i in range(b)])
+    before = tk.DGRAD_KERNEL_LAUNCHES
+    got = tk.subm_conv_dgrad(t(cot), ranks, t(w), vs)
+    assert tk.DGRAD_KERNEL_LAUNCHES == before  # a CPU tensor takes the plain version
+    f = f_sorted.clone().requires_grad_(True)
+    want, = torch.autograd.grad(tk.subm_conv_ref(f, ranks, t(w)), (f,), t(cot))
+    assert got.shape == want.shape == (b, vs, 5) and float(want.abs().max()) > 0
+    close(got, want.numpy(), 1e-6)
+
+    @jax.jit
+    def jax_df(f_, ranks_, w_, cot_):
+        def one(fi, ri, ci):
+            return jax.vjp(lambda x: subm_conv_pallas(x, ri, w_, tile=16, interpret=True), fi)[1](ci)[0]
+        return jax.vmap(one)(f_, ranks_, cot_)
+
+    jdf = jax_df(f_sorted.numpy(), ranks.numpy(), w, cot)
+    close(got, jdf)
+
+
+def test_reverse_ranks_refuse_a_table_that_repeats_a_pair():
+    ranks = torch.full((2, 27, 6), -1, dtype=torch.int32)
+    ranks[:, 13] = torch.arange(6)
+    assert torch.equal(tk.reverse_ranks(ranks, 6)[:, 13], ranks[:, 13])
+    ranks[1, 4, 2] = ranks[1, 4, 5] = 3  # two queries read row 3 at offset 4
+    for call in (lambda: tk.reverse_ranks(ranks, 6),
+                 lambda: tk.subm_conv_dgrad(torch.ones(2, 6, 4), ranks, torch.ones(27, 3, 4), 6)):
+        with pytest.raises(RuntimeError, match="more than one query"):
+            call()
+    ranks[1, 4, 5] = 9  # outside [0, 6): absent, not a repeat
+    assert int(tk.reverse_ranks(ranks, 6)[1, 4, 3]) == 2

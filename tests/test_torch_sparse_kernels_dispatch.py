@@ -88,6 +88,29 @@ def test_wgrad_buffers_are_zeroed_views_sized_by_the_variant(offsets, k, n):
     assert sk.wgrad_buffers is tcs.wgrad_buffers  # both callers size the queues by one function
 
 
+@pytest.mark.parametrize("c,cout", list(itertools.product((3, 4, 5, 16, 32, 64), (16, 32, 64))))
+@pytest.mark.parametrize("side", ["forward", "df"])
+def test_subm_variant_pads_the_contraction_to_16_lanes(c, cout, side):
+    """The rank gather's tensor-core launch at every width of the per-voxel
+    middle (3 to 5 point features, 16 to 64 channels), forward and ``df`` (the
+    forward with C and Cout exchanged): the contraction padded to 16, not to
+    64, one tile of columns, two blocks an SM."""
+    k_in, n_out = (c, cout) if side == "forward" else (cout, c)
+    var = sk.subm_mma_variant(27, k_in, n_out)
+    assert var["kp"] == -(-k_in // 16) * 16 and var["slice"] == var["kp"]
+    assert var["pad_rows"] == (k_in % 16 != 0)
+    assert var["n_pad"] == var["cols"] == -(-n_out // 16) * 16
+    assert var["warps"] == 8 and var["queries"] == 128
+    assert var["smem_bytes"] == var["stages"] * (128 + var["cols"]) * (var["slice"] + 8) * 2 + 27 * 128 * 4
+    assert 2 * (var["smem_bytes"] + 4096) <= SM_SHARED_BYTES
+
+
+@pytest.mark.parametrize("k,c,cout", [(28, 16, 16), (27, 257, 16), (27, 16, 300), (0, 16, 16), (27, 0, 16)])
+def test_subm_variant_raises_on_shapes_the_kernel_does_not_take(k, c, cout):
+    with pytest.raises(ValueError):
+        sk.subm_mma_variant(k, c, cout)
+
+
 def launch_counts():
     return (tcs.KERNEL_LAUNCHES, tcs.DGRAD_KERNEL_LAUNCHES, tcs.WGRAD_KERNEL_LAUNCHES,
             sk.KERNEL_LAUNCHES, sk.DGRAD_KERNEL_LAUNCHES, sk.WGRAD_KERNEL_LAUNCHES)
@@ -308,5 +331,19 @@ def test_sparse_kernels_on_card_at_edge_shapes():
         with pytest.raises(ValueError, match="empty"):
             tcs._stencil_wgrad_cuda(src.to(dtype), qids[..., :0], ids, cot[:, :0], 1, 128, 68)
         assert launch_counts() == (before[0] + 1, before[1], before[2] + 1, *before[3:])
+    # The rank gather: the forward and df (the forward kernel on the reverse
+    # ranks) are one launch each on their own counters, dW on its own.
+    ranks = chip_smoke.subm_edge_table("random", 2, 500, seed=1).to(dev)
+    f, g = torch.randn(2, 500, 16, device=dev), torch.randn(2, 500, 32, device=dev)
+    w = torch.randn(27, 16, 32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = launch_counts()
+        sk._subm_conv_cuda(f.to(dtype), ranks, w.to(dtype))
+        assert launch_counts() == (*before[:3], before[3] + 1, *before[4:])
+        sk._subm_conv_bwd_cuda(f.to(dtype), ranks, w.to(dtype), g.to(dtype), True, False)
+        assert launch_counts() == (*before[:3], before[3] + 1, before[4] + 1, before[5])
+        sk._subm_conv_bwd_cuda(f.to(dtype), ranks, w.to(dtype), g.to(dtype), False, True)
+        assert launch_counts() == (*before[:3], before[3] + 1, before[4] + 1, before[5] + 1)
+    chip_smoke.subm_contract_flag(dev)
     assert chip_smoke.stencil_edge_checks(dev) <= 1.0
     assert chip_smoke.subm_edge_checks(dev) <= 1.0

@@ -53,7 +53,7 @@ def make_trainer(tmp_path, model=None, seed=0, **cfg):
     model = model or VoxelNet(CFG, generator=torch.Generator().manual_seed(seed))
     kw = dict(model_dir=str(tmp_path), total_steps=4, log_every=1, eval_every=0, ckpt_every=2)
     kw.update(cfg)
-    return Trainer(model, adam(), ttrain.make_second_loss_fn(CFG), TrainerConfig(**kw))
+    return Trainer(model, adam(), ttrain.make_second_loss_fn(CFG, device="cpu"), TrainerConfig(**kw))
 
 
 def batches():
