@@ -51,7 +51,16 @@ Phases, one line of numbers each:
    x 16,384 points, k 512, extra width 1.0), with 5% invalid points,
    duplicated points, a far-away centre (an empty row), a box with more
    points than k and an empty box: indices and counts ``torch.equal``,
-   distances within 1e-6; both timed with CUDA events. FPS runs a cluster of
+   distances within 1e-6; both timed with CUDA events. Ball query runs both
+   its kernels (the scan and the cell grid) at every case, and again at
+   :data:`BALL_EDGES` (points on cell faces, centres at ±1,000 m, 16 buckets
+   a sample so that neighbouring cells share buckets, invalid points inside
+   the radius, 3 and 4 radii, k = 64, 400 clouds), where the grid's cell keys
+   kernel is held to its plain version too; the grid is timed as its table
+   and its selection. Both ball-query routes and 3-NN run once under
+   PyTorch's sync debug mode: none may make the host wait for the card. 3-NN runs every split (queries a thread, threads a
+   query) at :data:`KNN_EDGES` (S and M no multiple of a block or a split,
+   M = 1, 2, 3, duplicated known points). FPS runs a cluster of
    16 CTAs a cloud at 4 x 16,384 (timed beside one block a cloud) and one
    block a cloud for the 400 RoI clouds, and is also held to its plain
    version at :data:`FPS_EDGES` (ties across CTAs, a cloud without a valid
@@ -68,9 +77,18 @@ Phases, one line of numbers each:
     bfloat16 with folded norms at batch 4 x 16,384 points: the four launch
     counts are reset before it and must be 6, 6, 4 and 1 a call after it;
     output shapes, finite boxes, scores in [0, 1]; samples/s from CUDA events
-    (2 warm-up, 10 timed iterations), a stage split, and peak memory. The six
-    FPS launches of one more call are recorded and replayed: each
-    ``torch.equal`` to the plain version, timed, in µs a dependent step.
+    (2 warm-up, 10 timed iterations), a stage split, and peak memory; the
+    path again with ball query held to the scan, interleaved with the rule's
+    path six times. The six
+    FPS, six ball-query and four 3-NN launches of one more call are recorded,
+    and the six ball-query launches again on a LiDAR-like cloud
+    (:func:`lidar_cloud`: dense near the sensor and on the ground, where rows
+    fill), and replayed after the stage split: each ``torch.equal`` to the
+    plain version (3-NN distances within 1e-6 of scale) and timed, FPS in µs
+    a dependent step; ball query on both kernels and 3-NN at every split,
+    each also queued behind a sleep kernel (:func:`queued_ms`: the card's
+    time when the host keeps ahead) and in host µs a call: the evidence of
+    the two shape rules, one line each, with the rule's total a call.
 
 10a. sparse kernel edges: the stencil kernel, its two backward sides and the
     rank gather (forward, ``df``, ``dW``) against their plain versions at the
@@ -181,6 +199,7 @@ BATCH = 32
 SHAPE = (336, 336, 3)
 RASTER_BATCHES = (8, BATCH)
 TIMED_ITERS = 10
+SLEEP_CYCLES = 100_000_000  # ~50 ms of a spinning kernel at the H100's clock (queued_ms)
 EXTRACT_TOL = 1e-5
 BG_THRESHOLD = 80.0 / 255.0
 # SECOND pillars (configs/second_lyft_9class.yaml): batch 8, data.max_points
@@ -280,6 +299,64 @@ def device_ms(fn, iters=5):
             fn()
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+
+
+def queued_ms(fn, iters=20):
+    """Mean milliseconds a call of ``fn`` takes on the card when the host
+    keeps ahead: the calls are queued behind a sleep kernel, and CUDA events
+    time them back to back, without the gaps in which the card waits for the
+    host (which ``cuda_ms`` counts). Raises if the host did not queue them
+    all within the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    nap = torch.cuda.Event(enable_timing=True)
+    nap.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queued = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if queued >= nap.elapsed_time(start):
+        raise AssertionError(f"queued_ms: queuing took {queued:.2f} ms, longer than the "
+                             f"{nap.elapsed_time(start):.2f} ms sleep")
+    return start.elapsed_time(end) / iters
+
+
+def without_host_sync(what, fn):
+    """Runs ``fn`` with PyTorch's sync debug mode set to raise: a wrapper
+    that makes the host wait for the card fails here."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        raise AssertionError(f"{what} synchronizes the host with the card: {err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def host_us(fn, iters=20):
+    """Mean microseconds of the host's clock a call of ``fn``, calls queued
+    back to back without waiting for the card: what a launch costs a stage
+    that follows the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def sweep_points(batch, n, seed):
@@ -428,6 +505,37 @@ def rcnn_cloud(batch, n, seed):
     return pts, valid
 
 
+def lidar_cloud(batch, n, seed):
+    """A LiDAR-like sweep around a sensor at the origin, for the ball-query
+    rule: 60% of the points on a ground plane (z = -1.7 m, 3 cm noise), 40% in
+    32 objects a sample (Gaussian blobs of 0.6 x 0.6 x 0.4 m above the
+    ground). Ranges are log-uniform, ground in [1.5, 40] m and object
+    centres in [3, 40] m, so the density falls as 1 / range^2: the ground at
+    2 m is ~400 times as dense as at 40 m, and most of a cloud lies near the
+    sensor. The last 5% invalid."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def around(count, r_lo):
+        rng = r_lo * (40.0 / r_lo) ** torch.rand(batch, count, generator=g)
+        az = torch.rand(batch, count, generator=g) * (2 * math.pi)
+        return rng * torch.cos(az), rng * torch.sin(az)
+
+    n_ground = n * 3 // 5
+    gx, gy = around(n_ground, 1.5)
+    ground = torch.stack([gx, gy, -1.7 + 0.03 * torch.randn(batch, n_ground, generator=g)], -1)
+    ox, oy = around(32, 3.0)
+    centre = torch.stack([ox, oy, torch.full_like(ox, -1.0)], -1)
+    which = torch.randint(0, 32, (batch, n - n_ground), generator=g)
+    blobs = torch.gather(centre, 1, which[..., None].expand(-1, -1, 3))
+    blobs = blobs + torch.randn(batch, n - n_ground, 3, generator=g) * torch.tensor([0.6, 0.6, 0.4])
+    pts = torch.cat([ground, blobs], 1)
+    pts = torch.gather(pts, 1, torch.argsort(torch.rand(batch, n, generator=g), 1)[..., None].expand(-1, -1, 3))
+    valid = (torch.arange(n) < n - n // 20).expand(batch, n).contiguous()
+    return pts.contiguous(), valid
+
+
 def roi_clouds(batch, n, seed):
     """RoI-sized clouds in a box frame: ±3 x ±2 x ±1 m, the first ``count``
     points valid with ``count`` from 1 to ``n``."""
@@ -539,6 +647,129 @@ FPS_EDGES = (
     ("fewer valid points than npoint", 2, 9000, 600), ("N no multiple of the cluster's span", 3, 12289, 700),
     ("N = 65,536", 1, 65536, 512), ("batch 1", 1, 16384, 1024), ("more clusters than fit at once", 40, 16384, 256),
 )
+
+# (what, batch, S, N, radii, k) of the ball-query edge checks, each run on the
+# scan kernel and on the cell grid (default buckets, and 16 buckets a sample,
+# where 27 neighbouring cells must share buckets): what a hashed grid gets
+# wrong first.
+BALL_EDGES = (
+    ("points and centres on cell faces", 2, 300, 4000, (0.5, 1.0), (16, 32)),
+    ("centres at +-1,000 m", 2, 300, 4000, (0.5, 1.0), (16, 32)),
+    ("invalid points inside the radius", 2, 300, 4000, (1.0,), (32,)),
+    ("3 radii", 2, 300, 4000, (0.3, 0.6, 1.2), (8, 16, 32)),
+    ("4 radii", 2, 300, 4000, (0.2, 0.4, 0.8, 1.6), (8, 16, 32, 64)),
+    ("k = 64", 2, 300, 4000, (2.0,), (64,)),
+    ("a batch of 400 clouds", 400, 128, 512, (0.2, 0.4), (64, 64)),
+)
+# (what, batch, S, M) of the 3-NN edge checks, each at every split of
+# csrc/knn.cu (queries a thread, threads a query).
+KNN_EDGES = (
+    ("S and M no multiple of a block or a split", 3, 1001, 999), ("M = 1", 2, 300, 1),
+    ("M = 2", 2, 300, 2), ("M = 3", 2, 300, 3), ("duplicated known points (ties)", 2, 1500, 1200),
+    ("M over three tiles", 2, 777, 2100),
+)
+
+
+def ball_edge_case(what, batch, s, n, radii, seed):
+    """Centres, points, valid for one of :data:`BALL_EDGES`: a cloud of
+    ``n`` points in ±5 x ±5 x ±1 m (denser than the path's, so that rows
+    fill), centres on its first points."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    g = torch.Generator().manual_seed(seed)
+    if what.startswith("a batch"):
+        pts, valid = roi_clouds(batch, n, seed)
+    else:
+        pts = (torch.rand(batch, n, 3, generator=g) * 2 - 1) * torch.tensor([5.0, 5.0, 1.0])
+        valid = torch.rand(batch, n, generator=g) >= 0.05
+    if what.startswith("points and centres on cell faces"):
+        # Coordinates at whole multiples of the cell's side, and one float32
+        # step either side of them.
+        side = 1.0 / p2._ball_cell_inverse(radii)
+        face = torch.round(pts.double() / side) * side
+        step = torch.randint(-1, 2, pts.shape, generator=g).float()
+        face = face.float()
+        face = torch.where(step > 0, torch.nextafter(face, face + 1), face)
+        face = torch.where(step < 0, torch.nextafter(face, face - 1), face)
+        pts = torch.where(torch.rand(batch, n, 1, generator=g) < 0.5, face, pts)
+    elif what.startswith("centres at"):
+        pts[0, :, 0] += 1000.0
+        pts[1, :, 1] -= 1000.0
+    elif what.startswith("invalid points"):
+        valid[:, : s: 2] = False  # half the centres sit on invalid points
+        valid[:, s:] = torch.rand(batch, n - s, generator=g) >= 0.3
+    centers = pts[:, :s].clone()
+    if what.startswith("centres at"):
+        centers[:, -1] = torch.tensor([1000.0, 1000.0, 0.0])  # far from both clouds: an empty row
+    return centers, pts, valid
+
+
+def ball_edge_checks(dev, card):
+    """:data:`BALL_EDGES` on both ball-query kernels: indices and counts
+    ``torch.equal`` to the plain version."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    parts = []
+    for i, (what, batch, s, n, radii, ks) in enumerate(BALL_EDGES):
+        c, p, v = (a.to(dev) for a in ball_edge_case(what, batch, s, n, radii, seed=40 + i))
+        want = p2.multi_radius_ball_query_dense(c, p, v, radii, ks)
+        runs = {"scan": p2._ball_scan_cuda(c, p, v, radii, ks),
+                "grid": p2._ball_grid_cuda(c, p, v, radii, ks),
+                "grid, 16 buckets": p2._ball_grid_cuda(c, p, v, radii, ks, buckets=16)}
+        for kernel, got in runs.items():
+            for (g_idx, g_cnt), (w_idx, w_cnt) in zip(got, want):
+                if not (torch.equal(g_idx, w_idx) and torch.equal(g_cnt, w_cnt)):
+                    raise AssertionError(f"ball query edge {what!r} ({kernel}): kernel differs from "
+                                         f"the plain version in {int((g_idx != w_idx).sum())} indices, "
+                                         f"{int((g_cnt != w_cnt).sum())} counts")
+        inv = p2._ball_cell_inverse(radii)
+        for buckets in (p2._ball_buckets(n), 16):
+            if not torch.equal(p2._ball_cell_keys_cuda(p, v, inv, buckets), p2.ball_cell_keys(p, v, inv, buckets)):
+                raise AssertionError(f"ball query edge {what!r}: the cell keys kernel differs from its "
+                                     f"plain version at {buckets} buckets a sample")
+        counts = want[-1][1]
+        parts.append(f"{what} (B={batch} S={s} N={n} r={radii} k={ks}; rule: "
+                     f"{p2._ball_query_kernel(batch, s, n, max(radii))}; "
+                     f"{int((counts == ks[-1]).sum())} full rows, {int((counts == 0).sum())} empty)")
+    log(f"ball edges, scan, grid and grid at 16 buckets a sample, each torch.equal to the plain "
+        f"version (the cell keys kernel too): {'; '.join(parts)} [{card}]")
+
+
+def knn_edge_checks(dev, card):
+    """:data:`KNN_EDGES` at every split of the 3-NN kernel: indices
+    ``torch.equal`` to the plain version, distances within 1e-6 of scale."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    parts = []
+    for i, (what, batch, s, m) in enumerate(KNN_EDGES):
+        g = torch.Generator().manual_seed(60 + i)
+        known = (torch.rand(batch, m, 3, generator=g) * 2 - 1) * 4.0
+        kvalid = torch.rand(batch, m, generator=g) >= 0.1
+        kvalid[:, 0] = True
+        unknown = (torch.rand(batch, s, 3, generator=g) * 2 - 1) * 4.0
+        if what.startswith("duplicated"):
+            known[:, m // 2: m // 2 + 300] = known[:, :300]
+            known[:, m - 100:] = known[:, 300:400]
+            kvalid[:, m // 2: m // 2 + 300] = kvalid[:, :300]
+            unknown[:, :400] = known[:, :400]  # queries on known points: distance 0 and ties
+        known, kvalid, unknown = known.to(dev), kvalid.to(dev), unknown.to(dev)
+        w_d, w_idx = p2.three_nn_dense(unknown, known, kvalid)
+        for shape in p2.KNN_SHAPES:
+            g_d, g_idx = p2._three_nn_cuda(unknown, known, kvalid, shape)
+            err = float((g_d - w_d).abs().max())
+            if not torch.equal(g_idx, w_idx) or not err <= 1e-6 * max(1.0, float(w_d.abs().max())):
+                raise AssertionError(f"three_nn edge {what!r} at (Q, P) = {shape}: "
+                                     f"{int((g_idx != w_idx).sum())} indices differ, distances by {err}")
+        parts.append(f"{what} (B={batch} S={s} M={m}; rule {p2._knn_launch_shape(batch * s, m)})")
+    log(f"knn edges at (Q, P) in {list(p2.KNN_SHAPES)}, indices torch.equal, distances within 1e-6 "
+        f"of scale: {'; '.join(parts)} [{card}]")
+
 
 
 def fps_edge_cloud(what, batch, n, seed):
@@ -1250,13 +1481,17 @@ def select_kernels_phase(dev, card):
     cvalid = torch.gather(valid, 1, sel.long())
 
     def ball_case(c, p, v, radii, ks, what):
-        got = p2.multi_radius_ball_query(c, p, v, radii, ks)
         want = p2.multi_radius_ball_query_dense(c, p, v, radii, ks)
         n = p.shape[1]
         scanned = torch.zeros(c.shape[:2], dtype=torch.int64, device=dev)
-        for (g_idx, g_cnt), (w_idx, w_cnt), k in zip(got, want, ks):
-            same(g_idx, w_idx, f"ball query {what} indices")
-            same(g_cnt, w_cnt, f"ball query {what} counts")
+        # The rule's pick through the public wrapper, and both kernels.
+        for kernel, got in (("wrapper", p2.multi_radius_ball_query(c, p, v, radii, ks)),
+                            ("scan", p2._ball_scan_cuda(c, p, v, radii, ks)),
+                            ("grid", p2._ball_grid_cuda(c, p, v, radii, ks))):
+            for (g_idx, g_cnt), (w_idx, w_cnt) in zip(got, want):
+                same(g_idx, w_idx, f"ball query {what} indices ({kernel})")
+                same(g_cnt, w_cnt, f"ball query {what} counts ({kernel})")
+        for (w_idx, w_cnt), k in zip(want, ks):
             # A row that fills stops after its k-th hit; the others read the whole cloud.
             scanned = torch.maximum(scanned, torch.where(w_cnt >= k, w_idx[..., -1].long() + 1, n))
         full = sum(int((cnt >= k).sum()) for (_, cnt), k in zip(want, ks))
@@ -1264,6 +1499,8 @@ def select_kernels_phase(dev, card):
 
     radii0, ks0 = (0.1, 0.5), (16, 32)
     pairs0, full0 = ball_case(centers, pts, valid, radii0, ks0, "stage 0")
+    without_host_sync("ball query (cell grid)", lambda: p2._ball_grid_cuda(centers, pts, valid, radii0, ks0))
+    without_host_sync("ball query (scan)", lambda: p2._ball_scan_cuda(centers, pts, valid, radii0, ks0))
     if int(p2.multi_radius_ball_query(centers, pts, valid, radii0, ks0)[1][1][:, -1].max()) != 0:
         raise AssertionError("ball query: the far-away centre found neighbours")
     pairs3, full3 = ball_case(centers, pts, valid, (2.0, 4.0), ks0, "radii (2, 4)")
@@ -1272,25 +1509,37 @@ def select_kernels_phase(dev, card):
     rc = p2.group_points(rpts, rsel[:, :, None])[:, :, 0].contiguous()
     ball_case(rc, rpts, rvalid, (0.2,), (64,), "400 x 128 x 512")
     ball_case(rc, rpts, rvalid, (1.5,), (64,), "400 x 128 x 512 radius 1.5")
+    ball_edge_checks(dev, card)
+    s = centers.shape[1]
+    rule0 = p2._ball_query_kernel(PRC_BATCH, s, PRC_POINTS, max(radii0))
     k_ms = cuda_ms(lambda: p2.multi_radius_ball_query(centers, pts, valid, radii0, ks0),
                    warmup=2, iters=20)
+    scan_ms = cuda_ms(lambda: p2._ball_scan_cuda(centers, pts, valid, radii0, ks0), warmup=2, iters=20)
+    table_ms, select_ms = ball_grid_parts(centers, pts, valid, radii0, ks0)
     p_ms = cuda_ms(lambda: p2.multi_radius_ball_query_dense(centers, pts, valid, radii0, ks0),
                    warmup=1, iters=3)
     early_ms = cuda_ms(lambda: p2.multi_radius_ball_query(centers, pts, valid, (2.0, 4.0), ks0),
                        warmup=2, iters=20)
     small_ms = cuda_ms(lambda: p2.multi_radius_ball_query(rc, rpts, rvalid, (0.2,), (64,)),
                        warmup=2, iters=20)
-    s = centers.shape[1]
     io = PRC_BATCH * (PRC_POINTS * 13 + s * 12 + s * (sum(ks0) + len(ks0)) * 4)
-    # 3 subtractions, 3 products, 2 sums and one compare per radius for each scanned pair.
-    b_ms, b_by = bound(io, pairs0 * (8 + len(ks0)))
+    # The grid's work: a distance and its compares (10 operations) for each
+    # (centre, valid point) pair inside the largest radius. The scan's: 3
+    # subtractions, 3 products, 2 sums and one compare per radius for each
+    # scanned pair.
+    inside0 = inside_pairs(centers, pts, valid, max(p2._squared_radii(radii0)))
+    b_ms, b_by = bound(io, inside0 * 10)
+    scan_b_ms, scan_b_by = bound(io, pairs0 * (8 + len(ks0)))
     records["ball_query"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                  bound_by=b_by)
     log(f"ball: B={PRC_BATCH} S={s} N={PRC_POINTS} radii={radii0} k={ks0} torch.equal=True "
-        f"scanned_pairs={pairs0} filled_rows={full0} kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
-        f"bound_ms={b_ms:.4f} ({b_by}) | radii=(2.0, 4.0) scanned_pairs={pairs3} "
+        f"(wrapper, scan and grid) rule={rule0} kernel_ms={k_ms:.4f} (grid: table {table_ms:.4f} + "
+        f"selection {select_ms:.4f}; scan {scan_ms:.4f}) plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} "
+        f"({b_by}; {inside0} pairs inside the largest radius) scan_bound_ms={scan_b_ms:.4f} ({scan_b_by}; "
+        f"scanned_pairs={pairs0}) filled_rows={full0} | radii=(2.0, 4.0) scanned_pairs={pairs3} "
         f"filled_rows={full3} kernel_ms={early_ms:.4f} | B={PRC_BATCH * PRC_ROIS} S=128 N=512 "
-        f"r=0.2 k=64 kernel_ms={small_ms:.4f} [{card}]")
+        f"r=0.2 k=64 rule={p2._ball_query_kernel(PRC_BATCH * PRC_ROIS, 128, 512, 0.2)} "
+        f"kernel_ms={small_ms:.4f} [{card}]")
 
     # B7 three nearest neighbours: FP stage 0 (16,384 unknown, 4,096 known),
     # with one duplicated known point and the far-away one.
@@ -1312,15 +1561,17 @@ def select_kernels_phase(dev, card):
     if not torch.equal(f_d, w_d):
         raise AssertionError("three_nn miss distances differ")
     del w_d, w_idx
+    knn_edge_checks(dev, card)
+    without_host_sync("three_nn", lambda: p2.three_nn(pts, known, kvalid))
     k_ms = cuda_ms(lambda: p2.three_nn(pts, known, kvalid), warmup=2, iters=20)
     p_ms = cuda_ms(lambda: p2.three_nn_dense(pts, known, kvalid), warmup=1, iters=3)
     pairs = PRC_POINTS * int(kvalid.sum())
     b_ms, b_by = bound(PRC_BATCH * (PRC_POINTS * 12 + s * 13 + PRC_POINTS * 24), pairs * 9)
     records["knn"] = dict(max_abs_err=knn_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by)
-    log(f"knn: B={PRC_BATCH} S={PRC_POINTS} M={s} indices torch.equal=True "
-        f"dist_max_abs_err={knn_err:.3g} (tol 1e-6 of scale) pairs={pairs} kernel_ms={k_ms:.4f} "
-        f"plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    log(f"knn: B={PRC_BATCH} S={PRC_POINTS} M={s} (Q, P)={p2._knn_launch_shape(PRC_BATCH * PRC_POINTS, s)} "
+        f"indices torch.equal=True dist_max_abs_err={knn_err:.3g} (tol 1e-6 of scale) pairs={pairs} "
+        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
 
     # B8 RoI select: 100 boxes a sample, k 512, extra width 1.0.
     boxes = roi_boxes(pts.cpu(), PRC_ROIS, seed=9).to(dev)
@@ -1369,6 +1620,113 @@ def fps_replay(calls, card):
         f"total kernel_ms={total:.3f} [{card}]")
     return total
 
+
+def ball_grid_parts(c, p, v, radii, ks):
+    """Milliseconds of the grid route's two parts at one shape, as the
+    wrapper runs them: the cell table (``_ball_grid_table``: the keys kernel
+    and the stable sort) and the selection (``_ball_grid_select``: the bucket
+    starts and the merge) on a table built once. The keys kernel is also held
+    to its plain version (``torch.equal``)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    table = p2._ball_grid_table(p, v, radii)
+    inv, buckets = table[2], table[3]
+    if not torch.equal(p2._ball_cell_keys_cuda(p, v, inv, buckets), p2.ball_cell_keys(p, v, inv, buckets)):
+        raise AssertionError("ball query: the cell keys kernel differs from its plain version")
+    table_ms = cuda_ms(lambda: p2._ball_grid_table(p, v, radii), warmup=2, iters=20)
+    return table_ms, cuda_ms(lambda: p2._ball_grid_select(c, p, table, radii, ks), warmup=2, iters=20)
+
+
+def inside_pairs(c, p, v, r2):
+    """(centre, valid point) pairs with d2 < r2, counted in chunks of centres."""
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    total = 0
+    for i in range(0, c.shape[1], 512):
+        total += int(((p2._sq_dist(c[:, i: i + 512], p) < r2) & v[:, None, :]).sum())
+    return total
+
+
+def ball_replay(calls, card, cloud):
+    """Phase 10: the six ball-query launches of one PointRCNN call on
+    ``cloud``, recorded and replayed on both kernels, each ``torch.equal`` to
+    the plain version and timed (CUDA events, device time, host µs a call),
+    with the rows in which every radius fills (where the scan stops early):
+    the rule's evidence on one line. Returns the rule's and the scan's total
+    ms a call."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    assert len(calls) == 6, len(calls)
+    parts, total, scan_total = [], 0.0, 0.0
+    for args, _ in calls:
+        c, p, v, radii, ks = args
+        want = p2.multi_radius_ball_query_dense(c, p, v, radii, ks)
+        ms = {}
+        for kernel, fn in (("scan", p2._ball_scan_cuda), ("grid", p2._ball_grid_cuda)):
+            for (g_idx, g_cnt), (w_idx, w_cnt) in zip(fn(c, p, v, radii, ks), want):
+                if not (torch.equal(g_idx, w_idx) and torch.equal(g_cnt, w_cnt)):
+                    raise AssertionError(f"ball query ({kernel}) differs from the plain version at "
+                                         f"{tuple(c.shape)} x {tuple(p.shape)} r={radii} ({cloud})")
+            ms[kernel] = cuda_ms(lambda: fn(c, p, v, radii, ks), warmup=2, iters=20)
+            ms[kernel + " queued"] = queued_ms(lambda: fn(c, p, v, radii, ks))
+            ms[kernel + " host"] = host_us(lambda: fn(c, p, v, radii, ks))
+        b, n, _ = p.shape
+        rule = p2._ball_query_kernel(b, c.shape[1], n, max(radii))
+        total += ms[rule]
+        scan_total += ms["scan"]
+        full = torch.stack([cnt >= k for (_, cnt), k in zip(want, ks)]).all(0)
+        inside = inside_pairs(c, p, v, max(p2._squared_radii(radii)))
+        parts.append(f"B={b} S={c.shape[1]} N={n} r={tuple(radii)} k={tuple(ks)} pairs={b * c.shape[1] * n} "
+                     f"inside={inside} full_rows={int(full.sum())}/{full.numel()}: "
+                     + ", ".join(f"{k} {ms[k]:.4f} (queued {ms[k + ' queued']:.4f}, host {ms[k + ' host']:.1f} us)"
+                                 for k in ("scan", "grid"))
+                     + f" ms (rule: {rule})")
+    log(f"ball rule evidence, {cloud}, the six launches of one PointRCNN call, both kernels torch.equal "
+        f"to the plain version: {'; '.join(parts)}; total kernel_ms={total:.4f} (scan alone "
+        f"{scan_total:.4f}) [{card}]")
+    return total, scan_total
+
+
+def knn_replay(calls, card):
+    """Phase 10: the four 3-NN launches of one PointRCNN call, recorded and
+    replayed at every split (Q, P): indices ``torch.equal`` and distances
+    within 1e-6 of scale of the plain version, each timed: the rule's evidence
+    on one line. Returns the rule's total ms a call."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    assert len(calls) == 4, len(calls)
+    parts, total = [], 0.0
+    for args, _ in calls:
+        u, k, kv = args
+        w_d, w_idx = p2.three_nn_dense(u, k, kv)
+        times, dev_times = {}, {}
+        for shape in p2.KNN_SHAPES:
+            g_d, g_idx = p2._three_nn_cuda(u, k, kv, shape)
+            err = float((g_d - w_d).abs().max())
+            if not torch.equal(g_idx, w_idx) or not err <= 1e-6 * max(1.0, float(w_d.abs().max())):
+                raise AssertionError(f"three_nn at {shape} differs from the plain version at "
+                                     f"{tuple(u.shape)} <- {tuple(k.shape)}")
+            times[shape] = cuda_ms(lambda: p2._three_nn_cuda(u, k, kv, shape), warmup=2, iters=20)
+            dev_times[shape] = queued_ms(lambda: p2._three_nn_cuda(u, k, kv, shape))
+        rule = p2._knn_launch_shape(u.shape[0] * u.shape[1], k.shape[1])
+        rule_host = host_us(lambda: p2._three_nn_cuda(u, k, kv, rule))
+        b, s, _ = u.shape
+        total += times[rule]
+        best = min(dev_times, key=dev_times.get)
+        parts.append(f"B={b} S={s} M={k.shape[1]}: "
+                     + ", ".join(f"{q}x{p_} {t:.4f} ({dev_times[q, p_]:.4f})" for (q, p_), t in times.items())
+                     + f" (rule {rule[0]}x{rule[1]}, host {rule_host:.1f} us a call; least queued time "
+                     f"{best[0]}x{best[1]})")
+    log(f"knn rule evidence, ms (queued ms) of the four launches of one PointRCNN call at (Q queries a "
+        f"thread) x (P threads a query), each torch.equal to the plain version: {'; '.join(parts)}; "
+        f"total kernel_ms={total:.4f} [{card}]")
+    return total
 
 def gt_batch(batch, seed):
     """``GT_SLOTS`` padded GT boxes a sample, the first ``GT_VALID`` valid, of
@@ -2494,9 +2852,32 @@ def main():
     if not bool(((scores >= 0) & (scores <= 1)).all()):
         raise AssertionError("PointRCNN scores outside [0, 1]")
     prc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with recorded(prc_modules, "fps") as fps_calls:
+    # The cell grid's effect end to end in this process: the path as the rule
+    # runs it against the same path with ball query held to the scan,
+    # interleaved six times, each first in turn (the six launches' numbers
+    # are in the replay).
+    rule_fn, e2e_ab = p2._ball_query_kernel, {"rule": [], "scan alone": []}
+    for turn in range(6):
+        for name in sorted(e2e_ab, reverse=bool(turn % 2)):
+            p2._ball_query_kernel = rule_fn if name == "rule" else (lambda *args: "scan")
+            try:
+                e2e_ab[name].append(cuda_ms(lambda: infer(pts, pvalid)))
+            finally:
+                p2._ball_query_kernel = rule_fn
+    log("pointrcnn e2e, ball query by the rule against the scan alone, interleaved in this process: "
+        + "; ".join(f"{name} " + ", ".join(f"{v:.3f}" for v in vals) + f" ms (median {np.median(vals):.3f})"
+                    for name, vals in e2e_ab.items()) + f" [{card}]")
+    with recorded(prc_modules, "fps") as fps_calls, \
+            recorded(prc_modules, "multi_radius_ball_query") as ball_calls, \
+            recorded(prc_modules, "three_nn") as knn_calls:
         infer(pts, pvalid)
-    fps_replay(fps_calls.calls, card)
+    # The same six ball-query launches on a LiDAR-like cloud (dense near the
+    # sensor and on the ground), the other side of the property the grid's
+    # gain rests on.
+    lpts, lvalid = (a.to(dev) for a in lidar_cloud(PRC_BATCH, PRC_POINTS, seed=12))
+    with recorded(prc_modules, "multi_radius_ball_query") as lidar_calls:
+        infer(lpts, lvalid)
+    del lpts, lvalid
 
     # Stage split of the same path (each stage timed alone).
     with torch.inference_mode():
@@ -2544,6 +2925,12 @@ def main():
         + f" (decode_nms is the remainder) valid_proposals={int(props['roi_valid'].sum())} "
         f"empty_rois={int((counts == 0).sum())} kept={int((scores > 0).sum())} "
         f"peak_mem_gb={prc_peak_gb:.2f} launches_per_call={per_call} [{card}]")
+    # The recorded launches, replayed after the stage split.
+    fps_replay(fps_calls.calls, card)
+    ball_replay(ball_calls.calls, card, "uniform cloud")
+    ball_replay(lidar_calls.calls, card, "LiDAR-like cloud")
+    knn_replay(knn_calls.calls, card)
+    del fps_calls, ball_calls, knn_calls, lidar_calls
 
     del pnet, infer, pts, pvalid, boxes, scores, stack, rpn_out, props, roi_pts, counts
     torch.cuda.empty_cache()

@@ -12,7 +12,10 @@ its tensors alone:
 
 - CUDA tensor: launches the hand-written kernel (``csrc/fps.cu``,
   ``csrc/ball_query.cu``, ``csrc/knn.cu``, ``csrc/roi_select.cu``, built by
-  ``nvcc`` at first use) or raises. There is no fallback.
+  ``nvcc`` at first use) or raises. There is no fallback. FPS and ball query
+  have two kernels each, chosen by a pure function of the shape
+  (:func:`_fps_launch_shape`, :func:`_ball_query_kernel`); 3-NN's split of
+  the work is :func:`_knn_launch_shape`.
 - CPU tensor: runs the plain version beside it.
 - anything else: raises.
 
@@ -34,13 +37,16 @@ to float32 once on the host, and a box reaches both versions as the same
 eight float32 numbers (:func:`_box_params`).
 
 The JAX package's size thresholds, its ``approx_min_k`` paths and
-``grid_multi_radius_ball_query`` exist for the TPU and are not ported: one
-path serves every size.
+``grid_multi_radius_ball_query`` exist for the TPU and are not ported. The
+port's own choices are shape rules over exact kernels: FPS's launch shape,
+ball query's scan or hashed cell grid (``csrc/ball_query.cu`` states why the
+grid's 27 cells hold every hit), and 3-NN's split of the known cloud.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -74,6 +80,13 @@ FPS_MAX_POINTS = 65536  # 1,024 threads x 64 register slots in csrc/fps.cu
 FPS_CLUSTER = 16  # CTAs a cloud of the cluster kernel (at most csrc/fps.cu kMaxCluster)
 FPS_CLUSTER_THREADS = 256  # csrc/fps.cu kClusterThreads
 FPS_SMS = 132  # an H100 SXM's SMs: from this many clouds on, one block a cloud fills the card
+BALL_GRID_MIN_PAIRS = 1 << 26  # (centre, point) pairs from which the cell grid beats the scan
+BALL_CELL_MARGIN = 2.0 ** -10  # a cell's side over the largest radius, less one (csrc/ball_query.cu)
+BALL_CELL_CLAMP = 2.0 ** 62  # cells are clamped to ±2^62 (int64 with room for the neighbours)
+_CELL_PRIMES = (73856093, 19349663, 83492791)  # csrc/ball_query.cu cell_hash
+KNN_SHAPES = ((1, 4), (1, 8), (1, 16), (2, 4), (2, 8), (2, 16))  # (queries a thread, threads a query) of csrc/knn.cu
+KNN_THREADS = 256  # csrc/knn.cu kThreads
+KNN_WAVE = 131072  # threads of about one full wave on an H100 (132 SMs x ~1,000)
 
 
 # ----------------------------------------------------------------- helpers
@@ -281,33 +294,175 @@ def multi_radius_ball_query_dense(centers, points, valid, radii, nsamples):
             for r2, k in zip(_squared_radii(radii), nsamples)]
 
 
-def _ball_query_library():
-    fn = _build.load_library("ball_query").ball_query_launch
+def _ball_query_library(entry: str = "ball_query_launch"):
+    fn = getattr(_build.load_library("ball_query"), entry)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-            + [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)]
-            + [ctypes.c_int, ctypes.c_void_p]
-        )
+        radii = [ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = {
+            "ball_query_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + radii
+            + [ctypes.c_int, ctypes.c_void_p],
+            "ball_grid_keys_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_double]
+            + [ctypes.c_int, ctypes.c_void_p],
+            "ball_grid_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_double]
+            + radii + [ctypes.c_int, ctypes.c_void_p],
+        }[entry]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _ball_query_cuda(centers, points, valid, radii, nsamples):
+def _ball_query_kernel(batch: int, s: int, n: int, r_max: float) -> str:
+    """The one rule that picks the ball-query kernel: ``"grid"`` (the cell
+    table and the 27-bucket merge) from :data:`BALL_GRID_MIN_PAIRS` (centre,
+    point) pairs on, ``"scan"`` (every pair tested) below. The grid's route
+    costs about 0.2 ms a call whatever the shape (its table: a keys launch
+    and a stable sort, most of it on the host), the scan about 3 ns for 1,000
+    pairs, so they cross near 2^26 pairs: on an H100 the grid won at 4 x
+    4,096 x 16,384 (2^28 pairs) by about four times and lost at the five
+    other shapes of a PointRCNN call, 2^16 to 2^24.6 pairs, both on a uniform
+    cloud and on a LiDAR-like one, dense near the sensor and on the ground
+    (``chip_smoke.py``, phase 10). The scan stops early only where every
+    radius fills, which at these shapes is rare on either cloud.
+    A radius that is not a positive finite number has no cells: the scan."""
+    if not (0.0 < r_max < float("inf")):
+        return "scan"
+    return "grid" if batch * s * n >= BALL_GRID_MIN_PAIRS else "scan"
+
+
+def _ball_cell_inverse(radii: Sequence[float]) -> float:
+    """``1 / side`` of the cell grid, in float64: the side is the largest
+    radius (as the float32 square the kernels compare against) enlarged by
+    :data:`BALL_CELL_MARGIN`, so that every point within it lies in one of a
+    centre's 27 cells (the argument is in ``csrc/ball_query.cu``)."""
+    return 1.0 / (math.sqrt(max(_squared_radii(radii))) * (1.0 + BALL_CELL_MARGIN))
+
+
+def _ball_buckets(n: int) -> int:
+    """Buckets a sample: the power of two at or above ``2 n``, at least 16."""
+    return 1 << max(4, (2 * n - 1).bit_length())
+
+
+def _cell_bucket(cells, buckets: int):
+    """``(…, 3)`` int64 cells → ``(…)`` int64 bucket in ``[0, buckets)``;
+    the arithmetic of ``cell_hash`` in ``csrc/ball_query.cu`` (every product
+    below 2^47, no overflow)."""
+    m = cells & 0xFFFFF
+    h = (m[..., 0] * _CELL_PRIMES[0]) ^ (m[..., 1] * _CELL_PRIMES[1]) ^ (m[..., 2] * _CELL_PRIMES[2])
+    return (h ^ (h >> 20)) & (buckets - 1)
+
+
+def _check_buckets(buckets: int, batch: int, n: int):
+    if buckets < 1 or buckets & (buckets - 1):
+        raise ValueError(f"ball query: buckets must be a power of two, got {buckets}")
+    if batch * buckets >= 2 ** 31 - 1 or batch * n >= 2 ** 31:
+        raise ValueError(f"ball query: the cell grid takes fewer than 2^31 buckets and points, "
+                         f"got {batch} x {buckets} and {batch} x {n}")
+
+
+def ball_cell_keys(points, valid, inv_side: float, buckets: int):
+    """Plain version of the grid's keys: ``(B, N)`` int32, the bucket
+    ``b · buckets + hash(cell)`` of each valid point, ``B · buckets`` for an
+    invalid one. The cell is ``floor(p · inv_side)`` per axis in float64,
+    clamped to ±2^62 (``csrc/ball_query.cu``, ``ball_keys_kernel``)."""
+    b, n, _ = points.shape
+    _check_buckets(buckets, b, n)
+    cells = torch.floor(points.double() * inv_side).clamp_(-BALL_CELL_CLAMP, BALL_CELL_CLAMP).long()
+    bucket = _cell_bucket(cells, buckets) + torch.arange(b, device=points.device)[:, None] * buckets
+    return torch.where(valid, bucket, b * buckets).int()
+
+
+def _ball_cell_keys_cuda(points, valid, inv_side: float, buckets: int):
+    b, n, _ = points.shape
+    _check_buckets(buckets, b, n)
+    points, valid = points.contiguous(), valid.contiguous()
+    keys = torch.empty((b, n), dtype=torch.int32, device=points.device)
+    err = _ball_query_library("ball_grid_keys_launch")(
+        _ptr(points), _ptr(valid), _ptr(keys), b, n, buckets.bit_length() - 1, inv_side,
+        _device_index(points), _stream(points))
+    _raise_on(err, "ball_query (cell keys)")
+    return keys
+
+
+def ball_cell_table(points, valid, inv_side: float, buckets: int):
+    """Plain version of the grid kernel's cell table: ``(order (B·N,)
+    int64, starts (B·buckets + 1,) int64)``. ``order`` lists flat point
+    indices ``b · N + i`` sorted by (bucket of :func:`ball_cell_keys`,
+    index), invalid points last; bucket ``j`` holds
+    ``order[starts[j]:starts[j + 1]]``."""
+    b = points.shape[0]
+    keys, order = torch.sort(ball_cell_keys(points, valid, inv_side, buckets).flatten(), stable=True)
+    starts = torch.searchsorted(keys, torch.arange(b * buckets + 1, dtype=torch.int32,
+                                                   device=points.device))
+    return order, starts
+
+
+def _ball_args(radii, nsamples):
+    ks = [int(k) for k in nsamples]
+    return (len(ks), (ctypes.c_float * len(ks))(*_squared_radii(radii)), (ctypes.c_int * len(ks))(*ks))
+
+
+def _ball_outputs(centers, ks):
+    b, s, _ = centers.shape
+    idx = torch.empty((b, s, sum(ks)), dtype=torch.int32, device=centers.device)
+    cnt = torch.empty((b, s, len(ks)), dtype=torch.int32, device=centers.device)
+    return idx, cnt
+
+
+def _ball_scan_cuda(centers, points, valid, radii, nsamples):
     launch = _ball_query_library()
     b, n, _ = points.shape
     s = centers.shape[1]
     ks = [int(k) for k in nsamples]
     centers, points, valid = centers.contiguous(), points.contiguous(), valid.contiguous()
-    idx = torch.empty((b, s, sum(ks)), dtype=torch.int32, device=points.device)
-    cnt = torch.empty((b, s, len(ks)), dtype=torch.int32, device=points.device)
-    r2 = (ctypes.c_float * len(ks))(*_squared_radii(radii))
-    k_arr = (ctypes.c_int * len(ks))(*ks)
+    idx, cnt = _ball_outputs(centers, ks)
     err = launch(_ptr(centers), _ptr(points), _ptr(valid), _ptr(idx), _ptr(cnt),
-                 b, s, n, len(ks), r2, k_arr, _device_index(points), _stream(points))
+                 b, s, n, *_ball_args(radii, ks), _device_index(points), _stream(points))
     _raise_on(err, "ball_query")
     KERNEL_LAUNCHES["ball_query"] += 1
     return [(part, cnt[..., j]) for j, part in enumerate(torch.split(idx, ks, dim=-1))]
+
+
+def _ball_grid_table(points, valid, radii, buckets: int = None):
+    """The grid kernel's cell table, step one: the keys kernel and one stable
+    sort. Returns ``(sorted keys, order, inv_side, buckets)`` for
+    :func:`_ball_grid_select`. ``buckets`` a sample defaults to
+    :func:`_ball_buckets`; a smaller power of two forces hash collisions (for
+    tests)."""
+    buckets = _ball_buckets(points.shape[1]) if buckets is None else int(buckets)
+    inv_side = _ball_cell_inverse(radii)
+    keys, order = torch.sort(_ball_cell_keys_cuda(points, valid, inv_side, buckets).view(-1), stable=True)
+    return keys, order, inv_side, buckets
+
+
+def _ball_grid_select(centers, points, table, radii, nsamples):
+    """The grid kernel, step two, over a table of :func:`_ball_grid_table`:
+    one launch that finds the bucket starts and selects."""
+    keys, order, inv_side, buckets = table
+    b, n, _ = points.shape
+    ks = [int(k) for k in nsamples]
+    centers, points = centers.contiguous(), points.contiguous()
+    starts = torch.empty(b * buckets + 1, dtype=torch.int32, device=points.device)
+    idx, cnt = _ball_outputs(centers, ks)
+    err = _ball_query_library("ball_grid_launch")(
+        _ptr(centers), _ptr(points), _ptr(keys), _ptr(order), _ptr(starts), _ptr(idx), _ptr(cnt),
+        b, centers.shape[1], n, buckets.bit_length() - 1, inv_side, *_ball_args(radii, ks),
+        _device_index(points), _stream(points))
+    _raise_on(err, "ball_query (cell grid)")
+    KERNEL_LAUNCHES["ball_query"] += 1
+    return [(part, cnt[..., j]) for j, part in enumerate(torch.split(idx, ks, dim=-1))]
+
+
+def _ball_grid_cuda(centers, points, valid, radii, nsamples, buckets: int = None):
+    """The grid kernel: its table, then its selection."""
+    return _ball_grid_select(centers, points, _ball_grid_table(points, valid, radii, buckets),
+                             radii, nsamples)
+
+
+def _ball_query_cuda(centers, points, valid, radii, nsamples):
+    b, n, _ = points.shape
+    r_max = math.sqrt(max(_squared_radii(radii)))
+    if _ball_query_kernel(b, centers.shape[1], n, r_max) == "grid":
+        return _ball_grid_cuda(centers, points, valid, radii, nsamples)
+    return _ball_scan_cuda(centers, points, valid, radii, nsamples)
 
 
 def multi_radius_ball_query(centers, points, valid, radii, nsamples):
@@ -317,7 +472,8 @@ def multi_radius_ball_query(centers, points, valid, radii, nsamples):
     with ``d² < r²`` in index order; open slots repeat the first hit, a row
     without a hit is all 0, the count is clipped to ``k``.
 
-    The CUDA kernel (all radii in one scan) for CUDA tensors,
+    A CUDA kernel (all radii in one pass; the scan or the cell grid by
+    :func:`_ball_query_kernel`) for CUDA tensors,
     :func:`multi_radius_ball_query_dense` for CPU tensors, an error otherwise.
     """
     kind = _device_kind("ball query", points, valid, centers)
@@ -370,20 +526,37 @@ def three_nn_dense(unknown, known, known_valid):
 def _knn_library():
     fn = _build.load_library("knn").knn3_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _three_nn_cuda(unknown, known, known_valid):
+def _knn_launch_shape(queries: int, m: int) -> Tuple[int, int]:
+    """The split of the 3-NN kernel for ``queries`` query points (all
+    clouds together) against clouds of ``m`` known points: ``(Q, P)``, Q
+    queries a thread and P threads sharing a query's known cloud. Two queries
+    a thread from 32,768 queries on, one below; P from 4, doubled up to 16
+    while the launch has fewer than :data:`KNN_WAVE` threads. On an H100 this
+    picks the least device time, or one within 6% of it, at the four FP
+    shapes of a PointRCNN call (``chip_smoke.py``, phase 10); ``m`` does not
+    change the choice there."""
+    q = 2 if queries >= 32768 else 1
+    p = 4
+    while p < 16 and queries // q * p < KNN_WAVE:
+        p *= 2
+    return q, p
+
+
+def _three_nn_cuda(unknown, known, known_valid, shape: Tuple[int, int] = None):
     launch = _knn_library()
     b, m, _ = known.shape
     s = unknown.shape[1]
+    q, p = _knn_launch_shape(b * s, m) if shape is None else shape
     unknown, known, known_valid = unknown.contiguous(), known.contiguous(), known_valid.contiguous()
     idx = torch.empty((b, s, 3), dtype=torch.int32, device=known.device)
     dists = torch.empty((b, s, 3), dtype=torch.float32, device=known.device)
     err = launch(_ptr(unknown), _ptr(known), _ptr(known_valid), _ptr(idx), _ptr(dists),
-                 b, s, m, _device_index(known), _stream(known))
+                 b, s, m, q, p, _device_index(known), _stream(known))
     _raise_on(err, "knn")
     KERNEL_LAUNCHES["knn"] += 1
     return dists, idx

@@ -352,18 +352,26 @@ def test_kernels_on_card_match_plain():
     assert torch.equal(sel, p2.furthest_point_sample(pts, valid, 700))
     centers = p2.group_points(pts, sel[:, :, None])[:, :, 0].clone()
     centers[:, -1] = 500.0
-    got = p2.multi_radius_ball_query(centers, pts, valid, (1.0, 2.5), (16, 32))
     want = p2.multi_radius_ball_query_dense(centers, pts, valid, (1.0, 2.5), (16, 32))
-    for (g_idx, g_cnt), (w_idx, w_cnt) in zip(got, want):
-        assert torch.equal(g_idx, w_idx) and torch.equal(g_cnt, w_cnt)
-    g_d, g_idx = p2.three_nn(pts, centers, valid[:, :700])
+    # The wrapper (the rule's kernel), then the cell grid, also with 16
+    # buckets a sample (neighbouring cells share buckets), and the scan.
+    for got in (p2.multi_radius_ball_query(centers, pts, valid, (1.0, 2.5), (16, 32)),
+                p2._ball_grid_cuda(centers, pts, valid, (1.0, 2.5), (16, 32)),
+                p2._ball_grid_cuda(centers, pts, valid, (1.0, 2.5), (16, 32), buckets=16),
+                p2._ball_scan_cuda(centers, pts, valid, (1.0, 2.5), (16, 32))):
+        for (g_idx, g_cnt), (w_idx, w_cnt) in zip(got, want):
+            assert torch.equal(g_idx, w_idx) and torch.equal(g_cnt, w_cnt)
     w_d, w_idx = p2.three_nn_dense(pts, centers, valid[:, :700])
-    assert torch.equal(g_idx, w_idx)
-    torch.testing.assert_close(g_d, w_d, rtol=1e-6, atol=1e-6)
+    for shape in (None, (1, 4), (2, 16)):
+        g_d, g_idx = (p2.three_nn(pts, centers, valid[:, :700]) if shape is None
+                      else p2._three_nn_cuda(pts, centers, valid[:, :700], shape))
+        assert torch.equal(g_idx, w_idx)
+        torch.testing.assert_close(g_d, w_d, rtol=1e-6, atol=1e-6)
     boxes = t(make_boxes(19, r=20)).cuda()
     boxes = torch.cat([boxes, boxes[:1]], dim=0)
     g_idx, g_cnt = p2.roi_inside_select(pts, valid, boxes, 128, 1.0)
     w_idx, w_cnt = p2.roi_inside_select_dense(pts, valid, boxes, 128, 1.0)
     torch.cuda.synchronize()
     assert torch.equal(g_idx, w_idx) and torch.equal(g_cnt, w_cnt)
-    assert p2.KERNEL_LAUNCHES == {k: v + 1 for k, v in before.items()}
+    extra = {"ball_query": 3, "knn": 2}
+    assert p2.KERNEL_LAUNCHES == {k: v + 1 + extra.get(k, 0) for k, v in before.items()}
