@@ -11,10 +11,17 @@ Phases, one line of numbers each:
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles the port's CUDA kernels from ``lyft3d_tpu_torch/csrc`` into
    a clean ``build/`` directory, one ``nvcc`` per source, in parallel;
-3. raster: the hand-written BEV raster kernel against its plain PyTorch
-   version on the same card, at 336x336x3 with 8 x 65,536 and 32 x 65,536
-   points (uniform in ±60 m, 10% invalid, some out of range, some on bin
-   edges): ``torch.equal`` must hold; both are timed with CUDA events;
+3. raster: the hand-written BEV raster kernel (global atomics, launched in
+   chunks of samples, each chunk's grid zeroed just before its kernel)
+   against its plain PyTorch version on the same card, at 336x336x3 with 1,
+   8, 16, 24 and 32 x 65,536 points, on a uniform sweep (±60 m, 10% invalid,
+   some out of range, some on bin edges) and a LiDAR-like one
+   (:func:`lidar_cloud`), and 8 x 65,536 into 1024x1024x3: the rule's chunk,
+   one launch for the batch and, from 8 samples, two chunks, each
+   ``torch.equal`` and timed with CUDA events alone and queued (the rule's
+   evidence, one line a case); then the unbatched call, (N, 4) rows, points on every bin edge, a
+   337x333x3 grid and a 1024x1024x3 grid, also in chunks of 1 and 2, and the
+   rule's launch under PyTorch's sync debug mode;
 4. extraction: ``extract_detections_from_logits`` on the card against the
    CPU on blob logits (8 x 336x336x10): masks, counts and flags exactly
    equal, boxes, centroids and scores within 1e-5;
@@ -48,7 +55,9 @@ Phases, one line of numbers each:
    → 128; ball query 4 x 4,096 centres x 16,384 points at radii (0.1, 0.5),
    k (16, 32), again at radii (2, 4) where rows fill and stop early, and 400
    x 128 x 512 with k 64; 3-NN 4 x 16,384 x 4,096; RoI select 4 x 100 boxes
-   x 16,384 points, k 512, extra width 1.0), with 5% invalid points,
+   x 16,384 points, k 512, extra width 1.0, at its three launch shapes on a
+   uniform and a LiDAR-like cloud and at 4 x 512 boxes: the rule's evidence;
+   and at :func:`roi_edge_checks`' shapes), with 5% invalid points,
    duplicated points, a far-away centre (an empty row), a box with more
    points than k and an empty box: indices and counts ``torch.equal``,
    distances within 1e-6; both timed with CUDA events. Ball query runs both
@@ -83,7 +92,8 @@ Phases, one line of numbers each:
     FPS, six ball-query and four 3-NN launches of one more call are recorded,
     and the six ball-query launches again on a LiDAR-like cloud
     (:func:`lidar_cloud`: dense near the sensor and on the ground, where rows
-    fill), and replayed after the stage split: each ``torch.equal`` to the
+    fill), and the RoI-select launch on the call's own proposals, replayed
+    after the stage split: each ``torch.equal`` to the
     plain version (3-NN distances within 1e-6 of scale) and timed, FPS in µs
     a dependent step; ball query on both kernels and 3-NN at every split,
     each also queued behind a sleep kernel (:func:`queued_ms`: the card's
@@ -197,7 +207,7 @@ import numpy as np
 N_POINTS = 65536
 BATCH = 32
 SHAPE = (336, 336, 3)
-RASTER_BATCHES = (8, BATCH)
+RASTER_BATCHES = (1, 8, 16, 24, BATCH)
 TIMED_ITERS = 10
 SLEEP_CYCLES = 100_000_000  # ~50 ms of a spinning kernel at the H100's clock (queued_ms)
 EXTRACT_TOL = 1e-5
@@ -1389,6 +1399,116 @@ def sparse_phases(dev, card):
     return stencil_record, subm_record, main_launches, launches2
 
 
+def raster_edge_points(batch, seed):
+    """Points exactly on the x, y and z bin edges of the 336 x 336 x 3 grid
+    and one float32 step to either side, some invalid."""
+    k = np.arange(0, 337, dtype=np.float64)
+    xs = (k * 0.4 - 67.2).astype(np.float32)
+    zs = (np.arange(0, 4) * 1.5 - 2.0).astype(np.float32)
+    xs = np.concatenate([xs, np.nextafter(xs, -np.inf), np.nextafter(xs, np.inf)])
+    zs = np.concatenate([zs, np.nextafter(zs, -np.inf), np.nextafter(zs, np.inf)])
+    rng = np.random.RandomState(seed)
+    pts = np.stack([np.stack([rng.permutation(xs), rng.permutation(xs), rng.choice(zs, xs.size)], -1)
+                    for _ in range(batch)]).astype(np.float32)
+    return pts, rng.rand(batch, xs.size) >= 0.05
+
+
+def raster_phase(dev, card):
+    """Phase 3: the raster kernel against the plain version on the card: at
+    every batch of :data:`RASTER_BATCHES` on the uniform sweep and a
+    LiDAR-like one, and at 8 samples of a 1024x1024x3 grid, the rule's
+    chunk, one launch for the whole batch and, from 8 samples, two chunks:
+    the rule's evidence. Then the unbatched
+    call, (N, 4) rows, bin-edge points, an odd grid and a large one, each in
+    chunks of 1 and 2 samples too, and a call under PyTorch's sync debug
+    mode. Returns
+    the batch-32 record of the rule's launch for the ``kernels`` line, with
+    its time on the LiDAR-like sweep beside the uniform one."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import bev_raster as br
+
+    vox, z_off = br.DEFAULT_VOXEL_SIZE, br.DEFAULT_Z_OFFSET
+
+    def check(got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"raster {what}: the kernel differs from the plain version in "
+                                 f"{int((got != want).sum())} cells")
+
+    def run(pts, valid, shape, chunk):
+        return br._bev_rasterize_cuda(pts, valid, shape, vox, z_off, chunk=chunk)
+
+    record, lidar_ms = {}, None
+    for cloud in ("uniform", "lidar"):
+        # The flagship's grid at every batch, and a grid the points barely reach.
+        for b, shape in [(b, SHAPE) for b in RASTER_BATCHES] + [(8, (1024, 1024, 3))]:
+            pts, valid = sweep_points(b, N_POINTS, seed=b) if cloud == "uniform" \
+                else lidar_cloud(b, N_POINTS, seed=30 + b)
+            pts, valid = pts.to(dev), valid.to(dev)
+            want = br.bev_rasterize_scatter(pts, valid, shape)
+            check(br.bev_rasterize(pts, valid, shape), want, f"B={b} {shape} {cloud}, the rule's chunk")
+            rule = br._raster_chunk(b, N_POINTS, shape)
+            times = {}
+            for chunk in sorted({rule, b} | ({-(-b // 2)} if b >= 8 else set()), reverse=True):
+                check(run(pts, valid, shape, chunk), want, f"B={b} {shape} {cloud} in chunks of {chunk}")
+                times[chunk] = (cuda_ms(lambda: run(pts, valid, shape, chunk), warmup=3, iters=20),
+                                queued_ms(lambda: run(pts, valid, shape, chunk)))
+            log(f"raster rule evidence: B={b} N={N_POINTS} grid={shape} {cloud} cloud rule_chunk={rule} "
+                f"torch.equal=True ms (queued) by chunk "
+                + " ".join(f"{k}={v[0]:.4f} ({v[1]:.4f})" for k, v in times.items()) + f" [{card}]")
+            if shape != SHAPE:
+                del pts, valid, want
+                continue
+            if b == BATCH and cloud == "lidar":
+                lidar_ms = cuda_ms(lambda: br.bev_rasterize(pts, valid, SHAPE), warmup=3, iters=20)
+            if cloud == "uniform" and b == BATCH:
+                k_ms = cuda_ms(lambda: br.bev_rasterize(pts, valid, SHAPE), warmup=3, iters=20)
+                p_ms = cuda_ms(lambda: br.bev_rasterize_scatter(pts, valid, SHAPE), warmup=3, iters=20)
+                # The one library call that counts the same cells: bincount of
+                # the flat voxel index (computed beforehand; dropped points in
+                # a dump cell).
+                row, col, ch, inb = br.voxel_indices(pts, SHAPE, vox, z_off)
+                ncell = SHAPE[0] * SHAPE[1] * SHAPE[2]
+                flat = torch.arange(b, device=dev)[:, None] * ncell + (row.long() * SHAPE[1] + col) * SHAPE[2] + ch
+                flat = torch.where(inb & valid, flat, b * ncell).reshape(-1)
+                counted = torch.bincount(flat, minlength=b * ncell + 1)[:-1].reshape(b, *SHAPE)
+                if not torch.equal(counted.float(), want):
+                    raise AssertionError(f"bincount differs from the plain raster at B={b}")
+                l_ms = cuda_ms(lambda: torch.bincount(flat, minlength=b * ncell + 1), warmup=3, iters=20)
+                # Points and mask read once, the grid written once; ~10 operations a point.
+                b_ms, b_by = bound(b * N_POINTS * 13 + b * ncell * 4, b * N_POINTS * 10)
+                record = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=l_ms)
+                log(f"raster: B={b} N={N_POINTS} grid={SHAPE} rule_chunk={rule} "
+                    f"torch.equal=True counted={int(want.sum())} kernel_ms={k_ms:.4f} "
+                    f"plain_ms={p_ms:.4f} bincount_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+                without_host_sync("bev_rasterize", lambda: br.bev_rasterize(pts, valid, SHAPE))
+                del row, col, ch, inb, flat, counted
+            del pts, valid, want
+    record["lidar_ms"] = lidar_ms
+    log(f"raster: B={BATCH} LiDAR-like sweep kernel_ms={lidar_ms:.4f} (uniform {record['ms']:.4f}) [{card}]")
+
+    # The unbatched call, (N, 4) rows, bin edges, an odd grid and a large
+    # one, through the rule and in chunks of 1 and 2 samples.
+    pts, valid = (a.to(dev) for a in sweep_points(2, N_POINTS, seed=40))
+    wide = torch.cat([pts, torch.full_like(pts[..., :1], 9.0)], -1).contiguous()
+    epts, evalid = (torch.from_numpy(a).to(dev) for a in raster_edge_points(2, seed=41))
+    cases = [("unbatched", pts[0].contiguous(), valid[0].contiguous(), SHAPE),
+             ("(N, 4) rows", wide, valid, SHAPE),
+             ("bin edges", epts, evalid, SHAPE),
+             ("337x333x3", pts, valid, (337, 333, 3)),
+             ("1024x1024x3", pts, valid, (1024, 1024, 3))]
+    for what, p, v, shape in cases:
+        want = br.bev_rasterize_scatter(p, v, shape)
+        check(br.bev_rasterize(p, v, shape), want, f"{what}, the rule's chunk")
+        for chunk in (1, 2):
+            check(run(p, v, shape, chunk), want, f"{what} in chunks of {chunk}")
+    log("raster edges: torch.equal=True on " + ", ".join(c[0] for c in cases)
+        + f", each by the rule and in chunks of 1 and 2 [{card}]")
+    return record
+
+
 def select_kernels_phase(dev, card):
     """Phase 8: the four PointNet++ kernels against their plain versions on
     the card at the largest shapes of the PointRCNN path. Returns one record
@@ -1583,19 +1703,154 @@ def select_kernels_phase(dev, card):
         raise AssertionError("roi select: the empty box or the full box is not as built")
     scanned = int(torch.where(w_cnt >= PRC_ROI_POINTS, w_idx[..., -1].long() + 1, PRC_POINTS).sum())
     del w_idx
+    roi_edge_checks(dev, card)
+    without_host_sync("roi_inside_select", lambda: p2.roi_inside_select(pts, valid, boxes, PRC_ROI_POINTS, 1.0))
     k_ms = cuda_ms(lambda: p2.roi_inside_select(pts, valid, boxes, PRC_ROI_POINTS, 1.0),
                    warmup=2, iters=20)
     p_ms = cuda_ms(lambda: p2.roi_inside_select_dense(pts, valid, boxes, PRC_ROI_POINTS, 1.0),
                    warmup=1, iters=3)
     io = PRC_BATCH * (PRC_POINTS * 13 + PRC_ROIS * (32 + (PRC_ROI_POINTS + 1) * 4))
-    # 3 subtractions, 4 products, 2 sums, 3 absolute values and 3 compares per scanned pair.
+    # 3 subtractions, 4 products, 2 sums, 3 absolute values and 3 compares per
+    # pair a serial scan in index order tests (up to the k-th hit).
     b_ms, b_by = bound(io, scanned * 15)
     records["roi_select"] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                  bound_by=b_by)
     log(f"roi: B={PRC_BATCH} R={PRC_ROIS} N={PRC_POINTS} k={PRC_ROI_POINTS} extra=1.0 "
+        f"shape={p2._roi_launch_shape(PRC_BATCH * PRC_ROIS)} "
         f"torch.equal=True mean_count={float(w_cnt.float().mean()):.1f} scanned_pairs={scanned} "
         f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    # The launch shapes at the PointRCNN call's boxes, on the uniform and a
+    # LiDAR-like cloud, and at the RCNN training shape (512 boxes a sample).
+    lpts, lvalid = (a.to(dev) for a in lidar_cloud(PRC_BATCH, PRC_POINTS, seed=13))
+    lboxes = roi_boxes(lpts.cpu(), PRC_ROIS, seed=14).to(dev)
+    wide = roi_boxes(pts.cpu(), 512, seed=15).to(dev)
+    for what, (c_pts, c_valid, c_boxes) in (("uniform", (pts, valid, boxes)),
+                                            ("LiDAR-like", (lpts, lvalid, lboxes)),
+                                            ("uniform, 512 boxes a sample", (pts, valid, wide))):
+        roi_shapes_line(what, c_pts, c_valid, c_boxes, PRC_ROI_POINTS, 1.0, card)
+    del lpts, lvalid, lboxes, wide
     return records
+
+
+def roi_edge_cloud(n, seed, far_from=None):
+    """Two clouds of ``n`` points uniform in ±10 x ±10 x ±2 m, 5% invalid;
+    with ``far_from`` (T threads), cloud 0 is all 1 km away but for the
+    points that make box 0's k-th hit (k = 100) the last point of the first
+    segment of 32 T points, and cloud 1's that make it the last point."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pts = (torch.rand(2, n, 3, generator=g) * 2 - 1) * torch.tensor([10.0, 10.0, 2.0])
+    valid = torch.rand(2, n, generator=g) >= 0.05
+    if far_from is not None:
+        seg = 32 * far_from
+        pts[..., 0] += 1000.0
+        valid[:] = True
+        for b, last in ((0, seg - 1), (1, n - 1)):
+            pick = torch.randperm(last, generator=g)[:99]
+            inside = torch.cat([pick, torch.tensor([last])])
+            if b == 0:  # hits after the k-th too
+                inside = torch.cat([inside, seg + torch.randperm(n - seg, generator=g)[:50]])
+            pts[b, inside] = (torch.rand(len(inside), 3, generator=g) - 0.5) * 0.5
+    return pts.contiguous(), valid
+
+
+def roi_edge_boxes(pts, r, seed):
+    """``r`` boxes a cloud: a 2 m box at the origin, car-sized ones on points
+    of the cloud, a 30 m one and an empty one."""
+    import torch
+
+    boxes = roi_boxes(pts, r, seed)
+    boxes[:, 0] = torch.tensor([0.0, 0.0, 0.0, 2.0, 2.0, 2.0, 0.3])
+    boxes[:, -2, 3:5] = 30.0
+    return boxes
+
+
+def roi_edge_checks(dev, card):
+    """B8 at the shapes a segment walk gets wrong first, at every launch
+    shape of :data:`ROI_SHAPES` and through the rule: N no multiple of 32 or
+    of a segment, k = 1, k > N, the k-th hit the last point of a segment and
+    of the cloud, a cloud without a valid point, R no multiple of G."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    cases = []
+    for what, n, r, k, seed in (("N=1000 R=7 k=64", 1000, 7, 64, 50),
+                                ("N=8193 R=9 k=512", 8193, 9, 512, 51),
+                                ("k=1", 5000, 6, 1, 52), ("k>N", 300, 5, 512, 53),
+                                ("no valid point", 2000, 6, 32, 54)):
+        pts, valid = roi_edge_cloud(n, seed)
+        if what == "no valid point":
+            valid[:] = False
+        cases.append((what, pts, valid, roi_edge_boxes(pts, r, seed), k))
+    for threads in sorted({t for _, t in p2.ROI_SHAPES}):
+        n = 32 * threads + 997
+        pts, valid = roi_edge_cloud(n, 55 + threads, far_from=threads)
+        cases.append((f"k-th hit at the end of a {32 * threads}-point segment and of N={n}",
+                      pts, valid, roi_edge_boxes(pts, 3, 56), 100))
+    checks = 0
+    for what, pts, valid, boxes, k in cases:
+        pts, valid, boxes = pts.to(dev), valid.to(dev), boxes.to(dev)
+        params = p2._box_params(boxes, 0.5)
+        want = p2.roi_inside_select_dense(pts, valid, boxes, k, 0.5)
+        if "end of" in what and int(want[1][0, 0]) != k:
+            raise AssertionError(f"roi edge {what}: box 0 holds {int(want[1][0, 0])} points, not {k}")
+        for shape in (None, *p2.ROI_SHAPES):
+            got = (p2.roi_inside_select(pts, valid, boxes, k, 0.5) if shape is None
+                   else p2._roi_select_cuda(params, pts, valid, k, shape))
+            for g, w, part in zip(got, want, ("indices", "counts")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"roi edge {what} shape {shape}: {part} differ from the plain "
+                                         f"version in {int((g != w).sum())} places")
+            checks += 1
+    log(f"roi edges: {len(cases)} cases x (rule + {len(p2.ROI_SHAPES)} launch shapes) = {checks} "
+        f"launches torch.equal=True ({'; '.join(c[0] for c in cases)}) [{card}]")
+
+
+def roi_shapes_line(what, pts, valid, boxes, k, extra, card):
+    """B8 at every launch shape of :data:`ROI_SHAPES` on one input: each
+    ``torch.equal`` to the plain version, timed alone and queued (the rule's
+    evidence, one line)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    params = p2._box_params(boxes, extra)
+    want = p2._roi_inside_select_dense(params, pts, valid, k)
+    times = {}
+    for shape in p2.ROI_SHAPES:
+        got = p2._roi_select_cuda(params, pts, valid, k, shape)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"roi select {what} at (G, T) = {shape} differs from the plain version")
+        times[shape] = (cuda_ms(lambda: p2._roi_select_cuda(params, pts, valid, k, shape), warmup=2, iters=20),
+                        queued_ms(lambda: p2._roi_select_cuda(params, pts, valid, k, shape)))
+    b, r = boxes.shape[:2]
+    log(f"roi rule evidence: {what} B={b} R={r} N={pts.shape[1]} k={k} "
+        f"rule={p2._roi_launch_shape(b * r)} full_boxes={int((want[1] >= k).sum())} "
+        f"torch.equal=True ms (queued) (G, T): "
+        + " ".join(f"{g}x{t}={v[0]:.4f} ({v[1]:.4f})" for (g, t), v in times.items()) + f" [{card}]")
+
+
+def roi_replay(calls, card):
+    """The RoI-select launch of one PointRCNN call, replayed: ``torch.equal``
+    to the plain version and timed, alone and queued."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    for args, kwargs in calls:
+        pts, valid, boxes, k, extra = args
+        got = p2.roi_inside_select(*args, **kwargs)
+        want = p2.roi_inside_select_dense(*args, **kwargs)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("roi select replay of the PointRCNN call differs from the plain version")
+        k_ms = cuda_ms(lambda: p2.roi_inside_select(*args, **kwargs), warmup=2, iters=20)
+        q_ms = queued_ms(lambda: p2.roi_inside_select(*args, **kwargs))
+        log(f"roi replay: the PointRCNN call's proposals B={boxes.shape[0]} R={boxes.shape[1]} "
+            f"N={pts.shape[1]} k={k} extra={extra} shape={p2._roi_launch_shape(boxes.numel() // 7)} "
+            f"torch.equal=True mean_count={float(want[1].float().mean()):.1f} "
+            f"kernel_ms={k_ms:.4f} queued_ms={q_ms:.4f} [{card}]")
 
 
 def fps_replay(calls, card):
@@ -2507,38 +2762,8 @@ def main():
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc each, in parallel: nvcc {' '.join(_build.NVCC_FLAGS)})")
 
-    # 3. raster kernel against the plain version on the card
-    raster = {}
-    for b in RASTER_BATCHES:
-        pts, valid = sweep_points(b, N_POINTS, seed=b)
-        pts, valid = pts.to(dev), valid.to(dev)
-        got = bev_raster.bev_rasterize(pts, valid, SHAPE)
-        want = bev_raster.bev_rasterize_scatter(pts, valid, SHAPE)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"raster kernel differs from the plain version at B={b}")
-        err = float((got - want).abs().max())
-        k_ms = cuda_ms(lambda: bev_raster.bev_rasterize(pts, valid, SHAPE), warmup=3, iters=20)
-        p_ms = cuda_ms(lambda: bev_raster.bev_rasterize_scatter(pts, valid, SHAPE), warmup=3, iters=20)
-        # The one library call that counts the same cells: bincount of the
-        # flat voxel index (computed beforehand; dropped points in a dump cell).
-        row, col, ch, inb = bev_raster.voxel_indices(
-            pts, SHAPE, bev_raster.DEFAULT_VOXEL_SIZE, bev_raster.DEFAULT_Z_OFFSET)
-        ncell = SHAPE[0] * SHAPE[1] * SHAPE[2]
-        flat = torch.arange(b, device=dev)[:, None] * ncell + (row.long() * SHAPE[1] + col) * SHAPE[2] + ch
-        flat = torch.where(inb & valid, flat, b * ncell).reshape(-1)
-        counted = torch.bincount(flat, minlength=b * ncell + 1)[:-1].reshape(b, *SHAPE)
-        if not torch.equal(counted.float(), want):
-            raise AssertionError(f"bincount differs from the plain raster at B={b}")
-        l_ms = cuda_ms(lambda: torch.bincount(flat, minlength=b * ncell + 1), warmup=3, iters=20)
-        # Points and mask read once, the grid written once; ~10 operations a point.
-        b_ms, b_by = bound(b * N_POINTS * 13 + b * ncell * 4, b * N_POINTS * 10)
-        del row, col, ch, inb, flat, counted
-        raster[b] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=l_ms)
-        log(f"raster: B={b} N={N_POINTS} grid={SHAPE} torch.equal=True counted={int(got.sum())} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bincount_ms={l_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    # 3. the raster kernel against the plain version on the card
+    raster = raster_phase(dev, card)
 
     # 4. extraction on the card against the CPU
     logits = torch.from_numpy(blob_logits(8, SHAPE[0], 10, seed=0))
@@ -2869,7 +3094,8 @@ def main():
                     for name, vals in e2e_ab.items()) + f" [{card}]")
     with recorded(prc_modules, "fps") as fps_calls, \
             recorded(prc_modules, "multi_radius_ball_query") as ball_calls, \
-            recorded(prc_modules, "three_nn") as knn_calls:
+            recorded(prc_modules, "three_nn") as knn_calls, \
+            recorded(p2, "roi_inside_select") as roi_calls:
         infer(pts, pvalid)
     # The same six ball-query launches on a LiDAR-like cloud (dense near the
     # sensor and on the ground), the other side of the property the grid's
@@ -2930,7 +3156,8 @@ def main():
     ball_replay(ball_calls.calls, card, "uniform cloud")
     ball_replay(lidar_calls.calls, card, "LiDAR-like cloud")
     knn_replay(knn_calls.calls, card)
-    del fps_calls, ball_calls, knn_calls, lidar_calls
+    roi_replay(roi_calls.calls, card)
+    del fps_calls, ball_calls, knn_calls, lidar_calls, roi_calls
 
     del pnet, infer, pts, pvalid, boxes, scores, stack, rpn_out, props, roi_pts, counts
     torch.cuda.empty_cache()
@@ -2958,7 +3185,7 @@ def main():
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
-        record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster[BATCH]),
+        record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
         # Launched by three paths: pillars, sparse (2 a call) and per-voxel (1 a call).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"],

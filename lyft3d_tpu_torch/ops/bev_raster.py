@@ -3,8 +3,10 @@
 :func:`bev_rasterize` is the kernel wrapper. It chooses its path by the
 device of the points alone:
 
-- CUDA tensor: launches the hand-written kernel ``csrc/bev_raster.cu`` (built
-  by ``nvcc`` at first use) or raises. There is no fallback.
+- CUDA tensor: launches the hand-written kernel of ``csrc/bev_raster.cu``
+  (built by ``nvcc`` at first use), global atomics into a grid zeroed chunk
+  by chunk, in chunks of samples that the shape rule :func:`_raster_chunk`
+  picks. A launch the card refuses raises. There is no fallback.
 - CPU tensor: runs the plain version, :func:`bev_rasterize_scatter`.
 - anything else: raises.
 
@@ -40,6 +42,10 @@ DEFAULT_SHAPE = (336, 336, 3)
 DEFAULT_VOXEL_SIZE = (0.4, 0.4, 1.5)
 DEFAULT_Z_OFFSET = -2.0
 MAX_INTENSITY = 16.0
+
+# The raster kernel's rule (csrc/bev_raster.cu, `_raster_chunk`).
+RASTER_CHUNK_BYTES = 32 << 20  # float32 grid of one chunk, at most, where the points reach it all
+RASTER_MAX_POINTS = 1 << 24  # float32 counts are exact below this many points a sample
 
 # Number of times bev_rasterize launched the CUDA kernel in this process.
 KERNEL_LAUNCHES = 0
@@ -127,14 +133,35 @@ def _kernel_library():
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # batch, n, stride
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h, w, c
             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p,  # device, stream
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,  # chunk, device, stream
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _bev_rasterize_cuda(points, valid, shape, voxel_size, z_offset):
-    """Launch ``csrc/bev_raster.cu`` on PyTorch's current stream."""
+def _raster_chunk(batch: int, n: int, shape: Tuple[int, int, int]) -> int:
+    """The one rule of the raster launch, from the shapes alone: samples a
+    chunk, each chunk's grid zeroed just before its kernel. Where ``n``
+    points a sample can reach every 32-byte sector of the grid (``H·W·C ≤
+    8n``), the chunks are as few as keep each chunk's float32 grid within
+    :data:`RASTER_CHUNK_BYTES`, and of equal size; a grid with more sectors
+    than points is one chunk. On an H100 (PERF.md §6, time queued on the
+    card): 32 samples of 336 × 336 × 3 in two chunks beat one launch on a
+    uniform and on a LiDAR-like sweep, 24 samples in one launch beat two on
+    the LiDAR-like one, and 1,024 × 1,024 × 3 grids, whose sectors the points
+    barely reach, run fastest in one launch at 4 to 32 samples."""
+    h, w, c = shape
+    cells = h * w * c
+    if cells > 8 * n:
+        return max(1, batch)
+    most = max(1, RASTER_CHUNK_BYTES // (4 * cells))
+    chunks = max(1, -(-batch // most))
+    return max(1, -(-batch // chunks))
+
+
+def _bev_rasterize_cuda(points, valid, shape, voxel_size, z_offset, chunk=None):
+    """Launch ``csrc/bev_raster.cu`` on PyTorch's current stream, in chunks
+    of :func:`_raster_chunk` samples, or of ``chunk`` where it is given."""
     global KERNEL_LAUNCHES
     _check_args(points, valid)
     launch = _kernel_library()
@@ -142,13 +169,19 @@ def _bev_rasterize_cuda(points, valid, shape, voxel_size, z_offset):
     batched = points.dim() == 3
     b = points.shape[0] if batched else 1
     n = points.shape[-2]
-    grid = torch.zeros((b, h, w, c), dtype=torch.float32, device=points.device)
+    if n >= RASTER_MAX_POINTS:
+        raise ValueError(f"bev_rasterize: float32 counts are exact below {RASTER_MAX_POINTS} "
+                         f"points a sample, got {n}")
+    chunk = _raster_chunk(b, n, shape) if chunk is None else chunk
+    if chunk < 1:
+        raise ValueError(f"bev_rasterize: a chunk holds at least one sample, got {chunk}")
+    grid = torch.empty((b, h, w, c), dtype=torch.float32, device=points.device)
     vx, vy, vz = (float(v) for v in voxel_size)
     err = launch(
         ctypes.c_void_p(points.data_ptr()),
         ctypes.c_void_p(valid.data_ptr()),
         ctypes.c_void_p(grid.data_ptr()),
-        b, n, points.shape[-1], h, w, c, vx, vy, vz, float(z_offset),
+        b, n, points.shape[-1], h, w, c, vx, vy, vz, float(z_offset), chunk,
         points.device.index if points.device.index is not None else torch.cuda.current_device(),
         ctypes.c_void_p(torch.cuda.current_stream(points.device).cuda_stream),
     )

@@ -15,7 +15,8 @@ its tensors alone:
   ``nvcc`` at first use) or raises. There is no fallback. FPS and ball query
   have two kernels each, chosen by a pure function of the shape
   (:func:`_fps_launch_shape`, :func:`_ball_query_kernel`); 3-NN's split of
-  the work is :func:`_knn_launch_shape`.
+  the work is :func:`_knn_launch_shape`, RoI select's boxes and threads a
+  block :func:`_roi_launch_shape`.
 - CPU tensor: runs the plain version beside it.
 - anything else: raises.
 
@@ -87,6 +88,9 @@ _CELL_PRIMES = (73856093, 19349663, 83492791)  # csrc/ball_query.cu cell_hash
 KNN_SHAPES = ((1, 4), (1, 8), (1, 16), (2, 4), (2, 8), (2, 16))  # (queries a thread, threads a query) of csrc/knn.cu
 KNN_THREADS = 256  # csrc/knn.cu kThreads
 KNN_WAVE = 131072  # threads of about one full wave on an H100 (132 SMs x ~1,000)
+ROI_SHAPES = ((1, 256), (2, 256), (4, 256))  # (boxes, threads) a block, csrc/roi_select.cu
+ROI_MIN_BLOCKS = 132  # blocks the RoI-select launch keeps as it groups boxes: one an SM of an H100
+ROI_MAX_POINTS = 2**31 - 1 - 32 * 256  # int32 point indices with a segment to spare (csrc/roi_select.cu)
 
 
 # ----------------------------------------------------------------- helpers
@@ -624,20 +628,41 @@ def roi_inside_select_dense(points, valid, boxes, num_sampled: int, extra_width:
 def _roi_select_library():
     fn = _build.load_library("roi_select").roi_select_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _roi_select_cuda(params, points, valid, num_sampled: int):
+def _roi_launch_shape(boxes: int) -> Tuple[int, int]:
+    """The launch shape of the RoI-select kernel for ``boxes`` boxes (all
+    samples together): ``(G, T)``, G boxes a block of T threads, one of
+    :data:`ROI_SHAPES`. G doubles from 1 (up to 4)
+    while the launch keeps at least :data:`ROI_MIN_BLOCKS` blocks; T is 256.
+    On an H100 (``chip_smoke.py``, phase 8) this picks the least time queued
+    on the card of G = 1, 2, 4 at the PointRCNN call's 4 × 100 boxes over
+    16,384 points (G = 2), on a uniform and on a LiDAR-like cloud, and at the
+    RCNN training shape's 4 × 512 boxes (G = 4); blocks of 128 threads were
+    slower at both (PERF.md §6)."""
+    g = 1
+    while g < 4 and boxes // (2 * g) >= ROI_MIN_BLOCKS:
+        g *= 2
+    return g, 256
+
+
+def _roi_select_cuda(params, points, valid, num_sampled: int, shape: Tuple[int, int] = None):
     launch = _roi_select_library()
     b, n, _ = points.shape
     r = params.shape[1]
+    if n > ROI_MAX_POINTS:
+        raise ValueError(f"roi_inside_select: the kernel takes at most {ROI_MAX_POINTS} points, got {n}")
+    g, threads = _roi_launch_shape(b * r) if shape is None else shape
+    if (g, threads) not in ROI_SHAPES:
+        raise ValueError(f"roi_inside_select: no kernel of {g} boxes a block of {threads} threads")
     params, points, valid = params.contiguous(), points.contiguous(), valid.contiguous()
     idx = torch.empty((b, r, num_sampled), dtype=torch.int32, device=points.device)
     cnt = torch.empty((b, r), dtype=torch.int32, device=points.device)
     err = launch(_ptr(params), _ptr(points), _ptr(valid), _ptr(idx), _ptr(cnt),
-                 b, r, n, num_sampled, _device_index(points), _stream(points))
+                 b, r, n, num_sampled, g, threads, _device_index(points), _stream(points))
     _raise_on(err, "roi_select")
     KERNEL_LAUNCHES["roi_select"] += 1
     return idx, cnt
