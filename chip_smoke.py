@@ -1147,9 +1147,32 @@ def subm_replay(calls, card):
     return dict(slowest, max_abs_err=worst), total
 
 
+def fill_queued(feats, ids, valid, num_rows, assume_sorted):
+    """The fill's kernel launch and ``index_add_`` on the same rows, each
+    queued (:func:`queued_ms`), on ids prepared as ``fill_rows_by_id``
+    prepares them for its kernel. Returns (kernel ms, index_add_ ms)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    ids = dense_fill._masked_ids(ids, valid, num_rows)
+    if not assume_sorted:
+        ids, order = torch.sort(ids, dim=-1, stable=True)
+        feats = torch.gather(feats, -2, order[..., None].expand(feats.shape))
+    b, v, c = feats.shape
+    k_ms = queued_ms(lambda: dense_fill._fill_cuda(feats, ids, num_rows))
+    # index_add_ into zeros with one dump row per sample (ids prepared).
+    flat = (ids.long() + torch.arange(b, device=feats.device)[:, None] * (num_rows + 1)).reshape(-1)
+    rows2d = feats.reshape(-1, c)
+    l_ms = queued_ms(lambda: torch.zeros(b * (num_rows + 1), c, dtype=feats.dtype,
+                                         device=feats.device).index_add_(0, flat, rows2d))
+    return k_ms, l_ms
+
+
 def fill_replay(calls, card, what):
     """The recorded fill calls of one forward pass: kernel ``torch.equal`` to
-    the plain version, both timed."""
+    the plain version, both timed; the kernel launch queued beside
+    ``index_add_``."""
     import torch
 
     from lyft3d_tpu_torch.ops import dense_fill
@@ -1166,12 +1189,14 @@ def fill_replay(calls, card, what):
                        warmup=2, iters=10)
         p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_scatter(feats, ids, valid, num_rows),
                        warmup=2, iters=10)
+        q_ms, l_ms = fill_queued(feats, ids, valid, num_rows, bool(kwargs.get("assume_sorted")))
         b, v, c = feats.shape
         size = feats.element_size()
         b_ms, b_by = bound(b * (v * (c * size + 5) + num_rows * c * size), 0)
         log(f"fill ({what}): B={b} V={v} C={c} rows={num_rows} {str(feats.dtype)[6:]} "
             f"sorted_by_caller={bool(kwargs.get('assume_sorted'))} torch.equal=True "
-            f"wrapper_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            f"wrapper_ms={k_ms:.4f} queued_ms kernel={q_ms:.4f} index_add_={l_ms:.4f} "
+            f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
 
 
 def sparse_phases(dev, card):
@@ -1341,7 +1366,8 @@ def sparse_phases(dev, card):
             states = [(feats, active_of(cfg2, vox))]
             for i in range(len(cfg2.middle_features)):
                 states.append(mid.stage(i, *states[-1]))
-        bev = middle_mod.sparse_to_dense_bev(*states[-1]).permute(0, 3, 1, 2)
+        with recorded(middle_mod, "fill_rows_by_id") as fill_calls:
+            bev = middle_mod.sparse_to_dense_bev(*states[-1]).permute(0, 3, 1, 2)
         stage2_ms = {}
         for i in range(len(cfg2.middle_features)):
             stage2_ms[f"stage{i}"] = cuda_ms(lambda: mid.stage(i, *states[i]))
@@ -1356,7 +1382,8 @@ def sparse_phases(dev, card):
         f"peak_mem_gb={peak2_gb:.2f} launches_per_call={per_call2} [{card}]")
     with torch.inference_mode():
         subm_record, _ = subm_replay(subm_calls.calls, card)
-    del net, mid, states, bev, vox, feats, det, subm_calls
+        fill_replay(fill_calls.calls, card, "per-voxel path")
+    del net, mid, states, bev, vox, feats, det, subm_calls, fill_calls
     torch.cuda.empty_cache()
 
     # 14. both middles on a cloud that no cap truncates, float32, TF32 off.
@@ -2052,6 +2079,76 @@ def train_counts(reset=False):
         cs.WGRAD_KERNEL_LAUNCHES, sk.KERNEL_LAUNCHES, sk.DGRAD_KERNEL_LAUNCHES, sk.WGRAD_KERNEL_LAUNCHES)))
 
 
+def fill_bwd_shape(grad, ids, rows, card, what):
+    """One shape of the fill's backward (phases 15 and 18): every kernel that
+    takes its rows ``torch.equal`` to the plain gather and timed queued
+    (:func:`queued_ms`), beside ``torch.index_select``; the rule's kernel also
+    on the host's clock and in host µs a call. Returns the shape's numbers,
+    the rule's kernel queued as ``ms``."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    b, v = ids.shape
+    c = grad.shape[-1]
+    want = dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows)
+    rule = dense_fill._fill_bwd_kernel(b, v, c, grad.dtype)
+    kernels = dense_fill.FILL_BWD_KERNELS if rule != "lanes" else ("lanes",)
+    queued = {}
+    for kernel in kernels:
+        got = dense_fill._fill_bwd_cuda(grad, ids, rows, kernel=kernel)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fill backward kernel {kernel} differs from the plain version at "
+                                 f"{(b, v, c)} <- {rows} rows {grad.dtype} ({what})")
+        queued[kernel] = queued_ms(lambda: dense_fill._fill_bwd_cuda(grad, ids, rows, kernel=kernel))
+    host_ms = cuda_ms(lambda: dense_fill._fill_bwd_cuda(grad, ids, rows), warmup=3, iters=20)
+    call_us = host_us(lambda: dense_fill._fill_bwd_cuda(grad, ids, rows))
+    p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows), warmup=2, iters=10)
+    # The one library call that gathers the same rows: index_select from the
+    # cotangent with one zero row appended per sample (prepared).
+    padded = torch.cat([grad, grad.new_zeros(b, 1, c)], dim=1).reshape(-1, c)
+    flat = (ids.long().clamp(0, rows) + torch.arange(b, device=grad.device)[:, None] * (rows + 1)).reshape(-1)
+    if not torch.equal(torch.index_select(padded, 0, flat).view(b, v, c), want):
+        raise AssertionError("index_select differs from the plain fill backward")
+    l_ms = queued_ms(lambda: torch.index_select(padded, 0, flat))
+    del padded, flat
+    # The cotangent's hit rows read once, the ids read once, the rows written once.
+    b_ms, b_by = bound(b * (2 * v * c * grad.element_size() + 4 * v), 0)
+    log(f"fill backward ({what}): B={b} V={v} C={c} rows={rows} {str(grad.dtype)[6:]} rule={rule} "
+        f"torch.equal=True queued_ms " + " ".join(f"{k}={t:.4f}" for k, t in queued.items())
+        + f" index_select={l_ms:.4f} | {rule}: host_clock_ms={host_ms:.4f} host_us={call_us:.1f} | "
+        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    return dict(max_abs_err=0.0, ms=queued[rule], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms)
+
+
+def fill_bwd_ids(b, v, rows, g, sentinel_tail=True):
+    """(b, v) int32 row ids: ascending unique canvas rows, the last 10% the
+    sentinel ``rows`` (a masked tail)."""
+    import torch
+
+    ids = torch.stack([torch.sort(torch.randperm(rows, generator=g)[:v]).values for _ in range(b)])
+    if sentinel_tail:
+        ids[:, v - v // 10:] = rows
+    return ids.int()
+
+
+# (what, B, V, C, rows, dtype) of the fill backward's edge checks: what a tiled
+# gather gets wrong first. Row ids are drawn in ``fill_backward_phase``.
+FILL_BWD_EDGES = (
+    ("V no multiple of a tile", 3, 1001, 64, 20000, "bfloat16"),
+    ("V under a tile", 2, 50, 64, 1000, "bfloat16"),
+    ("an all-sentinel sample", 3, 700, 64, 5000, "bfloat16"),
+    ("duplicate ids", 2, 4000, 64, 300, "bfloat16"),
+    ("float32 rows of 256 B", 2, 3000, 64, 20000, "float32"),
+    ("rows of 16 B", 2, 3000, 8, 20000, "bfloat16"),
+    ("rows of 16 B", 2, 3001, 4, 20000, "float32"),
+    ("rows of 48 B", 2, 999, 24, 4000, "bfloat16"),
+    ("one row", 1, 1, 64, 10, "bfloat16"),
+)
+
+
 def fill_backward_phase(dev, card):
     """Phase 15. Returns the ``kernels`` record of the fill's backward kernel
     (``launches`` filled in later)."""
@@ -2059,42 +2156,40 @@ def fill_backward_phase(dev, card):
 
     from lyft3d_tpu_torch.ops import dense_fill
 
-    record = None
     g = torch.Generator().manual_seed(21)
     cases = [(SEC_BATCH, FILL_V, FILL_C, FILL_ROWS, torch.bfloat16),
              (SEC_BATCH, FILL_V, FILL_C, FILL_ROWS, torch.float32),
              (FHD_BATCH, 60000, 4, 600000, torch.bfloat16),
              (FHD_BATCH, 60000, 5, 600000, torch.float32)]
+    records = []
     for b, v, c, rows, dtype in cases:
-        ids = torch.stack([torch.sort(torch.randperm(rows, generator=g)[:v]).values for _ in range(b)])
-        ids[:, v - v // 10:] = rows  # the masked tail carries the sentinel
-        ids = ids.int().to(dev)
+        ids = fill_bwd_ids(b, v, rows, g).to(dev)
         grad = torch.randn(b, rows, c, generator=g).to(dtype).to(dev)
-        got = dense_fill._fill_bwd_cuda(grad, ids, rows)
-        torch.cuda.synchronize()
-        want = dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows)
-        if not torch.equal(got, want):
-            raise AssertionError(f"fill backward kernel differs from the plain version at "
-                                 f"{(b, v, c)} <- {rows} rows {dtype}")
-        if bool(got[:, v - v // 10:].any()):
+        records.append(fill_bwd_shape(grad, ids, rows, card, "phase 15"))
+        if bool(dense_fill._fill_bwd_cuda(grad, ids, rows)[:, v - v // 10:].any()):
             raise AssertionError("fill backward: a masked row received a gradient")
-        k_ms = cuda_ms(lambda: dense_fill._fill_bwd_cuda(grad, ids, rows), warmup=3, iters=20)
-        p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows), warmup=3, iters=20)
-        # The one library call that gathers the same rows: index_select from
-        # the cotangent with one zero row appended per sample (prepared).
-        padded = torch.cat([grad, grad.new_zeros(b, 1, c)], dim=1).reshape(-1, c)
-        flat = (ids.long() + torch.arange(b, device=dev)[:, None] * (rows + 1)).reshape(-1)
-        if not torch.equal(torch.index_select(padded, 0, flat).view(b, v, c), want):
-            raise AssertionError("index_select differs from the plain fill backward")
-        l_ms = cuda_ms(lambda: torch.index_select(padded, 0, flat), warmup=3, iters=20)
-        del padded, flat
-        b_ms, b_by = bound(b * (2 * v * c * grad.element_size() + 4 * v), 0)
-        numbers = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=l_ms)
-        record = record or numbers  # the pillars shape in bfloat16
-        log(f"fill backward: B={b} V={v} C={c} rows={rows} {str(dtype)[6:]} torch.equal=True "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} index_select_ms={l_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+    # Edge shapes, every kernel that takes the rows.
+    for what, b, v, c, rows, dtype in FILL_BWD_EDGES:
+        dtype = getattr(torch, dtype)
+        if what == "duplicate ids":
+            ids = torch.randint(0, rows + 1, (b, v), generator=g).int()
+        else:
+            ids = fill_bwd_ids(b, v, rows, g, sentinel_tail=what != "one row")
+        if what == "an all-sentinel sample":
+            ids[1] = rows
+        ids = ids.to(dev)
+        grad = torch.randn(b, rows, c, generator=g).to(dtype).to(dev)
+        want = dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows)
+        rule = dense_fill._fill_bwd_kernel(b, v, c, dtype)
+        kernels = dense_fill.FILL_BWD_KERNELS if rule != "lanes" else ("lanes",)
+        for kernel in kernels:
+            got = dense_fill._fill_bwd_cuda(grad, ids, rows, kernel=kernel)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"fill backward kernel {kernel} differs from the plain version: "
+                                     f"{what} {(b, v, c)} <- {rows} rows {dtype}")
+        log(f"fill backward edge: {what} B={b} V={v} C={c} rows={rows} {str(dtype)[6:]} rule={rule} "
+            f"torch.equal=True ({', '.join(kernels)})")
     # Unsorted ids with repeats through the public function: the Function on
     # the card against autograd of the plain scatter.
     ids = torch.randint(0, 50000, (SEC_BATCH, FILL_V), generator=g).to(dev)
@@ -2112,7 +2207,7 @@ def fill_backward_phase(dev, card):
     repeats = int((torch.sort(ids, -1).values.diff(dim=-1) == 0).sum())
     log(f"fill backward: unsorted ids with {repeats} repeats, 10% invalid, float32, through "
         f"fill_rows_by_id: torch.equal to autograd of the plain scatter")
-    return record
+    return records[0]  # the pillars shape in bfloat16
 
 
 def grad_check(name, cfg, in_features, batch, dev, caps_check=None):
@@ -2557,26 +2652,10 @@ def subm_backward_replay(fwd_calls, bwd_calls, card):
 
 
 def fill_backward_replay(calls, card, what):
-    """Phase 18 for the fill: its recorded backward launches, ``torch.equal``
-    to the plain gather."""
-    import torch
-
-    from lyft3d_tpu_torch.ops import dense_fill
-
+    """Phase 18 for the fill: its recorded backward launches, every kernel
+    that takes the rows ``torch.equal`` to the plain gather and timed."""
     for (grad, ids, num_rows), _ in calls:
-        got = dense_fill._fill_bwd_cuda(grad, ids, num_rows)
-        torch.cuda.synchronize()
-        if not torch.equal(got, dense_fill.fill_rows_by_id_bwd_ref(grad, ids, num_rows)):
-            raise AssertionError(f"fill backward kernel differs from the plain version at "
-                                 f"{tuple(ids.shape)} <- {num_rows} rows ({what})")
-        k_ms = cuda_ms(lambda: dense_fill._fill_bwd_cuda(grad, ids, num_rows), warmup=2, iters=10)
-        p_ms = cuda_ms(lambda: dense_fill.fill_rows_by_id_bwd_ref(grad, ids, num_rows), warmup=2, iters=10)
-        b, v = ids.shape
-        c = grad.shape[-1]
-        b_ms, b_by = bound(b * (2 * v * c * grad.element_size() + 4 * v), 0)
-        log(f"fill backward ({what}): B={b} V={v} C={c} rows={num_rows} {str(grad.dtype)[6:]} "
-            f"torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-            f"[{card}]")
+        fill_bwd_shape(grad, ids, num_rows, card, what)
 
 
 def training_phases(dev, card):
@@ -2615,7 +2694,10 @@ def training_phases(dev, card):
     counts["pillars"], _, state, trainer = train_run(
         "pillars lyft9", lyft9_config(), 4, batch, onecycle, onecycle_name, dev, card,
         ("dense_fill", "dense_fill_bwd"))
-    del state, trainer, batch
+    with recorded(dense_fill, "_fill_bwd_cuda") as fill_bwds:
+        trainer.step_fn(state, batch)
+    fill_backward_replay(fill_bwds.calls, card, "pillars training step")
+    del state, trainer, batch, fill_bwds
     torch.cuda.empty_cache()
 
     # 17b. sparse FHD, unit middle, batch 4; then one more step recorded for the replay.
@@ -2875,6 +2957,7 @@ def main():
         l_ms = cuda_ms(lambda: torch.zeros(SEC_BATCH * (FILL_ROWS + 1), FILL_C, dtype=dtype,
                                            device=dev).index_add_(0, flat_ids, rows2d),
                        warmup=3, iters=20)
+        q_ms, ql_ms = fill_queued(feats, ids, fvalid, FILL_ROWS, True)
         # Rows, ids and mask read once, the canvas written once; no arithmetic.
         size = feats.element_size()
         b_ms, b_by = bound(SEC_BATCH * (FILL_V * (FILL_C * size + 5) + FILL_ROWS * FILL_C * size), 0)
@@ -2882,7 +2965,7 @@ def main():
                            library_ms=l_ms)
         log(f"fill: B={SEC_BATCH} V={FILL_V} C={FILL_C} rows={FILL_ROWS} {str(dtype)[6:]} "
             f"torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} index_add_ms={l_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            f"queued_ms kernel={q_ms:.4f} index_add_={ql_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
     g = torch.Generator().manual_seed(4)
     dup = torch.sort(torch.randint(0, 50000, (SEC_BATCH, FILL_V), generator=g), dim=-1).values
     feats = torch.randn(SEC_BATCH, FILL_V, FILL_C, generator=g)

@@ -44,22 +44,21 @@ def cmd_infer_bev(args):
     from lyft3d_tpu_torch.eval.submission import records_from_detections, write_submission
     from lyft3d_tpu_torch.models import build_model
     from lyft3d_tpu_torch.pipelines.bev import BEVInferencePipeline, gt_records
+    from lyft3d_tpu_torch.train import checkpoint as ckpt
 
     device = _device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     models = []
     for spec in args.model:  # "name[:model_dir]" → logit-mean ensemble
         name, _, model_dir = spec.partition(":")
-        if model_dir:
-            raise SystemExit(
-                f"{spec!r}: restoring a BEV model directory comes with the port of "
-                "BEV training (its checkpoint layout is not defined yet); "
-                "pass a bare model name to run with the default initialisation"
-            )
-        models.append(
-            build_model(name, n_classes=10, device=device, dtype=dtype,
-                        generator=torch.Generator().manual_seed(0))
-        )
+        model = build_model(name, n_classes=10, device=device, dtype=dtype,
+                            generator=torch.Generator().manual_seed(0))
+        if model_dir:  # the latest checkpoint, if any; else the initialisation
+            snapshot, step = ckpt.restore_latest(model_dir)
+            if step is not None:
+                ckpt.load_trained_weights(model, snapshot)
+                print(f"{name}: restored step {step} from {model_dir}")
+        models.append(model)
 
     db = _db(args)
     cfg = BEVConfig(num_sweeps=args.sweeps)

@@ -1,7 +1,7 @@
-// Dense-canvas fill from ascending row ids for Hopper (sm_90a), plain C
-// interface for ctypes.
+// Dense-canvas fill from ascending row ids, and its backward, for Hopper
+// (sm_90a), plain C interface for ctypes.
 //
-// Replaces the Pallas TPU kernel `_fill_kernel`
+// Forward. Replaces the Pallas TPU kernel `_fill_kernel`
 // (lyft3d_tpu/ops/dense_fill.py:78, launched by `fill_rows_by_id_pallas`
 // :94): (V, C) feature rows with ascending row ids (invalid ids forced to
 // `num_rows`) → a (num_rows, C) canvas whose uncovered rows are zero and
@@ -10,27 +10,49 @@
 // contracted a tile-local one-hot with the window on the MXU in float32. A
 // GPU has no reason to build one-hots.
 //
-// Design (canvas-owner tiles): one block owns kTile consecutive canvas rows
-// of one sample and writes every one of them exactly once, so the canvas
-// needs no memset and no atomics, and the result is deterministic.
-//   1. Two threads binary-search the ids of the sample (V int32, 100 KB at
-//      V = 25,000, L2-resident) for the window [lo, hi) of the tile's rows.
+// Design (canvas-owner tiles): one block owns `tile_rows` consecutive canvas
+// rows of one sample (the wrapper sizes the tile to ~32 KB of canvas) and
+// writes every one of them exactly once, so the canvas needs no memset and
+// no atomics, and the result is deterministic.
+//   1. The block finds the window [lo, hi) of the tile's ids in the sample's
+//      ascending ids by rounds of 256 parallel probes (`__syncthreads_count`
+//      of the probes below the key): two rounds up to V = 65,792, where a
+//      binary search takes 16 dependent loads.
 //   2. The block walks the window and records, in shared memory, the first
 //      window position of each row's run of ids (-1 for an uncovered row).
-//   3. Threads own 16-byte chunks of rows, neighbours on neighbouring
-//      chunks of one row, so a warp stores whole rows with 16-byte vector
-//      stores; each sums its row's run in float32 and casts once (duplicate
-//      ids sum as the Pallas kernel's float32 accumulation does; a unique id
-//      is an exact copy) or stores zeros.
+//   3. Threads own chunks of rows as wide as the row's bytes allow (16, 8, 4
+//      or 2 bytes), neighbours on neighbouring chunks, so a warp stores whole
+//      rows; each sums its row's run in float32 and casts once (duplicate ids
+//      sum as the Pallas kernel's float32 accumulation does; a unique id is an
+//      exact copy) or stores zeros.
 //
-// Bound: the store of the canvas. At the Lyft pillar shape (batch 8, 496²
-// = 246,016 rows of 64 bf16 channels) that is 252 MB written against 26 MB
-// of feature rows read: ~0.08 ms of HBM bandwidth on an H100 (0.15 ms in
-// float32). A first version searched per thread (a 15-step dependent
-// search for each of 15.7 M threads) and was latency-bound at 0.33 ms.
+// Bound: the store of the canvas, b·(num_rows·c·size + V·(c·size + 5))
+// bytes. At the Lyft pillar shape (batch 8, 496² = 246,016 rows of 64 bf16
+// channels) that is 252 MB written against 26 MB of feature rows read:
+// ~0.08 ms of HBM bandwidth on an H100. Tiles of 128 rows and a binary
+// search left small canvases latency-bound: 8-byte rows (the sparse path's
+// units, 4 × 600,000 rows) took 4.4 times `index_add_` into zeros.
 //
-// Backward (the JAX package's `_fill_pallas_bwd`, dense_fill.py:153, is an XLA
-// gather): dense_fill_bwd_kernel below, gf[i] = g[ids[i]], up to a warp a row.
+// Backward. Replaces `_fill_pallas_bwd` (dense_fill.py:153, an XLA gather
+// behind the Pallas kernel): gf[b, i, :] = g[b, ids[b, i], :], zero where the
+// id is the sentinel `num_rows`; duplicate ids each receive the row. An exact
+// copy. Bound: bytes, b·(2·V·c·size + 4·V): every row read once from a
+// cotangent of up to 252 MB, at random, and written once. A copy by threads
+// has at most 2,048 threads × 16 bytes in flight an SM, and waits on each
+// row's id before its load: ~1 TB/s at the pillar shape. So:
+//   fill_bwd_bulk_kernel, for rows of a multiple of 16 bytes: a block takes
+//   `stages` tiles of `tile_rows` consecutive output rows of one sample. Its
+//   first warp reads the tile's ids, arms each stage's mbarrier with the
+//   bytes its hit rows carry, and issues one `cp.async.bulk` a hit row, from
+//   the cotangent into the row's slot of the stage in shared memory; the
+//   copy engine, not registers, holds the bytes in flight (up to 64 KB a
+//   block). The block zeroes the sentinel rows' slots meanwhile. One thread
+//   waits on each stage in turn and writes it back with one bulk store (the
+//   tile's output rows are contiguous), so early stages drain while later
+//   ones are in flight.
+//   dense_fill_bwd_kernel, for the other rows (8 and 20 bytes in the FHD
+//   cases): `lanes` threads copy a row, 16-byte accesses where the row
+//   allows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,7 +61,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 128;  // canvas rows per block
+constexpr int kBulkThreads = 128;
 
 template <typename T>
 __device__ __forceinline__ float to_float(T v);
@@ -59,45 +81,45 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// VEC elements loaded and stored as one access (16 bytes on the vector path).
+// VEC elements loaded and stored as one access.
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-// First position in ids[0, n) whose id is >= key (ids ascending).
-__device__ __forceinline__ long long lower_bound(const int32_t* ids, long long n, long long key) {
-  long long lo = 0, hi = n;
+// First position in ids[0, n) whose id is >= key (ids ascending), found by
+// the whole block: each round probes the last id of each of kThreads equal
+// parts of the open range and keeps the part where the key falls. Every
+// thread of the block must call it; all get the same answer.
+__device__ __forceinline__ long long block_lower_bound(const int32_t* ids, long long n, long long key) {
+  long long lo = 0, hi = n;  // ids[lo - 1] < key (or lo == 0); ids[hi] >= key (or hi == n)
   while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (static_cast<long long>(__ldg(ids + mid)) < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+    const long long step = (hi - lo + kThreads - 1) / kThreads;
+    const long long pos = lo + (threadIdx.x + 1) * step - 1;
+    const int below = pos < hi && static_cast<long long>(__ldg(ids + pos)) < key;
+    const long long parts = __syncthreads_count(below);  // parts wholly below the key
+    lo += parts * step;
+    hi = min(hi, lo + step - 1);
   }
   return lo;
 }
 
+// grid (tiles of one sample, batch); dynamic shared memory: tile_rows ints.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 dense_fill_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ids,
-                  T* __restrict__ out, long long v, long long num_rows,
-                  long long tiles_per_sample, int c) {
-  __shared__ long long window[2];
-  __shared__ int first[kTile];  // window offset of each row's run, or -1
+                  T* __restrict__ out, long long v, long long num_rows, int tile_rows, int c) {
+  extern __shared__ int first[];  // window offset of each row's run, or -1
 
-  const long long b = blockIdx.x / tiles_per_sample;
-  const long long row0 = (blockIdx.x - b * tiles_per_sample) * kTile;
-  const int rows = static_cast<int>(min(static_cast<long long>(kTile), num_rows - row0));
+  const long long b = blockIdx.y;
+  const long long row0 = static_cast<long long>(blockIdx.x) * tile_rows;
+  const int rows = static_cast<int>(min(static_cast<long long>(tile_rows), num_rows - row0));
   const int32_t* sid = ids + b * v;
 
-  if (threadIdx.x < 2) {
-    window[threadIdx.x] = lower_bound(sid, v, row0 + (threadIdx.x == 0 ? 0 : rows));
-  }
-  for (int r = threadIdx.x; r < kTile; r += kThreads) first[r] = -1;
+  const long long lo = block_lower_bound(sid, v, row0);
+  const long long hi = block_lower_bound(sid, v, row0 + rows);
+  for (int r = threadIdx.x; r < rows; r += kThreads) first[r] = -1;
   __syncthreads();
-  const long long lo = window[0], hi = window[1];
   for (long long k = lo + threadIdx.x; k < hi; k += kThreads) {
     const int32_t id = __ldg(sid + k);
     const long long r = id - row0;  // in [0, rows) when the ids ascend
@@ -134,23 +156,24 @@ dense_fill_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ids,
 
 template <typename T, int VEC>
 cudaError_t launch(const void* feats, const void* ids, void* out, long long batch,
-                   long long v, long long num_rows, int c, cudaStream_t stream) {
-  const long long tiles = (num_rows + kTile - 1) / kTile;
-  const long long blocks = batch * tiles;
-  if (blocks == 0 || c == 0) return cudaSuccess;
-  if (blocks > 0x7fffffffLL || v > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  dense_fill_kernel<T, VEC><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+                   long long v, long long num_rows, int c, int tile_rows, cudaStream_t stream) {
+  if (tile_rows < 1) return cudaErrorInvalidValue;
+  const long long tiles = (num_rows + tile_rows - 1) / tile_rows;
+  if (tiles == 0 || batch == 0 || c == 0) return cudaSuccess;
+  if (tiles > 0x7fffffffLL || batch > 65535 || v > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const size_t smem = static_cast<size_t>(tile_rows) * sizeof(int);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  dense_fill_kernel<T, VEC><<<dim3(static_cast<unsigned int>(tiles), static_cast<unsigned int>(batch)),
+                              kThreads, smem, stream>>>(
       static_cast<const T*>(feats), static_cast<const int32_t*>(ids), static_cast<T*>(out),
-      v, num_rows, tiles, c);
+      v, num_rows, tile_rows, c);
   return cudaGetLastError();
 }
 
-// Backward side: gf[b, i, :] = g[b, ids[b, i], :] where the id is a canvas
-// row, zeros otherwise (the sentinel `num_rows` of a masked entry). `lanes`
-// threads of a warp (a power of two, at most 32, at least the row's chunks of
-// VEC elements when those are fewer than 32) copy one row, so the loads and
-// stores of a row are contiguous and a narrow row does not idle most of a
-// warp; duplicate ids each receive the row. An exact copy.
+// Backward by threads: `lanes` threads of a warp (a power of two, at most 32,
+// at least the row's chunks of VEC elements when those are fewer than 32)
+// copy one row, so the loads and stores of a row are contiguous and a narrow
+// row does not idle most of a warp.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 dense_fill_bwd_kernel(const T* __restrict__ g, const int32_t* __restrict__ ids,
@@ -196,26 +219,221 @@ cudaError_t launch_bwd(const void* g, const void* ids, void* gf, long long batch
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bulk copies
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// grid (groups of `stages` tiles of one sample, batch); dynamic shared
+// memory: the stages' rows, then one mbarrier a stage, then the group's ids.
+// Rows are `row_bytes` (a multiple of 16) bytes; the pointers 16-byte aligned.
+__global__ void __launch_bounds__(kBulkThreads)
+fill_bwd_bulk_kernel(const uint8_t* __restrict__ g, const int32_t* __restrict__ ids,
+                     uint8_t* __restrict__ gf, long long v, long long num_rows, int row_bytes,
+                     int tile_rows, int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int group_rows = stages * tile_rows;
+  uint8_t* data = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + static_cast<size_t>(group_rows) * row_bytes);
+  int32_t* sids = reinterpret_cast<int32_t*>(bars + stages);
+
+  const long long b = blockIdx.y;
+  const long long row0 = static_cast<long long>(blockIdx.x) * group_rows;
+  const int rows = static_cast<int>(min(static_cast<long long>(group_rows), v - row0));
+  const int used = (rows + tile_rows - 1) / tile_rows;  // stages this group fills
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < used; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bars + s)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int r = threadIdx.x; r < rows; r += kBulkThreads) sids[r] = __ldg(ids + b * v + row0 + r);
+  __syncthreads();
+
+  // Producer: the first warp arms each stage with its hit rows' bytes, then
+  // issues their copies; a stage without a hit completes on its arrival.
+  if (threadIdx.x < 32) {
+    const uint8_t* src = g + b * num_rows * row_bytes;
+    for (int s = 0; s < used; ++s) {
+      const int r1 = min(rows, (s + 1) * tile_rows);
+      int hits = 0;
+      for (int r = s * tile_rows + lane; r < r1; r += 32) {
+        hits += sids[r] >= 0 && sids[r] < num_rows;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) hits += __shfl_xor_sync(0xffffffffu, hits, off);
+      if (lane == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(smem_u32(bars + s)), "r"(static_cast<uint32_t>(hits * row_bytes)) : "memory");
+      }
+      __syncwarp();
+      for (int r = s * tile_rows + lane; r < r1; r += 32) {
+        const int32_t id = sids[r];
+        if (id >= 0 && id < num_rows) {
+          bulk_load(data + static_cast<size_t>(r) * row_bytes, src + static_cast<long long>(id) * row_bytes,
+                    row_bytes, bars + s);
+        }
+      }
+    }
+  }
+  // Every thread: zeros into the sentinel rows' slots, which no copy touches.
+  const int chunks = row_bytes / 16;
+  for (int i = threadIdx.x; i < rows * chunks; i += kBulkThreads) {
+    const int r = i / chunks;
+    const int32_t id = sids[r];
+    if (!(id >= 0 && id < num_rows)) {
+      *reinterpret_cast<uint4*>(data + static_cast<size_t>(r) * row_bytes + (i - r * chunks) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros, to the bulk stores
+  __syncthreads();
+
+  if (threadIdx.x == 0) {
+    uint8_t* dst = gf + (b * v + row0) * row_bytes;
+    for (int s = 0; s < used; ++s) {
+      const int r0 = s * tile_rows;
+      const int n = min(rows, r0 + tile_rows) - r0;
+      wait_phase(bars + s, 0);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_store(dst + static_cast<size_t>(r0) * row_bytes, data + static_cast<size_t>(r0) * row_bytes,
+                 static_cast<uint32_t>(n) * row_bytes);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    // Shared memory must outlive the stores' reads of it.
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+cudaError_t launch_bwd_bulk(const void* g, const void* ids, void* gf, long long batch, long long v,
+                            long long num_rows, int row_bytes, int tile_rows, int stages,
+                            cudaStream_t stream) {
+  if (row_bytes % 16 != 0 || tile_rows % 32 != 0 || stages < 1 ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0 || reinterpret_cast<uintptr_t>(gf) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long group_rows = static_cast<long long>(stages) * tile_rows;
+  const long long groups = (v + group_rows - 1) / group_rows;
+  if (groups == 0 || batch == 0) return cudaSuccess;
+  if (groups > 0x7fffffffLL || batch > 65535) return cudaErrorInvalidConfiguration;
+  const size_t smem = static_cast<size_t>(group_rows) * (row_bytes + sizeof(int32_t)) +
+                      static_cast<size_t>(stages) * sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(fill_bwd_bulk_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fill_bwd_bulk_kernel<<<dim3(static_cast<unsigned int>(groups), static_cast<unsigned int>(batch)),
+                         kBulkThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(g), static_cast<const int32_t*>(ids), static_cast<uint8_t*>(gf), v,
+      num_rows, row_bytes, tile_rows, stages);
+  return cudaGetLastError();
+}
+
+// Probe: a warp reads 32 rows' ids with one load, shares them by shuffles,
+// and each lane issues all of its kRegLoads 16-byte loads before its stores.
+constexpr int kRegLoads = 8;
+
+__global__ void __launch_bounds__(kThreads)
+fill_bwd_regs_kernel(const uint4* __restrict__ g, const int32_t* __restrict__ ids,
+                     uint4* __restrict__ gf, long long v, long long num_rows, int chunks) {
+  const int lane = threadIdx.x % 32;
+  const long long b = blockIdx.y;
+  const long long row0 = (static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32) * 32;
+  if (row0 >= v) return;
+  const int32_t my_id = row0 + lane < v ? __ldg(ids + b * v + row0 + lane) : static_cast<int32_t>(num_rows);
+  const int items = 32 * chunks;
+  const uint4* src = g + b * num_rows * chunks;
+  uint4* dst = gf + (b * v + row0) * chunks;
+  for (int base = 0; base < items; base += 32 * kRegLoads) {
+    uint4 buf[kRegLoads];
+#pragma unroll
+    for (int u = 0; u < kRegLoads; ++u) {
+      const int item = base + u * 32 + lane;
+      const int r = min(item / chunks, 31);
+      const int32_t id = __shfl_sync(0xffffffffu, my_id, r);
+      buf[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (item < items && id >= 0 && id < num_rows) {
+        buf[u] = __ldg(src + static_cast<long long>(id) * chunks + (item - r * chunks));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRegLoads; ++u) {
+      const int item = base + u * 32 + lane;
+      if (item < items && row0 + item / chunks < v) dst[item] = buf[u];
+    }
+  }
+}
+
+cudaError_t launch_bwd_regs(const void* g, const void* ids, void* gf, long long batch, long long v,
+                            long long num_rows, int row_bytes, cudaStream_t stream) {
+  if (row_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(gf) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const long long blocks = (v + kThreads - 1) / kThreads;
+  if (blocks == 0 || batch == 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL || batch > 65535) return cudaErrorInvalidConfiguration;
+  fill_bwd_regs_kernel<<<dim3(static_cast<unsigned int>(blocks), static_cast<unsigned int>(batch)),
+                         kThreads, 0, stream>>>(
+      static_cast<const uint4*>(g), static_cast<const int32_t*>(ids), static_cast<uint4*>(gf), v,
+      num_rows, row_bytes / 16);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Writes the (batch, num_rows, c) canvas `out` from (batch, v, c) `feats`
 // whose (batch, v) int32 `ids` ascend within each sample (ids outside
-// [0, num_rows) never match a row) on `stream`. `dtype` is 0 for float32 and
-// 1 for bfloat16; `vectorized` asks for 16-byte accesses, which need c·size
-// to be a multiple of 16 and 16-byte aligned pointers (the wrapper checks).
-// Returns the CUDA error of the launch (0 on success).
+// [0, num_rows) never match a row) on `stream`, in tiles of `tile_rows`
+// canvas rows. `dtype` is 0 for float32 and 1 for bfloat16; `vec` is the
+// elements of one access (1, 2, 4 or, in bfloat16, 8), which must divide c
+// and whose bytes must align the pointers (the wrapper picks it). Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int dense_fill_launch(const void* feats, const void* ids, void* out,
                                  long long batch, long long v, long long num_rows, int c,
-                                 int dtype, int vectorized, int device, void* stream) {
+                                 int dtype, int vec, int tile_rows, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = vectorized ? launch<float, 4>(feats, ids, out, batch, v, num_rows, c, s)
-                     : launch<float, 1>(feats, ids, out, batch, v, num_rows, c, s);
+    switch (vec) {
+      case 1: err = launch<float, 1>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      case 2: err = launch<float, 2>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      case 4: err = launch<float, 4>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      default: err = cudaErrorInvalidValue;
+    }
   } else if (dtype == 1) {
-    err = vectorized ? launch<__nv_bfloat16, 8>(feats, ids, out, batch, v, num_rows, c, s)
-                     : launch<__nv_bfloat16, 1>(feats, ids, out, batch, v, num_rows, c, s);
+    switch (vec) {
+      case 1: err = launch<__nv_bfloat16, 1>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      case 2: err = launch<__nv_bfloat16, 2>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      case 4: err = launch<__nv_bfloat16, 4>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      case 8: err = launch<__nv_bfloat16, 8>(feats, ids, out, batch, v, num_rows, c, tile_rows, s); break;
+      default: err = cudaErrorInvalidValue;
+    }
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -224,20 +442,35 @@ extern "C" int dense_fill_launch(const void* feats, const void* ids, void* out,
 
 // Backward of the fill: writes gf (batch, v, c) from the canvas cotangent `g`
 // (batch, num_rows, c) and the (batch, v) int32 `ids` the forward used; an id
-// outside [0, num_rows) gives a zero row. Same `dtype` and `vectorized` rules
-// as dense_fill_launch. Returns the CUDA error of the launch (0 on success).
+// outside [0, num_rows) gives a zero row. `route`: 0 the lane kernel with
+// one-element accesses, 1 the lane kernel with 16-byte accesses, 2 bulk
+// copies in groups of `stages` tiles of `tile_rows` rows, 3 the register
+// probe (2 and 3 need c·size a multiple of 16 and 16-byte aligned pointers).
+// `dtype` as in dense_fill_launch. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int dense_fill_bwd_launch(const void* g, const void* ids, void* gf,
                                      long long batch, long long v, long long num_rows, int c,
-                                     int dtype, int vectorized, int device, void* stream) {
+                                     int dtype, int route, int tile_rows, int stages, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = vectorized ? launch_bwd<float, 4>(g, ids, gf, batch, v, num_rows, c, s)
-                     : launch_bwd<float, 1>(g, ids, gf, batch, v, num_rows, c, s);
-  } else if (dtype == 1) {
-    err = vectorized ? launch_bwd<__nv_bfloat16, 8>(g, ids, gf, batch, v, num_rows, c, s)
-                     : launch_bwd<__nv_bfloat16, 1>(g, ids, gf, batch, v, num_rows, c, s);
+  const int size = dtype == 0 ? 4 : 2;
+  if (dtype != 0 && dtype != 1) {
+    err = cudaErrorInvalidValue;
+  } else if (route == 2) {
+    err = launch_bwd_bulk(g, ids, gf, batch, v, num_rows, c * size, tile_rows, stages, s);
+  } else if (route == 3) {
+    err = launch_bwd_regs(g, ids, gf, batch, v, num_rows, c * size, s);
+  } else if (route == 0 || route == 1) {
+    const bool vectorized = route == 1;
+    if (dtype == 0) {
+      err = vectorized ? launch_bwd<float, 4>(g, ids, gf, batch, v, num_rows, c, s)
+                       : launch_bwd<float, 1>(g, ids, gf, batch, v, num_rows, c, s);
+    } else {
+      err = vectorized ? launch_bwd<__nv_bfloat16, 8>(g, ids, gf, batch, v, num_rows, c, s)
+                       : launch_bwd<__nv_bfloat16, 1>(g, ids, gf, batch, v, num_rows, c, s);
+    }
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -52,6 +52,7 @@ KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _masked_ids(row_ids, valid, num_rows: int):
@@ -103,18 +104,84 @@ def _check_args(features, row_ids, valid):
         )
 
 
+# Canvas bytes a forward tile owns: enough stores a block to hide its window
+# search. Rows a tile: the power of two nearest below, in [128, 8192].
+FILL_TILE_BYTES = 32 * 1024
+
+# The backward's kernels, by the name ``_fill_bwd_cuda(..., kernel=)`` takes:
+# "bulk" copies rows through shared memory with the copy engine, "regs" is
+# the register probe, "lanes" copies rows with threads.
+FILL_BWD_KERNELS = ("bulk", "regs", "lanes")
+# Widest row the bulk kernel takes: 32 rows of it fill a block's budget.
+BULK_MAX_ROW_BYTES = 2048
+# Shared memory a bulk block gives its stages of rows.
+BULK_BLOCK_BYTES = 64 * 1024
+# The card's SMs (H100 SXM): a bulk launch keeps at least two blocks on each.
+CARD_SMS = 132
+
+_ARGTYPES = {
+    "dense_fill_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, ids, out
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, v, num_rows
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # c, dtype, vec, tile_rows
+        ctypes.c_int, ctypes.c_void_p,  # device, stream
+    ],
+    "dense_fill_bwd_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, ids, gf
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, v, num_rows
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # c, dtype, route
+        ctypes.c_int, ctypes.c_int,  # tile_rows, stages
+        ctypes.c_int, ctypes.c_void_p,  # device, stream
+    ],
+}
+# Routes of dense_fill_bwd_launch.
+_BWD_ROUTES = {"lanes": 0, "bulk": 2, "regs": 3}
+
+
 def _kernel_library(entry: str = "dense_fill_launch"):
     lib = _build.load_library("dense_fill")
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # feats, ids, out
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, v, num_rows
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # c, dtype, vectorized
-            ctypes.c_int, ctypes.c_void_p,  # device, stream
-        ]
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _fill_tile_rows(row_bytes: int) -> int:
+    """Canvas rows of a forward tile for rows of ``row_bytes``."""
+    rows = 1 << max(0, (FILL_TILE_BYTES // row_bytes).bit_length() - 1)
+    return min(8192, max(128, rows))
+
+
+def _access_elems(c: int, size: int, *ptrs: int) -> int:
+    """Elements of the widest access (16 bytes at most) that divides a row of
+    ``c`` elements of ``size`` bytes and keeps every pointer aligned."""
+    elems = 16 // size
+    while elems > 1 and (c % elems or any(p % (elems * size) for p in ptrs)):
+        elems //= 2
+    return elems
+
+
+def _fill_bwd_kernel(b: int, v: int, c: int, dtype, aligned: bool = True) -> str:
+    """The rule: bulk copies for rows of a multiple of 16 bytes, at most
+    :data:`BULK_MAX_ROW_BYTES`, on 16-byte aligned tensors; the lane kernel
+    for every other row."""
+    row_bytes = c * _ITEM_BYTES[dtype]
+    if aligned and row_bytes % 16 == 0 and row_bytes <= BULK_MAX_ROW_BYTES:
+        return "bulk"
+    return "lanes"
+
+
+def _fill_bwd_tiles(b: int, v: int, row_bytes: int):
+    """(rows a tile, tiles a block) of the bulk kernel: 128-row tiles up to
+    256-byte rows, 32 KB tiles above; as many stages (4, 2, 1) as the block's
+    shared memory takes while the launch keeps two blocks an SM."""
+    tile = 128 if row_bytes <= 256 else max(32, BULK_BLOCK_BYTES // 2 // row_bytes // 32 * 32)
+    for stages in (4, 2):
+        blocks = b * -(-v // (stages * tile))
+        if stages * tile * row_bytes <= BULK_BLOCK_BYTES and blocks >= 2 * CARD_SMS:
+            return tile, stages
+    return tile, 1
 
 
 def _fill_cuda(features, ids, num_rows: int):
@@ -127,18 +194,14 @@ def _fill_cuda(features, ids, num_rows: int):
     ids = (ids if batched else ids[None]).contiguous()
     b, v, c = feats.shape
     out = torch.empty((b, num_rows, c), dtype=feats.dtype, device=feats.device)
-    vectorized = int(
-        (c * feats.element_size()) % 16 == 0
-        and feats.data_ptr() % 16 == 0
-        and out.data_ptr() % 16 == 0
-    )
-    dev = feats.device.index if feats.device.index is not None else torch.cuda.current_device()
+    if out.numel() == 0:
+        return out if batched else out[0]
+    size = feats.element_size()
+    vec = _access_elems(c, size, feats.data_ptr(), out.data_ptr())
     err = launch(
-        ctypes.c_void_p(feats.data_ptr()),
-        ctypes.c_void_p(ids.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        b, v, num_rows, c, _DTYPE_CODES[feats.dtype], vectorized, dev,
-        ctypes.c_void_p(torch.cuda.current_stream(feats.device).cuda_stream),
+        feats.data_ptr(), ids.data_ptr(), out.data_ptr(), b, v, num_rows, c,
+        _DTYPE_CODES[feats.dtype], vec, _fill_tile_rows(c * size), feats.device.index,
+        torch.cuda.current_stream(feats.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"dense_fill kernel launch failed with CUDA error {err}")
@@ -146,9 +209,11 @@ def _fill_cuda(features, ids, num_rows: int):
     return out if batched else out[0]
 
 
-def _fill_bwd_cuda(grad_canvas, ids, num_rows: int):
-    """Launch the gather kernel of ``csrc/dense_fill.cu`` on PyTorch's current
-    stream: ``(…, num_rows, C)`` canvas cotangent → ``(…, V, C)``."""
+def _fill_bwd_cuda(grad_canvas, ids, num_rows: int, kernel=None):
+    """Launch the backward's kernel of ``csrc/dense_fill.cu`` on PyTorch's
+    current stream: ``(…, num_rows, C)`` canvas cotangent → ``(…, V, C)``.
+    ``kernel`` (one of :data:`FILL_BWD_KERNELS`) overrides the rule,
+    :func:`_fill_bwd_kernel`; a kernel that cannot take the rows raises."""
     global BWD_KERNEL_LAUNCHES
     launch = _kernel_library("dense_fill_bwd_launch")
     batched = grad_canvas.dim() == 3
@@ -157,16 +222,26 @@ def _fill_bwd_cuda(grad_canvas, ids, num_rows: int):
     b, v = ids.shape
     c = g.shape[-1]
     out = torch.empty((b, v, c), dtype=g.dtype, device=g.device)
-    vectorized = int(
-        (c * g.element_size()) % 16 == 0 and g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    )
-    dev = g.device.index if g.device.index is not None else torch.cuda.current_device()
+    if out.numel() == 0:
+        return out if batched else out[0]
+    row_bytes = c * g.element_size()
+    aligned = g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    kernel = kernel or _fill_bwd_kernel(b, v, c, g.dtype, aligned)
+    if kernel not in _BWD_ROUTES:
+        raise ValueError(f"unknown fill backward kernel {kernel!r}; one of {FILL_BWD_KERNELS}")
+    tile, stages = 0, 0
+    route = _BWD_ROUTES[kernel]
+    if kernel == "lanes":
+        route += int(row_bytes % 16 == 0 and aligned)  # 16-byte accesses
+    elif row_bytes % 16 or not aligned or row_bytes > BULK_MAX_ROW_BYTES:
+        raise ValueError(f"the {kernel} kernel takes 16-byte aligned rows of a multiple of 16 "
+                         f"bytes up to {BULK_MAX_ROW_BYTES}, not {row_bytes}")
+    elif kernel == "bulk":
+        tile, stages = _fill_bwd_tiles(b, v, row_bytes)
     err = launch(
-        ctypes.c_void_p(g.data_ptr()),
-        ctypes.c_void_p(ids.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()),
-        b, v, num_rows, c, _DTYPE_CODES[g.dtype], vectorized, dev,
-        ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream),
+        g.data_ptr(), ids.data_ptr(), out.data_ptr(), b, v, num_rows, c,
+        _DTYPE_CODES[g.dtype], route, tile, stages, g.device.index,
+        torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"dense_fill backward kernel launch failed with CUDA error {err}")

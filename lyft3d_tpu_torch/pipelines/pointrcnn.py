@@ -5,9 +5,10 @@ The device program is :func:`make_pointrcnn_infer_fn`: the joint net →
 refined boxes → ``sigmoid`` of the RCNN class logit, masked by proposal
 validity and empty RoIs → final rotated NMS, on a batch. The host side is
 :class:`KittiPointRCNNLoader` (lidar load, range filter, near/far-aware
-fixed-count subsampling) and :func:`eval_pointrcnn` (KITTI label files,
-frames for the AP evaluator, recall by IoU threshold). Training, its scene
-augmentation and the database sampler come with the training port.
+fixed-count subsampling, and for training the database sampler's pasted
+objects and the scene augmentation) and :func:`eval_pointrcnn` (KITTI label
+files, frames for the AP evaluator, recall by IoU threshold). PointRCNN
+training itself is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from lyft3d_tpu_torch.data.augment import global_rotation, global_scaling, random_flip
 from lyft3d_tpu_torch.data.kitti import (
     Calibration,
     Object3d,
@@ -65,24 +67,27 @@ class KittiLoaderConfig:
     classes: tuple = ("car",)
     range_xyz: tuple = (80.0, 80.0, 5.0)
     max_gt: int = 32
-    # Scene-level augmentation (training): not ported, must stay off.
+    # Scene-level augmentation (training): flip, rotation, scaling.
     augment: bool = False
     aug_rot_range: float = float(np.pi / 4)
     aug_scale_range: tuple = (0.95, 1.05)
 
 
 class KittiPointRCNNLoader:
-    """KITTI tree (velodyne/, calib/, label_2/) → fixed-size arrays."""
+    """KITTI tree (velodyne/, calib/, label_2/) → fixed-size arrays.
+
+    An optional ``db_sampler`` (:class:`~lyft3d_tpu_torch.data.augment.DataBaseSampler`)
+    pastes sampled objects into the subsampled cloud; ``cfg.augment`` flips,
+    rotates and scales the scene. Both draw from the loader's seeded
+    generator in the JAX loader's order, so the two give equal arrays.
+    """
 
     def __init__(self, root, cfg: KittiLoaderConfig = KittiLoaderConfig(), seed: int = 0,
                  db_sampler=None):
-        if db_sampler is not None:
-            raise NotImplementedError("db_sampler: training augmentation is not yet ported")
-        if cfg.augment:
-            raise NotImplementedError("augment=True: training augmentation is not yet ported")
         self.root = Path(root)
         self.cfg = cfg
         self.rng = np.random.RandomState(seed)
+        self.db_sampler = db_sampler
         self.stems = sorted(p.stem for p in (self.root / "velodyne").glob("*.bin"))
 
     def subsample(self, pts: np.ndarray):
@@ -114,11 +119,12 @@ class KittiPointRCNNLoader:
         valid[:count] = True
 
         calib = Calibration.from_file(self.root / "calib" / f"{stem}.txt")
-        boxes = [
-            box_camera_to_lidar(obj.pos, (obj.h, obj.w, obj.l), obj.ry, calib)
-            for obj in read_label_file(self.root / "label_2" / f"{stem}.txt")
-            if obj.cls_type in cfg.classes
-        ]
+        objects = [o for o in read_label_file(self.root / "label_2" / f"{stem}.txt")
+                   if o.cls_type in cfg.classes]
+        boxes = [box_camera_to_lidar(o.pos, (o.h, o.w, o.l), o.ry, calib) for o in objects]
+        if self.db_sampler is not None or cfg.augment:
+            pts, boxes = self._augment(pts, np.stack(boxes) if boxes else np.zeros((0, 7)),
+                                       np.asarray([o.cls_type for o in objects]))
         gt = np.zeros((cfg.max_gt, 7), np.float32)
         gt_valid = np.zeros(cfg.max_gt, bool)
         for k, box in enumerate(boxes[: cfg.max_gt]):
@@ -131,6 +137,30 @@ class KittiPointRCNNLoader:
             "gt_valid": gt_valid,
             "stem": stem,
         }
+
+    def _augment(self, pts: np.ndarray, boxes: np.ndarray, names: np.ndarray):
+        """Training augmentation of one scene: the sampler's objects pasted
+        into random slots of the subsampled ``pts`` (a quarter of the buffer
+        at most), then flip, rotation and scaling of points and boxes.
+        Returns the points and boxes."""
+        cfg = self.cfg
+        if self.db_sampler is not None:
+            extra = self.db_sampler.sample_all(boxes, names)
+            if extra is not None:
+                boxes = np.concatenate([boxes, extra["boxes"]])
+                paste = extra["points"][:, :3].astype(np.float32)
+                n_paste = min(len(paste), pts.shape[0] // 4)
+                if n_paste:
+                    slots = self.rng.choice(pts.shape[0], n_paste, replace=False)
+                    pts[slots, :3] = paste[:n_paste]
+                    pts[slots, 3:] = 0.0
+        if cfg.augment:
+            boxes = boxes.astype(np.float32)
+            pts, boxes = random_flip(pts, boxes, self.rng)
+            pts, boxes, _ = global_rotation(pts, boxes, self.rng,
+                                            rotation=(-cfg.aug_rot_range, cfg.aug_rot_range))
+            pts, boxes, _ = global_scaling(pts, boxes, self.rng, scale=cfg.aug_scale_range)
+        return pts, boxes
 
     def batch(self, stems: Sequence[str]) -> Dict[str, np.ndarray]:
         ss = [self.sample(s) for s in stems]

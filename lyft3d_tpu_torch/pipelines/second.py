@@ -20,6 +20,7 @@ from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, VoxelNetConfig, vo
 from lyft3d_tpu_torch.ops.anchors import AnchorSpec
 from lyft3d_tpu_torch.ops.voxelize import VoxelGrid, voxelize
 from lyft3d_tpu_torch.pipelines.bev import to_host
+from lyft3d_tpu_torch.utils.profiler import SectionTimers
 
 __all__ = ["voxelnet_config_from_experiment", "make_second_infer_fn", "evaluate_second"]
 
@@ -92,29 +93,40 @@ def evaluate_second(
     loader: SecondSampleLoader,
     tokens: Sequence[str],
     class_names: Sequence[str],
+    measure_time: bool = False,
     batch_size: int = 4,
 ) -> List[dict]:
     """Predict over ``tokens`` → world-frame detection records, in
     fixed-size batches (the last one padded by repeating its final token)
-    with one device→host copy per batch."""
+    with one device→host copy per batch. With ``measure_time`` prints the
+    seconds an example and each section's average ms (``prep``, ``infer``
+    up to the card's finish, ``postprocess``), the reference's ``evaluate
+    --measure_time=True`` mode."""
     infer = make_second_infer_fn(model, vcfg)
     device = next(model.parameters()).device
+    timers = SectionTimers(enabled=measure_time)
     records: List[dict] = []
     toks = list(tokens)
     for i in range(0, len(toks), batch_size):
         chunk = toks[i : i + batch_size]
         padded = chunk + [chunk[-1]] * (batch_size - len(chunk))
-        samples = [loader.sample(t, train=False) for t in padded]
-
-        def batch(key):
-            return torch.from_numpy(np.stack([s[key] for s in samples])).to(device)
-
-        det = to_host(infer(batch("points"), batch("points_valid")))
-        for j, tok in enumerate(chunk):
-            records.extend(
-                detections_to_world_records(
-                    loader.infos[tok], det["boxes"][j], det["scores"][j],
-                    det["classes"][j], det["valid"][j], class_names,
+        with timers.section("prep"):
+            samples = [loader.sample(t, train=False) for t in padded]
+            pts, valid = (torch.from_numpy(np.stack([s[k] for s in samples])).to(device)
+                          for k in ("points", "points_valid"))
+        with timers.section("infer") as t:
+            det = infer(pts, valid)
+            t.set_sentinel(det["scores"])
+        with timers.section("postprocess"):
+            det = to_host(det)
+            for j, tok in enumerate(chunk):
+                records.extend(
+                    detections_to_world_records(
+                        loader.infos[tok], det["boxes"][j], det["scores"][j],
+                        det["classes"][j], det["valid"][j], class_names,
+                    )
                 )
-            )
+    if measure_time:
+        total = sum(timers.totals.values())
+        print(f"sec_per_example: {total / max(len(toks), 1):.4f} ({timers.report()})")
     return records

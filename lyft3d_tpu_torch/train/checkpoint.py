@@ -27,6 +27,7 @@ __all__ = [
     "latest_checkpoint",
     "restore_latest",
     "restore",
+    "load_trained_weights",
     "partial_restore",
     "list_checkpoints",
     "repeat_eval_checkpoints",
@@ -101,6 +102,26 @@ def restore_latest(model_dir, target=None, name: str = "model"):
         return target, None
     step = int(re.match(rf"{re.escape(name)}-(\d+)\.ckpt", path.name).group(1))
     return restore(path, target), step
+
+
+def load_trained_weights(module, snapshot):
+    """Load the trained weights of a train state's snapshot (what
+    ``restore_latest(model_dir)`` returns) into ``module``, built as the
+    trained one was: the float32 master of each parameter that has one, the
+    snapshot's module otherwise, each cast to ``module``'s dtype, so that a
+    module gets the trained values and not a second rounding of them.
+    Returns ``module``."""
+    weights = dict(snapshot["model"])
+    masters = list(snapshot["masters"])
+    # The masters follow the trained module's parameter order, one for each
+    # parameter it did not hold in float32 (TrainState).
+    names = [n for n, p in module.named_parameters() if p.requires_grad and weights[n].dtype != torch.float32]
+    if len(names) != len(masters):
+        raise ValueError(f"snapshot holds {len(masters)} master parameters for {len(names)} "
+                         "non-float32 parameters")
+    weights.update(zip(names, masters))
+    module.load_state_dict(weights)
+    return module
 
 
 def partial_restore(params: Dict[str, torch.Tensor], donor_params: Dict[str, torch.Tensor],

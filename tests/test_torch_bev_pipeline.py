@@ -146,9 +146,70 @@ def test_cli_infer_bev(db, tmp_path):
               "--out", str(out), "--device", "cpu"])
     lines = out.read_text().splitlines()
     assert lines[0] == "Id,PredictionString" and len(lines) == 1 + len(db.sample)
-    with pytest.raises(SystemExit, match="checkpoint"):
-        cli.main(["infer-bev", "--data-root", str(data_root), "--model",
-                  "unet_reference:some_dir", "--out", str(out), "--device", "cpu"])
+    # A model directory without a checkpoint keeps the initialisation.
+    cli.main(["infer-bev", "--data-root", str(data_root), "--model",
+              f"unet_reference:{tmp_path / 'no_run'}", "--out", str(out), "--device", "cpu"])
+    assert out.read_text().splitlines() == lines
+
+
+def _cli_models(db, tmp_path, monkeypatch, spec):
+    """The modules ``infer-bev`` computes with for ``--model spec``."""
+    seen = []
+
+    class Recording(tbev.BEVInferencePipeline):
+        def __init__(self, db_, models, *args, **kwargs):
+            seen.extend(models)
+            super().__init__(db_, models, *args, **kwargs)
+
+    monkeypatch.setattr(tbev, "BEVInferencePipeline", Recording)
+    cli.main(["infer-bev", "--data-root", str(db.data_path), "--model", spec,
+              "--out", str(tmp_path / "sub.csv"), "--device", "cpu"])
+    return seen
+
+
+def _init_model(dtype=torch.float32):
+    return build_model("unet_reference", n_classes=10, dtype=dtype,
+                       generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("trained_dtype", [torch.float32, torch.bfloat16])
+def test_cli_infer_bev_restores_the_latest_checkpoint(db, tmp_path, monkeypatch, capsys, trained_dtype):
+    """``infer-bev name:dir`` computes with the weights of the latest snapshot
+    in the layout ``Trainer`` writes: the float32 masters of a bfloat16 run,
+    not their bfloat16 rounding; an older snapshot is not taken."""
+    from lyft3d_tpu_torch.train import checkpoint as ckpt
+    from lyft3d_tpu_torch.train.trainer import TrainState
+
+    rng = np.random.RandomState(7)
+    state = TrainState(_init_model(trained_dtype), lambda ps: torch.optim.SGD(ps, lr=0.1))
+    ckpt.save(tmp_path / "run", state, global_step=3)
+    with torch.no_grad():
+        for m in state.masters:  # trained values, finer than bfloat16 resolves
+            m.add_(torch.from_numpy(0.01 * rng.randn(*m.shape).astype(np.float32)))
+    state.pull_params()
+    ckpt.save(tmp_path / "run", state, global_step=7)
+    (model,) = _cli_models(db, tmp_path, monkeypatch, f"unet_reference:{tmp_path / 'run'}")
+    assert f"unet_reference: restored step 7 from {tmp_path / 'run'}" in capsys.readouterr().out
+    # By hand: the snapshot's buffers, then every parameter from its master.
+    hand = _init_model()
+    hand.load_state_dict(state.module.state_dict())
+    with torch.no_grad():
+        for p, m in zip(hand.parameters(), state.masters):
+            p.copy_(m)
+    init = _init_model()
+    x = torch.from_numpy(rng.rand(1, 64, 64, 6).astype(np.float32))  # NHWC, as the JAX models
+    with torch.no_grad():
+        got, want, before = model.eval()(x)[0], hand.eval()(x)[0], init.eval()(x)[0]
+    assert torch.equal(got, want)
+    assert not torch.allclose(got, before, atol=1e-3)
+
+
+def test_cli_infer_bev_without_a_checkpoint_keeps_the_init(db, tmp_path, monkeypatch, capsys):
+    (tmp_path / "empty").mkdir()
+    (model,) = _cli_models(db, tmp_path, monkeypatch, f"unet_reference:{tmp_path / 'empty'}")
+    assert "restored" not in capsys.readouterr().out
+    for a, b in zip(model.state_dict().values(), _init_model().state_dict().values()):
+        assert torch.equal(a, b)
 
 
 def test_cli_default_device_needs_a_card(db, tmp_path, monkeypatch):

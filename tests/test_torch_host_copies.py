@@ -29,6 +29,7 @@ import lyft3d_tpu.eval.np_rotated_iou as jiou
 import lyft3d_tpu.eval.submission as jsub
 import lyft3d_tpu.pipelines.second_pipeline as jsec
 import lyft3d_tpu.train.logging as jlog
+import lyft3d_tpu.utils.profiler as jprof
 import lyft3d_tpu_torch.config as tconfig
 import lyft3d_tpu_torch.core as tcore
 import lyft3d_tpu_torch.core.box as tbox
@@ -47,6 +48,7 @@ import lyft3d_tpu_torch.eval.np_rotated_iou as tiou
 import lyft3d_tpu_torch.eval.submission as tsub
 import lyft3d_tpu_torch.pipelines.second_pipeline as tsec
 import lyft3d_tpu_torch.train.logging as tlog
+import lyft3d_tpu_torch.utils.profiler as tprof
 from lyft3d_tpu.data.synthetic import make_synthetic_lyft
 
 
@@ -478,3 +480,40 @@ def test_logging_copy(tmp_path):
     assert logs[0] == logs[1]
     assert logs[1][1] == [{"step": 2, "train.loss": 1.5, "train.parts.cls": 0.25, "train.note": "warm", "lr": 3.0}]
     assert json.loads((tmp_path / "t" / "log.json.lst").read_text().splitlines()[0])["step"] == 2
+
+
+@pytest.mark.parametrize("case", ["report", "disabled", "sentinel", "timer"])
+def test_profiler_copy(case, capsys):
+    """SectionTimers: the shared arithmetic (averages, report, clear) equal to
+    the original's on the same totals; sections counted alike, disabled
+    timers count nothing, and a sentinel (a JAX array there, a tensor, a
+    dict or a tuple of them here) is waited for before the clock stops."""
+    import torch
+
+    timers = [m.SectionTimers(enabled=case != "disabled") for m in (jprof, tprof)]
+    if case == "report":
+        for t in timers:
+            t.totals.update(prep=0.5, infer=1.25, postprocess=0.125)
+            t.counts.update(prep=3, infer=5, postprocess=2)
+        assert timers[1].averages_ms() == timers[0].averages_ms()
+        assert timers[1].report() == timers[0].report() == "infer=250.00ms, postprocess=62.50ms, prep=166.67ms"
+        for t in timers:
+            t.clear()
+        assert timers[1].report() == timers[0].report() == ""
+    elif case == "timer":
+        for m in (jprof, tprof):
+            with m.simple_timer("load"):
+                pass
+        out = capsys.readouterr().out.splitlines()
+        assert len(out) == 2 and all(l.startswith("load elapsed: ") for l in out)
+    else:
+        sentinels = [np.ones(3), (torch.ones(3), {"scores": torch.zeros(2)})]
+        for t, sentinel in zip(timers, sentinels):
+            for _ in range(3):
+                with t.section("infer") as sec:
+                    sec.set_sentinel(sentinel)
+                with t.section("prep"):
+                    pass
+        counts = [dict(t.counts) for t in timers]
+        assert counts[1] == counts[0] == ({} if case == "disabled" else {"infer": 3, "prep": 3})
+        assert all(v >= 0 for v in timers[1].totals.values())

@@ -9,11 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from lyft3d_tpu.data import augment as jaug
 from lyft3d_tpu.data.kitti import export_kitti
 from lyft3d_tpu.data.lyftdb import LyftDB
 from lyft3d_tpu.data.synthetic import make_synthetic_lyft
 from lyft3d_tpu.models.pointrcnn import net as jnet
 from lyft3d_tpu.pipelines import pointrcnn_train as jpipe
+from lyft3d_tpu_torch.data import augment as taug
 from lyft3d_tpu_torch.data.kitti import read_label_file
 from lyft3d_tpu_torch.models.pointrcnn import net as tnet
 from lyft3d_tpu_torch.pipelines import pointrcnn as tpipe
@@ -57,11 +59,48 @@ def test_loader_gives_the_jax_loaders_arrays(kitti_root, num_points):
     assert got["points"].shape == (2, num_points, 3)
 
 
-def test_loader_rejects_training_options(kitti_root):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.KittiPointRCNNLoader(kitti_root, tpipe.KittiLoaderConfig(augment=True))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.KittiPointRCNNLoader(kitti_root, db_sampler=object())
+@pytest.fixture(scope="module")
+def gt_db(kitti_root, tmp_path_factory):
+    """A sampler database (the JAX package's writer) of the tree's cars, crops
+    of the raw (x, y, z, intensity) clouds."""
+    jl = jpipe.KittiPointRCNNLoader(kitti_root, jpipe.KittiLoaderConfig(**LOADER))
+    samples = []
+    for stem in jl.stems:
+        s = jl.sample(stem)
+        boxes = s["gt_boxes"][s["gt_valid"]]
+        samples.append({
+            "points": np.fromfile(kitti_root / "velodyne" / f"{stem}.bin", np.float32).reshape(-1, 4),
+            "gt_boxes": boxes, "gt_names": np.array(["car"] * len(boxes)),
+        })
+    root = tmp_path_factory.mktemp("gtdb")
+    jaug.create_gt_database(root, samples, min_points=1)
+    return root
+
+
+@pytest.mark.parametrize("sampler,augment", [(False, True), (True, False), (True, True)],
+                         ids=["augment", "sampler", "sampler-and-augment"])
+def test_loader_augmenting_and_pasting_gives_the_jax_loaders_arrays(kitti_root, gt_db, sampler, augment):
+    """With the same seeds and database, the port's training loader pastes
+    the same objects into the same slots and draws the same flip, rotation
+    and scaling as the JAX loader, over two passes of the tree."""
+    kw = dict(LOADER, near_radius=15.0, augment=augment)
+    samplers = [m.DataBaseSampler(m.GTDatabase(gt_db), {"car": 8}, seed=1) if sampler else None
+                for m in (jaug, taug)]
+    jl = jpipe.KittiPointRCNNLoader(kitti_root, jpipe.KittiLoaderConfig(**kw), seed=3,
+                                    db_sampler=samplers[0])
+    tl = tpipe.KittiPointRCNNLoader(kitti_root, tpipe.KittiLoaderConfig(**kw), seed=3,
+                                    db_sampler=samplers[1])
+    plain = tpipe.KittiPointRCNNLoader(kitti_root, tpipe.KittiLoaderConfig(**dict(kw, augment=False)), seed=3)
+    changed = pasted = 0
+    for _ in range(2):
+        for stem in tl.stems:
+            want, got, base = jl.sample(stem), tl.sample(stem), plain.sample(stem)
+            for k in ("points", "points_valid", "gt_boxes", "gt_valid"):
+                assert got[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(got[k], want[k])
+            changed += not np.array_equal(got["points"], base["points"])
+            pasted += int(got["gt_valid"].sum()) - int(base["gt_valid"].sum())
+    assert changed > 0 and (pasted > 0) == sampler
 
 
 @pytest.fixture(scope="module")

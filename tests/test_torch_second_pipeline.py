@@ -153,6 +153,21 @@ def test_batch_size_does_not_change_records(dataset, both_runs):
     assert one == two and len(one) > 0
 
 
+def test_measure_time_prints_sections_and_keeps_records(dataset, both_runs, capsys):
+    """``measure_time=True`` gives the same records and prints the JAX
+    package's ``sec_per_example`` line with its three sections."""
+    tokens, _, got = both_runs
+    port = VoxelNet(CFG, in_features=4, generator=torch.Generator().manual_seed(0))
+    plain = tsecond.evaluate_second(port, CFG, loader(dataset), tokens, CLASSES, batch_size=BATCH)
+    assert "sec_per_example" not in capsys.readouterr().out
+    timed = tsecond.evaluate_second(port, CFG, loader(dataset), tokens, CLASSES, measure_time=True,
+                                    batch_size=BATCH)
+    assert timed == plain and len(timed) > 0
+    (line,) = [l for l in capsys.readouterr().out.splitlines() if l.startswith("sec_per_example: ")]
+    assert [part.split("=")[0] for part in line.split("(")[1].rstrip(")").split(", ")] == [
+        "infer", "postprocess", "prep"]
+
+
 def test_lyft9_config_matches_yaml():
     """chip_smoke.py's spelled-out 9-class config == the port's config of
     the shipped yaml, field by field; and the JAX config agrees on every
