@@ -36,8 +36,10 @@ Phases, one line of numbers each:
    its plain PyTorch version on the card at the pillars shape, batch 8 x
    25,000 rows of 64 channels → 496x496 rows, ascending unique ids with 10%
    invalid at the tail, in bfloat16 and float32: ``torch.equal`` must hold;
-   duplicate ids (float32) must sum within 1e-6 of the summed magnitudes;
-   both timed with CUDA events;
+   duplicate ids (float32, 64 and 5 channels) must sum within 1e-6 of the
+   summed magnitudes;
+   both timed with CUDA events, and the kernel's launch queued
+   (:func:`queued_ms`) beside ``index_add_`` into zeros;
 7. pillars: the SECOND ``VoxelNet`` of ``configs/second_lyft_9class.yaml``
    (spelled out in :func:`lyft9_config`; no yaml on the card's machine),
    weights from a seeded ``torch.Generator``. A float32 check at batch 1
@@ -131,22 +133,28 @@ Phases, one line of numbers each:
     stencil and fill call of one forward pass is recorded and replayed:
     the stencil kernel against its plain version at the nine shapes (bfloat16
     and float32, 1e-5 of the output scale, the strided layers' mask channel
-    equal), the fill kernel at its two new shapes (``torch.equal``);
+    equal), the fill kernel at its two new shapes (``torch.equal``; the
+    launch queued beside ``index_add_``);
 13. per-voxel e2e: the second sparse path, ``middle="sparse"``, same geometry
     and caps, bfloat16: the rank gather kernel's count must be 6 a call and
     the fill kernel's 1; samples/s and a stage split; the six recorded calls
     replayed against the plain version (1e-5 of scale in float32 and for the
     bfloat16 route's float32 sums, 2^-7 for its rounded output) and timed
-    beside ``index_select`` + ``einsum``;
+    beside ``index_select`` + ``einsum``; the fill call replayed as in 12;
 14. cross-check: with the same float32 weights, and a cloud and caps under
     which no stage truncates (asserted), both middles give the same dense BEV
     map within 1e-3 of its scale.
 
-15. fill backward: the row-gather kernel behind ``fill_rows_by_id``'s gradient
-    against its plain version, ``torch.equal``: the pillars shape in bfloat16
-    and float32, the narrow unit shapes (4 and 5 columns, scalar accesses),
-    unsorted ids through the public function, duplicate ids; timed beside
-    ``torch.index_select``;
+15. fill backward: the row-gather kernels behind ``fill_rows_by_id``'s
+    gradient against their plain version, ``torch.equal``: the warp kernel
+    (rows of a multiple of 16 bytes) and the lane kernel at every shape the
+    rule gives the warp kernel, the lane kernel alone at the others: the
+    pillars shape in bfloat16 and float32, the narrow unit shapes (4 and 5
+    columns), :data:`FILL_BWD_EDGES` (V no multiple of a warp, V under a
+    warp, an all-sentinel sample, duplicate ids, rows of 16, 48 and 256
+    bytes, one row), unsorted ids through the public function; each kernel
+    queued (:func:`queued_ms`) beside ``torch.index_select``, the rule's also
+    on the host's clock and in host µs a call;
 16. gradient check: one ``loss.backward()`` of ``make_second_loss_fn`` in
     float32 with TF32 off, card against CPU with the same seeded weights, for
     the 9-class pillars ``VoxelNet`` at batch 1 x 262,144 points and the FHD
@@ -175,7 +183,8 @@ Phases, one line of numbers each:
     queries) and ``d_wc`` at the nine launches, the rank gather's ``df``
     (the forward kernel on the reverse ranks; the step's five launches also
     as a total) and ``dW`` at the six, the fill's gather at its recorded
-    shapes; 1e-5 of scale in float32 (5e-5 for the weight gradients, sums of
+    shapes (the pillars step's launch too, every kernel that takes the rows,
+    timed as in 15); 1e-5 of scale in float32 (5e-5 for the weight gradients, sums of
     up to 300,000 outer products whose atomics vary in order), 2^-7 where the
     result is rounded to bfloat16. The weight gradient of the stencil is
     timed beside cuBLAS (``torch.einsum``) on rows gathered beforehand, with
@@ -584,6 +593,26 @@ def bound(n_bytes, n_ops, peak=F32_PEAK):
     rate against operations over the peak rate; returns (ms, which)."""
     by_bytes, by_ops = n_bytes / HBM_RATE * 1e3, n_ops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def fill_bound(ids, num_rows, c, size, backward):
+    """The bound (:func:`bound`) of the fill's kernel or, with ``backward``,
+    of its backward's, from this run's masked (b, v) ids: the ids read once,
+    the canvas (forward) or the rows (backward) written once, and a feature
+    row (forward) or a distinct cotangent row (backward) read only for an id
+    below ``num_rows``, since no kernel reads a masked row. Returns (ms,
+    which, the share of ids below ``num_rows``)."""
+    import torch
+
+    b, v = ids.shape
+    hit = (ids >= 0) & (ids < num_rows)
+    n_hit = int(hit.sum())
+    if backward:
+        keys = (ids.long() + torch.arange(b, device=ids.device)[:, None] * num_rows)[hit]
+        read, written = int(torch.unique(keys).numel()), b * v
+    else:
+        read, written = n_hit, b * num_rows
+    return (*bound((read + written) * c * size + 4 * b * v, 0), n_hit / max(1, b * v))
 
 
 def fhd_points(batch, n, seed):
@@ -1169,6 +1198,31 @@ def fill_queued(feats, ids, valid, num_rows, assume_sorted):
     return k_ms, l_ms
 
 
+def fill_duplicates_check(dev):
+    """Phase 6's duplicate ids: float32 sums of repeated ids on the card
+    within :data:`FILL_DUP_REL` of their magnitudes against a float64 sum, at
+    the pillars width (16-byte accesses) and at 5 channels (4-byte accesses,
+    four run heads a thread loaded before its stores)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    g = torch.Generator().manual_seed(4)
+    for c in (FILL_C, 5):
+        dup = torch.sort(torch.randint(0, 50000, (SEC_BATCH, FILL_V), generator=g), dim=-1).values
+        feats = torch.randn(SEC_BATCH, FILL_V, c, generator=g)
+        ones = torch.ones(SEC_BATCH, FILL_V, dtype=torch.bool)
+        got = dense_fill.fill_rows_by_id(feats.to(dev), dup.int().to(dev), ones.to(dev), 50000,
+                                         assume_sorted=True).cpu().double()
+        ref = dense_fill.fill_rows_by_id_scatter(feats.double(), dup, ones, 50000)
+        mag = dense_fill.fill_rows_by_id_scatter(feats.double().abs(), dup, ones, 50000)
+        rel = float(((got - ref).abs() / mag.clamp_min(1e-30)).max())
+        if not rel <= FILL_DUP_REL:
+            raise AssertionError(f"fill kernel duplicate sums off by {rel} of their magnitudes (C={c})")
+        log(f"fill: duplicates ({int((dup[:, 1:] == dup[:, :-1]).sum())} repeats) float32 C={c} "
+            f"max_err/magnitude={rel:.3g} (tol {FILL_DUP_REL})")
+
+
 def fill_replay(calls, card, what):
     """The recorded fill calls of one forward pass: kernel ``torch.equal`` to
     the plain version, both timed; the kernel launch queued beside
@@ -1191,12 +1245,12 @@ def fill_replay(calls, card, what):
                        warmup=2, iters=10)
         q_ms, l_ms = fill_queued(feats, ids, valid, num_rows, bool(kwargs.get("assume_sorted")))
         b, v, c = feats.shape
-        size = feats.element_size()
-        b_ms, b_by = bound(b * (v * (c * size + 5) + num_rows * c * size), 0)
+        b_ms, b_by, share = fill_bound(dense_fill._masked_ids(ids, valid, num_rows), num_rows, c,
+                                       feats.element_size(), backward=False)
         log(f"fill ({what}): B={b} V={v} C={c} rows={num_rows} {str(feats.dtype)[6:]} "
-            f"sorted_by_caller={bool(kwargs.get('assume_sorted'))} torch.equal=True "
-            f"wrapper_ms={k_ms:.4f} queued_ms kernel={q_ms:.4f} index_add_={l_ms:.4f} "
-            f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+            f"ids_below_rows={share:.4f} sorted_by_caller={bool(kwargs.get('assume_sorted'))} "
+            f"torch.equal=True wrapper_ms={k_ms:.4f} queued_ms kernel={q_ms:.4f} index_add_={l_ms:.4f} "
+            f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) [{card}]")
 
 
 def sparse_phases(dev, card):
@@ -2092,7 +2146,7 @@ def fill_bwd_shape(grad, ids, rows, card, what):
     b, v = ids.shape
     c = grad.shape[-1]
     want = dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows)
-    rule = dense_fill._fill_bwd_kernel(b, v, c, grad.dtype)
+    rule = dense_fill._fill_bwd_kernel(c, grad.dtype)
     kernels = dense_fill.FILL_BWD_KERNELS if rule != "lanes" else ("lanes",)
     queued = {}
     for kernel in kernels:
@@ -2113,32 +2167,31 @@ def fill_bwd_shape(grad, ids, rows, card, what):
         raise AssertionError("index_select differs from the plain fill backward")
     l_ms = queued_ms(lambda: torch.index_select(padded, 0, flat))
     del padded, flat
-    # The cotangent's hit rows read once, the ids read once, the rows written once.
-    b_ms, b_by = bound(b * (2 * v * c * grad.element_size() + 4 * v), 0)
-    log(f"fill backward ({what}): B={b} V={v} C={c} rows={rows} {str(grad.dtype)[6:]} rule={rule} "
+    b_ms, b_by, share = fill_bound(ids, rows, c, grad.element_size(), backward=True)
+    log(f"fill backward ({what}): B={b} V={v} C={c} rows={rows} {str(grad.dtype)[6:]} "
+        f"ids_below_rows={share:.4f} rule={rule} "
         f"torch.equal=True queued_ms " + " ".join(f"{k}={t:.4f}" for k, t in queued.items())
         + f" index_select={l_ms:.4f} | {rule}: host_clock_ms={host_ms:.4f} host_us={call_us:.1f} | "
-        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
+        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) [{card}]")
     return dict(max_abs_err=0.0, ms=queued[rule], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=l_ms)
 
 
-def fill_bwd_ids(b, v, rows, g, sentinel_tail=True):
+def fill_bwd_ids(b, v, rows, g):
     """(b, v) int32 row ids: ascending unique canvas rows, the last 10% the
     sentinel ``rows`` (a masked tail)."""
     import torch
 
     ids = torch.stack([torch.sort(torch.randperm(rows, generator=g)[:v]).values for _ in range(b)])
-    if sentinel_tail:
-        ids[:, v - v // 10:] = rows
+    ids[:, v - v // 10:] = rows
     return ids.int()
 
 
-# (what, B, V, C, rows, dtype) of the fill backward's edge checks: what a tiled
-# gather gets wrong first. Row ids are drawn in ``fill_backward_phase``.
+# (what, B, V, C, rows, dtype) of the fill backward's edge checks: what a gather
+# in tiles of 32 rows gets wrong first. Row ids are drawn in ``fill_backward_phase``.
 FILL_BWD_EDGES = (
-    ("V no multiple of a tile", 3, 1001, 64, 20000, "bfloat16"),
-    ("V under a tile", 2, 50, 64, 1000, "bfloat16"),
+    ("V no multiple of a warp", 3, 1001, 64, 20000, "bfloat16"),
+    ("V under a warp", 2, 20, 64, 1000, "bfloat16"),
     ("an all-sentinel sample", 3, 700, 64, 5000, "bfloat16"),
     ("duplicate ids", 2, 4000, 64, 300, "bfloat16"),
     ("float32 rows of 256 B", 2, 3000, 64, 20000, "float32"),
@@ -2174,13 +2227,13 @@ def fill_backward_phase(dev, card):
         if what == "duplicate ids":
             ids = torch.randint(0, rows + 1, (b, v), generator=g).int()
         else:
-            ids = fill_bwd_ids(b, v, rows, g, sentinel_tail=what != "one row")
+            ids = fill_bwd_ids(b, v, rows, g)
         if what == "an all-sentinel sample":
             ids[1] = rows
         ids = ids.to(dev)
         grad = torch.randn(b, rows, c, generator=g).to(dtype).to(dev)
         want = dense_fill.fill_rows_by_id_bwd_ref(grad, ids, rows)
-        rule = dense_fill._fill_bwd_kernel(b, v, c, dtype)
+        rule = dense_fill._fill_bwd_kernel(c, dtype)
         kernels = dense_fill.FILL_BWD_KERNELS if rule != "lanes" else ("lanes",)
         for kernel in kernels:
             got = dense_fill._fill_bwd_cuda(grad, ids, rows, kernel=kernel)
@@ -2958,27 +3011,16 @@ def main():
                                            device=dev).index_add_(0, flat_ids, rows2d),
                        warmup=3, iters=20)
         q_ms, ql_ms = fill_queued(feats, ids, fvalid, FILL_ROWS, True)
-        # Rows, ids and mask read once, the canvas written once; no arithmetic.
-        size = feats.element_size()
-        b_ms, b_by = bound(SEC_BATCH * (FILL_V * (FILL_C * size + 5) + FILL_ROWS * FILL_C * size), 0)
-        fill[dtype] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=l_ms)
+        b_ms, b_by, share = fill_bound(dense_fill._masked_ids(ids, fvalid, FILL_ROWS), FILL_ROWS, FILL_C,
+                                       feats.element_size(), backward=False)
+        # The kernels line: the launch and index_add_ on the card's time (queued).
+        fill[dtype] = dict(max_abs_err=err, ms=q_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=ql_ms)
         log(f"fill: B={SEC_BATCH} V={FILL_V} C={FILL_C} rows={FILL_ROWS} {str(dtype)[6:]} "
-            f"torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} index_add_ms={l_ms:.4f} "
-            f"queued_ms kernel={q_ms:.4f} index_add_={ql_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) [{card}]")
-    g = torch.Generator().manual_seed(4)
-    dup = torch.sort(torch.randint(0, 50000, (SEC_BATCH, FILL_V), generator=g), dim=-1).values
-    feats = torch.randn(SEC_BATCH, FILL_V, FILL_C, generator=g)
-    ones = torch.ones(SEC_BATCH, FILL_V, dtype=torch.bool)
-    got = dense_fill.fill_rows_by_id(feats.to(dev), dup.int().to(dev), ones.to(dev), 50000,
-                                     assume_sorted=True).cpu().double()
-    ref = dense_fill.fill_rows_by_id_scatter(feats.double(), dup, ones, 50000)
-    mag = dense_fill.fill_rows_by_id_scatter(feats.double().abs(), dup, ones, 50000)
-    rel = float(((got - ref).abs() / mag.clamp_min(1e-30)).max())
-    if not rel <= FILL_DUP_REL:
-        raise AssertionError(f"fill kernel duplicate sums off by {rel} of their magnitudes")
-    log(f"fill: duplicates ({int((dup[:, 1:] == dup[:, :-1]).sum())} repeats) float32 "
-        f"max_err/magnitude={rel:.3g} (tol {FILL_DUP_REL})")
+            f"ids_below_rows={share:.4f} torch.equal=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"index_add_ms={l_ms:.4f} queued_ms kernel={q_ms:.4f} index_add_={ql_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) [{card}]")
+    fill_duplicates_check(dev)
 
     # 7a. pillars float32 check: card against CPU, TF32 off
     torch.backends.cudnn.allow_tf32 = False

@@ -18,9 +18,11 @@ its ``method`` switch exist for the TPU and are not ported.
 
 The gradient with respect to the features is a row gather of the canvas
 cotangent, ``gf[i] = g[ids[i]]`` (zero for a dropped row; duplicate ids each
-receive the row): :class:`FillRowsById` computes it with the kernel
-``dense_fill_bwd_kernel`` of the same source file on a CUDA tensor and with
-the plain :func:`fill_rows_by_id_bwd_ref` on a CPU tensor. The sort that
+receive the row): :class:`FillRowsById` computes it with a kernel of the same
+source file on a CUDA tensor, chosen by :func:`_fill_bwd_kernel` (rows of a
+multiple of 16 bytes: ``fill_bwd_warp_kernel``; others:
+``dense_fill_bwd_kernel``), and with the plain
+:func:`fill_rows_by_id_bwd_ref` on a CPU tensor. The sort that
 ``fill_rows_by_id`` puts in front of the kernel is plain autograd.
 
 Layout: ``(V, C)`` rows with ``(V,)`` ids and valid mask for one sample, or
@@ -105,19 +107,8 @@ def _check_args(features, row_ids, valid):
 
 
 # Canvas bytes a forward tile owns: enough stores a block to hide its window
-# search. Rows a tile: the power of two nearest below, in [128, 8192].
+# search. Rows a tile: the power of two nearest below, in [128, 4096].
 FILL_TILE_BYTES = 32 * 1024
-
-# The backward's kernels, by the name ``_fill_bwd_cuda(..., kernel=)`` takes:
-# "bulk" copies rows through shared memory with the copy engine, "regs" is
-# the register probe, "lanes" copies rows with threads.
-FILL_BWD_KERNELS = ("bulk", "regs", "lanes")
-# Widest row the bulk kernel takes: 32 rows of it fill a block's budget.
-BULK_MAX_ROW_BYTES = 2048
-# Shared memory a bulk block gives its stages of rows.
-BULK_BLOCK_BYTES = 64 * 1024
-# The card's SMs (H100 SXM): a bulk launch keeps at least two blocks on each.
-CARD_SMS = 132
 
 _ARGTYPES = {
     "dense_fill_launch": [
@@ -130,12 +121,15 @@ _ARGTYPES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, ids, gf
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, v, num_rows
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # c, dtype, route
-        ctypes.c_int, ctypes.c_int,  # tile_rows, stages
         ctypes.c_int, ctypes.c_void_p,  # device, stream
     ],
 }
-# Routes of dense_fill_bwd_launch.
-_BWD_ROUTES = {"lanes": 0, "bulk": 2, "regs": 3}
+# The backward's kernels, by the name ``_fill_bwd_cuda(..., kernel=)`` takes,
+# and their routes in dense_fill_bwd_launch: "warp" (32 rows a warp, every
+# load issued before a store) for rows of a multiple of 16 bytes, "lanes" (a
+# row by a group of lanes, element by element) for the others.
+_BWD_ROUTES = {"warp": 1, "lanes": 0}
+FILL_BWD_KERNELS = tuple(_BWD_ROUTES)
 
 
 def _kernel_library(entry: str = "dense_fill_launch"):
@@ -150,7 +144,7 @@ def _kernel_library(entry: str = "dense_fill_launch"):
 def _fill_tile_rows(row_bytes: int) -> int:
     """Canvas rows of a forward tile for rows of ``row_bytes``."""
     rows = 1 << max(0, (FILL_TILE_BYTES // row_bytes).bit_length() - 1)
-    return min(8192, max(128, rows))
+    return min(4096, max(128, rows))
 
 
 def _access_elems(c: int, size: int, *ptrs: int) -> int:
@@ -162,26 +156,12 @@ def _access_elems(c: int, size: int, *ptrs: int) -> int:
     return elems
 
 
-def _fill_bwd_kernel(b: int, v: int, c: int, dtype, aligned: bool = True) -> str:
-    """The rule: bulk copies for rows of a multiple of 16 bytes, at most
-    :data:`BULK_MAX_ROW_BYTES`, on 16-byte aligned tensors; the lane kernel
-    for every other row."""
-    row_bytes = c * _ITEM_BYTES[dtype]
-    if aligned and row_bytes % 16 == 0 and row_bytes <= BULK_MAX_ROW_BYTES:
-        return "bulk"
+def _fill_bwd_kernel(c: int, dtype, aligned: bool = True) -> str:
+    """The rule: the warp kernel for rows of a multiple of 16 bytes on 16-byte
+    aligned tensors, the lane kernel for every other row."""
+    if aligned and (c * _ITEM_BYTES[dtype]) % 16 == 0:
+        return "warp"
     return "lanes"
-
-
-def _fill_bwd_tiles(b: int, v: int, row_bytes: int):
-    """(rows a tile, tiles a block) of the bulk kernel: 128-row tiles up to
-    256-byte rows, 32 KB tiles above; as many stages (4, 2, 1) as the block's
-    shared memory takes while the launch keeps two blocks an SM."""
-    tile = 128 if row_bytes <= 256 else max(32, BULK_BLOCK_BYTES // 2 // row_bytes // 32 * 32)
-    for stages in (4, 2):
-        blocks = b * -(-v // (stages * tile))
-        if stages * tile * row_bytes <= BULK_BLOCK_BYTES and blocks >= 2 * CARD_SMS:
-            return tile, stages
-    return tile, 1
 
 
 def _fill_cuda(features, ids, num_rows: int):
@@ -226,21 +206,15 @@ def _fill_bwd_cuda(grad_canvas, ids, num_rows: int, kernel=None):
         return out if batched else out[0]
     row_bytes = c * g.element_size()
     aligned = g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    kernel = kernel or _fill_bwd_kernel(b, v, c, g.dtype, aligned)
+    kernel = kernel or _fill_bwd_kernel(c, g.dtype, aligned)
     if kernel not in _BWD_ROUTES:
         raise ValueError(f"unknown fill backward kernel {kernel!r}; one of {FILL_BWD_KERNELS}")
-    tile, stages = 0, 0
-    route = _BWD_ROUTES[kernel]
-    if kernel == "lanes":
-        route += int(row_bytes % 16 == 0 and aligned)  # 16-byte accesses
-    elif row_bytes % 16 or not aligned or row_bytes > BULK_MAX_ROW_BYTES:
-        raise ValueError(f"the {kernel} kernel takes 16-byte aligned rows of a multiple of 16 "
-                         f"bytes up to {BULK_MAX_ROW_BYTES}, not {row_bytes}")
-    elif kernel == "bulk":
-        tile, stages = _fill_bwd_tiles(b, v, row_bytes)
+    if kernel == "warp" and (row_bytes % 16 or not aligned):
+        raise ValueError(f"the warp kernel takes 16-byte aligned rows of a multiple of 16 "
+                         f"bytes, not {row_bytes}")
     err = launch(
         g.data_ptr(), ids.data_ptr(), out.data_ptr(), b, v, num_rows, c,
-        _DTYPE_CODES[g.dtype], route, tile, stages, g.device.index,
+        _DTYPE_CODES[g.dtype], _BWD_ROUTES[kernel], g.device.index,
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:

@@ -111,15 +111,10 @@ def load_trained_weights(module, snapshot):
     snapshot's module otherwise, each cast to ``module``'s dtype, so that a
     module gets the trained values and not a second rounding of them.
     Returns ``module``."""
+    from lyft3d_tpu_torch.train.trainer import TrainState  # trainer imports this module
+
     weights = dict(snapshot["model"])
-    masters = list(snapshot["masters"])
-    # The masters follow the trained module's parameter order, one for each
-    # parameter it did not hold in float32 (TrainState).
-    names = [n for n, p in module.named_parameters() if p.requires_grad and weights[n].dtype != torch.float32]
-    if len(names) != len(masters):
-        raise ValueError(f"snapshot holds {len(masters)} master parameters for {len(names)} "
-                         "non-float32 parameters")
-    weights.update(zip(names, masters))
+    weights.update(TrainState.masters_by_name(module, snapshot))
     module.load_state_dict(weights)
     return module
 

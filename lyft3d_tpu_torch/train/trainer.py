@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -39,12 +39,35 @@ class TrainState:
 
     def __init__(self, module: nn.Module, optimizer_fn: Callable):
         self.module = module
-        self.params: List[nn.Parameter] = [p for p in module.parameters() if p.requires_grad]
+        own = set(self.master_names(module))
+        named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+        self.params: List[nn.Parameter] = [p for _, p in named]
         self.masters: List[nn.Parameter] = [
-            p if p.dtype == torch.float32 else nn.Parameter(p.detach().float()) for p in self.params
+            nn.Parameter(p.detach().float()) if n in own else p for n, p in named
         ]
         self.optimizer = optimizer_fn(self.masters)
         self.step = 0
+
+    @staticmethod
+    def master_names(module: nn.Module, dtypes: Optional[Dict[str, torch.dtype]] = None) -> List[str]:
+        """Names of the parameters of ``module`` that have a float32 master of
+        their own, in the order in which the masters are kept and saved: the
+        trainable ones not held in float32 (by their dtype in ``dtypes``, a
+        name → dtype map of the module as it was trained, where given)."""
+        dtypes = dtypes or {}
+        return [n for n, p in module.named_parameters()
+                if p.requires_grad and dtypes.get(n, p.dtype) != torch.float32]
+
+    @staticmethod
+    def masters_by_name(module: nn.Module, sd) -> Dict[str, torch.Tensor]:
+        """The float32 masters of a snapshot (:meth:`state_dict`) by the name
+        of their parameter in ``module``, a module built as the trained one
+        was, in any dtype."""
+        names = TrainState.master_names(module, {n: t.dtype for n, t in sd["model"].items()})
+        if len(names) != len(sd["masters"]):
+            raise ValueError(f"snapshot holds {len(sd['masters'])} master parameters for {len(names)} "
+                             "non-float32 parameters")
+        return dict(zip(names, sd["masters"]))
 
     def push_grads(self):
         """The module's gradients, cast up, onto the masters."""

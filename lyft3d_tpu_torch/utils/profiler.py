@@ -1,12 +1,11 @@
-"""Section timers (port of ``lyft3d_tpu/utils/profiler.py``).
+"""Section timers (port of ``SectionTimers`` of ``lyft3d_tpu/utils/profiler.py``).
 
 Capability of the reference's built-in profiler (``voxelnet.py:191-228``:
-start_timer/end_timer pairs with a CUDA sync around the stages, averaged ms;
-``second/utils/timer.py`` ``simple_timer``). A section's time is the host's
-clock around its block; where the block hands its output to
-``set_sentinel``, the clock stops only after the card has finished the work
-queued for it (PyTorch returns before the card does). For a card's own
-traces, ``torch.profiler`` is the tool.
+start_timer/end_timer pairs with a CUDA sync around the stages, averaged ms).
+A section's time is the host's clock around its block; where the block hands
+a CUDA tensor it computed to ``set_sentinel``, the clock stops only after the
+card has finished the work queued before it (PyTorch returns before the card
+does). For a card's own traces, ``torch.profiler`` is the tool.
 """
 
 from __future__ import annotations
@@ -18,19 +17,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SectionTimers", "simple_timer"]
-
-
-def _wait_for(value) -> None:
-    """Block the host until the card has computed ``value`` (a tensor, or a
-    dict, list or tuple of them); a CPU tensor is ready already."""
-    if isinstance(value, dict):
-        value = list(value.values())
-    if isinstance(value, (list, tuple)):
-        for v in value:
-            _wait_for(v)
-    elif torch.is_tensor(value) and value.device.type == "cuda":
-        torch.cuda.current_stream(value.device).synchronize()
+__all__ = ["SectionTimers"]
 
 
 class SectionTimers:
@@ -44,8 +31,8 @@ class SectionTimers:
 
     @contextlib.contextmanager
     def section(self, name: str, sentinel=None):
-        """Time a block; pass the block's output as ``sentinel`` via
-        ``set_sentinel`` so that the time covers the card's work on it."""
+        """Time a block; pass the block's output tensor via ``set_sentinel``
+        so that the time covers the card's work on it."""
         if not self.enabled:
             self._box = {}
             yield self
@@ -54,8 +41,9 @@ class SectionTimers:
         self._box = box
         t0 = time.perf_counter()
         yield self
-        if self.sync and box.get("sentinel") is not None:
-            _wait_for(box["sentinel"])
+        sentinel = box.get("sentinel")
+        if self.sync and torch.is_tensor(sentinel) and sentinel.device.type == "cuda":
+            torch.cuda.current_stream(sentinel.device).synchronize()
         self.totals[name] += time.perf_counter() - t0
         self.counts[name] += 1
 
@@ -74,11 +62,3 @@ class SectionTimers:
 
     def report(self) -> str:
         return ", ".join(f"{k}={v:.2f}ms" for k, v in sorted(self.averages_ms().items()))
-
-
-@contextlib.contextmanager
-def simple_timer(name: str = ""):
-    """Print-elapsed context manager (second/utils/timer.py)."""
-    t0 = time.perf_counter()
-    yield
-    print(f"{name} elapsed: {time.perf_counter() - t0:.4f}s")

@@ -482,12 +482,12 @@ def test_logging_copy(tmp_path):
     assert json.loads((tmp_path / "t" / "log.json.lst").read_text().splitlines()[0])["step"] == 2
 
 
-@pytest.mark.parametrize("case", ["report", "disabled", "sentinel", "timer"])
-def test_profiler_copy(case, capsys):
+@pytest.mark.parametrize("case", ["report", "disabled", "sentinel"])
+def test_profiler_copy(case):
     """SectionTimers: the shared arithmetic (averages, report, clear) equal to
-    the original's on the same totals; sections counted alike, disabled
-    timers count nothing, and a sentinel (a JAX array there, a tensor, a
-    dict or a tuple of them here) is waited for before the clock stops."""
+    the original's on the same totals; sections counted alike with a
+    sentinel (a JAX array there, a tensor here) and without; disabled timers
+    count nothing."""
     import torch
 
     timers = [m.SectionTimers(enabled=case != "disabled") for m in (jprof, tprof)]
@@ -500,15 +500,8 @@ def test_profiler_copy(case, capsys):
         for t in timers:
             t.clear()
         assert timers[1].report() == timers[0].report() == ""
-    elif case == "timer":
-        for m in (jprof, tprof):
-            with m.simple_timer("load"):
-                pass
-        out = capsys.readouterr().out.splitlines()
-        assert len(out) == 2 and all(l.startswith("load elapsed: ") for l in out)
     else:
-        sentinels = [np.ones(3), (torch.ones(3), {"scores": torch.zeros(2)})]
-        for t, sentinel in zip(timers, sentinels):
+        for t, sentinel in zip(timers, (np.ones(3), torch.ones(3))):
             for _ in range(3):
                 with t.section("infer") as sec:
                     sec.set_sentinel(sentinel)
