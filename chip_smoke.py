@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the inference paths (BEV
-segmentation, SECOND pillars, PointRCNN, sparse SECOND at the FHD geometry)
-and SECOND training (pillars and both sparse middles).
+segmentation with ``unet_resnet50`` and ``unet_seresnext101``, SECOND
+pillars, PointRCNN, sparse SECOND at the FHD geometry), SECOND training
+(pillars and both sparse middles) and BEV training.
 
     python3 chip_smoke.py
 
@@ -193,6 +194,38 @@ Phases, one line of numbers each:
 19. fit: a short ``Trainer.fit`` on the bench-shaped tensors that writes
     checkpoints into a temporary directory, resumes from them in a fresh
     trainer at the right step with equal parameters, and trains on.
+
+20. seresnext101: ``unet_seresnext101`` (10 classes, folded norms, full
+    width, seeded weights) in float32 with TF32 off at batch 1, card against
+    CPU (logits within 1e-3 of their scale); then the BEV main path,
+    ``make_infer_fn``, at batch 32 x 65,536 points in bfloat16 with the raster
+    kernel's count reset before it (> 0 after it; these launches join the
+    flagship's in the ``kernels`` line): e2e ms, sweeps/s, a stage split,
+    peak memory; and the 32-group 3x3 convolutions of its four stages alone
+    at batch 32, ``channels_last`` beside NCHW and beside the dense
+    convolution of the same widths, with their bound;
+21. BEV train steps: the functions ``train_bev`` runs (``build_bev_model``,
+    ``make_bev_loss_fn``, ``make_bev_optimizer_fn``; the yaml's ``ranger``,
+    lr 1e-3, clip 5, ``grad_accum`` 4, spelled out in
+    :func:`bev_train_config`) on the ``Trainer``'s step function, for
+    ``unet_resnet50`` and ``unet_seresnext101`` at microbatch 8 x 336 x 336 x
+    6 and ``unet_seresnext101`` at the yaml's microbatch, 32, in bfloat16
+    (float32 heads and masters), inputs from the raster kernel and targets
+    from ``rasterize_boxes_bev`` on the card: 2 warm-up + 8 timed microsteps
+    (two optimizer updates inside), microstep ms, samples/s, the forward+loss
+    / backward / optimizer split, peak memory above what earlier phases hold,
+    finite losses;
+    then one update's microsteps under ``torch.profiler``: device ms a
+    microstep, the busy share, and the ten aten ops with the most kernel
+    time; and forward+loss+backward beside the same trunk without norm ops
+    (``norm_type="folded"``), the norms' share of the step;
+22. BEV train check: one train-mode step of ``unet_seresnext101`` with
+    ``norm_type="batch"`` in float32, TF32 off, at 2 x 128 x 128 x 6, card
+    against CPU: loss within 1e-4 relative, every parameter gradient finite,
+    not all zero and within 0.15 in the 2-norm, running statistics within
+    1e-3 of their scale; the same model in bfloat16 keeps float32 running
+    statistics that move in a train-mode forward. Phases 20-22 print one
+    JSON line each (a line per case), with the card's name and power limit.
 
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
@@ -2839,6 +2872,322 @@ def training_phases(dev, card):
     return fill_bwd_record, stencil_records, subm_records, counts
 
 
+# BEV training (configs/bev_seresnext101_map.yaml, whose batch_size is the
+# microbatch, 32; also cut to 8): 2 warm-up + 8 timed microsteps, so that two
+# of the yaml's grad_accum-4 optimizer updates fall inside the timed ones; the
+# card-vs-CPU step at a size the CPU runs in seconds.
+BEV_TRAIN_BATCH, BEV_YAML_BATCH, BEV_WARMUP, BEV_STEPS = 8, 32, 2, 8
+BEV_CHECK_BATCH, BEV_CHECK_HW = 2, 128
+BEV_GT_BOXES = 40
+
+
+def bev_train_config(model, **changes):
+    """The ``BEVExperiment`` of ``configs/bev_seresnext101_map.yaml`` (no yaml
+    on the card's machine; a CPU test holds this to the file) with ``model``,
+    at microbatch :data:`BEV_TRAIN_BATCH`."""
+    from lyft3d_tpu_torch.config import BEVExperiment, DataConfig, OptimizerConfig
+
+    opt = OptimizerConfig(name="ranger", lr=0.001, weight_decay=0.0, clip_norm=5.0, grad_accum=4,
+                          schedule="one_cycle", total_steps=20000)
+    kw = dict(model=model, n_classes=10, bev_shape=(336, 336, 3), voxel_size=(0.4, 0.4, 1.5),
+              z_offset=-2.0, box_scale=0.8, with_map=True, batch_size=BEV_TRAIN_BATCH,
+              class_weights=(0.2,) + (1.0,) * 9, size_weight=336.0, optimizer=opt,
+              data=DataConfig(num_sweeps=1, seed=42), model_dir="runs/bev_seresnext101_map")
+    kw.update(changes)
+    return BEVExperiment(**kw)
+
+
+def bev_train_batch(batch, hw, seed, dev):
+    """A BEV training batch on the card: the model input of uniform sweeps
+    (raster kernel → normalize → map concat) at ``hw`` × ``hw``, and targets
+    filled from :data:`BEV_GT_BOXES` rotated boxes a sample of classes 1-9 by
+    ``rasterize_boxes_bev``."""
+    import torch
+
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.ops.bev_raster import rasterize_boxes_bev
+    from lyft3d_tpu_torch.pipelines.bev import make_bev_input
+
+    cfg = BEVConfig(shape=(hw, hw, 3))
+    pts, valid = sweep_points(batch, N_POINTS, seed)
+    rng = np.random.RandomState(seed)
+    map_ch = torch.from_numpy(rng.rand(batch, hw, hw).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        image = make_bev_input(pts.to(dev), valid.to(dev), map_ch, cfg)
+    local = np.array([[-0.5, -0.5], [0.5, -0.5], [0.5, 0.5], [-0.5, 0.5]], np.float32)
+    labels = []
+    for _ in range(batch):
+        size = rng.uniform(0.02, 0.08, (BEV_GT_BOXES, 2)) * hw * np.array([1.0, 2.2])
+        yaw = rng.uniform(-np.pi, np.pi, BEV_GT_BOXES)
+        rot = np.stack([np.stack([np.cos(yaw), -np.sin(yaw)], -1), np.stack([np.sin(yaw), np.cos(yaw)], -1)], 1)
+        corners = np.einsum("bkj,bij->bki", local[None] * size[:, None], rot) + rng.uniform(0, hw, (BEV_GT_BOXES, 1, 2))
+        classes = rng.randint(1, 10, BEV_GT_BOXES)
+        labels.append(rasterize_boxes_bev(torch.from_numpy(corners.astype(np.float32)).to(dev),
+                                          torch.from_numpy(classes).to(dev),
+                                          torch.ones(BEV_GT_BOXES, dtype=torch.bool, device=dev), (hw, hw)))
+    return {"image": image, "label": torch.stack(labels)}
+
+
+def phase_json(phase, card, **numbers):
+    log(json.dumps({"phase": phase, **numbers, "card": card}))
+
+
+def seresnext_inference_phase(dev, card):
+    """Phase 20: ``unet_seresnext101`` (10 classes, folded norms, full width,
+    seeded weights) on the BEV main path. A float32 check at batch 1 with TF32
+    off holds the card's logits to the CPU's (1e-3 of their scale); then
+    ``make_infer_fn`` at batch 32 × 65,536 points in bfloat16 with the raster
+    kernel's count reset before it, and the grouped 3x3 convolutions of the
+    four stages timed alone. Returns the raster launches of the main path."""
+    import torch
+
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.models import build_model
+    from lyft3d_tpu_torch.ops import bev_raster
+    from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
+    from lyft3d_tpu_torch.pipelines.bev import make_bev_input, make_infer_fn
+
+    name, kw, cfg = "unet_seresnext101", {"n_classes": 10, "norm_type": "folded"}, BEVConfig()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, valid = sweep_points(1, N_POINTS, seed=40)
+    map_ch = torch.from_numpy(np.random.RandomState(40).rand(1, *SHAPE[:2]).astype(np.float32))
+    ref_model = build_model(name, generator=torch.Generator().manual_seed(0), **kw).eval()
+    card_model = build_model(name, generator=torch.Generator().manual_seed(0), device=dev, **kw).eval()
+    with torch.inference_mode():
+        x_cpu = make_bev_input(pts, valid, map_ch, cfg)
+        ref_logits, ref_aux = ref_model(x_cpu)
+        card_logits, card_aux = card_model(x_cpu.to(dev))
+    scale = max(1.0, float(ref_logits.abs().max()))
+    errs = (float((card_logits.cpu() - ref_logits).abs().max()), float((card_aux.cpu() - ref_aux).abs().max()))
+    if not max(errs) <= 1e-3 * scale:
+        raise AssertionError(f"{name} float32 card vs cpu: logits {errs[0]} aux {errs[1]} > {1e-3 * scale}")
+    phase_json("seresnext101 check", card, model=name, dtype="float32", batch=1, tf32=False,
+               max_abs_err_logits=errs[0], max_abs_err_aux=errs[1], tol=1e-3 * scale)
+    del ref_model, card_model
+    torch.backends.cudnn.allow_tf32 = True
+
+    model = build_model(name, generator=torch.Generator().manual_seed(0), device=dev, dtype=torch.bfloat16, **kw)
+    infer = make_infer_fn([model], cfg)
+    pts, valid = (a.to(dev) for a in sweep_points(BATCH, N_POINTS, seed=41))
+    map_ch = torch.from_numpy(np.random.RandomState(41).rand(BATCH, *SHAPE[:2]).astype(np.float32)).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bev_raster.KERNEL_LAUNCHES = 0
+    e2e_ms = cuda_ms(lambda: infer(pts, valid, map_ch))
+    det = infer(pts, valid, map_ch)
+    torch.cuda.synchronize()
+    launches = bev_raster.KERNEL_LAUNCHES
+    if launches <= 0:
+        raise AssertionError("the unet_seresnext101 main path never launched the raster kernel")
+    for k, shape in {"boxes_px": (BATCH, 64, 5), "scores": (BATCH, 64, 9)}.items():
+        if tuple(det[k].shape) != shape or not bool(torch.isfinite(det[k]).all()):
+            raise AssertionError(f"{name} {k}: shape {tuple(det[k].shape)} or non-finite values")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        x = make_bev_input(pts, valid, map_ch, cfg)
+        lg = model(x)[0]
+        stage_ms = {
+            "input": cuda_ms(lambda: make_bev_input(pts, valid, map_ch, cfg)),
+            "model": cuda_ms(lambda: model(x)),
+            "backbone": cuda_ms(lambda: model.backbone(x.permute(0, 3, 1, 2).to(torch.bfloat16))),
+            "extract": cuda_ms(lambda: extract_detections_from_logits(lg)),
+        }
+    phase_json("seresnext101 e2e", card, model=name, norm="folded", dtype="bfloat16", batch=BATCH,
+               points=N_POINTS, e2e_ms=e2e_ms, sweeps_per_s=BATCH / (e2e_ms / 1e3), stages_ms=stage_ms,
+               components=int(det["box_valid"].sum()), peak_mem_gb=peak_gb, raster_launches=launches)
+    del model, infer, det, x, lg
+
+    # The grouped 3x3 convolutions (32 groups) of the four stages at batch 32,
+    # channels_last as the model runs them, beside the same convolution on
+    # NCHW tensors and the dense convolution of the same widths (32x the
+    # operations); bound: bytes of input, output and weights once, or the
+    # grouped convolution's operations at the bf16 peak.
+    for c, hw in ((128, 84), (256, 42), (512, 21), (1024, 11)):
+        xin = torch.randn(BATCH, c, hw, hw, device=dev, dtype=torch.bfloat16)
+        w = torch.randn(c, c // 32, 3, 3, device=dev, dtype=torch.bfloat16) * 0.1
+        wd = torch.randn(c, c, 3, 3, device=dev, dtype=torch.bfloat16) * 0.02
+        xcl, wcl, wdcl = (t.to(memory_format=torch.channels_last) for t in (xin, w, wd))
+        conv = torch.nn.functional.conv2d
+        times = {
+            "grouped_channels_last": cuda_ms(lambda: conv(xcl, wcl, padding=1, groups=32), iters=20),
+            "grouped_nchw": cuda_ms(lambda: conv(xin, w, padding=1, groups=32), iters=20),
+            "dense_channels_last": cuda_ms(lambda: conv(xcl, wdcl, padding=1), iters=20),
+        }
+        ops = 2 * BATCH * hw * hw * c * 9 * (c // 32)
+        b_ms, b_by = bound(2 * (2 * xin.numel() + w.numel()), ops, BF16_PEAK)
+        phase_json("grouped conv", card, shape=[BATCH, c, hw, hw], groups=32, channels_a_group=c // 32,
+                   dtype="bfloat16", ms=times, bound_ms=b_ms, bound_by=b_by,
+                   bound_share_channels_last=b_ms / times["grouped_channels_last"])
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bev_train_step_run(name, microbatch, dev, card):
+    """Phase 21 for one model: the functions ``train_bev`` runs, on the
+    ``Trainer``'s step function, at ``microbatch`` × 336 × 336 × 6 in bfloat16
+    (float32 heads and masters) with the yaml's optimizer block. Peak memory
+    is reported above what was allocated before the model was built (earlier
+    phases' tensors) and in all."""
+    import tempfile
+
+    import torch
+
+    from lyft3d_tpu_torch.pipelines.bev_train import build_bev_model, make_bev_loss_fn, make_bev_optimizer_fn
+    from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig, TrainState
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = bev_train_config(name, batch_size=microbatch)
+    model = build_bev_model(cfg, torch.bfloat16, dev)
+    optimizer_fn, loss_fn = make_bev_optimizer_fn(cfg), make_bev_loss_fn(cfg, dev)
+    batch = bev_train_batch(microbatch, SHAPE[0], seed=42, dev=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, optimizer_fn, loss_fn, TrainerConfig(model_dir=tmp, total_steps=10 ** 6))
+        state = TrainState(model, optimizer_fn)
+        losses = []
+        for _ in range(BEV_WARMUP):
+            state, metrics = trainer.step_fn(state, batch)
+            losses.append(metrics["loss"])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        updates0 = state.optimizer.param_groups[0]["count"]
+        start.record()
+        for _ in range(BEV_STEPS):
+            state, metrics = trainer.step_fn(state, batch)
+            losses.append(metrics["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / BEV_STEPS
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        updates = state.optimizer.param_groups[0]["count"] - updates0
+    losses = [float(l) for l in losses]
+    if not all(math.isfinite(l) for l in losses) or updates != BEV_STEPS // cfg.optimizer.grad_accum:
+        raise AssertionError(f"BEV train {name}: losses {losses}, {updates} optimizer updates")
+    # Stage split: the same microstep with CUDA events between its stages.
+    names = ("forward+loss", "backward", "optimizer")
+    sums = dict.fromkeys(names, 0.0)
+    model.train()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        loss, _ = loss_fn(model, batch)
+        ev[1].record()
+        for p in state.params:
+            p.grad = None
+        loss.backward()
+        ev[2].record()
+        state.push_grads()
+        state.optimizer.step()
+        state.pull_params()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, stage in enumerate(names):
+            sums[stage] += ev[i].elapsed_time(ev[i + 1]) / 4
+    # Where the device time goes: one optimizer update's microsteps under the
+    # profiler: the kernels' time (the busy share of the unprofiled
+    # microstep) and the aten ops that launched the most of it.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    accum = cfg.optimizer.grad_accum
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(accum):
+            state, _ = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / accum / 1e3
+    ops = sorted(((e.self_device_time_total / accum / 1e3, e.key) for e in events
+                  if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), reverse=True)
+    # The norms' share: forward+loss+backward of the same trunk without a
+    # norm op (``norm_type="folded"``: conv with bias), same weights' shapes.
+    bare = build_bev_model(bev_train_config(name, batch_size=microbatch, model_kwargs={"norm_type": "folded"}),
+                           torch.bfloat16, dev)
+
+    def fwd_bwd(m):
+        loss_fn(m, batch)[0].backward()
+
+    fwd_bwd_ms = {"group": cuda_ms(lambda: fwd_bwd(model), warmup=1, iters=4),
+                  "folded": cuda_ms(lambda: fwd_bwd(bare), warmup=1, iters=4)}
+    del bare
+    masters = sum(1 for p, m in zip(state.params, state.masters) if m is not p)
+    phase_json("bev train step", card, model=name, norm="group", dtype="bfloat16", microbatch=microbatch,
+               input=[microbatch, SHAPE[0], SHAPE[1], 6], optimizer="ranger lr 0.001 clip_norm 5 grad_accum 4",
+               microstep_ms=step_ms, samples_per_s=microbatch / (step_ms / 1e3),
+               optimizer_updates_timed=updates, stages_ms=sums, device_ms_per_microstep=device_ms,
+               busy_share=device_ms / step_ms, top_aten_ops_device_ms={k: ms for ms, k in ops[:10]},
+               forward_backward_ms_by_norm=fwd_bwd_ms,
+               peak_mem_gb=peak_gb - base_gb, peak_mem_gb_with_earlier_phases=peak_gb,
+               float32_masters=masters, parameters=len(state.params), loss_first=losses[0],
+               loss_last=losses[-1], all_finite=True)
+    del model, state, trainer, batch, loss
+    torch.cuda.empty_cache()
+
+
+def bev_train_check_phase(dev, card):
+    """Phase 22: one train-mode step of ``unet_seresnext101`` with
+    ``norm_type="batch"`` in float32 (TF32 off), card against CPU, at batch
+    2 × 128 × 128 × 6: loss within 1e-4 relative, every parameter gradient
+    finite and within ``GRAD_NORM_TOL`` in the 2-norm, running statistics
+    within 1e-3 of their scale; and the running buffers of the same model in
+    bfloat16 stay float32 through a train-mode step."""
+    import torch
+
+    from lyft3d_tpu_torch.models.layers import BatchNorm
+    from lyft3d_tpu_torch.pipelines.bev_train import build_bev_model, make_bev_loss_fn
+
+    cfg = bev_train_config("unet_seresnext101", model_kwargs={"norm_type": "batch"})
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = bev_train_batch(BEV_CHECK_BATCH, BEV_CHECK_HW, seed=43, dev=dev)
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        model = build_bev_model(cfg, torch.float32, device).train()
+        loss, _ = make_bev_loss_fn(cfg, device)(model, {k: v.to(device) for k, v in batch.items()})
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        stats = {k: b.detach().cpu() for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+        runs.append((float(loss.detach()), grads, stats))
+        del model, loss
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    (l_cpu, g_cpu, s_cpu), (l_card, g_card, s_card) = runs
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"BEV train check: loss {l_card} on the card, {l_cpu} on the CPU")
+    worst = (0.0, "")
+    for k, want in g_cpu.items():
+        got = g_card[k]
+        if not (bool(torch.isfinite(got).all()) and float(want.norm()) > 0):
+            raise AssertionError(f"BEV train check: gradient of {k} is all zero or not finite")
+        worst = max(worst, (float((got - want).norm() / want.norm()), k))
+    if not worst[0] <= GRAD_NORM_TOL:
+        raise AssertionError(f"BEV train check: gradient of {worst[1]} differs by {worst[0]} in the 2-norm")
+    stat_worst = (0.0, "")
+    for k, want in s_cpu.items():
+        stat_worst = max(stat_worst, (float((s_card[k] - want).abs().max()) / max(float(want.abs().max()), 1e-6), k))
+    if not stat_worst[0] <= 1e-3:
+        raise AssertionError(f"BEV train check: running statistic {stat_worst[1]} differs by {stat_worst[0]}")
+    model = build_bev_model(cfg, torch.bfloat16, dev).train()
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = [m.running_var.clone() for m in norms]
+    with torch.no_grad():
+        model(batch["image"])
+    moved = sum(int((m.running_var != b).sum()) for m, b in zip(norms, before))
+    if not (all(m.running_mean.dtype == m.running_var.dtype == torch.float32 for m in norms) and moved):
+        raise AssertionError("BEV train check: running statistics of the bfloat16 model are not float32 or did not move")
+    phase_json("bev train check", card, model="unet_seresnext101", norm="batch", dtype="float32", tf32=False,
+               input=[BEV_CHECK_BATCH, BEV_CHECK_HW, BEV_CHECK_HW, 6], loss_card=l_card, loss_cpu=l_cpu,
+               loss_rel_err=loss_err, gradients=len(g_cpu), worst_grad_2norm_err=worst[0],
+               worst_grad_at=worst[1], grad_tol=GRAD_NORM_TOL, running_stats=len(s_cpu),
+               worst_stat_err_of_scale=stat_worst[0], stat_tol=1e-3, batch_norms=len(norms),
+               bf16_model_running_stats_float32=True, bf16_running_vars_moved=moved)
+    del model
+    torch.cuda.empty_cache()
+
+
 def torch_equal(a, b):
     import torch
 
@@ -3296,6 +3645,15 @@ def main():
     # 15-19. SECOND training: backward kernels, gradient checks, training steps, fit
     fill_bwd_record, stencil_bwd, subm_bwd, train_launches = training_phases(dev, card)
 
+    # 20. unet_seresnext101 on the BEV main path (the raster kernel's second path)
+    launches += seresnext_inference_phase(dev, card)
+
+    # 21-22. BEV training: full-width train steps, then card against CPU
+    for name, microbatch in (("unet_resnet50", BEV_TRAIN_BATCH), ("unet_seresnext101", BEV_TRAIN_BATCH),
+                             ("unet_seresnext101", BEV_YAML_BATCH)):
+        bev_train_step_run(name, microbatch, dev, card)
+    bev_train_check_phase(dev, card)
+
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the four training runs."""
         return sum(c[kernel] for c in train_launches.values())
@@ -3310,6 +3668,7 @@ def main():
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
+        # Launched by two paths: the flagship and the unet_seresnext101 row.
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
         # Launched by three paths: pillars, sparse (2 a call) and per-voxel (1 a call).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",

@@ -1,6 +1,9 @@
 """Command-line interface of the port: ``python -m lyft3d_tpu_torch.cli <command>``.
 
 Commands (the JAX package's arguments, plus ``--device``):
+    generate-bev    rasterize BEV PNGs from a Lyft DB (host only; cv2)
+    train-bev       train a BEV segmentation model
+    run-experiments train a queue of BEV configs, surviving failed jobs
     infer-bev       inference → submission CSV (+ optional mAP)
     create-infos    build SECOND training infos from a Lyft DB (host only)
     create-gtdb     build the copy-paste GT database (host only)
@@ -34,6 +37,67 @@ def _device(name: str):
             "visible. Pass --device cpu to run on the CPU."
         )
     return device
+
+
+def cmd_generate_bev(args):
+    from lyft3d_tpu_torch.data.bev_dataset import generate_bev_dataset
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+
+    done = generate_bev_dataset(_db(args), args.out, BEVConfig(num_sweeps=args.sweeps),
+                                overwrite=args.overwrite)
+    print(f"generated {len(done)} samples into {args.out}")
+
+
+def _train_dtype(device):
+    import torch
+
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def cmd_train_bev(args):
+    from lyft3d_tpu_torch.config import BEVExperiment, apply_overrides, load_yaml
+    from lyft3d_tpu_torch.pipelines.bev_train import train_bev
+
+    device = _device(args.device)
+    cfg = load_yaml(BEVExperiment, args.config) if args.config else BEVExperiment()
+    if args.set:
+        cfg = apply_overrides(cfg, args.set)
+    if args.model_dir:
+        cfg.model_dir = args.model_dir
+    train_bev(cfg, args.bev_dir, dtype=_train_dtype(device), device=device)
+
+
+def cmd_run_experiments(args):
+    """Sequential experiment queue over BEV config files: run each
+    (config, model_dir) job, keep going after a failed one, record outcomes."""
+    import time
+    import traceback
+
+    from lyft3d_tpu_torch.config import BEVExperiment, apply_overrides, load_yaml
+    from lyft3d_tpu_torch.pipelines.bev_train import train_bev
+
+    device = _device(args.device)
+    results = []
+    for cfg_path in args.configs:
+        t0 = time.time()
+        rec = {"config": str(cfg_path)}
+        try:
+            cfg = load_yaml(BEVExperiment, cfg_path)
+            if args.set:
+                cfg = apply_overrides(cfg, args.set)
+            rec["model_dir"] = cfg.model_dir
+            state, _ = train_bev(cfg, args.bev_dir, dtype=_train_dtype(device), device=device)
+            rec.update(status="ok", steps=int(state.step))
+        except Exception as e:  # keep the queue going
+            traceback.print_exc()
+            rec.update(status="failed", error=f"{type(e).__name__}: {e}")
+        rec["wall_s"] = round(time.time() - t0, 1)
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+    if args.summary:
+        with open(args.summary, "w") as f:
+            json.dump(results, f, indent=2)
+        print(f"summary → {args.summary}")
 
 
 def cmd_infer_bev(args):
@@ -102,8 +166,6 @@ def cmd_create_gtdb(args):
 
 
 def cmd_train_second(args):
-    import torch
-
     from lyft3d_tpu_torch.config import SecondExperiment, apply_overrides, load_yaml
     from lyft3d_tpu_torch.pipelines.second_pipeline import (
         LoaderConfig,
@@ -128,8 +190,7 @@ def cmd_train_second(args):
         LoaderConfig(num_sweeps=exp.num_sweeps, max_points=exp.data.max_points),
         db_sampler=db_sampler,
     )
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    train_second(exp, loader, [i["token"] for i in infos], dtype=dtype, device=device)
+    train_second(exp, loader, [i["token"] for i in infos], dtype=_train_dtype(device), device=device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,6 +204,29 @@ def build_parser() -> argparse.ArgumentParser:
     def add_device_arg(sp):
         sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cuda (bfloat16 trunk; fails without a card) or cpu (float32)")
+
+    sp = sub.add_parser("generate-bev")
+    add_db_args(sp)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--sweeps", type=int, default=1)
+    sp.add_argument("--overwrite", action="store_true")
+    sp.set_defaults(fn=cmd_generate_bev)
+
+    sp = sub.add_parser("train-bev")
+    sp.add_argument("--bev-dir", required=True)
+    sp.add_argument("--config")
+    sp.add_argument("--model-dir")
+    sp.add_argument("--set", nargs="*", default=[])
+    add_device_arg(sp)
+    sp.set_defaults(fn=cmd_train_bev)
+
+    sp = sub.add_parser("run-experiments")
+    sp.add_argument("--bev-dir", required=True)
+    sp.add_argument("--configs", nargs="+", required=True)
+    sp.add_argument("--set", nargs="*", default=None, help="overrides applied to every config")
+    sp.add_argument("--summary", default=None, help="summary JSON path")
+    add_device_arg(sp)
+    sp.set_defaults(fn=cmd_run_experiments)
 
     sp = sub.add_parser("infer-bev")
     add_db_args(sp)

@@ -1,16 +1,25 @@
 """Encoder backbones returning 4 feature stages (/4, /8, /16, /32).
 
-Only the ResNet family is ported so far; the JAX package's other families
-(seresnext, efficientnet, dpn, wide_resnet, xception, inception) raise
+The ResNet and SE-ResNeXt families are ported; the JAX package's other
+families (efficientnet, dpn, wide_resnet, xception, inception) raise
 ``KeyError`` here until their port lands.
 """
 
 from lyft3d_tpu_torch.models.backbones.resnet import ResNet, resnet18, resnet34, resnet50
+from lyft3d_tpu_torch.models.backbones.seresnext import (
+    SEResNeXt,
+    seresnext26,
+    seresnext50,
+    seresnext101,
+)
 
 BACKBONES = {
     "resnet18": resnet18,
     "resnet34": resnet34,
     "resnet50": resnet50,
+    "seresnext26": seresnext26,
+    "seresnext50": seresnext50,
+    "seresnext101": seresnext101,
 }
 
 

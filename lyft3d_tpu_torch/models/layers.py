@@ -8,8 +8,9 @@ the flax modules:
 - convs pad symmetrically, ``dilation·(k−1)//2`` each side (torch style);
 - GroupNorm uses ``eps=1e-6``, :func:`_num_groups` groups and flax's
   one-pass variance (:class:`GroupNorm`), LayerNorm the same statistics over
-  the last dim (:class:`LayerNorm`); BatchNorm uses ``eps=1e-5`` (the same in
-  both);
+  the last dim (:class:`LayerNorm`); BatchNorm uses ``eps=1e-5``, flax's
+  momentum 0.99 and its biased one-pass batch variance, with float32 running
+  statistics (:class:`BatchNorm`);
 - bilinear resizes use half-pixel centres (``align_corners=False``) and
   antialias when they shrink, as ``jax.image.resize`` does.
 
@@ -31,6 +32,7 @@ __all__ = [
     "resize_to",
     "ConvNormAct",
     "LayerNorm",
+    "BatchNorm",
     "SEModule",
     "ASPP",
     "UpBlock",
@@ -41,6 +43,7 @@ NORM_TYPES = ("group", "batch", "folded")
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm default
 BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
+BATCH_NORM_MOMENTUM = 0.99  # flax: running = 0.99·running + 0.01·batch
 
 
 def resize_to(x: torch.Tensor, hw: Sequence[int]) -> torch.Tensor:
@@ -102,6 +105,62 @@ class LayerNorm(nn.LayerNorm):
         return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's ``nn.BatchNorm`` semantics.
+
+    Train mode: statistics over (N, H, W) in float32 (float64 stays float64),
+    the mean and the biased one-pass variance ``E[x²] − E[x]²`` clipped at 0
+    (flax's ``use_fast_variance=True``); the input is normalised with them,
+    and the running buffers become ``0.99·running + 0.01·batch`` (flax's
+    momentum, the biased variance; torch's would be 0.9 and the unbiased
+    one). The
+    batch statistics of the last train-mode call stay in ``batch_stats``
+    (``train/swa.py::bn_update`` averages them). Eval mode: the running
+    buffers. Both normalise as flax does, ``(x − mean)·(rsqrt(var + eps)·scale)
+    + bias`` in float32, cast back to the input's dtype. The running buffers
+    are float32 whatever the module's dtype, as flax keeps ``batch_stats``:
+    every cast of the module (``.to(dtype)``, ``.bfloat16()``, …) leaves them
+    float32 with their values (in bfloat16, ``0.99·r + 0.01·b`` rounds back
+    to ``r`` unless ``b`` is far from ``r``); ``num_batches_tracked`` is not
+    used."""
+
+    def __init__(self, features: int, eps: float = BATCH_NORM_EPS, device=None, dtype=None):
+        super().__init__(features, eps=eps, momentum=1.0 - BATCH_NORM_MOMENTUM, device=device,
+                         dtype=dtype)
+        self.running_mean = self.running_mean.float()
+        self.running_var = self.running_var.float()
+        self.batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def _apply(self, fn, *args, **kwargs):
+        # A cast would round the statistics; keep the float32 values, on the
+        # device the cast chose.
+        stats = {"running_mean": self.running_mean, "running_var": self.running_var}
+        super()._apply(fn, *args, **kwargs)
+        for name, old in stats.items():
+            new = getattr(self, name)
+            if new.dtype != torch.float32:
+                setattr(self, name, old.to(new.device, torch.float32))
+        return self
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xf.shape[1]
+        if self.training:
+            dims = (0, 2, 3)
+            mean = xf.mean(dim=dims)
+            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = BATCH_NORM_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.batch_stats = (mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(1, c, 1, 1)) * mul.view(1, c, 1, 1) + self.bias.to(xf.dtype).view(1, c, 1, 1)
+        return y.to(x.dtype)
+
+
 class ConvNormAct(nn.Module):
     """Conv → norm → ReLU.
 
@@ -139,7 +198,7 @@ class ConvNormAct(nn.Module):
         self.norm: Optional[nn.Module] = None
         if has_norm_op:
             if norm_type == "batch":
-                self.norm = nn.BatchNorm2d(features, eps=BATCH_NORM_EPS, **fk)
+                self.norm = BatchNorm(features, **fk)
             else:
                 self.norm = GroupNorm(_num_groups(features), features, eps=GROUP_NORM_EPS, **fk)
         self.act = act
@@ -270,7 +329,8 @@ def materialize(module: nn.Module, device, dtype: torch.dtype,
                 generator: Optional[torch.Generator], float32_heads: Tuple[nn.Module, ...] = ()):
     """Turn a module built on the ``meta`` device into a real one: allocate on
     ``device``, cast to ``dtype`` (the heads in ``float32_heads`` stay float32,
-    as the flax heads do), use channels_last, and initialise from ``generator``."""
+    as the flax heads do, and so do BatchNorm's running statistics), use
+    channels_last, and initialise from ``generator``."""
     module.to_empty(device=torch.device(device) if device is not None else torch.device("cpu"))
     module.to(dtype=dtype)
     for head in float32_heads:

@@ -162,5 +162,5 @@ def _make_backbone_unet(backbone):
     return ctor
 
 
-for _b in ("resnet18", "resnet34", "resnet50"):
+for _b in ("resnet18", "resnet34", "resnet50", "seresnext26", "seresnext50", "seresnext101"):
     register_model(f"unet_{_b}")(_make_backbone_unet(_b))

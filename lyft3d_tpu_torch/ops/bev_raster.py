@@ -12,8 +12,9 @@ device of the points alone:
 
 The JAX package's matmul / sort / Pallas formulations and their dispatch
 exist for the TPU's MXU and slow scatters; on a GPU the raster is one scatter
-of ones, so they are not ported. ``rasterize_boxes_bev`` makes training
-targets only and comes with the training port.
+of ones, so they are not ported. :func:`rasterize_boxes_bev`, the training
+targets' box fill, is plain torch as the JAX function is jnp: no Pallas
+kernel stands behind it.
 
 Points keep the JAX layout: ``(N, ≥3)`` for one sweep or ``(B, N, ≥3)`` for a
 batch (``vmap`` becomes the leading dimension), float32, with a bool valid
@@ -34,6 +35,7 @@ __all__ = [
     "bev_rasterize_scatter",
     "bev_rasterize",
     "normalize_bev",
+    "rasterize_boxes_bev",
     "KERNEL_LAUNCHES",
 ]
 
@@ -212,3 +214,40 @@ def bev_rasterize(
 def normalize_bev(counts, max_intensity: float = MAX_INTENSITY):
     """Counts → [0, 1] intensities."""
     return torch.clamp(counts / max_intensity, 0.0, 1.0)
+
+
+def rasterize_boxes_bev(corners_px, classes, valid, shape: Tuple[int, int] = (336, 336)):
+    """Fill rotated-box quads with class indices on the pixel grid: a dense
+    point-in-quad test at pixel centres. A pixel gets the class of the
+    highest-indexed valid box containing it (later boxes draw over earlier
+    ones), else 0 (background).
+
+    Args:
+        corners_px: (B, 4, 2) float32 box corners in (col, row) pixel coords.
+        classes: (B,) int class indices (1-based; 0 = background).
+        valid: (B,) bool.
+        shape: (H, W).
+
+    Returns:
+        (H, W) int32 class map on the corners' device.
+    """
+    h, w = shape
+    dev = corners_px.device
+    bnum = corners_px.shape[0]
+    cols = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    rows = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    px = torch.stack(torch.broadcast_tensors(cols[None, :], rows[:, None]), dim=-1).reshape(h * w, 2)
+
+    a = corners_px.float()  # (B, 4, 2)
+    edge = torch.roll(a, -1, dims=1) - a
+    # signed side of each pixel against each edge: (B, 4, P)
+    rel = px[None, None] - a[:, :, None, :]
+    cross = edge[:, :, None, 0] * rel[..., 1] - edge[:, :, None, 1] * rel[..., 0]
+    inside = (cross >= 0.0).all(dim=1) | (cross <= 0.0).all(dim=1)  # (B, P)
+    inside = inside & valid.to(torch.bool)[:, None]
+
+    box_rank = torch.arange(1, bnum + 1, dtype=torch.int32, device=dev)[:, None]
+    ranked = torch.where(inside, box_rank, 0)  # (B, P), 0 = not inside
+    winner = ranked.amax(dim=0) if bnum else ranked.new_zeros(h * w)
+    cls_of = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), classes.to(torch.int32)])
+    return cls_of[winner.long()].reshape(h, w)

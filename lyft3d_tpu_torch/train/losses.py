@@ -23,7 +23,13 @@ __all__ = [
 
 
 def _stable_bce(logits, targets):
-    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
+    """``max(x, 0) − x·t + log1p(exp(−|x|))`` with JAX's subgradients at
+    ``x = 0`` (``maximum`` 1/2, ``abs`` 1, so the log term gives −1/2), so
+    that the gradient there is ``−t`` as in the JAX package, not the
+    ``1 − t`` of torch's ``clamp`` and ``abs``. Logits exactly 0 are common at init, where a pixel's head
+    input is all ReLU zeros."""
+    abs_x = torch.where(logits >= 0, logits, -logits)
+    return torch.maximum(logits, logits.new_zeros(())) - logits * targets + torch.log1p(torch.exp(-abs_x))
 
 
 def weighted_softmax_ce(logits, labels, class_weights=None):

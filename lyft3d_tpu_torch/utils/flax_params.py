@@ -4,7 +4,10 @@
 (nested dicts of numpy-convertible arrays, as ``model.init`` returns them)
 and copies it into the matching torch module:
 
-- conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in); sparse conv
+- conv kernel HWIO → OIHW, grouped ones too (flax's ``(kh, kw, in/g, out)``
+  gives output channel ``o`` to group ``o // (out/g)``, in ``nn.Conv`` and in
+  the block-diagonal ``PackedGroupedConv`` alike, as torch's
+  ``(out, in/g, kh, kw)`` does); Dense kernel (in, out) → (out, in); sparse conv
   kernels ``(27, Cin, Cout)`` as they are; the ``nn.vmap``ped modules (the
   RoI encoder of PointRCNN, the per-voxel sparse middle of SECOND) have one
   shared set of parameters under a ``Vmap_…`` name;
@@ -32,6 +35,7 @@ import torch
 from torch import nn
 
 from lyft3d_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
+from lyft3d_tpu_torch.models.backbones.seresnext import SEResNeXt, SEResNeXtBlock
 from lyft3d_tpu_torch.models.layers import ASPP, ConvNormAct, LayerNorm, SEModule, UpBlock
 from lyft3d_tpu_torch.models.pointrcnn.modules import (
     FPModule,
@@ -113,7 +117,7 @@ def _norm(src: _Source, path: Path, name: str, out: Out):
 
 def _conv_norm_act(m: ConvNormAct, src, path, name, out):
     _conv(m.conv, src, path + ("Conv_0",), f"{name}conv", out)
-    if isinstance(m.norm, nn.BatchNorm2d):
+    if isinstance(m.norm, nn.BatchNorm2d):  # the port's BatchNorm; float32 buffers
         p = path + ("BatchNorm_0",)
         out[f"{name}norm.weight"] = src.take("params", p + ("scale",))
         out[f"{name}norm.bias"] = src.take("params", p + ("bias",))
@@ -160,8 +164,33 @@ def _resnet(m: ResNet, src, path, name, out):
             k += 1
 
 
+def _seresnext_block(m: SEResNeXtBlock, src, path, name, out):
+    # flax creation order: the three convs, the SE gate, then the downsample.
+    for i, sub in enumerate(("conv1", "conv2", "conv3")):
+        _conv_norm_act(getattr(m, sub), src, path + (f"ConvNormAct_{i}",), f"{name}{sub}.", out)
+    _se(m.se, src, path + ("SEModule_0",), f"{name}se.", out)
+    if m.downsample is not None:
+        _conv_norm_act(m.downsample, src, path + ("ConvNormAct_3",), f"{name}downsample.", out)
+
+
+def _seresnext(m: SEResNeXt, src, path, name, out):
+    _conv_norm_act(m.stem, src, path + ("ConvNormAct_0",), f"{name}stem.", out)
+    k = 0  # flax numbers blocks across stages
+    for si, stage in enumerate(m.stages):
+        for bi, block in enumerate(stage):
+            _seresnext_block(block, src, path + (f"SEResNeXtBlock_{k}",), f"{name}stages.{si}.{bi}.", out)
+            k += 1
+
+
+_BACKBONE_MAPPERS: Dict[type, Tuple[str, Callable]] = {
+    ResNet: ("ResNet_0", _resnet),
+    SEResNeXt: ("SEResNeXt_0", _seresnext),
+}
+
+
 def _lyft_unet(m: LyftUNet, src, path, name, out):
-    _resnet(m.backbone, src, path + ("ResNet_0",), f"{name}backbone.", out)
+    flax_name, backbone = _BACKBONE_MAPPERS[type(m.backbone)]
+    backbone(m.backbone, src, path + (flax_name,), f"{name}backbone.", out)
     # ConvNormAct_0..2: skip reductions; ConvNormAct_3: hypercolumn conv.
     for i, cna in enumerate(m.skips):
         _conv_norm_act(cna, src, path + (f"ConvNormAct_{i}",), f"{name}skips.{i}.", out)
@@ -291,6 +320,7 @@ _MAPPERS: Dict[type, Callable] = {
     SEModule: _se,
     ASPP: _aspp,
     UpBlock: _up_block,
+    SEResNeXt: _seresnext,
     LyftUNet: _lyft_unet,
     ReferenceUNet: _reference_unet,
     PillarFeatureNet: _pillar_feature_net,

@@ -17,6 +17,7 @@ import lyft3d_tpu.core.box as jbox
 import lyft3d_tpu.core.geometry as jgeo
 import lyft3d_tpu.core.quaternion as jquat
 import lyft3d_tpu.data.augment as jaug
+import lyft3d_tpu.data.bev_dataset as jbevds
 import lyft3d_tpu.data.bev_pipeline as jbev
 import lyft3d_tpu.data.kitti as jkitti
 import lyft3d_tpu.data.lyftdb as jdb
@@ -36,6 +37,7 @@ import lyft3d_tpu_torch.core.box as tbox
 import lyft3d_tpu_torch.core.geometry as tgeo
 import lyft3d_tpu_torch.core.quaternion as tquat
 import lyft3d_tpu_torch.data.augment as taug
+import lyft3d_tpu_torch.data.bev_dataset as tbevds
 import lyft3d_tpu_torch.data.bev_pipeline as tbev
 import lyft3d_tpu_torch.data.kitti as tkitti
 import lyft3d_tpu_torch.data.lyftdb as tdb
@@ -212,6 +214,45 @@ def test_bev_sample_generator(dbs, case):
     tok = j.sample[1]["token"]
     same(BEV_CASES[case](tbev.BEVSampleGenerator(t, tbev.BEVConfig(**cfg)), tok),
          BEV_CASES[case](jbev.BEVSampleGenerator(j, jbev.BEVConfig(**cfg)), tok))
+
+
+@pytest.fixture(scope="module")
+def bev_pngs(dbs, tmp_path_factory):
+    """The same samples written by both packages' ``generate_bev_dataset``."""
+    j, t = dbs
+    out = tmp_path_factory.mktemp("bevds")
+    cfg = dict(shape=(64, 64, 3), voxel_size=(1.0, 1.0, 1.5))
+    tokens = [s["token"] for s in j.sample]
+    assert jbevds.generate_bev_dataset(j, out / "j", jbev.BEVConfig(**cfg)) == tokens
+    assert tbevds.generate_bev_dataset(t, out / "t", tbev.BEVConfig(**cfg)) == tokens
+    return out, tokens
+
+
+def _bev_dataset_case(case, m, bev, root, tokens):
+    if case == "raster":
+        pts = np.random.RandomState(3).uniform(-40, 40, (3000, 4)).astype(np.float32)
+        return m.numpy_bev_raster(pts, bev.BEVConfig(shape=(64, 64, 3), voxel_size=(1.0, 1.0, 1.5)))
+    if case == "index_batches":
+        return list(m.index_batches(5, 3, steps=7, seed=4))
+    ds = m.BEVImageDataset(root, tokens, with_map=True, augment=case == "augmented", seed=2)
+    if case == "batch_iterator":
+        return list(m.batch_iterator(ds, 2, steps=3, seed=1))
+    return [ds.load(i % len(tokens)) for i in range(8)]  # one RandomState, eight draws
+
+
+@pytest.mark.parametrize("case", ["raster", "pngs", "loaded", "augmented", "index_batches", "batch_iterator"])
+def test_bev_dataset_copy(bev_pngs, case):
+    out, tokens = bev_pngs
+    if case == "pngs":
+        import cv2
+
+        names = sorted(p.name for p in (out / "j").iterdir())
+        assert names == sorted(p.name for p in (out / "t").iterdir()) and len(names) == 3 * len(tokens)
+        for name in names:
+            np.testing.assert_array_equal(cv2.imread(str(out / "t" / name)), cv2.imread(str(out / "j" / name)))
+        return
+    same(_bev_dataset_case(case, tbevds, tbev, out / "j", tokens),
+         _bev_dataset_case(case, jbevds, jbev, out / "j", tokens))
 
 
 def _records(db, rng, jitter):

@@ -250,11 +250,19 @@ def _loss_inputs(seed=0, shape=(2, 6, 5, 4)):
     return logits, labels, onehot, weights
 
 
+# Subtracted from the logits, it makes 30% of them exactly 0 (a pixel whose
+# head input is all ReLU zeros at init) with the gradient passed through:
+# there the subgradients of max(x, 0) and |x| decide the loss's gradient.
+_AT_ZERO = np.where(np.random.RandomState(5).rand(2, 6, 5, 4) < 0.3, _loss_inputs()[0], 0.0).astype(np.float32)
+
 LOSS_CASES = {
     "weighted_softmax_ce": lambda m, a, x, lab, oh, w: m.weighted_softmax_ce(x, lab),
     "weighted_softmax_ce_weights": lambda m, a, x, lab, oh, w: m.weighted_softmax_ce(
         x, lab, a([0.2, 1.0, 3.0, 0.5])),
     "bce_with_logits": lambda m, a, x, lab, oh, w: m.bce_with_logits(x, oh, w),
+    "bce_with_logits_at_zero": lambda m, a, x, lab, oh, w: m.bce_with_logits(x - a(_AT_ZERO), oh, w),
+    "sigmoid_focal_loss_at_zero": lambda m, a, x, lab, oh, w: m.sigmoid_focal_loss(
+        x - a(_AT_ZERO), oh, alpha=0.3, gamma=1.5, weights=w).sum(),
     "soft_dice_loss": lambda m, a, x, lab, oh, w: m.soft_dice_loss(x, oh),
     "soft_dice_loss_with_background": lambda m, a, x, lab, oh, w: m.soft_dice_loss(
         x, oh, eps=0.5, skip_background=False),

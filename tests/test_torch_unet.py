@@ -111,7 +111,8 @@ def test_bridge_raises_on_missing_and_extra_leaves(x):
 
 def test_registry_names():
     assert list_models() == [
-        "unet_reference", "unet_resnet18", "unet_resnet34", "unet_resnet50"
+        "unet_reference", "unet_resnet18", "unet_resnet34", "unet_resnet50",
+        "unet_seresnext101", "unet_seresnext26", "unet_seresnext50",
     ]
 
 
