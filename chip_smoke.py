@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card: the inference paths (BEV
 segmentation with ``unet_resnet50`` and ``unet_seresnext101``, SECOND
 pillars, PointRCNN, sparse SECOND at the FHD geometry), SECOND training
-(pillars and both sparse middles) and BEV training.
+(pillars and both sparse middles), BEV training and PointRCNN training.
 
     python3 chip_smoke.py
 
@@ -226,6 +226,34 @@ Phases, one line of numbers each:
     1e-3 of their scale; the same model in bfloat16 keeps float32 running
     statistics that move in a train-mode forward. Phases 20-22 print one
     JSON line each (a line per case), with the card's name and power limit.
+
+23. PointRCNN RPN training at ``lyft_pointrcnn_config("train")`` in float32
+    on a synthetic KITTI tree (:func:`kitti_training_tree`: 4 frames of
+    20,000 points, 16 car boxes a frame holding 30% of them) read by the
+    port's loader: ``train_pointrcnn_rpn`` (3 steps of batch 2 x 16,384
+    points) with the PointNet++ kernel counts set to 0 before it and read
+    after it; then ``make_rpn_step`` (``adam_onecycle``) on a fixed batch of
+    2: 2 warm-up + 10 timed steps, the split labels / forward / loss /
+    backward / optimizer, peak memory above what earlier phases hold, the
+    launches of one step (recorded for 27);
+24. the online RCNN: ``train_rcnn_online`` (2 steps of one frame) with the
+    counts reset around it; then one frame's step (frozen RPN + proposals,
+    RoI sampling + noise, ``roi_pool3d``, RCNN forward + loss, backward,
+    ``adam``) on all 512 RoIs x 512 points: timed as in 23, split into those
+    stages, peak memory, the sampled foreground;
+25. the offline RCNN: ``cache_rcnn_samples`` over 2 frames, then one
+    ``train_rcnn_offline`` step, counted, then both timed by CUDA events;
+26. card against CPU, float32 with TF32 off, on a 4,096-point frame of the
+    tree: one RPN step (loss within 1e-5, gradients and updated parameters
+    within ``GRAD_NORM_TOL`` in the 2-norm), the RPN's and the RCNN's bin
+    labels equal, ``proposal_target_layer`` and ``aug_rois_with_noise`` on
+    512 RoIs around the GT boxes with the same draws: equal masks and choices
+    where no IoU lies within 1e-4 of a threshold;
+27. every FPS, ball-query, 3-NN and RoI-select launch of one RPN step and
+    one online RCNN step replayed against its plain version and timed.
+    Phases 23-27 print one JSON line each (a line a kernel in 27). The
+    training paths' launches join the inference path's in the ``kernels``
+    line.
 
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
@@ -3188,6 +3216,587 @@ def bev_train_check_phase(dev, card):
     torch.cuda.empty_cache()
 
 
+# PointRCNN training (phases 23-26): lyft_pointrcnn_config("train") in
+# float32, the CLI's defaults (RPN batch 2, RCNN batch 1, adam_onecycle lr
+# 2e-3 over 100 steps, adam 1e-3), on frames of a synthetic KITTI tree with
+# car boxes that hold points; the card-vs-CPU check on a smaller cloud.
+PRC_TRAIN_BATCH = 2
+PRC_TRAIN_FRAMES = 4
+PRC_FRAME_POINTS = 20000
+PRC_TRAIN_CARS = 16
+PRC_CHECK_POINTS = 4096
+PRC_CHECK_ROIS = 128
+PRC_KERNELS = ("fps", "ball_query", "knn", "roi_select")
+
+
+def kitti_training_tree(root, frames, n, cars, seed, spread=40.0, inside=0.3):
+    """A KITTI tree (``velodyne/``, ``calib/``, ``label_2/``) of ``frames``
+    frames written with the port's KITTI writers: ``cars`` car boxes a frame
+    (the Lyft car size ±10%, centres in ±``spread`` m, random yaw), the share
+    ``inside`` of the ``n`` points inside the boxes (within 95% of each half
+    extent) and the rest uniform in ±1.5·``spread`` m, z in [-2.5, 1] m."""
+    from pathlib import Path
+
+    from lyft3d_tpu_torch.data.kitti import Object3d, box_lidar_to_camera, default_calibration, write_label_file
+
+    rng = np.random.RandomState(seed)
+    root = Path(root)
+    for sub in ("velodyne", "calib", "label_2"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    calib = default_calibration()
+    for f in range(frames):
+        boxes = np.column_stack([rng.uniform(-spread, spread, (cars, 2)), rng.uniform(-1.2, -0.6, cars),
+                                 np.array([1.93, 4.76, 1.72]) * rng.uniform(0.9, 1.1, (cars, 3)),
+                                 rng.uniform(-math.pi, math.pi, cars)])
+        held_n = int(inside * n)
+        b = boxes[rng.randint(0, cars, held_n)]
+        local = (rng.rand(held_n, 3) - 0.5) * 0.95 * b[:, [4, 3, 5]]  # along l, w, h
+        c, s = np.cos(b[:, 6]), np.sin(b[:, 6])
+        held = np.column_stack([c * local[:, 0] - s * local[:, 1] + b[:, 0],
+                                s * local[:, 0] + c * local[:, 1] + b[:, 1], local[:, 2] + b[:, 2]])
+        rest = np.column_stack([rng.uniform(-1.5 * spread, 1.5 * spread, (n - held_n, 2)),
+                                rng.uniform(-2.5, 1.0, n - held_n)])
+        pts = np.concatenate([held, rest])[rng.permutation(n)]
+        np.column_stack([pts, np.zeros(n)]).astype(np.float32).tofile(root / "velodyne" / f"{f:06d}.bin")
+        calib.to_file(root / "calib" / f"{f:06d}.txt")
+        objs = []
+        for box in boxes:
+            pos, ry = box_lidar_to_camera(box, calib)
+            objs.append(Object3d(cls_type="car", truncation=0.0, occlusion=0, alpha=0.0,
+                                 box2d=np.array([0.0, 0.0, 50.0, 50.0]), h=float(box[5]), w=float(box[3]),
+                                 l=float(box[4]), pos=pos, ry=ry))
+        write_label_file(root / "label_2" / f"{f:06d}.txt", objs)
+    return root
+
+
+def prc_counts():
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    return dict(p2.KERNEL_LAUNCHES)
+
+
+def prc_reset():
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    for name in p2.KERNEL_LAUNCHES:
+        p2.KERNEL_LAUNCHES[name] = 0
+
+
+def prc_path(what, fn, expect):
+    """Runs ``fn`` (a training entry point) with the four PointNet++ kernel
+    counts set to 0 just before and read just after; fails unless every
+    kernel in ``expect`` launched and no other. Returns (its result, the
+    counts, host seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    prc_reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = prc_counts()
+    for name in PRC_KERNELS:
+        if (counts[name] > 0) != (name in expect):
+            raise AssertionError(f"{what}: {counts[name]} launches of the {name} kernel (expected "
+                                 f"{'some' if name in expect else 'none'})")
+    return out, counts, seconds
+
+
+def prc_batch(loader, stems, dev):
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in loader.batch(stems).items()}
+
+
+def stage_events(stages, repeats=5):
+    """Mean milliseconds of each stage over ``repeats`` runs of ``stages`` (a
+    list of (name, fn); each fn may use what the previous ones returned
+    through the shared dict it is given), timed by CUDA events between the
+    stages of one run."""
+    import torch
+
+    sums = {name: 0.0 for name, _ in stages}
+    for _ in range(repeats):
+        shared = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        for i, (_, fn) in enumerate(stages):
+            fn(shared)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        for i, (name, _) in enumerate(stages):
+            sums[name] += ev[i].elapsed_time(ev[i + 1]) / repeats
+    return sums
+
+
+def timed_steps(step, warmup=TRAIN_WARMUP, iters=TRAIN_STEPS):
+    """(mean step ms by CUDA events over ``iters`` steps after ``warmup``,
+    every step's loss)."""
+    import torch
+
+    losses = [step() for _ in range(warmup)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    losses += [step() for _ in range(iters)]
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(l) for l in losses]
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    return start.elapsed_time(end) / iters, losses
+
+
+def rpn_train_phase(cfg, loader, dev, card):
+    """Phase 23: the RPN trainer through ``train_pointrcnn_rpn`` (3 steps of
+    batch 2, the launch counts of the path), then ``make_rpn_step`` on a
+    fixed batch: 2 warm-up + 10 timed steps, the stage split, peak memory,
+    and the kernel launches of one step recorded for the replay. Returns
+    (the trained RPN, the path's counts, the recorded calls)."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn import modules as prc_modules
+    from lyft3d_tpu_torch.models.pointrcnn.net import PointRCNN_RPN, rpn_loss, rpn_point_labels
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    (rpn, entry_losses), path, entry_s = prc_path(
+        "train_pointrcnn_rpn", lambda: prt.train_pointrcnn_rpn(loader, cfg, steps=3, batch_size=PRC_TRAIN_BATCH,
+                                                               num_workers=2, device=dev),
+        ("fps", "ball_query", "knn"))
+    model = PointRCNN_RPN(cfg, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    optimizer = build_optimizer(list(model.parameters()), "adam_onecycle", 2e-3, total_steps=100)
+    step = prt.make_rpn_step(model, cfg, optimizer)
+    batch = prc_batch(loader, loader.stems[:PRC_TRAIN_BATCH], dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    step_ms, losses = timed_steps(lambda: step(batch)[0])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    xyz, gt = batch["points"], batch["gt_boxes"]
+
+    def labels(sh):
+        sh["labels"] = rpn_point_labels(xyz, gt, batch["gt_valid"])
+
+    def forward(sh):
+        optimizer.zero_grad(set_to_none=True)
+        sh["out"] = model(xyz, xyz.new_zeros((*xyz.shape[:2], 1)), batch["points_valid"])
+
+    def loss(sh):
+        sh["loss"] = rpn_loss(sh["out"], xyz, *sh["labels"], gt, cfg)[0].mean()
+
+    stages = stage_events([("labels", labels), ("forward", forward), ("loss", loss),
+                           ("backward", lambda sh: sh["loss"].backward()),
+                           ("optimizer", lambda sh: optimizer.step())])
+    with recorded(prc_modules, "fps") as fps_calls, \
+            recorded(prc_modules, "multi_radius_ball_query") as ball_calls, \
+            recorded(prc_modules, "three_nn") as knn_calls:
+        prc_reset()
+        step(batch)
+        torch.cuda.synchronize()
+        per_step = prc_counts()
+    fg = int((rpn_point_labels(xyz, gt, batch["gt_valid"])[0] == 1).sum())
+    phase_json("pointrcnn rpn train step", card, config='lyft_pointrcnn_config("train")', dtype="float32",
+               tf32=torch.backends.cuda.matmul.allow_tf32, batch=PRC_TRAIN_BATCH, points=int(xyz.shape[1]), gt_slots=int(gt.shape[1]),
+               gt_valid=int(batch["gt_valid"].sum()), foreground_points=fg,
+               optimizer="adam_onecycle lr 2e-3 total_steps 100", step_ms=step_ms,
+               samples_per_s=PRC_TRAIN_BATCH / (step_ms / 1e3), stages_ms=stages,
+               loss_first=losses[0], loss_last=losses[-1], losses_finite=len(losses),
+               peak_mem_gb=peak_gb, launches_per_step=per_step,
+               entry_point=dict(fn="train_pointrcnn_rpn", steps=3, host_s=entry_s, launches=path,
+                                losses=entry_losses))
+    del model, optimizer, step, batch
+    return rpn, path, {"fps": fps_calls.calls, "ball_query": ball_calls.calls, "knn": knn_calls.calls}
+
+
+def rcnn_online_phase(cfg, rpn, loader, dev, card):
+    """Phase 24: the online RCNN through ``train_rcnn_online`` (2 steps of
+    one frame, the path's launch counts), then one frame's step on the
+    trained RPN: 2 warm-up + 10 timed steps, the stage split, peak memory,
+    the RoIs' foreground and kept counts, and the kernel launches of one step
+    recorded for the replay. Returns (the path's counts, the recorded
+    calls)."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn import modules as prc_modules
+    from lyft3d_tpu_torch.models.pointrcnn.net import (
+        PointRCNN_RCNN,
+        aug_rois_with_noise,
+        draw_roi_noise,
+        draw_target_priorities,
+        gather_boxes,
+        proposal_layer,
+        proposal_target_layer,
+        rcnn_loss,
+    )
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    _, path, entry_s = prc_path(
+        "train_rcnn_online", lambda: prt.train_rcnn_online(rpn, loader, cfg, steps=2, num_workers=2, device=dev),
+        PRC_KERNELS)
+    model = PointRCNN_RCNN(cfg, 3 + cfg.fp_width, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    optimizer = build_optimizer(list(model.parameters()), "adam", 1e-3)
+    stage1 = prt.make_rcnn_stage1(rpn, cfg)
+    batch = prc_batch(loader, loader.stems[:1], dev)
+    generator = torch.Generator().manual_seed(0)
+    shape = (1, cfg.num_proposals)
+    inputs = (batch["points"], batch["points_valid"], batch["gt_boxes"], batch["gt_valid"])
+
+    def step():
+        roi_points, counts, rois, targets = stage1(
+            *inputs, draw_target_priorities(shape, generator, dev),
+            draw_roi_noise(shape, cfg.roi_fg_aug_times, generator, dev))
+        return prt.rcnn_step(model, optimizer, roi_points, counts, rois, targets, batch["gt_boxes"], cfg)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    step_ms, losses = timed_steps(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    xyz, valid, gt, gt_valid = inputs
+
+    def proposals(sh):
+        with torch.no_grad():
+            out = rpn(xyz, xyz.new_zeros((*xyz.shape[:2], 1)), valid)
+            sh["out"], sh["props"] = out, proposal_layer(xyz, out["cls"], out["reg"], valid, cfg)
+
+    def targets(sh):
+        with torch.no_grad():
+            tg = proposal_target_layer(sh["props"]["rois"], sh["props"]["roi_valid"], gt, gt_valid, cfg,
+                                       draw_target_priorities(shape, generator, dev))
+            sh["targets"] = tg
+            sh["rois"] = aug_rois_with_noise(sh["props"]["rois"], draw_roi_noise(shape, cfg.roi_fg_aug_times,
+                                                                                 generator, dev),
+                                             gt_of_rois=gather_boxes(gt, tg["assigned_gt"]), fg=tg["fg"],
+                                             pos_iou=cfg.fg_iou)
+
+    def pool(sh):
+        with torch.no_grad():
+            sh["pts"], sh["counts"] = prt.rcnn_inputs(xyz, sh["out"]["point_features"], valid, sh["rois"], cfg)
+
+    def forward_loss(sh):
+        optimizer.zero_grad(set_to_none=True)
+        sh["loss"] = rcnn_loss(model(sh["pts"], sh["counts"]), sh["rois"], sh["targets"], gt, cfg)[0].mean()
+
+    shared = {}
+    for fn in (proposals, targets, pool):
+        fn(shared)
+    tg = shared["targets"]
+    stages = stage_events([("rpn_and_proposals", proposals), ("targets_and_noise", targets),
+                           ("roi_pool", pool), ("rcnn_forward_loss", forward_loss),
+                           ("backward", lambda sh: sh["loss"].backward()),
+                           ("optimizer", lambda sh: optimizer.step())])
+    with recorded(prc_modules, "fps") as fps_calls, \
+            recorded(prc_modules, "multi_radius_ball_query") as ball_calls, \
+            recorded(prc_modules, "three_nn") as knn_calls, \
+            recorded(p2, "roi_inside_select") as roi_calls:
+        prc_reset()
+        step()
+        torch.cuda.synchronize()
+        per_step = prc_counts()
+    phase_json("pointrcnn rcnn online step", card, config='lyft_pointrcnn_config("train")', dtype="float32",
+               tf32=torch.backends.cuda.matmul.allow_tf32, batch=1, points=int(xyz.shape[1]), rois=cfg.num_proposals, roi_points=cfg.roi_points,
+               valid_proposals=int(shared["props"]["roi_valid"].sum()), sampled_fg=int(tg["fg"].sum()),
+               kept=int(tg["keep"].sum()), empty_rois=int((shared["counts"] == 0).sum()),
+               optimizer="adam lr 1e-3", step_ms=step_ms, samples_per_s=1 / (step_ms / 1e3), stages_ms=stages,
+               loss_first=losses[0], loss_last=losses[-1], losses_finite=len(losses), peak_mem_gb=peak_gb,
+               launches_per_step=per_step,
+               entry_point=dict(fn="train_rcnn_online", steps=2, host_s=entry_s, launches=path))
+    del model, optimizer, shared, batch
+    torch.cuda.empty_cache()
+    return path, {"fps": fps_calls.calls, "ball_query": ball_calls.calls, "knn": knn_calls.calls,
+                  "roi_select": roi_calls.calls}
+
+
+def rcnn_offline_phase(cfg, rpn, loader, dev, card):
+    """Phase 25: ``cache_rcnn_samples`` over 2 frames, then one
+    ``train_rcnn_offline`` step, through the entry points (the path's launch
+    counts), then both again timed by CUDA events. Returns the path's
+    counts."""
+    import torch
+
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+
+    stems = loader.stems[:2]
+    cache, cache_counts, _ = prc_path("cache_rcnn_samples", lambda: prt.cache_rcnn_samples(rpn, loader, cfg, stems),
+                                      ("fps", "ball_query", "knn"))
+    (_, losses), step_counts, _ = prc_path(
+        "train_rcnn_offline", lambda: prt.train_rcnn_offline(cache, cfg, steps=1, device=dev),
+        ("fps", "ball_query", "roi_select"))
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    start.record()
+    cache = prt.cache_rcnn_samples(rpn, loader, cfg, stems)
+    mid.record()
+    _, timed = prt.train_rcnn_offline(cache, cfg, steps=1, device=dev)
+    end.record()
+    torch.cuda.synchronize()
+    if not all(math.isfinite(l) for l in losses + timed):
+        raise AssertionError(f"offline RCNN losses are not finite: {losses + timed}")
+    path = {k: cache_counts[k] + step_counts[k] for k in PRC_KERNELS}
+    phase_json("pointrcnn rcnn offline", card, config='lyft_pointrcnn_config("train")', dtype="float32",
+               frames=len(stems), cache_ms=start.elapsed_time(mid), offline_step_ms=mid.elapsed_time(end),
+               valid_proposals=[int(c["roi_valid"].sum()) for c in cache], loss=timed[0],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9 - base_gb,
+               launches=dict(cache=cache_counts, offline_step=step_counts))
+    return path
+
+
+def near_threshold(iou, thresholds, margin=1e-4):
+    """Where an IoU lies within ``margin`` of one of ``thresholds``."""
+    return (iou[..., None] - iou.new_tensor(thresholds)).abs().amin(-1) <= margin
+
+
+def pointrcnn_train_check_phase(cfg, root, dev, card):
+    """Phase 26: card against CPU, float32 with TF32 off, the same seeded
+    weights and inputs on both: one ``make_rpn_step`` on a frame of
+    ``PRC_CHECK_POINTS`` points, 80% of them in 4 cars within ±8 m (dense
+    enough that the 0.1 m balls of SA stage 0 hold neighbours), read from a
+    tree of its own in ``root`` (loss within 1e-5 relative; every gradient
+    finite and within ``GRAD_NORM_TOL`` in the 2-norm, or zero on both;
+    every updated parameter within ``GRAD_NORM_TOL`` of how far it moved, in
+    the 2-norm); the RPN's bin
+    labels of that frame equal; ``proposal_target_layer`` and
+    ``aug_rois_with_noise`` on ``num_proposals`` RoIs around the frame's GT
+    boxes with the same draws: equal masks, assigned boxes and chosen
+    candidates where no IoU lies within 1e-4 of a threshold (RoIs whose IoU
+    does are left out of the sampling on both devices, and rows with such a
+    candidate out of the comparison), IoUs within 1e-4; and the RCNN's bin
+    labels of the sampled RoIs equal."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn.net import (
+        PointRCNN_RPN,
+        aug_rois_with_noise,
+        draw_roi_noise,
+        draw_target_priorities,
+        gather_boxes,
+        proposal_target_layer,
+        rpn_point_labels,
+    )
+    from lyft3d_tpu_torch.ops.bin_coder import encode_bin_targets
+    from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_3d, rotated_iou_3d_paired
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+    from lyft3d_tpu_torch.pipelines.pointrcnn import KittiLoaderConfig, KittiPointRCNNLoader
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = kitti_training_tree(root, 1, PRC_CHECK_POINTS, 4, seed=21, spread=8.0, inside=0.8)
+    loader = KittiPointRCNNLoader(root, KittiLoaderConfig(num_points=PRC_CHECK_POINTS), seed=1)
+    frame = {k: torch.from_numpy(v) for k, v in loader.batch(loader.stems[:1]).items()}
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        model = PointRCNN_RPN(cfg, device=device, generator=torch.Generator().manual_seed(3)).train()
+        start = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+        optimizer = build_optimizer(list(model.parameters()), "adam_onecycle", 2e-3, total_steps=100)
+        loss, _ = prt.make_rpn_step(model, cfg, optimizer)({k: v.to(device) for k, v in frame.items()})
+        runs.append((float(loss), {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                     {k: p.detach().cpu() for k, p in model.named_parameters()}, start))
+        del model, optimizer
+    (l_cpu, g_cpu, p_cpu, p0), (l_card, g_card, p_card, _) = runs
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"PointRCNN train check: RPN loss {l_card} on the card, {l_cpu} on the CPU")
+    grad_worst, param_worst, zero = (0.0, ""), (0.0, ""), 0
+    for k, want in g_cpu.items():
+        got = g_card[k]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"PointRCNN train check: gradient of {k} is not finite")
+        if float(want.norm()) == 0:
+            if float(got.norm()) != 0:
+                raise AssertionError(f"PointRCNN train check: gradient of {k} is zero on the CPU, not on the card")
+            zero += 1
+            continue
+        grad_worst = max(grad_worst, (float((got - want).norm() / want.norm()), k))
+        moved = float((p_cpu[k] - p0[k]).norm())
+        param_worst = max(param_worst, (float((p_card[k] - p_cpu[k]).norm()) / max(moved, 1e-12), k))
+    if not (grad_worst[0] <= GRAD_NORM_TOL and param_worst[0] <= GRAD_NORM_TOL):
+        raise AssertionError(f"PointRCNN train check: gradient of {grad_worst[1]} differs by {grad_worst[0]}, "
+                             f"parameter {param_worst[1]} by {param_worst[0]} of its move, in the 2-norm")
+
+    # Bin labels of the RPN's foreground targets.
+    def rpn_bins(device):
+        xyz, gt = frame["points"].to(device), frame["gt_boxes"].to(device)
+        labels, assigned = rpn_point_labels(xyz, gt, frame["gt_valid"].to(device))
+        return labels.cpu(), {k: v.cpu() for k, v in encode_bin_targets(
+            xyz, gather_boxes(gt, assigned), cfg.rpn_coder).items()}
+
+    (lab_cpu, rpn_cpu), (lab_card, rpn_card) = rpn_bins(torch.device("cpu")), rpn_bins(dev)
+    if not torch.equal(lab_cpu, lab_card):
+        raise AssertionError("PointRCNN train check: RPN point labels differ between the card and the CPU")
+    fg = lab_cpu == 1
+    res_err = 0.0
+    for k, want in rpn_cpu.items():
+        if k.endswith("_bin"):
+            if not torch.equal(rpn_card[k][fg], want[fg]):
+                raise AssertionError(f"PointRCNN train check: RPN {k} labels differ between the card and the CPU")
+        else:
+            res_err = max(res_err, float((rpn_card[k][fg] - want[fg]).abs().max()))
+
+    # RoI sampling and RoI noise on RoIs around the GT boxes, same draws.
+    rng = np.random.RandomState(5)
+    gt, gt_valid = frame["gt_boxes"], frame["gt_valid"]
+    held = gt[0][gt_valid[0]].numpy()
+    r = cfg.num_proposals
+    around = np.repeat(held, -(-(r - r // 8) // len(held)), 0)[: r - r // 8]
+    scale = rng.uniform(0.0, 1.0, (len(around), 1)) * np.array([[0.8, 0.8, 0.3, 0.25, 0.25, 0.25, 0.6]])
+    around = around + rng.uniform(-1, 1, around.shape) * scale * np.array([[1, 1, 1, 0, 0, 0, 1]])
+    around[:, 3:6] *= 1 + rng.uniform(-1, 1, (len(around), 3)) * scale[:, 3:6]
+    apart = np.column_stack([rng.uniform(-40, 40, (r // 8, 2)), np.full(r // 8, -1.0),
+                             np.tile([1.93, 4.76, 1.72], (r // 8, 1)), rng.uniform(-3, 3, r // 8)])
+    rois = torch.from_numpy(np.concatenate([around, apart]).astype(np.float32))[None]
+    iou = rotated_iou_3d(rois, gt).masked_fill(~gt_valid[:, None, :], -1.0).amax(-1)
+    roi_valid = ~near_threshold(iou, (cfg.fg_iou, cfg.bg_iou, cfg.bg_iou_lo))
+    generator = torch.Generator().manual_seed(6)
+    priorities = draw_target_priorities((1, r), generator)
+    noise = draw_roi_noise((1, r), cfg.roi_fg_aug_times, generator)
+    outs = []
+    for device in (torch.device("cpu"), dev):
+        def on(x):
+            return x.to(device)
+        tg = proposal_target_layer(on(rois), on(roi_valid), on(gt), on(gt_valid), cfg, [on(p) for p in priorities])
+        gt_of = gather_boxes(on(gt), tg["assigned_gt"])
+        noisy = aug_rois_with_noise(on(rois), {k: on(v) for k, v in noise.items()}, gt_of_rois=gt_of,
+                                    fg=tg["fg"], pos_iou=cfg.fg_iou)
+        cand_iou = rotated_iou_3d_paired(
+            torch.cat([on(rois)[..., None, :3] + on(noise["loc"]),
+                       torch.clamp(on(rois)[..., None, 3:6] * (1 + on(noise["size"])), min=0.1),
+                       on(rois)[..., None, 6:] + on(noise["yaw"])[..., None]], -1), gt_of[..., None, :])
+        outs.append(({k: v.cpu() for k, v in tg.items()}, noisy.cpu(), cand_iou.cpu()))
+    (tg_cpu, noisy_cpu, cand_cpu), (tg_card, noisy_card, _) = outs
+    for k in ("fg", "keep"):
+        if not torch.equal(tg_card[k], tg_cpu[k]):
+            raise AssertionError(f"PointRCNN train check: target {k} masks differ between the card and the CPU")
+    ok = roi_valid
+    if not torch.equal(tg_card["assigned_gt"][ok], tg_cpu["assigned_gt"][ok]):
+        raise AssertionError("PointRCNN train check: assigned GT boxes differ between the card and the CPU")
+    iou_err = float((tg_card["max_iou"] - tg_cpu["max_iou"]).abs().max())
+    if not iou_err <= 1e-4:
+        raise AssertionError(f"PointRCNN train check: IoUs differ by {iou_err} between the card and the CPU")
+    clear = ~near_threshold(cand_cpu, (cfg.fg_iou,)).any(-1)
+    if not torch.equal(noisy_card[clear], noisy_cpu[clear]):
+        raise AssertionError("PointRCNN train check: RoI noise chose other candidates on the card than on the CPU")
+
+    # Bin labels of the RCNN's canonical targets of the sampled RoIs.
+    def rcnn_bins(device):
+        rel_rois = noisy_cpu.to(device)
+        gts = gather_boxes(gt.to(device), tg_cpu["assigned_gt"].to(device))
+        rel = gts[..., :3] - rel_rois[..., :3]
+        c, s = torch.cos(-rel_rois[..., 6]), torch.sin(-rel_rois[..., 6])
+        canon = torch.cat([torch.stack([c * rel[..., 0] - s * rel[..., 1], s * rel[..., 0] + c * rel[..., 1],
+                                        rel[..., 2]], -1), gts[..., 3:6], (gts[..., 6] - rel_rois[..., 6])[..., None]], -1)
+        return {k: v.cpu() for k, v in encode_bin_targets(torch.zeros_like(rel_rois[..., :3]), canon,
+                                                          cfg.rcnn_coder).items()}
+
+    rcnn_cpu, rcnn_card = rcnn_bins(torch.device("cpu")), rcnn_bins(dev)
+    sampled = tg_cpu["fg"]
+    for k in ("x_bin", "y_bin", "head_bin"):
+        if not torch.equal(rcnn_card[k][sampled], rcnn_cpu[k][sampled]):
+            raise AssertionError(f"PointRCNN train check: RCNN {k} labels differ between the card and the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    phase_json("pointrcnn train check", card, config='lyft_pointrcnn_config("train")', dtype="float32",
+               tf32=False, points=PRC_CHECK_POINTS, loss_card=l_card, loss_cpu=l_cpu, loss_rel_err=loss_err,
+               loss_tol=1e-5, gradients=len(g_cpu), zero_gradients=zero, worst_grad_2norm_err=grad_worst[0],
+               worst_grad_at=grad_worst[1], worst_param_err_of_move=param_worst[0],
+               worst_param_at=param_worst[1], tol=GRAD_NORM_TOL, rpn_foreground_points=int(fg.sum()),
+               rpn_bin_labels_equal=True, rpn_residual_max_abs_err=res_err, rois=r,
+               rois_left_out_near_threshold=int((~roi_valid).sum()), sampled_fg=int(sampled.sum()),
+               kept=int(tg_cpu["keep"].sum()), target_masks_equal=True, max_iou_abs_err=iou_err,
+               noise_rows_compared=int(clear.sum()), noise_rows_moved=int((noisy_cpu != rois).any(-1).sum()),
+               noise_choices_equal=True, rcnn_bin_labels_equal=True)
+
+
+def training_replay(calls, card):
+    """Phase 27: every FPS, ball-query, 3-NN and RoI-select launch recorded
+    in one RPN step and one online RCNN step, replayed: each equal to its
+    plain version (indices and counts ``torch.equal``, 3-NN distances within
+    1e-6 of scale) and timed with CUDA events, the plain version beside it
+    (FPS's plain version is checked, not timed: thousands of dependent
+    launches). One JSON line a kernel. Returns each kernel's total ms a
+    step."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+
+    def fps(args):
+        pts, valid, npoint = args
+        if not torch.equal(p2.fps(pts, valid, npoint), p2.furthest_point_sample(pts, valid, npoint)):
+            raise AssertionError(f"fps replay differs from the plain version at {tuple(pts.shape)} -> {npoint}")
+        return f"{tuple(pts.shape[:2])}->{npoint}", cuda_ms(lambda: p2.fps(*args), warmup=1, iters=5), None
+
+    def ball(args):
+        c, p, v, radii, ks = args
+        want = p2.multi_radius_ball_query_dense(*args)
+        for (g_idx, g_cnt), (w_idx, w_cnt) in zip(p2.multi_radius_ball_query(*args), want):
+            if not (torch.equal(g_idx, w_idx) and torch.equal(g_cnt, w_cnt)):
+                raise AssertionError(f"ball query replay differs from the plain version at {tuple(c.shape)}")
+        rule = p2._ball_query_kernel(p.shape[0], c.shape[1], p.shape[1], max(radii))
+        return (f"{tuple(c.shape[:2])}x{p.shape[1]} r={tuple(radii)} k={tuple(ks)} {rule}",
+                cuda_ms(lambda: p2.multi_radius_ball_query(*args), iters=10),
+                cuda_ms(lambda: p2.multi_radius_ball_query_dense(*args), warmup=1, iters=3))
+
+    def knn(args):
+        w_d, w_idx = p2.three_nn_dense(*args)
+        g_d, g_idx = p2.three_nn(*args)
+        if not (torch.equal(g_idx, w_idx) and float((g_d - w_d).abs().max()) <= 1e-6 * max(1.0, float(w_d.abs().max()))):
+            raise AssertionError(f"three_nn replay differs from the plain version at {tuple(args[0].shape)}")
+        return (f"{tuple(args[0].shape[:2])}<-{args[1].shape[1]}", cuda_ms(lambda: p2.three_nn(*args), iters=10),
+                cuda_ms(lambda: p2.three_nn_dense(*args), warmup=1, iters=3))
+
+    def roi(args):
+        got, want = p2.roi_inside_select(*args), p2.roi_inside_select_dense(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("roi select replay differs from the plain version")
+        return (f"{tuple(args[2].shape[:2])} boxes x {args[0].shape[1]} k={args[3]}",
+                cuda_ms(lambda: p2.roi_inside_select(*args), iters=10),
+                cuda_ms(lambda: p2.roi_inside_select_dense(*args), warmup=1, iters=3))
+
+    totals = {}
+    for name, check in (("fps", fps), ("ball_query", ball), ("knn", knn), ("roi_select", roi)):
+        rows = []
+        for step, recorded_calls in calls.items():
+            for args, _ in recorded_calls.get(name, ()):
+                shape, k_ms, p_ms = check(args)
+                rows.append({"step": step, "shape": shape, "kernel_ms": k_ms, "plain_ms": p_ms})
+        totals[name] = {step: sum(r["kernel_ms"] for r in rows if r["step"] == step) for step in calls}
+        phase_json(f"pointrcnn training replay: {name}", card, launches=rows, equal_to_plain=True,
+                   kernel_ms_per_step=totals[name])
+    return totals
+
+
+def pointrcnn_training_phases(dev, card):
+    """Phases 23-27 on a synthetic KITTI tree in a temporary directory.
+    Returns each PointNet++ kernel's launches over the three training paths
+    (``train_pointrcnn_rpn``, ``train_rcnn_online``, ``cache_rcnn_samples``
+    with ``train_rcnn_offline``), each run with the counts set to 0 just
+    before it."""
+    import tempfile
+
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn.net import lyft_pointrcnn_config
+    from lyft3d_tpu_torch.pipelines.pointrcnn import KittiLoaderConfig, KittiPointRCNNLoader
+
+    cfg = lyft_pointrcnn_config("train")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = kitti_training_tree(tmp, PRC_TRAIN_FRAMES, PRC_FRAME_POINTS, PRC_TRAIN_CARS, seed=20)
+        loader = KittiPointRCNNLoader(root, KittiLoaderConfig(num_points=PRC_POINTS), seed=0)
+        rpn, rpn_path, rpn_calls = rpn_train_phase(cfg, loader, dev, card)
+        online_path, online_calls = rcnn_online_phase(cfg, rpn, loader, dev, card)
+        offline_path = rcnn_offline_phase(cfg, rpn, loader, dev, card)
+        pointrcnn_train_check_phase(cfg, f"{tmp}/check", dev, card)
+    training_replay({"rpn step": rpn_calls, "rcnn online step": online_calls}, card)
+    del rpn, rpn_calls, online_calls
+    torch.cuda.empty_cache()
+    return {k: rpn_path[k] + online_path[k] + offline_path[k] for k in PRC_KERNELS}
+
+
 def torch_equal(a, b):
     import torch
 
@@ -3654,6 +4263,10 @@ def main():
         bev_train_step_run(name, microbatch, dev, card)
     bev_train_check_phase(dev, card)
 
+    # 23-27. PointRCNN training: the RPN, the online and offline RCNN, card
+    # against CPU, and the kernels' launches replayed at the training shapes
+    prc_train = pointrcnn_training_phases(dev, card)
+
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the four training runs."""
         return sum(c[kernel] for c in train_launches.values())
@@ -3674,10 +4287,14 @@ def main():
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"],
                fill_numbers),
-        record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"], select["fps"]),
-        record("ball_query", f"{sel}:94", prc_launches["ball_query"], select["ball_query"]),
-        record("knn", f"{sel}:115", prc_launches["knn"], select["knn"]),
-        record("roi_select", f"{sel}:127", prc_launches["roi_select"], select["roi_select"]),
+        # Launched by two paths: PointRCNN inference and training (the three
+        # trainers' entry points).
+        record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"] + prc_train["fps"], select["fps"]),
+        record("ball_query", f"{sel}:94", prc_launches["ball_query"] + prc_train["ball_query"],
+               select["ball_query"]),
+        record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"], select["knn"]),
+        record("roi_select", f"{sel}:127", prc_launches["roi_select"] + prc_train["roi_select"],
+               select["roi_select"]),
         record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
                sparse_launches["stencil_conv"], stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",

@@ -8,10 +8,12 @@ Commands (the JAX package's arguments, plus ``--device``):
     create-infos    build SECOND training infos from a Lyft DB (host only)
     create-gtdb     build the copy-paste GT database (host only)
     train-second    train the voxelnet detector
+    train-pointrcnn train PointRCNN's RPN, then its RCNN online or offline
 
 Device commands run on the first CUDA card (the trunk in bfloat16, as the JAX
-package's default) and fail when there is none; ``--device cpu`` is the
-explicit CPU run, in float32. Reading a ``--config`` yaml needs pyyaml.
+package's default; PointRCNN trains in float32, as the JAX trainers do) and
+fail when there is none; ``--device cpu`` is the explicit CPU run, in
+float32. Reading a ``--config`` yaml needs pyyaml.
 """
 
 from __future__ import annotations
@@ -193,6 +195,40 @@ def cmd_train_second(args):
     train_second(exp, loader, [i["token"] for i in infos], dtype=_train_dtype(device), device=device)
 
 
+def cmd_train_pointrcnn(args):
+    from lyft3d_tpu_torch.models.pointrcnn.net import PointRCNNConfig, lyft_pointrcnn_config
+    from lyft3d_tpu_torch.pipelines.pointrcnn import KittiLoaderConfig, KittiPointRCNNLoader
+    from lyft3d_tpu_torch.pipelines.pointrcnn_train import (
+        cache_rcnn_samples,
+        train_pointrcnn_rpn,
+        train_rcnn_offline,
+        train_rcnn_online,
+    )
+
+    device = _device(args.device)
+    classes = tuple(args.classes.split(","))
+    loader = KittiPointRCNNLoader(
+        args.kitti_root,
+        KittiLoaderConfig(num_points=args.num_points, classes=classes, augment=args.augment),
+    )
+    # One class per run: the first --classes entry selects the mean size the
+    # coders regress against.
+    cfg = lyft_pointrcnn_config("train", class_name=classes[0]) if args.preset == "lyft" else PointRCNNConfig()
+    rpn, losses = train_pointrcnn_rpn(loader, cfg, steps=args.steps, batch_size=args.batch_size,
+                                      device=device)
+    print(f"final rpn loss: {losses[-1]:.4f}")
+    if args.mode == "rcnn_offline":
+        # Staged training: the frozen RPN's proposals and features cached,
+        # then the RCNN trained on the cache.
+        cache = cache_rcnn_samples(rpn, loader, cfg)
+        _, rcnn_losses = train_rcnn_offline(cache, cfg, steps=args.rcnn_steps, device=device)
+        print(f"final rcnn loss: {rcnn_losses[-1]:.4f}")
+    elif args.mode == "rcnn":
+        # Online: the frozen RPN runs every step, live proposals with RoI noise.
+        _, rcnn_losses = train_rcnn_online(rpn, loader, cfg, steps=args.rcnn_steps, device=device)
+        print(f"final rcnn loss: {rcnn_losses[-1]:.4f}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lyft3d_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
@@ -259,6 +295,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--set", nargs="*", default=[])
     add_device_arg(sp)
     sp.set_defaults(fn=cmd_train_second)
+
+    sp = sub.add_parser("train-pointrcnn")
+    sp.add_argument("--kitti-root", required=True)
+    sp.add_argument("--num-points", type=int, default=16384)
+    sp.add_argument("--classes", default="car")
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--batch-size", type=int, default=2)
+    sp.add_argument("--mode", choices=("rpn", "rcnn", "rcnn_offline"), default="rpn")
+    sp.add_argument("--rcnn-steps", type=int, default=100)
+    sp.add_argument("--preset", choices=("tiny", "lyft"), default="tiny",
+                    help="lyft = the reference capacities (lyft_pointrcnn_config('train'))")
+    sp.add_argument("--augment", action="store_true",
+                    help="scene-level flip/rotation/scaling augmentation")
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (fails without a card) or cpu; float32 on both")
+    sp.set_defaults(fn=cmd_train_pointrcnn)
     return p
 
 

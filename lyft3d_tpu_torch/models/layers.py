@@ -122,11 +122,17 @@ class BatchNorm(nn.BatchNorm2d):
     every cast of the module (``.to(dtype)``, ``.bfloat16()``, …) leaves them
     float32 with their values (in bfloat16, ``0.99·r + 0.01·b`` rounds back
     to ``r`` unless ``b`` is far from ``r``); ``num_batches_tracked`` is not
-    used."""
+    used.
 
-    def __init__(self, features: int, eps: float = BATCH_NORM_EPS, device=None, dtype=None):
+    ``channel_dim`` is the features' dimension: 1 for NCHW maps, −1 for the
+    ``(…, C)`` activations of a Dense layer, where the statistics are over
+    every other dimension, as flax's ``BatchNorm`` after ``nn.Dense``."""
+
+    def __init__(self, features: int, eps: float = BATCH_NORM_EPS, device=None, dtype=None,
+                 channel_dim: int = 1):
         super().__init__(features, eps=eps, momentum=1.0 - BATCH_NORM_MOMENTUM, device=device,
                          dtype=dtype)
+        self.channel_dim = channel_dim
         self.running_mean = self.running_mean.float()
         self.running_var = self.running_var.float()
         self.batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -144,9 +150,11 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        c = xf.shape[1]
+        axis = self.channel_dim % xf.dim()
+        shape = [1] * xf.dim()
+        shape[axis] = xf.shape[axis]
         if self.training:
-            dims = (0, 2, 3)
+            dims = tuple(d for d in range(xf.dim()) if d != axis)
             mean = xf.mean(dim=dims)
             var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
@@ -157,7 +165,7 @@ class BatchNorm(nn.BatchNorm2d):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
-        y = (xf - mean.view(1, c, 1, 1)) * mul.view(1, c, 1, 1) + self.bias.to(xf.dtype).view(1, c, 1, 1)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(xf.dtype).view(shape)
         return y.to(x.dtype)
 
 

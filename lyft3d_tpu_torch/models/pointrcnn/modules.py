@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from lyft3d_tpu_torch.models.layers import LayerNorm
+from lyft3d_tpu_torch.models.layers import BatchNorm, LayerNorm
 from lyft3d_tpu_torch.ops.pointnet2 import (
     fps,
     group_points,
@@ -26,26 +26,23 @@ from lyft3d_tpu_torch.ops.pointnet2 import (
 
 __all__ = ["SharedMLP", "SAModuleMSG", "SAModuleGlobal", "FPModule"]
 
-NORMS = ("layer", "folded")
+NORMS = ("layer", "batch", "folded")
 
 
 class SharedMLP(nn.Module):
     """Pointwise Linear + norm + ReLU stack over the last dimension.
 
     ``norm``: "layer" (Linear without bias → LayerNorm with flax's
-    statistics) or "folded" (Linear with bias, no norm op: the inference
-    structure). "batch" (BatchNorm with running statistics, and its fold)
-    comes with the training port. The input is cast to the weights' dtype.
+    statistics), "batch" (Linear without bias → BatchNorm over every
+    dimension but the last, flax's statistics in train mode, the running ones
+    in eval mode) or "folded" (Linear with bias, no norm op: the inference
+    structure, which :func:`lyft3d_tpu_torch.models.fold_bn.fold_batch_norms`
+    makes of a "batch" model). The input is cast to the weights' dtype.
     """
 
     def __init__(self, in_features: int, features: Sequence[int], norm: str = "layer",
                  device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if norm == "batch":
-            raise NotImplementedError(
-                'SharedMLP norm="batch" is not ported to lyft3d_tpu_torch yet '
-                '(ported: "layer", "folded")'
-            )
         if norm not in NORMS:
             raise ValueError(f"norm must be one of {NORMS}, got {norm!r}")
         fk = {"device": device, "dtype": dtype}
@@ -53,9 +50,10 @@ class SharedMLP(nn.Module):
         self.linears = nn.ModuleList(
             nn.Linear(i, o, bias=norm == "folded", **fk) for i, o in zip(widths[:-1], widths[1:])
         )
-        self.norms = nn.ModuleList(
-            LayerNorm(o, **fk) if norm == "layer" else nn.Identity() for o in features
-        )
+        norms = {"layer": lambda o: LayerNorm(o, **fk),
+                 "batch": lambda o: BatchNorm(o, channel_dim=-1, **fk),
+                 "folded": lambda o: nn.Identity()}[norm]
+        self.norms = nn.ModuleList(norms(o) for o in features)
         self.out_features = widths[-1]
 
     def forward(self, x):

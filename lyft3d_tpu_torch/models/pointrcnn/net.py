@@ -1,5 +1,5 @@
-"""PointRCNN: PointNet++ RPN → proposals → RCNN refinement (port of the
-inference half of ``lyft3d_tpu/models/pointrcnn/net.py``).
+"""PointRCNN: PointNet++ RPN → proposals → RCNN refinement, and its training
+targets and losses (port of ``lyft3d_tpu/models/pointrcnn/net.py``).
 
 - ``PointRCNNBackbone``: 4 MSG set-abstraction stages + 4 feature-propagation
   stages back to per-point features;
@@ -8,16 +8,25 @@ inference half of ``lyft3d_tpu/models/pointrcnn/net.py``).
   proposal set (optionally split into a near and a far quota);
 - ``PointRCNN_RCNN``: RoI points in the box-canonical frame → SA stack →
   class logit + bin regression;
-- ``PointRCNN``: the joint net, ending in refined lidar-frame boxes.
+- ``PointRCNN``: the joint net, ending in refined lidar-frame boxes;
+- training: :func:`rpn_point_labels` and :func:`rpn_loss` (focal
+  foreground/background + bin regression over foreground points),
+  :func:`proposal_target_layer` (IoU-based RoI sampling with hard-background
+  mining), :func:`aug_rois_with_noise` (IoU-controlled RoI jitter) and
+  :func:`rcnn_loss`.
 
 Everything is batched with fixed capacities: xyz ``(B, N, 3)``, valid
 ``(B, N)``; the RCNN stage folds the RoI axis into the batch (``B·R`` clouds
 of ``roi_points`` points), where the JAX package ``vmap``s over samples and
-RoIs. ``dtype`` is the compute type of the MLP stacks; geometry, the
+RoIs. The losses return one value a sample, each with its own denominators,
+as the JAX package's per-sample functions under ``vmap``; the trainers take
+their mean. ``dtype`` is the compute type of the MLP stacks; geometry, the
 ``cls``/``reg`` heads, decoding and NMS stay float32, as in the flax modules.
-The training side (``proposal_target_layer``, ``aug_rois_with_noise``,
-``rpn_point_labels``, the losses) comes with the training port, and so does
-the grid-bucketed ball query (``grid_bounds``).
+The JAX package draws the random numbers of RoI sampling and RoI noise from
+``jax.random`` inside the functions; here they are arguments (uniforms of
+the JAX draws' shapes and ranges), and :func:`draw_target_priorities` and
+:func:`draw_roi_noise` draw them from a ``torch.Generator``. The
+grid-bucketed ball query (``grid_bounds``) is not ported.
 """
 
 from __future__ import annotations
@@ -38,11 +47,15 @@ from lyft3d_tpu_torch.models.pointrcnn.modules import (
 )
 from lyft3d_tpu_torch.ops.bin_coder import (
     BinCoderConfig,
+    bin_reg_loss,
     decode_bin_boxes,
     decode_refined_boxes,
+    encode_bin_targets,
 )
 from lyft3d_tpu_torch.ops.nms import rotated_nms, select_top_k
 from lyft3d_tpu_torch.ops.pointnet2 import roi_pool3d
+from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_3d, rotated_iou_3d_paired
+from lyft3d_tpu_torch.train.losses import _stable_bce, sigmoid_focal_loss
 
 __all__ = [
     "PointRCNNConfig",
@@ -55,6 +68,14 @@ __all__ = [
     "canonical_transform",
     "PointRCNN_RCNN",
     "PointRCNN",
+    "rpn_point_labels",
+    "rpn_loss",
+    "gather_boxes",
+    "draw_target_priorities",
+    "proposal_target_layer",
+    "draw_roi_noise",
+    "aug_rois_with_noise",
+    "rcnn_loss",
 ]
 
 _META = torch.device("meta")
@@ -89,7 +110,7 @@ class PointRCNNConfig:
     rcnn_widths: Tuple[int, ...] = (128, 256)
     rcnn_sa_radii: Tuple[float, ...] = (1.0, 1.0)
     rcnn_sa_nsamples: Tuple[int, ...] = (16, 16)
-    # proposal targets (training; kept so that configs carry over unchanged)
+    # proposal targets (training)
     fg_iou: float = 0.55
     bg_iou: float = 0.45
     rois_per_image: int = 32
@@ -291,6 +312,121 @@ def proposal_layer(xyz, cls_logits, reg, valid, cfg: PointRCNNConfig):
     }
 
 
+def draw_target_priorities(shape, generator: Optional[torch.Generator] = None, device=None):
+    """The uniforms :func:`proposal_target_layer` takes: priorities in [0, 1)
+    of ``shape`` (``(B, R)``) for the fg, hard and easy pools, drawn from
+    ``generator`` on its device and moved to ``device``."""
+    return tuple(torch.rand(shape, generator=generator).to(device) for _ in range(3))
+
+
+def _random_subset(priorities, member, n):
+    """Keep mask selecting ``min(n, |member|)`` members a row: the members
+    ranked by their priorities (a stable sort; non-members rank last), ranks
+    below ``n (…)`` kept, the fixed-shape form of ``permutation(count)[:n]``."""
+    pri = torch.where(member, priorities, 2.0)
+    order = torch.argsort(pri, dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(member.shape[-1], device=member.device).expand_as(order))
+    return member & (rank < n[..., None])
+
+
+def gather_boxes(boxes, idx):
+    """``boxes[b, idx[b, r]]`` for ``(B, G, 7)`` boxes and ``(B, R)`` idx."""
+    return torch.gather(boxes, 1, idx.long()[..., None].expand(*idx.shape, boxes.shape[-1]))
+
+
+def proposal_target_layer(rois, roi_valid, gt_boxes, gt_valid, cfg: PointRCNNConfig, priorities):
+    """Train-time RoI sampling: 3D IoU against the GT boxes, random
+    foreground subsampling and hard-background mining.
+
+    ``rois (B, R, 7)``, ``roi_valid (B, R)``, ``gt_boxes (B, G, 7)``,
+    ``gt_valid (B, G)``; ``priorities`` the three ``(B, R)`` uniforms of
+    :func:`draw_target_priorities` (fg, hard, easy). Foreground is IoU ≥
+    ``fg_iou``, subsampled to ``fg_fraction·rois_per_image``; background
+    splits into hard (IoU in [``bg_iou_lo``, ``bg_iou``)) and easy (IoU below
+    ``bg_iou_lo``), the hard pool taking ``hard_bg_ratio`` of the remaining
+    quota (floored in float32, as the JAX package computes it) and each pool
+    topping up the other when it runs short. Returns ``{"assigned_gt" (B, R)
+    (the first best GT), "fg", "keep" (B, R) bool, "max_iou" (B, R)}``.
+    """
+    iou = rotated_iou_3d(rois, gt_boxes)
+    iou = torch.where(gt_valid[:, None, :], iou, -1.0)
+    best_gt = iou.argmax(dim=-1)  # the first of equal maxima, as jnp.argmax
+    best_iou = torch.where(roi_valid, iou.amax(dim=-1), -1.0)
+    fg = best_iou >= cfg.fg_iou
+    hard_bg = (best_iou < cfg.bg_iou) & (best_iou >= cfg.bg_iou_lo) & roi_valid
+    easy_bg = (best_iou < cfg.bg_iou_lo) & (best_iou >= 0.0) & roi_valid
+
+    p_fg, p_hard, p_easy = priorities
+    n_fg_max = int(round(cfg.rois_per_image * cfg.fg_fraction))
+    n_fg = torch.clamp(fg.sum(dim=-1), max=n_fg_max)
+    keep_fg = _random_subset(p_fg, fg, n_fg)
+
+    n_bg = cfg.rois_per_image - n_fg
+    n_hard_avail = hard_bg.sum(dim=-1)
+    n_easy_avail = easy_bg.sum(dim=-1)
+    ratio = torch.tensor(cfg.hard_bg_ratio, dtype=torch.float32, device=rois.device)
+    hard_quota = torch.minimum(torch.floor(n_bg.float() * ratio).long(), n_hard_avail)
+    easy_take = torch.minimum(n_bg - hard_quota, n_easy_avail)
+    hard_take = torch.minimum(n_bg - easy_take, n_hard_avail)
+    keep_bg = _random_subset(p_hard, hard_bg, hard_take) | _random_subset(p_easy, easy_bg, easy_take)
+    return {"assigned_gt": best_gt, "fg": keep_fg, "keep": keep_fg | keep_bg, "max_iou": best_iou}
+
+
+def draw_roi_noise(shape, attempts: int, generator: Optional[torch.Generator] = None, device=None,
+                   loc_range: float = 0.5, size_range: float = 0.15,
+                   yaw_range: float = math.pi / 12) -> Dict[str, torch.Tensor]:
+    """The uniforms :func:`aug_rois_with_noise` takes for RoIs of ``shape``
+    (``(B, R)``), with the JAX draws' shapes and ranges: ``keep (B, R, A)`` in
+    [0, 1), ``loc (B, R, A, 3)`` in ±``loc_range``, ``size (B, R, A, 3)`` in
+    ±``size_range``, ``yaw (B, R, A)`` in ±``yaw_range``; drawn from
+    ``generator`` and moved to ``device``."""
+    shape = (*shape, attempts)
+
+    def uniform(extra, lo, hi):
+        return (lo + (hi - lo) * torch.rand((*shape, *extra), generator=generator)).to(device)
+
+    return {"keep": uniform((), 0.0, 1.0), "loc": uniform((3,), -loc_range, loc_range),
+            "size": uniform((3,), -size_range, size_range), "yaw": uniform((), -yaw_range, yaw_range)}
+
+
+def aug_rois_with_noise(rois, noise: Dict[str, torch.Tensor], gt_of_rois=None, fg=None,
+                        pos_iou: float = 0.55, keep_prob: float = 0.2):
+    """Train-time RoI perturbation with IoU-controlled resampling.
+
+    For each of ``rois (B, R, 7)``, ``A`` candidates (the attempts of
+    ``noise``, :func:`draw_roi_noise`): each keeps the RoI where its ``keep``
+    uniform is below ``keep_prob``, else shifts the centre by ``loc``, scales
+    the size by ``1 + size`` (at least 0.1) and turns the heading by ``yaw``.
+    The first candidate whose 3D IoU with the RoI's assigned GT box
+    (``gt_of_rois (B, R, 7)``) reaches ``pos_iou`` wins, else the last one
+    allowed; RoIs outside ``fg`` get one attempt. Without ``gt_of_rois`` the
+    first candidate is returned.
+    """
+    attempts = noise["keep"].shape[-1]
+    keep = noise["keep"] < keep_prob
+    box = rois[..., None, :]
+    cand = torch.cat([
+        box[..., :3] + noise["loc"],
+        torch.clamp(box[..., 3:6] * (1.0 + noise["size"]), min=0.1),
+        box[..., 6:7] + noise["yaw"][..., None],
+    ], dim=-1).to(rois.dtype)
+    cand = torch.where(keep[..., None], box, cand)
+    if gt_of_rois is None:
+        return cand[..., 0, :]
+
+    iou = rotated_iou_3d_paired(cand, gt_of_rois[..., None, :])
+    if fg is None:
+        att = torch.full(rois.shape[:-1], attempts, dtype=torch.long, device=rois.device)
+    else:
+        att = torch.where(fg, attempts, 1)
+    allowed = torch.arange(attempts, device=rois.device) < att[..., None]
+    ok = (iou >= pos_iou) & allowed
+    first = ok.to(torch.uint8).argmax(dim=-1)  # the first True, as jnp.argmax on booleans
+    chosen = torch.where(ok.any(dim=-1), first, att - 1)
+    return torch.gather(cand, -2, chosen[..., None, None].expand(*chosen.shape, 1, 7))[..., 0, :]
+
+
 def canonical_transform(pooled_xyz, rois):
     """Rotate ``(B, R, P, 3)`` RoI point samples into the box-canonical
     frame: subtract the centre, rotate by −yaw."""
@@ -393,3 +529,71 @@ class PointRCNN(nn.Module):
             "refined": refined,
             "roi_empty": empty,
         }
+
+
+def rpn_point_labels(xyz, gt_boxes, gt_valid, extra_width: float = 0.2):
+    """Per-point segmentation labels and assigned GT boxes: 1 inside a GT
+    box, −1 (ignored) in its margin of ``extra_width``, 0 elsewhere.
+    ``xyz (B, N, 3)``, ``gt_boxes (B, G, 7)``, ``gt_valid (B, G)`` →
+    ``(labels (B, N) int32, assigned (B, N) int32)``, ``assigned`` the first
+    GT box that holds the point (0 for none)."""
+    d = xyz[:, None, :, :] - gt_boxes[:, :, None, :3]  # (B, G, N, 3)
+    c = torch.cos(gt_boxes[..., 6])[..., None]
+    s = torch.sin(gt_boxes[..., 6])[..., None]
+    lx = c * d[..., 0] + s * d[..., 1]
+    ly = -s * d[..., 0] + c * d[..., 1]
+
+    def member(extra):
+        return ((lx.abs() <= (gt_boxes[..., 4] / 2 + extra)[..., None])
+                & (ly.abs() <= (gt_boxes[..., 3] / 2 + extra)[..., None])
+                & (d[..., 2].abs() <= (gt_boxes[..., 5] / 2 + extra)[..., None])
+                & gt_valid[..., None])
+
+    inside = member(0.0)
+    fg = inside.any(dim=1)
+    ignore = member(extra_width).any(dim=1) & ~fg
+    labels = torch.where(fg, 1, torch.where(ignore, -1, 0)).to(torch.int32)
+    assigned = inside.to(torch.uint8).argmax(dim=1).to(torch.int32)  # first True, as jnp.argmax
+    return labels, assigned
+
+
+def rpn_loss(rpn_out, xyz, labels, assigned, gt_boxes, cfg: PointRCNNConfig,
+             focal_alpha: float = 0.25, focal_gamma: float = 2.0):
+    """Per-point focal foreground loss over the cared-for points plus the
+    bin regression over the foreground ones, a value per sample:
+    ``(total (B,), {"rpn_cls", "rpn_reg", "loc", "head", "size"} (B,))``.
+    The denominators ``max(Σ care, 1)`` and ``max(Σ fg, 1)`` are each
+    sample's own."""
+    care = (labels >= 0).float()
+    fg = (labels == 1).float()
+    cls_loss = sigmoid_focal_loss(rpn_out["cls"], fg, alpha=focal_alpha, gamma=focal_gamma)
+    cls_loss = (cls_loss * care).sum(dim=-1) / torch.clamp(care.sum(dim=-1), min=1.0)
+    tgt = encode_bin_targets(xyz, gather_boxes(gt_boxes, assigned), cfg.rpn_coder)
+    reg_loss, comps = bin_reg_loss(rpn_out["reg"], tgt, fg, cfg.rpn_coder)
+    return cls_loss + reg_loss, {"rpn_cls": cls_loss, "rpn_reg": reg_loss, **comps}
+
+
+def rcnn_loss(rcnn_out, rois, roi_targets, gt_boxes, cfg: PointRCNNConfig):
+    """RCNN binary cross-entropy (foreground target, over the kept RoIs,
+    logits floored at −20) plus the bin regression of the assigned GT box in
+    each RoI's canonical frame over the sampled foreground, a value per
+    sample: ``(total (B,), {"rcnn_cls", "rcnn_reg"} (B,))``."""
+    keep = roi_targets["keep"].float()
+    fg = roi_targets["fg"].float()
+    cls_raw = torch.maximum(rcnn_out["cls"], torch.tensor(-20.0, device=keep.device))
+    per = _stable_bce(cls_raw, fg)
+    cls_loss = (per * keep).sum(dim=-1) / torch.clamp(keep.sum(dim=-1), min=1.0)
+
+    # Canonical-frame targets: the GT box in each RoI's frame.
+    gts = gather_boxes(gt_boxes, roi_targets["assigned_gt"])
+    rel = gts[..., :3] - rois[..., :3]
+    c, s = torch.cos(-rois[..., 6]), torch.sin(-rois[..., 6])
+    canon_gt = torch.cat([
+        torch.stack([c * rel[..., 0] - s * rel[..., 1], s * rel[..., 0] + c * rel[..., 1],
+                     rel[..., 2]], dim=-1),
+        gts[..., 3:6],
+        (gts[..., 6] - rois[..., 6])[..., None],
+    ], dim=-1)
+    tgt = encode_bin_targets(torch.zeros_like(rois[..., :3]), canon_gt, cfg.rcnn_coder)
+    reg_loss, _ = bin_reg_loss(rcnn_out["reg"], tgt, fg, cfg.rcnn_coder)
+    return cls_loss + reg_loss, {"rcnn_cls": cls_loss, "rcnn_reg": reg_loss}

@@ -1,4 +1,4 @@
-"""Bin-based box decoding for PointRCNN (port of the decode half of
+"""Bin-based box encoding for PointRCNN (port of
 ``lyft3d_tpu/ops/bin_coder.py``).
 
 Ground-plane offsets (x, y) are classified into bins over ±``loc_scope`` plus
@@ -9,9 +9,14 @@ against a mean size. The flat channel layout is::
     [x_bin (B) | y_bin (B) | x_res (B) | y_res (B) |
      head_bin (H) | head_res (H) | z_res (1) | size_res (3)]
 
-with B = 2·loc_scope/loc_bin_size bins per axis. Both decoders take any
-leading dimensions. ``encode_bin_targets`` and ``bin_reg_loss`` come with the
-training port.
+with B = 2·loc_scope/loc_bin_size bins per axis. Every function takes any
+leading dimensions; :func:`bin_reg_loss` reduces over the last one (the
+anchors of one sample) and keeps the others. Where the encoder divides by
+a bin's size, it multiplies by the size's float32 reciprocal, a tensor on
+the inputs' device: that is what the JAX package's jitted trainers compute
+(XLA rewrites a division by a constant so), and a product rounds alike on
+the card and the CPU, so a value on a bin edge gets the JAX package's bin on
+both.
 """
 
 from __future__ import annotations
@@ -21,8 +26,12 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["BinCoderConfig", "decode_bin_boxes", "decode_refined_boxes"]
+from lyft3d_tpu_torch.train.losses import smooth_l1
+
+__all__ = ["BinCoderConfig", "encode_bin_targets", "decode_bin_boxes", "decode_refined_boxes",
+           "bin_reg_loss"]
 
 
 @dataclass(frozen=True)
@@ -70,6 +79,48 @@ def _wrap_angle(yaw):
     return torch.remainder(yaw + math.pi, 2 * math.pi) - math.pi
 
 
+def encode_bin_targets(anchors_xyz, gt_boxes, cfg: BinCoderConfig, class_ids=None):
+    """Targets for points or RoIs at ``(…, 3)`` anchor positions against
+    ``(…, 7)`` GT boxes: int32 bin labels and float residuals (normalised),
+    as :func:`bin_reg_loss` takes them. ``class_ids`` selects per-class mean
+    sizes when the config has a table."""
+    dx = gt_boxes[..., 0] - anchors_xyz[..., 0]
+    dy = gt_boxes[..., 1] - anchors_xyz[..., 1]
+    dz = gt_boxes[..., 2] - anchors_xyz[..., 2]
+    nb = cfg.num_loc_bins
+
+    def inverse(value):
+        """The float32 reciprocal of a constant, on the inputs' device."""
+        return (1.0 / torch.tensor(value, dtype=torch.float32)).to(gt_boxes.device, gt_boxes.dtype)
+
+    per_bin = inverse(cfg.loc_bin_size)
+
+    def to_bin(d):
+        shifted = torch.clamp(d + cfg.loc_scope, 0.0, 2 * cfg.loc_scope - 1e-4)
+        b = torch.floor(shifted * per_bin).to(torch.int32)
+        res = (shifted - (b.to(d.dtype) + 0.5) * cfg.loc_bin_size) * per_bin
+        return torch.clamp(b, 0, nb - 1), res
+
+    x_bin, x_res = to_bin(dx)
+    y_bin, y_res = to_bin(dy)
+
+    angle_per_bin = 2 * math.pi / cfg.num_head_bin
+    heading = torch.remainder(gt_boxes[..., 6], 2 * math.pi)
+    h_bin = torch.clamp(torch.floor(heading * inverse(angle_per_bin)).to(torch.int32), 0,
+                        cfg.num_head_bin - 1)
+    h_res = (heading - (h_bin.to(heading.dtype) + 0.5) * angle_per_bin) * inverse(angle_per_bin / 2)
+
+    mean = cfg.means_for(gt_boxes, class_ids)
+    size_res = (gt_boxes[..., 3:6] - mean) / mean
+    return {
+        "x_bin": x_bin, "x_res": x_res,
+        "y_bin": y_bin, "y_res": y_res,
+        "head_bin": h_bin, "head_res": h_res,
+        "z_res": dz,
+        "size_res": size_res,
+    }
+
+
 def decode_bin_boxes(anchors_xyz, reg, cfg: BinCoderConfig, class_ids=None):
     """``(…, channels)`` raw head output → ``(…, 7)`` boxes ``[x, y, z, w, l,
     h, yaw]`` at ``(…, 3)`` anchor positions. ``argmax`` takes the first bin
@@ -112,3 +163,36 @@ def decode_refined_boxes(rois, rcnn_reg, cfg: BinCoderConfig, class_ids=None):
     z = canon[..., 2] + rois[..., 2]
     yaw = _wrap_angle(canon[..., 6] + rois[..., 6])
     return torch.stack([x, y, z, canon[..., 3], canon[..., 4], canon[..., 5], yaw], dim=-1)
+
+
+def bin_reg_loss(reg, targets, fg_mask, cfg: BinCoderConfig):
+    """Bin cross-entropy + residual smooth-L1 over foreground anchors.
+    ``reg (…, N, channels)``, targets of :func:`encode_bin_targets` with
+    ``(…, N)`` leading shapes, ``fg_mask (…, N)``; each term is a sum over
+    the N anchors over ``max(Σ fg, 1)`` of its own row, so a batch keeps
+    every sample's denominator. Returns ``(loss (…), {"loc", "head",
+    "size"})``."""
+    sl = cfg.slices()
+    fg = fg_mask.to(reg.dtype)
+    nfg = torch.clamp(fg.sum(dim=-1), min=1.0)
+
+    def pick(values, labels):
+        return torch.gather(values, -1, labels.long()[..., None])[..., 0]
+
+    def ce(logits, labels):
+        return (-pick(F.log_softmax(logits, dim=-1), labels) * fg).sum(dim=-1) / nfg
+
+    def res_loss(res_all, labels, target):
+        return (smooth_l1(pick(res_all, labels) - target) * fg).sum(dim=-1) / nfg
+
+    loss_x = ce(reg[..., sl["x_bin"]], targets["x_bin"]) + res_loss(
+        reg[..., sl["x_res"]], targets["x_bin"], targets["x_res"])
+    loss_y = ce(reg[..., sl["y_bin"]], targets["y_bin"]) + res_loss(
+        reg[..., sl["y_res"]], targets["y_bin"], targets["y_res"])
+    loss_h = ce(reg[..., sl["head_bin"]], targets["head_bin"]) + res_loss(
+        reg[..., sl["head_res"]], targets["head_bin"], targets["head_res"])
+    loss_z = (smooth_l1(reg[..., sl["z_res"]][..., 0] - targets["z_res"]) * fg).sum(dim=-1) / nfg
+    loss_size = (smooth_l1(reg[..., sl["size_res"]] - targets["size_res"]).sum(dim=-1)
+                 * fg).sum(dim=-1) / nfg
+    total = loss_x + loss_y + loss_h + loss_z + loss_size
+    return total, {"loc": loss_x + loss_y + loss_z, "head": loss_h, "size": loss_size}

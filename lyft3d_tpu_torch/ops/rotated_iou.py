@@ -9,8 +9,9 @@ the shoelace formula, all as elementwise tensor math over any leading
 shape. Pairwise functions take ``(N, 5)`` × ``(M, 5)`` or batched
 ``(B, N, 5)`` × ``(B, M, 5)`` BEV boxes ``[x, y, w, l, yaw]`` and work on
 blocks of rows, so that the (B, rows, M, 24) candidates never exist for
-all rows at once. ``rotated_iou_3d`` of the JAX package is not ported: no
-path of the port calls it yet (PointRCNN inference needs the BEV IoU only).
+all rows at once. The 3D IoU (PointRCNN's training targets) multiplies the
+BEV overlap by the vertical one: pairwise (:func:`rotated_iou_3d`) and row
+by row (:func:`rotated_iou_3d_paired`, N pairs instead of an N × N matrix).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ __all__ = [
     "polygon_intersection_area",
     "rotated_overlap_bev",
     "rotated_iou_bev",
+    "rotated_iou_3d",
+    "rotated_iou_3d_paired",
     "standup_iou",
 ]
 
@@ -141,6 +144,40 @@ def rotated_iou_bev(boxes1, boxes2, criterion: int = -1):
     else:
         denom = a1 + a2 - inter
     return inter / torch.clamp(denom, min=_EPS_DEN)
+
+
+def _bev_of(boxes):
+    """``(…, 7)`` ``[x, y, z, w, l, h, yaw]`` → ``(…, 5)`` ``[x, y, w, l, yaw]``."""
+    return torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]], dim=-1)
+
+
+def _iou_3d(inter_bev, boxes1, boxes2):
+    """Volume IoU from the BEV overlap of boxes whose fields broadcast
+    against it; z is the box centre."""
+    zmax1, zmin1 = boxes1[..., 2] + boxes1[..., 5] / 2, boxes1[..., 2] - boxes1[..., 5] / 2
+    zmax2, zmin2 = boxes2[..., 2] + boxes2[..., 5] / 2, boxes2[..., 2] - boxes2[..., 5] / 2
+    h_overlap = torch.clamp(torch.minimum(zmax1, zmax2) - torch.maximum(zmin1, zmin2), min=0.0)
+    inter = inter_bev * h_overlap
+    vol1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
+    vol2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
+    return inter / torch.clamp(vol1 + vol2 - inter, min=_EPS_DEN)
+
+
+def rotated_iou_3d(boxes1, boxes2):
+    """``(…, N, M)`` 3D rotated IoU of ``(…, N, 7)`` × ``(…, M, 7)`` boxes
+    ``[x, y, z, w, l, h, yaw]``: BEV overlap × vertical overlap over the
+    volume union."""
+    inter_bev = rotated_overlap_bev(_bev_of(boxes1), _bev_of(boxes2))
+    return _iou_3d(inter_bev, boxes1[..., :, None, :], boxes2[..., None, :, :])
+
+
+def rotated_iou_3d_paired(boxes1, boxes2):
+    """``(…)`` 3D rotated IoU of each row of ``boxes1`` with the same row of
+    ``boxes2`` (both ``(…, 7)``, broadcast)."""
+    boxes1, boxes2 = torch.broadcast_tensors(boxes1, boxes2)
+    inter_bev = polygon_intersection_area(box_corners_2d(_bev_of(boxes1)),
+                                          box_corners_2d(_bev_of(boxes2)))
+    return _iou_3d(inter_bev, boxes1, boxes2)
 
 
 def standup_iou(boxes1, boxes2):

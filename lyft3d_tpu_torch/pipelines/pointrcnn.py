@@ -7,8 +7,8 @@ validity and empty RoIs → final rotated NMS, on a batch. The host side is
 :class:`KittiPointRCNNLoader` (lidar load, range filter, near/far-aware
 fixed-count subsampling, and for training the database sampler's pasted
 objects and the scene augmentation) and :func:`eval_pointrcnn` (KITTI label
-files, frames for the AP evaluator, recall by IoU threshold). PointRCNN
-training itself is not ported.
+files, frames for the AP evaluator, recall by IoU threshold). Training is
+in :mod:`lyft3d_tpu_torch.pipelines.pointrcnn_train`.
 """
 
 from __future__ import annotations

@@ -115,14 +115,18 @@ def _norm(src: _Source, path: Path, name: str, out: Out):
     out[f"{name}.bias"] = src.take("params", path + ("bias",))
 
 
+def _batch_norm(src: _Source, path: Path, name: str, out: Out):
+    """The port's BatchNorm: ``scale``/``bias`` and the float32 running
+    statistics under ``batch_stats``."""
+    _norm(src, path, name, out)
+    out[f"{name}.running_mean"] = src.take("batch_stats", path + ("mean",))
+    out[f"{name}.running_var"] = src.take("batch_stats", path + ("var",))
+
+
 def _conv_norm_act(m: ConvNormAct, src, path, name, out):
     _conv(m.conv, src, path + ("Conv_0",), f"{name}conv", out)
-    if isinstance(m.norm, nn.BatchNorm2d):  # the port's BatchNorm; float32 buffers
-        p = path + ("BatchNorm_0",)
-        out[f"{name}norm.weight"] = src.take("params", p + ("scale",))
-        out[f"{name}norm.bias"] = src.take("params", p + ("bias",))
-        out[f"{name}norm.running_mean"] = src.take("batch_stats", p + ("mean",))
-        out[f"{name}norm.running_var"] = src.take("batch_stats", p + ("var",))
+    if isinstance(m.norm, nn.BatchNorm2d):  # the port's BatchNorm
+        _batch_norm(src, path + ("BatchNorm_0",), f"{name}norm", out)
     elif isinstance(m.norm, nn.GroupNorm):
         _norm(src, path + ("GroupNorm_0",), f"{name}norm", out)
 
@@ -270,6 +274,8 @@ def _shared_mlp(m: SharedMLP, src, path, name, out):
         _dense(src, path + (f"Dense_{i}",), f"{name}linears.{i}", out, bias=linear.bias is not None)
         if isinstance(norm, LayerNorm):
             _norm(src, path + (f"LayerNorm_{i}",), f"{name}norms.{i}", out)
+        elif isinstance(norm, nn.BatchNorm2d):  # the port's BatchNorm over the last dim
+            _batch_norm(src, path + (f"BatchNorm_{i}",), f"{name}norms.{i}", out)
 
 
 def _sa_msg(m: SAModuleMSG, src, path, name, out):

@@ -16,6 +16,7 @@ import lyft3d_tpu.core as jcore
 import lyft3d_tpu.core.box as jbox
 import lyft3d_tpu.core.geometry as jgeo
 import lyft3d_tpu.core.quaternion as jquat
+import lyft3d_tpu.data.aug_scene as jaugscene
 import lyft3d_tpu.data.augment as jaug
 import lyft3d_tpu.data.bev_dataset as jbevds
 import lyft3d_tpu.data.bev_pipeline as jbev
@@ -24,6 +25,7 @@ import lyft3d_tpu.data.lyftdb as jdb
 import lyft3d_tpu.data.map_mask as jmap
 import lyft3d_tpu.data.pointcloud as jpc
 import lyft3d_tpu.data.prefetch as jprefetch
+import lyft3d_tpu.data.splits as jsplits
 import lyft3d_tpu.eval.kitti_eval as jkeval
 import lyft3d_tpu.eval.map_eval as jmeval
 import lyft3d_tpu.eval.np_rotated_iou as jiou
@@ -36,6 +38,7 @@ import lyft3d_tpu_torch.core as tcore
 import lyft3d_tpu_torch.core.box as tbox
 import lyft3d_tpu_torch.core.geometry as tgeo
 import lyft3d_tpu_torch.core.quaternion as tquat
+import lyft3d_tpu_torch.data.aug_scene as taugscene
 import lyft3d_tpu_torch.data.augment as taug
 import lyft3d_tpu_torch.data.bev_dataset as tbevds
 import lyft3d_tpu_torch.data.bev_pipeline as tbev
@@ -44,6 +47,7 @@ import lyft3d_tpu_torch.data.lyftdb as tdb
 import lyft3d_tpu_torch.data.map_mask as tmap
 import lyft3d_tpu_torch.data.pointcloud as tpc
 import lyft3d_tpu_torch.data.prefetch as tprefetch
+import lyft3d_tpu_torch.data.splits as tsplits
 import lyft3d_tpu_torch.eval.kitti_eval as tkeval
 import lyft3d_tpu_torch.eval.map_eval as tmeval
 import lyft3d_tpu_torch.eval.np_rotated_iou as tiou
@@ -551,3 +555,49 @@ def test_profiler_copy(case):
         counts = [dict(t.counts) for t in timers]
         assert counts[1] == counts[0] == ({} if case == "disabled" else {"infer": 3, "prep": 3})
         assert all(v >= 0 for v in timers[1].totals.values())
+
+
+SPLIT_CASES = {
+    "split_parts": lambda m, names: m.split_parts(names, 4),
+    "split_parts_fewer_items_than_parts": lambda m, names: m.split_parts(names[:3], 4),
+    "train_val_split": lambda m, names: m.train_val_split(names, seed=42),
+    "train_val_split_one_item": lambda m, names: m.train_val_split(names[:1], seed=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_splits_copy(case):
+    names = [f"scene-{i:03d}" for i in range(23)]
+    same(SPLIT_CASES[case](tsplits, names), SPLIT_CASES[case](jsplits, names))
+
+
+def test_aug_scene_copy(kitti_roots, tmp_path):
+    """``generate_aug_scenes`` on the exported tree with equal sampler seeds
+    writes the same velodyne, calib and label files, pasted objects
+    included."""
+    jroot, _ = kitti_roots
+    stems = sorted(p.stem for p in (jroot / "velodyne").glob("*.bin"))
+    samples = []
+    for stem in stems:
+        calib = jkitti.Calibration.from_file(jroot / "calib" / f"{stem}.txt")
+        objs = jkitti.read_label_file(jroot / "label_2" / f"{stem}.txt")
+        samples.append({
+            "points": np.fromfile(jroot / "velodyne" / f"{stem}.bin", np.float32).reshape(-1, 4),
+            "gt_boxes": np.stack([jkitti.box_camera_to_lidar(o.pos, (o.h, o.w, o.l), o.ry, calib)
+                                  for o in objs]),
+            "gt_names": np.array([o.cls_type for o in objs]),
+        })
+    jaug.create_gt_database(tmp_path / "db", samples, min_points=1)
+    classes = tuple(jaug.GTDatabase(tmp_path / "db").classes())
+    outs = {}
+    for name, aug, gen in (("jax", jaug, jaugscene), ("port", taug, taugscene)):
+        sampler = aug.DataBaseSampler(aug.GTDatabase(tmp_path / "db"), {c: 4 for c in classes}, seed=2)
+        outs[name] = gen.generate_aug_scenes(jroot, tmp_path / name, sampler, copies=2, classes=classes)
+    files = sorted(p.relative_to(outs["jax"]) for p in outs["jax"].rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(outs["port"]) for p in outs["port"].rglob("*") if p.is_file())
+    assert len(files) == 3 * 2 * len(stems)
+    for rel in files:
+        assert (outs["port"] / rel).read_bytes() == (outs["jax"] / rel).read_bytes(), rel
+    grown = sum(len(jkitti.read_label_file(outs["jax"] / "label_2" / f"{stem}_0.txt"))
+                > len(jkitti.read_label_file(jroot / "label_2" / f"{stem}.txt")) for stem in stems)
+    assert grown > 0

@@ -302,10 +302,11 @@ def test_bridge_raises_on_missing_and_extra_leaves(whole):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmod.SharedMLP(4, [8], norm="batch")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tnet.PointRCNN(tnet.PointRCNNConfig(), norm="batch")
+    """The grid-bucketed ball query is not ported and an unknown norm is
+    refused; ``norm="batch"`` is ported (held to flax in
+    ``test_torch_pointrcnn_losses.py``) and builds BatchNorm layers."""
+    assert all(isinstance(n, torch.nn.BatchNorm2d) for n in tmod.SharedMLP(4, [8, 8], norm="batch").norms)
+    assert any(isinstance(m, torch.nn.BatchNorm2d) for m in tnet.PointRCNN(tnet.PointRCNNConfig(), norm="batch").modules())
     with pytest.raises(ValueError, match="norm must be"):
         tmod.SharedMLP(4, [8], norm="group")
     grid = dataclasses.replace(tnet.PointRCNNConfig(), grid_bounds=((-64.0, 64.0), (-8.0, 120.0)))
