@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the inference paths (BEV
-segmentation with ``unet_resnet50`` and ``unet_seresnext101``, SECOND
-pillars, PointRCNN, sparse SECOND at the FHD geometry), SECOND training
-(pillars and both sparse middles), BEV training and PointRCNN training.
+segmentation with ``unet_resnet50``, ``unet_seresnext101``,
+``deeplab_seresnext50`` and every other registered BEV model, SECOND pillars
+with the pillar and the VFE encoder, PointRCNN, sparse SECOND at the FHD
+geometry with LayerNorm and BatchNorm middles), SECOND training (pillars,
+VFE pillars and both sparse middles), BEV training (UNets and DeepLabV3+) and
+PointRCNN training.
 
     python3 chip_smoke.py
 
@@ -255,6 +258,29 @@ Phases, one line of numbers each:
     training paths' launches join the inference path's in the ``kernels``
     line.
 
+28. deeplab: ``deeplab_seresnext50`` (DeepLabV3+ at output stride 8; 10
+    classes, folded norms, full width, seeded weights) in float32 with TF32
+    off at batch 1, card against CPU (logits within 1e-3 of their scale);
+    then ``make_infer_fn`` at batch 32 x 65,536 points in bfloat16 with the
+    raster kernel's count reset before it: e2e ms, sweeps/s, the input /
+    model / backbone / extraction split, peak memory;
+29. every BEV model this slice adds (:data:`NEW_BEV_MODELS`, 14: the
+    DeepLabV3+ and EfficientNet-UNet heads, the UNets over EfficientNet b1-b5,
+    DPN-68, Xception and the two Inception trunks) at full width in bfloat16
+    through ``make_infer_fn`` at batch 2, the raster count reset before each:
+    detection shapes, finite logits and aux, the model's ms;
+30. the DeepLab train microstep: phase 21 for ``deeplab_seresnext50`` at
+    the yaml's microbatch 32 (``ranger``, ``grad_accum`` 4, GroupNorm);
+31. VFE pillars, ``lyft9_config(encoder="vfe", encoder_features=(32,
+    128))``: float32 heads card against CPU at batch 1; ``make_second_infer_fn``
+    at batch 8 x 262,144 points (the fill kernel 1 a call); a training run as
+    phase 17's (the fill and its backward launched every step);
+32. FHD with ``middle_norm="batch"`` in eval mode, running statistics from
+    a seeded generator: float32 heads card against CPU on 30,000 points;
+    ``make_second_infer_fn`` at batch 4 x 262,144 (the stencil 9 and the fill
+    2 a call). Phases 28-32 print one JSON line each (a line a model in 29);
+    their launches join the others' in the ``kernels`` line.
+
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
 version's, its bound and, where one PyTorch call computes the same function,
@@ -495,14 +521,16 @@ def check_detections(got, want, what):
     return err
 
 
-def lyft9_config():
+def lyft9_config(**changes):
     """``configs/second_lyft_9class.yaml`` as the port's ``VoxelNetConfig``
-    (a CPU test holds it to the yaml field by field)."""
+    (a CPU test holds it to the yaml field by field), with ``changes``."""
+    import dataclasses
+
     from lyft3d_tpu_torch.models.second.voxelnet import VoxelNetConfig
     from lyft3d_tpu_torch.ops.anchors import AnchorSpec
     from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
 
-    return VoxelNetConfig(
+    cfg = VoxelNetConfig(
         grid=VoxelGrid(point_cloud_range=(-49.6, -49.6, -5.0, 49.6, 49.6, 3.0),
                        voxel_size=(0.2, 0.2, 8.0)),
         max_voxels=25000,
@@ -513,6 +541,7 @@ def lyft9_config():
                            for i, (size, z, m, u) in enumerate(LYFT9_ANCHORS)),
         rpn_up_strides=(0.25, 0.5, 1),
     )
+    return dataclasses.replace(cfg, **changes)
 
 
 def fhd_config(**changes):
@@ -3797,6 +3826,327 @@ def pointrcnn_training_phases(dev, card):
     return {k: rpn_path[k] + online_path[k] + offline_path[k] for k in PRC_KERNELS}
 
 
+# This slice's BEV models and SECOND variants (phases 28-32): DeepLabV3+ at
+# the flagship's shape, every model the port's registry gained at batch 2,
+# the DeepLab train microstep, VFE pillars and FHD with a BatchNorm middle.
+DEEPLAB_MODEL = "deeplab_seresnext50"
+FAMILY_BATCH = 2
+NEW_BEV_MODELS = ("deeplab_seresnext50", "deeplab_seresnext101", "deeplab_wide_resnet38",
+                  "deeplab_resnet50", "efficientnet_b3_unet", "efficientnet_b5_unet",
+                  "unet_efficientnet_b1", "unet_efficientnet_b2", "unet_efficientnet_b3",
+                  "unet_efficientnet_b5", "unet_dpn68", "unet_xception", "unet_inception_v4",
+                  "unet_inceptionresnetv2")
+VFE_FEATURES = (32, 128)  # the reference VoxelFeatureExtractor's filters
+FHD_CHECK_POINTS = 30000
+
+
+def bev_norm_kwargs(name):
+    """Folded norms where the model has a norm choice; the EfficientNet-UNets
+    have GroupNorm only, as in the JAX package."""
+    return {} if name.endswith("_unet") else {"norm_type": "folded"}
+
+
+def deeplab_inference_phase(dev, card):
+    """Phase 28: ``deeplab_seresnext50`` (10 classes, folded norms, full
+    width, seeded weights) on the BEV main path. A float32 check at batch 1
+    with TF32 off holds the card's logits to the CPU's (1e-3 of their scale);
+    then ``make_infer_fn`` at batch 32 × 65,536 points in bfloat16 with the
+    raster kernel's count reset before it. Returns the raster launches."""
+    import torch
+
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.models import build_model
+    from lyft3d_tpu_torch.ops import bev_raster
+    from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
+    from lyft3d_tpu_torch.pipelines.bev import make_bev_input, make_infer_fn
+
+    name, kw, cfg = DEEPLAB_MODEL, {"n_classes": 10, "norm_type": "folded"}, BEVConfig()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, valid = sweep_points(1, N_POINTS, seed=50)
+    map_ch = torch.from_numpy(np.random.RandomState(50).rand(1, *SHAPE[:2]).astype(np.float32))
+    ref_model = build_model(name, generator=torch.Generator().manual_seed(0), **kw).eval()
+    card_model = build_model(name, generator=torch.Generator().manual_seed(0), device=dev, **kw).eval()
+    with torch.inference_mode():
+        x_cpu = make_bev_input(pts, valid, map_ch, cfg)
+        ref_logits, ref_aux = ref_model(x_cpu)
+        card_logits, card_aux = card_model(x_cpu.to(dev))
+    # Random folded weights give logits of ~0.1: each head is held to 1e-3 of
+    # its own scale, not floored at 1.
+    errs = [float((got.cpu() - want).abs().max()) / float(want.abs().max())
+            for got, want in ((card_logits, ref_logits), (card_aux, ref_aux))]
+    if not max(errs) <= 1e-3:
+        raise AssertionError(f"{name} float32 card vs cpu: logits {errs[0]} aux {errs[1]} of scale > 1e-3")
+    phase_json("deeplab check", card, model=name, dtype="float32", batch=1, tf32=False,
+               max_err_of_scale_logits=errs[0], max_err_of_scale_aux=errs[1], tol=1e-3,
+               logit_abs_max=float(ref_logits.abs().max()), aux_abs_max=float(ref_aux.abs().max()))
+    del ref_model, card_model
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    model = build_model(name, generator=torch.Generator().manual_seed(0), device=dev, dtype=torch.bfloat16, **kw)
+    infer = make_infer_fn([model], cfg)
+    pts, valid = (a.to(dev) for a in sweep_points(BATCH, N_POINTS, seed=51))
+    map_ch = torch.from_numpy(np.random.RandomState(51).rand(BATCH, *SHAPE[:2]).astype(np.float32)).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bev_raster.KERNEL_LAUNCHES = 0
+    e2e_ms = cuda_ms(lambda: infer(pts, valid, map_ch))
+    det = infer(pts, valid, map_ch)
+    torch.cuda.synchronize()
+    launches = bev_raster.KERNEL_LAUNCHES
+    if launches <= 0:
+        raise AssertionError(f"the {name} main path never launched the raster kernel")
+    for k, shape in {"boxes_px": (BATCH, 64, 5), "centroids": (BATCH, 64, 2), "scores": (BATCH, 64, 9)}.items():
+        if tuple(det[k].shape) != shape or not bool(torch.isfinite(det[k]).all()):
+            raise AssertionError(f"{name} {k}: shape {tuple(det[k].shape)} or non-finite values")
+    if not bool(((det["scores"] >= 0) & (det["scores"] <= 1)).all()):
+        raise AssertionError(f"{name}: scores outside [0, 1]")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        x = make_bev_input(pts, valid, map_ch, cfg)
+        lg = model(x)[0]
+        stage_ms = {
+            "input": cuda_ms(lambda: make_bev_input(pts, valid, map_ch, cfg)),
+            "model": cuda_ms(lambda: model(x)),
+            "backbone": cuda_ms(lambda: model.backbone(x.permute(0, 3, 1, 2).to(model.dtype))),
+            "extract": cuda_ms(lambda: extract_detections_from_logits(lg)),
+        }
+    phase_json("deeplab e2e", card, model=name, norm="folded", dtype="bfloat16", batch=BATCH,
+               points=N_POINTS, output_stride=8, e2e_ms=e2e_ms, sweeps_per_s=BATCH / (e2e_ms / 1e3),
+               stages_ms=stage_ms, components=int(det["box_valid"].sum()), peak_mem_gb=peak_gb,
+               raster_launches=launches)
+    del model, infer, det, x, lg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bev_family_phase(dev, card):
+    """Phase 29: every BEV model this slice adds (:data:`NEW_BEV_MODELS`: the
+    DeepLabV3+ and EfficientNet-UNet heads and the UNets over the EfficientNet,
+    DPN, Xception and Inception trunks) at full width in bfloat16 through
+    ``make_infer_fn`` at batch 2 × 65,536 points, the raster kernel's count
+    reset before each: detections of the expected shapes, finite logits
+    (N, 336, 336, 10) and aux, and the model's ms alone. A convolution cuDNN
+    has no algorithm for (a depthwise or dilated shape) fails here. Returns
+    the raster launches."""
+    import torch
+
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.models import build_model
+    from lyft3d_tpu_torch.ops import bev_raster
+    from lyft3d_tpu_torch.pipelines.bev import make_bev_input, make_infer_fn
+
+    cfg = BEVConfig()
+    pts, valid = (a.to(dev) for a in sweep_points(FAMILY_BATCH, N_POINTS, seed=52))
+    map_ch = torch.from_numpy(np.random.RandomState(52).rand(FAMILY_BATCH, *SHAPE[:2]).astype(np.float32)).to(dev)
+    total = 0
+    for name in NEW_BEV_MODELS:
+        kw = bev_norm_kwargs(name)
+        model = build_model(name, n_classes=10, generator=torch.Generator().manual_seed(0), device=dev,
+                            dtype=torch.bfloat16, **kw)
+        infer = make_infer_fn([model], cfg)
+        bev_raster.KERNEL_LAUNCHES = 0
+        det = infer(pts, valid, map_ch)
+        torch.cuda.synchronize()
+        launches = bev_raster.KERNEL_LAUNCHES
+        if launches <= 0:
+            raise AssertionError(f"the {name} path never launched the raster kernel")
+        total += launches
+        for k, shape in {"boxes_px": (FAMILY_BATCH, 64, 5), "scores": (FAMILY_BATCH, 64, 9)}.items():
+            if tuple(det[k].shape) != shape or not bool(torch.isfinite(det[k]).all()):
+                raise AssertionError(f"{name} {k}: shape {tuple(det[k].shape)} or non-finite values")
+        with torch.inference_mode():
+            x = make_bev_input(pts, valid, map_ch, cfg)
+            logits, aux = model(x)
+            if tuple(logits.shape) != (FAMILY_BATCH, *SHAPE[:2], 10) or tuple(aux.shape) != (FAMILY_BATCH, 10):
+                raise AssertionError(f"{name}: logits {tuple(logits.shape)}, aux {tuple(aux.shape)}")
+            if not (bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux).all())):
+                raise AssertionError(f"{name}: non-finite logits")
+            model_ms = cuda_ms(lambda: model(x), warmup=1, iters=5)
+        phase_json("bev family", card, model=name, norm=kw.get("norm_type", "group"), dtype="bfloat16",
+                   batch=FAMILY_BATCH, points=N_POINTS, model_ms=model_ms,
+                   parameters=sum(p.numel() for p in model.parameters()),
+                   stage_widths=list(model.backbone.stage_features), logit_abs_max=float(logits.abs().max()),
+                   components=int(det["box_valid"].sum()), raster_launches=launches)
+        del model, infer, det, x, logits, aux
+        torch.cuda.empty_cache()
+    return total
+
+
+def second_check(name, cfg, in_features, pts, pvalid, dev, prepare=None):
+    """Float32 heads of ``VoxelNet(cfg)`` on the card against the CPU at TF32
+    off, on the CPU's voxels (equal on both devices, checked): returns the
+    largest error over the heads' scale. ``prepare(net)`` sets what the
+    seeded init does not (running statistics) on both models alike."""
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nets = []
+    for device in (None, dev):
+        net = VoxelNet(cfg, in_features=in_features, device=device, generator=torch.Generator().manual_seed(0))
+        if prepare is not None:
+            prepare(net)
+        nets.append(net.eval())
+    grid_args = (cfg.grid, cfg.max_voxels, cfg.max_points_per_voxel)
+    keys = ("voxels", "num_points", "coords", "voxel_valid")
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, *grid_args)
+        vox_card = voxelize(pts.to(dev), pvalid.to(dev), *grid_args)
+        for k, v in vox.items():
+            if not torch.equal(vox_card[k].cpu(), v):
+                raise AssertionError(f"{name}: voxelize {k} on the card differs from the CPU's")
+        ref = nets[0](*[vox[k] for k in keys])
+        got = nets[1](*[vox_card[k] for k in keys])
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    scale = max(1.0, max(float(h.abs().max()) for h in ref.values()))
+    err = max(float((got[k].cpu() - h).abs().max()) for k, h in ref.items()) / scale
+    if not err <= 1e-3:
+        raise AssertionError(f"{name}: float32 heads card vs cpu differ by {err} of their scale (tol 1e-3)")
+    return err, int(vox["voxel_valid"].sum())
+
+
+def second_e2e(name, cfg, in_features, pts, pvalid, dev, net_prepare, counters, per_call):
+    """``make_second_infer_fn`` on the card in bfloat16 with the named launch
+    counts reset before it: the counts must be ``per_call`` a call. Returns
+    (e2e ms, detections, peak GB, launches)."""
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.pipelines.second import make_second_infer_fn
+
+    net = VoxelNet(cfg, in_features=in_features, dtype=torch.bfloat16, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    if net_prepare is not None:
+        net_prepare(net)
+    infer = make_second_infer_fn(net, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
+    det = infer(pts, pvalid)
+    torch.cuda.synchronize()
+    calls = 2 + TIMED_ITERS + 1
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    for k, n in per_call.items():
+        if launches[k] <= 0:
+            raise AssertionError(f"the {name} path never launched the {k} kernel")
+        if launches[k] != n * calls:
+            raise AssertionError(f"{name}: {launches[k]} {k} launches in {calls} calls, expected {n} a call")
+    b, k = pts.shape[0], cfg.nms_post
+    for key, shape in {"boxes": (b, k, 7), "scores": (b, k), "classes": (b, k), "valid": (b, k)}.items():
+        if tuple(det[key].shape) != shape:
+            raise AssertionError(f"{name} {key}: shape {tuple(det[key].shape)} != {shape}")
+    if not bool(torch.isfinite(det["boxes"]).all()):
+        raise AssertionError(f"{name}: boxes have non-finite values")
+    if not bool(((det["scores"] >= 0) & (det["scores"] <= 1)).all()):
+        raise AssertionError(f"{name}: scores outside [0, 1]")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del net, infer
+    return e2e_ms, det, peak_gb, launches
+
+
+def vfe_phase(dev, card):
+    """Phase 31: SECOND pillars with the VFE encoder
+    (``lyft9_config(encoder="vfe", encoder_features=(32, 128))``): float32
+    heads card against CPU at batch 1, TF32 off; ``make_second_infer_fn`` at
+    batch 8 × 262,144 points with the fill kernel's count reset (1 a call),
+    and the encoder alone; then ``train_run`` (2 warm-up + 10 timed steps of ``adam_onecycle``) with
+    the fill and fill-backward counts. Returns (inference fill launches,
+    training counts)."""
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    name, cfg = "pillars vfe", lyft9_config(encoder="vfe", encoder_features=VFE_FEATURES)
+    pts, pvalid = pillar_points(1, SEC_POINTS, seed=53)
+    err, kept = second_check(name, cfg, 4, pts, pvalid, dev)
+    phase_json("vfe check", card, config="lyft9 encoder=vfe", encoder_features=list(VFE_FEATURES),
+               dtype="float32", batch=1, points=SEC_POINTS, tf32=False, voxels_kept=kept,
+               max_err_of_scale=err, tol=1e-3)
+    pts, pvalid = (a.to(dev) for a in pillar_points(SEC_BATCH, SEC_POINTS, seed=54))
+    e2e_ms, det, peak_gb, launches = second_e2e(
+        name, cfg, 4, pts, pvalid, dev, None, {"dense_fill": (dense_fill, "KERNEL_LAUNCHES")}, {"dense_fill": 1})
+    # The encoder alone (phase 7 times the pillar encoder the same way).
+    net = VoxelNet(cfg, in_features=4, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, cfg.grid, cfg.max_voxels, cfg.max_points_per_voxel)
+        encoder_ms = cuda_ms(lambda: net.encoder(vox["voxels"], vox["num_points"], vox["coords"]))
+    phase_json("vfe e2e", card, config="lyft9 encoder=vfe", dtype="bfloat16", batch=SEC_BATCH, points=SEC_POINTS,
+               e2e_ms=e2e_ms, samples_per_s=SEC_BATCH / (e2e_ms / 1e3), encoder_ms=encoder_ms,
+               detections=int(det["valid"].sum()), peak_mem_gb=peak_gb, fill_launches=launches["dense_fill"])
+    del det, net, vox
+
+    def onecycle(params):
+        return build_optimizer(params, "adam_onecycle", ONECYCLE["lr"], total_steps=ONECYCLE["total_steps"],
+                               weight_decay=ONECYCLE["weight_decay"], clip_norm=ONECYCLE["clip_norm"])
+
+    batch = to_dev({"points": pts, "points_valid": pvalid, **gt_batch(SEC_BATCH, seed=55)}, dev)
+    counts, _, state, trainer = train_run(name, cfg, 4, batch, onecycle, "adam_onecycle (the yaml's)", dev, card,
+                                          ("dense_fill", "dense_fill_bwd"))
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return launches["dense_fill"], counts
+
+
+def seeded_running_statistics(seed):
+    """``prepare(net)``: every BatchNorm's running mean ~ N(0, 0.1²) and
+    variance ~ U(0.5, 2), from a seeded generator (the init's 0/1 would hide
+    a mix-up of the statistics)."""
+    import torch
+
+    from lyft3d_tpu_torch.models.layers import BatchNorm
+
+    def prepare(net):
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, BatchNorm):
+                    c = m.running_mean.shape[0]
+                    m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
+                    m.running_var.copy_(torch.rand(c, generator=g) * 1.5 + 0.5)
+    return prepare
+
+
+def fhd_batch_norm_phase(dev, card):
+    """Phase 32: sparse SECOND at the FHD geometry with the unit middle's
+    ``middle_norm="batch"`` in eval mode (running statistics from
+    :func:`seeded_running_statistics`): float32 heads card against CPU on a
+    1 × 30,000-point cloud, TF32 off; then ``make_second_infer_fn`` at batch
+    4 × 262,144 in bfloat16 with the stencil and fill counts reset (9 and 2 a
+    call). Returns the launches."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+    from lyft3d_tpu_torch.ops import dense_fill
+
+    name, cfg = "FHD batch middle", fhd_config(middle_norm="batch")
+    prepare = seeded_running_statistics(56)
+    pts, pvalid = fhd_points(1, FHD_CHECK_POINTS, seed=57)
+    err, kept = second_check(name, cfg, 3, pts, pvalid, dev, prepare)
+    phase_json("fhd batch check", card, config="fhd middle_norm=batch (eval)", dtype="float32", batch=1,
+               points=FHD_CHECK_POINTS, tf32=False, voxels_kept=kept, max_err_of_scale=err, tol=1e-3)
+    pts, pvalid = (a.to(dev) for a in fhd_points(FHD_BATCH, FHD_POINTS, seed=58))
+    counters = {"stencil_conv": (cs, "KERNEL_LAUNCHES"), "dense_fill": (dense_fill, "KERNEL_LAUNCHES")}
+    e2e_ms, det, peak_gb, launches = second_e2e(name, cfg, 3, pts, pvalid, dev, prepare, counters,
+                                                {"stencil_conv": 9, "dense_fill": 2})
+    phase_json("fhd batch e2e", card, config="fhd middle_norm=batch (eval)", dtype="bfloat16", batch=FHD_BATCH,
+               points=FHD_POINTS, e2e_ms=e2e_ms, samples_per_s=FHD_BATCH / (e2e_ms / 1e3),
+               detections=int(det["valid"].sum()), peak_mem_gb=peak_gb, launches=launches)
+    del det
+    torch.cuda.empty_cache()
+    return launches
+
+
 def torch_equal(a, b):
     import torch
 
@@ -4267,8 +4617,16 @@ def main():
     # against CPU, and the kernels' launches replayed at the training shapes
     prc_train = pointrcnn_training_phases(dev, card)
 
+    # 28-32. this slice's paths: DeepLabV3+ e2e, every new BEV model at batch
+    # 2, the DeepLab train microstep, VFE pillars, FHD with a BatchNorm middle
+    launches += deeplab_inference_phase(dev, card)
+    launches += bev_family_phase(dev, card)
+    bev_train_step_run(DEEPLAB_MODEL, BEV_YAML_BATCH, dev, card)
+    vfe_fill, train_launches["vfe"] = vfe_phase(dev, card)
+    fhd_batch = fhd_batch_norm_phase(dev, card)
+
     def trained(kernel):
-        """Launches of ``kernel`` over the timed steps of the four training runs."""
+        """Launches of ``kernel`` over the timed steps of the five training runs."""
         return sum(c[kernel] for c in train_launches.values())
 
     def record(name, replaces, launches, numbers, library_ms=None, source=None):
@@ -4281,12 +4639,14 @@ def main():
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
-        # Launched by two paths: the flagship and the unet_seresnext101 row.
+        # Launched by four paths: the flagship, the unet_seresnext101 row, the
+        # deeplab_seresnext50 row and the batch-2 pass of the new models.
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
-        # Launched by three paths: pillars, sparse (2 a call) and per-voxel (1 a call).
+        # Launched by five paths: pillars, sparse (2 a call), per-voxel (1 a
+        # call), VFE pillars and the FHD BatchNorm middle (2 a call).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
-               fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"],
-               fill_numbers),
+               fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"]
+               + vfe_fill + fhd_batch["dense_fill"], fill_numbers),
         # Launched by two paths: PointRCNN inference and training (the three
         # trainers' entry points).
         record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"] + prc_train["fps"], select["fps"]),
@@ -4295,12 +4655,14 @@ def main():
         record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"], select["knn"]),
         record("roi_select", f"{sel}:127", prc_launches["roi_select"] + prc_train["roi_select"],
                select["roi_select"]),
+        # Launched by the unit middle with LayerNorm and with BatchNorm.
         record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
-               sparse_launches["stencil_conv"], stencil_record),
+               sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"], stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
                voxel_launches["subm_conv"], subm_record),
         # The backward sides, launched by the training paths (10 timed steps each
-        # of pillars, unit middle, per-voxel middle and the bench-shaped step).
+        # of pillars, unit middle, per-voxel middle, the bench-shaped step and
+        # VFE pillars).
         record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153", trained("dense_fill_bwd"),
                fill_bwd_record, source="dense_fill"),
         # d_src is the forward stencil kernel launched on the reverse queries,

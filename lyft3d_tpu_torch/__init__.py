@@ -18,15 +18,19 @@ module layout and public names so each module's counterpart is easy to find:
                 connected components, mask → rotated boxes, voxelize, anchors
                 and target assignment, box ops, rotated IoU, NMS, the
                 bin-based box decoder
-    models    — ConvNormAct / ASPP / UpBlock / LayerNorm, the ResNet
-                encoders, LyftUNet, ReferenceUNet, BatchNorm folding;
-                second/: PillarFeatureNet, SimpleVoxel, the sparse middles,
-                RPN, VoxelNet, voxelnet_loss, voxelnet_predict;
+    models    — ConvNormAct / ASPP / UpBlock / LayerNorm / BatchNorm, the
+                ResNet, SE-ResNeXt, EfficientNet, DPN, WideResNet-38,
+                Xception and Inception encoders, LyftUNet, ReferenceUNet,
+                DeepLabV3Plus, EfficientNetUNet, BatchNorm folding;
+                second/: PillarFeatureNet, VoxelFeatureExtractor,
+                SimpleVoxel, the sparse middles, RPN, VoxelNet,
+                voxelnet_loss, voxelnet_predict;
                 pointrcnn/: SharedMLP, the SA and FP modules, the RPN,
                 proposal layer, RCNN and the joint PointRCNN
     train     — losses, optimizers and schedules (optax's formulas), the
                 step-loop Trainer with float32 master parameters, the
-                checkpoint registry, metric logs
+                checkpoint registry, metric logs, precision/recall and
+                accuracy counters
     utils     — the flax ↔ torch weight bridge
     pipelines — BEV inference (lidar → raster → UNet → boxes → world
                 records), SECOND inference (points → voxelize → VoxelNet →

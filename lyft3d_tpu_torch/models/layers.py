@@ -12,7 +12,11 @@ the flax modules:
   momentum 0.99 and its biased one-pass batch variance, with float32 running
   statistics (:class:`BatchNorm`);
 - bilinear resizes use half-pixel centres (``align_corners=False``) and
-  antialias when they shrink, as ``jax.image.resize`` does.
+  antialias when they shrink, as ``jax.image.resize`` does;
+- the few flax layers that pad ``"SAME"`` (a depthwise conv, two stem
+  max-pools, an average pool) pad as flax does: ``pad_lo = total // 2``,
+  the rest after (:func:`same_pads`), which at stride 2 on an even size is
+  ``(0, 1)``, not the symmetric ``(1, 1)``.
 
 The flax modules infer their input width; here it is an explicit first
 argument. ``PackedGroupedConv`` is a TPU workaround and is not ported.
@@ -30,6 +34,11 @@ from torch import nn
 __all__ = [
     "upsample2x",
     "resize_to",
+    "same_pads",
+    "pad_same",
+    "max_pool_same",
+    "avg_pool_same",
+    "SameConv2d",
     "ConvNormAct",
     "LayerNorm",
     "BatchNorm",
@@ -59,6 +68,44 @@ def resize_to(x: torch.Tensor, hw: Sequence[int]) -> torch.Tensor:
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     h, w = x.shape[-2:]
     return resize_to(x, (2 * h, 2 * w))
+
+
+def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1) -> Tuple[int, int]:
+    """flax's ``"SAME"`` padding of one spatial dim: the output has
+    ``ceil(size / stride)`` positions; of the padding this needs,
+    ``total // 2`` goes before and the rest after."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int = 1, dilation: int = 1,
+             value: float = 0.0) -> torch.Tensor:
+    """``x`` (NCHW) padded for a ``"SAME"`` window; ``value`` fills the pad."""
+    (t, b), (l, r) = (same_pads(n, kernel, stride, dilation) for n in x.shape[-2:])
+    if not (t or b or l or r):
+        return x
+    return F.pad(x, (l, r, t, b), value=value)
+
+
+def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``nn.max_pool(padding="SAME")``: the pad never wins a max."""
+    return F.max_pool2d(pad_same(x, kernel, stride, value=float("-inf")), kernel, stride)
+
+
+def avg_pool_same(x: torch.Tensor, kernel: int, stride: int = 1) -> torch.Tensor:
+    """flax ``nn.avg_pool(padding="SAME")``: zeros padded and counted in every
+    window's mean (flax's ``count_include_pad=True``)."""
+    return F.avg_pool2d(pad_same(x, kernel, stride), kernel, stride)
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax's ``"SAME"`` padding (:func:`same_pads`); its
+    own ``padding`` stays 0."""
+
+    def forward(self, x):
+        return self._conv_forward(pad_same(x, self.kernel_size[0], self.stride[0], self.dilation[0]),
+                                  self.weight, self.bias)
 
 
 def _num_groups(features: int) -> int:
@@ -126,7 +173,12 @@ class BatchNorm(nn.BatchNorm2d):
 
     ``channel_dim`` is the features' dimension: 1 for NCHW maps, −1 for the
     ``(…, C)`` activations of a Dense layer, where the statistics are over
-    every other dimension, as flax's ``BatchNorm`` after ``nn.Dense``."""
+    every other dimension, as flax's ``BatchNorm`` after ``nn.Dense``.
+
+    ``use_running_average = True`` normalises with the running statistics in
+    train mode too and updates nothing (flax's ``use_running_average``; see
+    ``pipelines/second_train.py::batch_stats_as_parameters``, where the
+    running statistics are also parameters)."""
 
     def __init__(self, features: int, eps: float = BATCH_NORM_EPS, device=None, dtype=None,
                  channel_dim: int = 1):
@@ -136,6 +188,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.running_mean = self.running_mean.float()
         self.running_var = self.running_var.float()
         self.batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.use_running_average = False
 
     def _apply(self, fn, *args, **kwargs):
         # A cast would round the statistics; keep the float32 values, on the
@@ -145,7 +198,10 @@ class BatchNorm(nn.BatchNorm2d):
         for name, old in stats.items():
             new = getattr(self, name)
             if new.dtype != torch.float32:
-                setattr(self, name, old.to(new.device, torch.float32))
+                kept = old.detach().to(new.device, torch.float32)
+                if isinstance(new, nn.Parameter):
+                    kept = nn.Parameter(kept, requires_grad=new.requires_grad)
+                setattr(self, name, kept)
         return self
 
     def forward(self, x):
@@ -153,14 +209,17 @@ class BatchNorm(nn.BatchNorm2d):
         axis = self.channel_dim % xf.dim()
         shape = [1] * xf.dim()
         shape[axis] = xf.shape[axis]
-        if self.training:
+        if self.training and not self.use_running_average:
             dims = tuple(d for d in range(xf.dim()) if d != axis)
             mean = xf.mean(dim=dims)
             var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = BATCH_NORM_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+                # In the buffers' float32, also for a float64 input: the
+                # update rounds once a step, whatever the module's dtype.
+                f32 = self.running_mean.dtype
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean.to(f32))
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var.to(f32))
             self.batch_stats = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

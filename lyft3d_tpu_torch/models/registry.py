@@ -20,6 +20,7 @@ def register_model(name: str):
 def build_model(name: str, **kwargs):
     # Import model modules lazily so the registry is populated on first use.
     import lyft3d_tpu_torch.models.unet  # noqa: F401
+    import lyft3d_tpu_torch.models.deeplab  # noqa: F401
 
     if name not in _REGISTRY:
         raise KeyError(
@@ -31,5 +32,6 @@ def build_model(name: str, **kwargs):
 
 def list_models():
     import lyft3d_tpu_torch.models.unet  # noqa: F401
+    import lyft3d_tpu_torch.models.deeplab  # noqa: F401
 
     return sorted(_REGISTRY)

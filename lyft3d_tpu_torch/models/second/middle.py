@@ -18,9 +18,12 @@ an oracle and raises here.
 
 The flax modules infer their input width; here it is an explicit first
 argument. Kernels are ``(27, Cin, Cout)`` as in flax, held in the module's
-dtype. ``norm_type``: "layer" (LayerNorm with flax's statistics) or "folded"
-(conv + bias, no norm op: the inference structure); "batch" comes with
-training.
+dtype. ``norm_type`` of the unit middle: "layer" (LayerNorm with flax's
+statistics), "batch" (flax's BatchNorm over the ``(B, V, C)`` output: its
+statistics in train mode run over every row, inactive and padded ones
+included, as the flax layer's do; eval mode uses the running statistics) or
+"folded" (conv + bias, no norm op: the inference structure). ReLU and the
+activity mask come after the norm in all three.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from lyft3d_tpu_torch.models.layers import LayerNorm
+from lyft3d_tpu_torch.models.layers import BatchNorm, LayerNorm
 from lyft3d_tpu_torch.ops.column_sparse import (
     ColumnSet,
     downsample_units,
@@ -63,25 +66,24 @@ __all__ = [
     "SparseMiddleColumns",
 ]
 
-NORM_TYPES = ("layer", "folded")
+NORM_TYPES = ("layer", "batch", "folded")
 
 
 class _SparseConvBase(nn.Module):
-    """A ``(27, Cin, Cout)`` kernel with its norm: LayerNorm ("layer") or a
-    bias ("folded")."""
+    """A ``(27, Cin, Cout)`` kernel with its norm: LayerNorm ("layer"),
+    BatchNorm over the channels ("batch") or a bias ("folded")."""
 
     def __init__(self, in_features: int, features: int, norm_type: str, device=None, dtype=None):
         super().__init__()
-        if norm_type == "batch":
-            raise NotImplementedError(
-                "norm_type='batch' of the sparse middle is not yet ported to lyft3d_tpu_torch "
-                "(it comes with training; ported: 'layer', 'folded')"
-            )
         if norm_type not in NORM_TYPES:
             raise ValueError(f"unknown norm_type {norm_type!r}")
         fk = {"device": device, "dtype": dtype}
         self.kernel = nn.Parameter(torch.empty(27, in_features, features, **fk))
-        self.norm = LayerNorm(features, **fk) if norm_type == "layer" else None
+        self.norm = None
+        if norm_type == "layer":
+            self.norm = LayerNorm(features, **fk)
+        elif norm_type == "batch":
+            self.norm = BatchNorm(features, channel_dim=-1, **fk)
         self.bias = nn.Parameter(torch.empty(features, **fk)) if norm_type == "folded" else None
 
     def init_own_params(self, normal):

@@ -2,9 +2,9 @@
 
 Operates on the fixed-capacity :func:`lyft3d_tpu_torch.ops.voxelize.voxelize`
 output, batched: voxels ``(B, V, T, D)``, num_points ``(B, V)``, coords
-``(B, V, 3)``. Ported: ``PillarFeatureNet`` and ``pillar_scatter`` (the
-Lyft pillars config) and ``SimpleVoxel`` (the sparse FHD config).
-``VoxelFeatureExtractor`` is not on a ported path yet.
+``(B, V, 3)``: ``PillarFeatureNet`` and ``pillar_scatter`` (the Lyft
+pillars config), ``SimpleVoxel`` (the sparse FHD config) and
+``VoxelFeatureExtractor`` with its VFE layers (``encoder: vfe``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from torch import nn
 from lyft3d_tpu_torch.models.layers import LayerNorm
 from lyft3d_tpu_torch.ops.dense_fill import fill_rows_by_id
 
-__all__ = ["voxel_mean", "SimpleVoxel", "PillarFeatureNet", "pillar_scatter"]
+__all__ = ["voxel_mean", "SimpleVoxel", "VFELayer", "VoxelFeatureExtractor", "PillarFeatureNet",
+           "pillar_scatter"]
 
 
 def _point_mask(voxels, num_points):
@@ -45,6 +46,59 @@ class SimpleVoxel(nn.Module):
 
     def forward(self, voxels, num_points, coords):
         return voxel_mean(voxels[..., : self.num_features], num_points).to(self.dtype)
+
+
+class VFELayer(nn.Module):
+    """Linear without bias to ``features // 2`` → LayerNorm → ReLU · mask, then
+    each point's features concatenated with the voxel's max over its points
+    (``features`` out). Empty slots are 0 after the mask, and the max runs
+    over them too, as in the flax layer: a voxel's max is never below 0."""
+
+    def __init__(self, in_features: int, features: int, device=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        self.linear = nn.Linear(in_features, features // 2, bias=False, **fk)
+        self.norm = LayerNorm(features // 2, **fk)
+
+    def forward(self, x, mask):
+        """``x`` ``(…, T, C)``, ``mask`` ``(…, T, 1)`` in ``x``'s dtype."""
+        h = torch.relu(self.norm(self.linear(x))) * mask
+        return torch.cat([h, h.amax(dim=-2, keepdim=True).expand_as(h)], dim=-1)
+
+
+class VoxelFeatureExtractor(nn.Module):
+    """VFE encoder: each point with its offset from the voxel's point mean (and
+    its distance from the origin with ``with_distance``), one
+    :class:`VFELayer` a width of ``features``, then Linear without bias →
+    LayerNorm → ReLU · mask and the max over the points.
+
+    ``in_features`` is the point width D; the first layer takes D + 3 (+ 1).
+    Preprocessing runs in the points' float32, the layers in ``dtype``; the
+    output ``(…, V, features[-1])`` is in ``dtype``."""
+
+    def __init__(self, in_features: int, features: Sequence[int] = (32, 128),
+                 with_distance: bool = False, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        self.with_distance = with_distance
+        widths = [in_features + 3 + int(with_distance), *features]
+        self.vfe = nn.ModuleList(VFELayer(i, o, **fk) for i, o in zip(widths[:-1], widths[1:]))
+        self.linear = nn.Linear(features[-1], features[-1], bias=False, **fk)
+        self.norm = LayerNorm(features[-1], **fk)
+
+    def forward(self, voxels, num_points, coords):
+        mask = _point_mask(voxels, num_points)
+        mean = voxel_mean(voxels[..., :3], num_points)
+        feats = [voxels, voxels[..., :3] - mean[..., None, :]]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(voxels[..., :3], dim=-1, keepdim=True))
+        x = torch.cat(feats, dim=-1).to(self.linear.weight.dtype)
+        m = mask[..., None].to(x.dtype)
+        for layer in self.vfe:
+            x = layer(x, m)
+        x = torch.relu(self.norm(self.linear(x))) * m
+        return x.amax(dim=-2)
 
 
 class PillarFeatureNet(nn.Module):

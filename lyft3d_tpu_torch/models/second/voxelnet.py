@@ -8,16 +8,19 @@ Ported, with the batched :func:`voxelnet_predict`:
 - the sparse paths, ``encoder="simple"`` with ``middle="sparse_units"``
   (:class:`SparseMiddleUnits`, CUDA kernels ``csrc/stencil_conv.cu`` and
   ``csrc/dense_fill.cu``) or ``middle="sparse"`` (:class:`SparseMiddle`,
-  ``csrc/subm_conv.cu`` and ``csrc/dense_fill.cu``) → :class:`RPN`.
+  ``csrc/subm_conv.cu`` and ``csrc/dense_fill.cu``) → :class:`RPN`;
+- the VFE encoder, ``encoder="vfe"`` (:class:`VoxelFeatureExtractor`), with
+  any of the three middles, which then take its ``encoder_features[-1]``
+  channels.
 
 :func:`voxelnet_loss` is the training objective (focal classification,
-sin-error smooth-L1 localization, direction cross-entropy). The model has no
-layer that behaves differently in ``train()`` mode (GroupNorm and LayerNorm
-only), and every kernel wrapper on its path is differentiable.
+sin-error smooth-L1 localization, direction cross-entropy). Only a unit
+middle with ``middle_norm="batch"`` behaves differently in ``train()`` mode
+(its BatchNorms; the rest is GroupNorm and LayerNorm), and every kernel
+wrapper on its path is differentiable.
 
-The ``vfe`` encoder is not ported yet, and the ``sparse_columns`` middle (the
-dense-z columns the JAX package keeps for comparison) is not to be ported:
-building a model that needs either raises.
+The ``sparse_columns`` middle (the dense-z columns the JAX package keeps for
+comparison) is not to be ported: building a model that needs it raises.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleUnit
 from lyft3d_tpu_torch.models.second.voxel_encoder import (
     PillarFeatureNet,
     SimpleVoxel,
+    VoxelFeatureExtractor,
     pillar_scatter,
 )
 from lyft3d_tpu_torch.ops.anchors import AnchorSpec, generate_anchors
@@ -61,7 +65,7 @@ class VoxelNetConfig:
     )
     max_voxels: int = 20000
     max_points_per_voxel: int = 20
-    encoder: str = "pillars"
+    encoder: str = "pillars"  # "simple", "vfe" or "pillars"
     encoder_features: Tuple[int, ...] = (64,)
     # "scatter" (pillars), "sparse_units" (z-slab units of BEV columns, the
     # sparse FHD config's) or "sparse" (per-voxel gather formulation).
@@ -70,7 +74,8 @@ class VoxelNetConfig:
     middle_max_voxels: Tuple[int, ...] = (8192, 4096, 2048)
     # Stage-0 z-slab size of "sparse_units"; divisible by 2**(stages − 1).
     middle_z_slab: int = 8
-    # Norm of the unit middle's layers: "layer" or "folded" (conv + bias).
+    # Norm of the unit middle's layers: "layer", "batch" (running statistics
+    # in eval mode) or "folded" (conv + bias).
     middle_norm: str = "layer"
     anchor_specs: Tuple[AnchorSpec, ...] = (
         AnchorSpec(size=(1.93, 4.76, 1.72), z_center=-1.0,
@@ -140,7 +145,8 @@ class VoxelNetConfig:
         )
 
 
-_PORTED = (("pillars", "scatter"), ("simple", "sparse_units"), ("simple", "sparse"))
+_PORTED = (("pillars", "scatter"), ("simple", "sparse_units"), ("simple", "sparse"),
+           ("vfe", "scatter"), ("vfe", "sparse_units"), ("vfe", "sparse"))
 
 
 def _check_ported(cfg: VoxelNetConfig):
@@ -176,25 +182,32 @@ class VoxelNet(nn.Module):
         self.middle = None
         if cfg.encoder == "simple":
             self.encoder = SimpleVoxel(in_features, dtype=dtype)
-            common = dict(stage_features=cfg.middle_features,
-                          stage_max_voxels=cfg.middle_max_voxels, device=_META)
-            if cfg.middle == "sparse_units":
-                # voxelize emits (y, x, z)-ordered flat ids: no sort needed.
-                self.middle = SparseMiddleUnits(
-                    in_features, z_slab=cfg.middle_z_slab, norm_type=cfg.middle_norm,
-                    assume_sorted_voxels=True, nz=cfg.grid.grid_size[2], **common)
-            else:
-                self.middle = SparseMiddle(in_features, **common)
-            nz = cfg.grid.grid_size[2]
-            for _ in cfg.middle_features:
-                nz = (nz - 1) // 2 + 1
-            bev_features = cfg.middle_features[-1] * nz
+            enc_features = in_features
+        elif cfg.encoder == "vfe":
+            self.encoder = VoxelFeatureExtractor(in_features, cfg.encoder_features, device=_META)
+            enc_features = cfg.encoder_features[-1]
         else:
             self.encoder = PillarFeatureNet(
                 in_features, cfg.encoder_features, cfg.grid.voxel_size[:2],
                 cfg.grid.point_cloud_range[:2], device=_META,
             )
-            bev_features = cfg.encoder_features[-1]
+            enc_features = cfg.encoder_features[-1]
+        if cfg.is_sparse:
+            common = dict(stage_features=cfg.middle_features,
+                          stage_max_voxels=cfg.middle_max_voxels, device=_META)
+            if cfg.middle == "sparse_units":
+                # voxelize emits (y, x, z)-ordered flat ids: no sort needed.
+                self.middle = SparseMiddleUnits(
+                    enc_features, z_slab=cfg.middle_z_slab, norm_type=cfg.middle_norm,
+                    assume_sorted_voxels=True, nz=cfg.grid.grid_size[2], **common)
+            else:
+                self.middle = SparseMiddle(enc_features, **common)
+            nz = cfg.grid.grid_size[2]
+            for _ in cfg.middle_features:
+                nz = (nz - 1) // 2 + 1
+            bev_features = cfg.middle_features[-1] * nz
+        else:
+            bev_features = enc_features
         self.rpn = RPN(
             bev_features, cfg.rpn_layer_nums, cfg.rpn_strides, cfg.rpn_filters,
             cfg.rpn_up_strides, cfg.rpn_up_filters, cfg.anchors_per_loc, cfg.num_classes,

@@ -162,5 +162,7 @@ def _make_backbone_unet(backbone):
     return ctor
 
 
-for _b in ("resnet18", "resnet34", "resnet50", "seresnext26", "seresnext50", "seresnext101"):
+for _b in ("resnet18", "resnet34", "resnet50", "seresnext26", "seresnext50", "seresnext101",
+           "efficientnet_b1", "efficientnet_b2", "efficientnet_b3", "efficientnet_b5", "dpn68",
+           "xception", "inception_v4", "inceptionresnetv2"):
     register_model(f"unet_{_b}")(_make_backbone_unet(_b))

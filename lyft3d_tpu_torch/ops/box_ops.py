@@ -17,6 +17,7 @@ __all__ = [
     "limit_period",
     "rotate_points_2d",
     "box_corners_2d",
+    "box_corners_3d",
     "corners_to_standup_2d",
     "encode_boxes",
     "decode_boxes",
@@ -50,6 +51,18 @@ def box_corners_2d(boxes):
     wy = torch.stack([w, w, -w, -w], dim=-1) / 2.0
     rot = rotate_points_2d(torch.stack([lx, wy], dim=-1), yaw)
     return rot + torch.stack([x, y], dim=-1)[..., None, :]
+
+
+def box_corners_3d(boxes):
+    """``(…, 7)`` ``[x, y, z, w, l, h, yaw]`` → ``(…, 8, 3)`` corners: the
+    bottom face (CCW) at ``z − h/2``, then the top face at ``z + h/2`` (``z``
+    is the box centre)."""
+    bev = torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]], dim=-1)
+    c2 = box_corners_2d(bev)  # (…, 4, 2)
+    z, h = boxes[..., 2], boxes[..., 5]
+    zb = (z - h / 2.0)[..., None, None].expand(*c2.shape[:-1], 1)
+    zt = (z + h / 2.0)[..., None, None].expand(*c2.shape[:-1], 1)
+    return torch.cat([torch.cat([c2, zb], dim=-1), torch.cat([c2, zt], dim=-1)], dim=-2)
 
 
 def corners_to_standup_2d(corners):

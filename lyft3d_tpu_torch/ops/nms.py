@@ -5,16 +5,18 @@ suppression recurrence to its fixpoint with whole-matrix steps. Inputs are
 padded and fixed-size, ``(N, …)`` or batched ``(B, N, …)``; invalid rows are
 masked with ``valid``. Orders follow ``jnp.argsort`` (stable) and
 ``jax.lax.top_k`` (ties to the lower index): both become stable sorts.
-``standup_nms`` has no caller on a ported path yet.
+``standup_nms`` has no caller on a ported path (nor in the JAX package: only
+its tests call it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev
+from lyft3d_tpu_torch.ops.box_ops import box_corners_2d, corners_to_standup_2d
+from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev, standup_iou
 
-__all__ = ["nms_mask_from_iou", "rotated_nms", "select_top_k"]
+__all__ = ["nms_mask_from_iou", "rotated_nms", "standup_nms", "select_top_k"]
 
 
 def _greedy_keep_sorted(iou_s, valid_s, iou_threshold):
@@ -75,6 +77,20 @@ def rotated_nms(boxes_bev, scores, iou_threshold, valid=None):
     boxes_s = torch.gather(boxes_bev, -2, order[..., None].expand(boxes_bev.shape))
     iou_s = rotated_iou_bev(boxes_s, boxes_s)
     keep = _greedy_keep_sorted(iou_s, torch.gather(valid, -1, order), iou_threshold)
+    return _unsort(keep, order)
+
+
+def standup_nms(boxes_bev, scores, iou_threshold, valid=None):
+    """Axis-aligned NMS on ``(…, N, 5)`` rotated boxes through their standup
+    extents → ``(…, N)`` keep mask (SECOND's NMS with
+    ``use_rotate_nms=False``)."""
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    order = _descending_order(scores, valid)
+    boxes_s = torch.gather(boxes_bev, -2, order[..., None].expand(boxes_bev.shape))
+    standup = corners_to_standup_2d(box_corners_2d(boxes_s))
+    keep = _greedy_keep_sorted(standup_iou(standup, standup), torch.gather(valid, -1, order),
+                               iou_threshold)
     return _unsort(keep, order)
 
 

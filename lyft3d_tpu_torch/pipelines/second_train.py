@@ -11,9 +11,11 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from lyft3d_tpu_torch.config import SecondExperiment, snapshot_config
 from lyft3d_tpu_torch.data.prefetch import MappedPrefetcher
+from lyft3d_tpu_torch.models.layers import BatchNorm
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, VoxelNetConfig, voxelnet_loss
 from lyft3d_tpu_torch.ops.anchors import (
     anchors_area_mask,
@@ -30,6 +32,7 @@ from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 __all__ = [
     "voxelnet_config_from_experiment",
+    "batch_stats_as_parameters",
     "make_second_targets_fn",
     "make_second_loss_fn",
     "train_second",
@@ -42,6 +45,27 @@ def _training_device(device, what: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{what}: no CUDA device found (pass device='cpu' to run on the CPU)")
     return device
+
+
+@torch.no_grad()
+def batch_stats_as_parameters(model: nn.Module) -> nn.Module:
+    """Make every BatchNorm of ``model`` train as the JAX SECOND trainer trains
+    a ``middle_norm="batch"`` middle; returns ``model``, changed in place.
+
+    The JAX trainer applies the model to its whole variable tree with no
+    mutable collection and differentiates that tree: each BatchNorm
+    normalises with its running statistics in the training step too, and
+    the optimizer updates those statistics from their gradients as it updates
+    the parameters (ROADMAP §C). So here the running statistics become
+    float32 parameters (same names, same state-dict keys) and the modules
+    keep to them in train mode (``use_running_average``). Call it before the
+    :class:`~lyft3d_tpu_torch.train.trainer.Trainer` collects the parameters."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.use_running_average = True
+            for name in ("running_mean", "running_var"):
+                setattr(m, name, nn.Parameter(getattr(m, name).detach().float()))
+    return model
 
 
 def make_second_targets_fn(vcfg: VoxelNetConfig, device="cuda") -> Callable:
@@ -105,6 +129,7 @@ def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens
     sample0 = loader.batch(list(train_tokens)[: exp.batch_size])
     model = VoxelNet(vcfg, in_features=sample0["points"].shape[-1], dtype=dtype, device=device,
                      generator=torch.Generator().manual_seed(0))
+    batch_stats_as_parameters(model)  # a "batch" unit middle's; no other norm is a BatchNorm
 
     opt = exp.optimizer
     tcfg = TrainerConfig(

@@ -34,8 +34,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from lyft3d_tpu_torch.models.backbones.dpn import DPN
+from lyft3d_tpu_torch.models.backbones.efficientnet import EfficientNet, MBConv
 from lyft3d_tpu_torch.models.backbones.resnet import Bottleneck, ResNet
 from lyft3d_tpu_torch.models.backbones.seresnext import SEResNeXt, SEResNeXtBlock
+from lyft3d_tpu_torch.models.backbones.wide_resnet import WideResNet38
+from lyft3d_tpu_torch.models.backbones.xception import (
+    InceptionResNetV2,
+    InceptionV4,
+    SeparableConv,
+    Xception,
+    XceptionBlock,
+)
+from lyft3d_tpu_torch.models.deeplab import DeepLabV3Plus, EfficientNetUNet
 from lyft3d_tpu_torch.models.layers import ASPP, ConvNormAct, LayerNorm, SEModule, UpBlock
 from lyft3d_tpu_torch.models.pointrcnn.modules import (
     FPModule,
@@ -51,7 +62,7 @@ from lyft3d_tpu_torch.models.pointrcnn.net import (
 )
 from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleUnits
 from lyft3d_tpu_torch.models.second.rpn import RPN
-from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet
+from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet, VoxelFeatureExtractor
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
 from lyft3d_tpu_torch.models.unet import LyftUNet, ReferenceUNet
 
@@ -150,6 +161,30 @@ def _up_block(m: UpBlock, src, path, name, out):
     _se(m.se, src, path + ("SEModule_0",), f"{name}se.", out)
 
 
+def _cnas(cnas, src, path, name, out, first: int = 0):
+    """ConvNormAct modules in flax's creation order: ``(module, torch name)``
+    pairs → ``ConvNormAct_{first}``, ``ConvNormAct_{first + 1}``, …"""
+    for i, (cna, sub) in enumerate(cnas, start=first):
+        _conv_norm_act(cna, src, path + (f"ConvNormAct_{i}",), f"{name}{sub}.", out)
+
+
+def _blocks_across_stages(m, flax_type, block_mapper, src, path, name, out):
+    """``m.stages[si][bi]`` → ``{flax_type}_k`` (the block's class name where
+    ``flax_type`` is None), numbered across the stages as flax does."""
+    k = 0
+    for si, stage in enumerate(m.stages):
+        for bi, block in enumerate(stage):
+            flax_name = f"{flax_type or type(block).__name__}_{k}"
+            block_mapper(block, src, path + (flax_name,), f"{name}stages.{si}.{bi}.", out)
+            k += 1
+
+
+def _named_cnas(*subs):
+    def mapper(m, src, path, name, out):
+        _cnas([(getattr(m, s), s) for s in subs if getattr(m, s) is not None], src, path, name, out)
+    return mapper
+
+
 def _block(m, src, path, name, out):
     convs = ["conv1", "conv2"] + (["conv3"] if isinstance(m, Bottleneck) else [])
     if m.downsample is not None:
@@ -160,12 +195,7 @@ def _block(m, src, path, name, out):
 
 def _resnet(m: ResNet, src, path, name, out):
     _conv_norm_act(m.stem, src, path + ("ConvNormAct_0",), f"{name}stem.", out)
-    k = 0  # flax numbers blocks across stages
-    for si, stage in enumerate(m.stages):
-        for bi, block in enumerate(stage):
-            flax_name = f"{type(block).__name__}_{k}"
-            _block(block, src, path + (flax_name,), f"{name}stages.{si}.{bi}.", out)
-            k += 1
+    _blocks_across_stages(m, None, _block, src, path, name, out)
 
 
 def _seresnext_block(m: SEResNeXtBlock, src, path, name, out):
@@ -179,27 +209,113 @@ def _seresnext_block(m: SEResNeXtBlock, src, path, name, out):
 
 def _seresnext(m: SEResNeXt, src, path, name, out):
     _conv_norm_act(m.stem, src, path + ("ConvNormAct_0",), f"{name}stem.", out)
-    k = 0  # flax numbers blocks across stages
-    for si, stage in enumerate(m.stages):
-        for bi, block in enumerate(stage):
-            _seresnext_block(block, src, path + (f"SEResNeXtBlock_{k}",), f"{name}stages.{si}.{bi}.", out)
-            k += 1
+    _blocks_across_stages(m, "SEResNeXtBlock", _seresnext_block, src, path, name, out)
+
+
+def _wide_resnet(m: WideResNet38, src, path, name, out):
+    _cnas([(m.stem1, "stem1"), (m.stem2, "stem2")], src, path, name, out)
+    _blocks_across_stages(m, "WideBlock", _named_cnas("conv1", "conv2", "conv3", "downsample"),
+                          src, path, name, out)
+
+
+def _dpn(m: DPN, src, path, name, out):
+    _cnas([(m.stem, "stem")], src, path, name, out)
+    _blocks_across_stages(m, "DualPathBlock", _named_cnas("conv1", "conv2", "conv3", "proj"),
+                          src, path, name, out)
+
+
+def _mb_conv(m: MBConv, src, path, name, out):
+    # flax creation order: expand (if any), depthwise, the SE's two Denses, project.
+    subs = (["expand"] if m.expand is not None else []) + ["depthwise"]
+    _cnas([(getattr(m, s), s) for s in subs], src, path, name, out)
+    _dense(src, path + ("Dense_0",), f"{name}se1", out)
+    _dense(src, path + ("Dense_1",), f"{name}se2", out)
+    _cnas([(m.project, "project")], src, path, name, out, first=len(subs))
+
+
+def _efficientnet(m: EfficientNet, src, path, name, out):
+    _cnas([(m.stem, "stem")], src, path, name, out)
+    for i, block in enumerate(m.blocks):
+        _mb_conv(block, src, path + (f"MBConv_{i}",), f"{name}blocks.{i}.", out)
+
+
+def _separable_conv(m: SeparableConv, src, path, name, out):
+    _conv(m.depthwise, src, path + ("Conv_0",), f"{name}depthwise", out)  # bare, no bias
+    _cnas([(m.pointwise, "pointwise")], src, path, name, out)
+
+
+def _xception_block(m: XceptionBlock, src, path, name, out):
+    for i, sep in enumerate(m.seps):
+        _separable_conv(sep, src, path + (f"SeparableConv_{i}",), f"{name}seps.{i}.", out)
+    if m.skip is not None:
+        _cnas([(m.skip, "skip")], src, path, name, out)
+
+
+def _xception(m: Xception, src, path, name, out):
+    _cnas([(m.stem1, "stem1"), (m.stem2, "stem2")], src, path, name, out)
+    blocks = [(b, f"entry.{i}.") for i, b in enumerate(m.entry)]
+    blocks += [(b, f"middle.{i}.") for i, b in enumerate(m.middle)] + [(m.exit, "exit.")]
+    for k, (block, sub) in enumerate(blocks):
+        _xception_block(block, src, path + (f"XceptionBlock_{k}",), f"{name}{sub}", out)
+    _separable_conv(m.exit_sep, src, path + ("SeparableConv_0",), f"{name}exit_sep.", out)
+
+
+def _convs_list(m, src, path, name, out):
+    """A block whose ``convs`` are flax's ``ConvNormAct_0..n`` (the Inception mixes)."""
+    _cnas([(c, f"convs.{i}") for i, c in enumerate(m.convs)], src, path, name, out)
+
+
+def _inception(flax_block: str):
+    """The Inception trunks: the stem's and the reductions' ConvNormActs,
+    numbered on, then the stages' blocks."""
+    def mapper(m, src, path, name, out):
+        cnas = [(c, f"stem.{i}") for i, c in enumerate(m.stem)]
+        _cnas(cnas + [(r, f"reductions.{i}") for i, r in enumerate(m.reductions)],
+              src, path, name, out)
+        _blocks_across_stages(m, flax_block, _convs_list, src, path, name, out)
+    return mapper
 
 
 _BACKBONE_MAPPERS: Dict[type, Tuple[str, Callable]] = {
     ResNet: ("ResNet_0", _resnet),
     SEResNeXt: ("SEResNeXt_0", _seresnext),
+    WideResNet38: ("WideResNet38_0", _wide_resnet),
+    DPN: ("DPN_0", _dpn),
+    EfficientNet: ("EfficientNet_0", _efficientnet),
+    Xception: ("Xception_0", _xception),
+    InceptionV4: ("InceptionV4_0", _inception("InceptionMix")),
+    InceptionResNetV2: ("InceptionResNetV2_0", _inception("InceptionResBlock")),
 }
 
 
+def _backbone(m, src, path, name, out):
+    flax_name, mapper = _BACKBONE_MAPPERS[type(m)]
+    mapper(m, src, path + (flax_name,), name, out)
+
+
 def _lyft_unet(m: LyftUNet, src, path, name, out):
-    flax_name, backbone = _BACKBONE_MAPPERS[type(m.backbone)]
-    backbone(m.backbone, src, path + (flax_name,), f"{name}backbone.", out)
+    _backbone(m.backbone, src, path, f"{name}backbone.", out)
     # ConvNormAct_0..2: skip reductions; ConvNormAct_3: hypercolumn conv.
     for i, cna in enumerate(m.skips):
         _conv_norm_act(cna, src, path + (f"ConvNormAct_{i}",), f"{name}skips.{i}.", out)
     _conv_norm_act(m.hyper, src, path + (f"ConvNormAct_{len(m.skips)}",), f"{name}hyper.", out)
     _aspp(m.aspp, src, path + ("ASPP_0",), f"{name}aspp.", out)
+    _dense(src, path + ("Dense_0",), f"{name}aux", out)
+    for i, up in enumerate(m.decoder):
+        _up_block(up, src, path + (f"UpBlock_{i}",), f"{name}decoder.{i}.", out)
+    _conv(m.head, src, path + ("Conv_0",), f"{name}head", out)
+
+
+def _deeplab(m: DeepLabV3Plus, src, path, name, out):
+    _backbone(m.backbone, src, path, f"{name}backbone.", out)
+    _aspp(m.aspp, src, path + ("ASPP_0",), f"{name}aspp.", out)
+    _dense(src, path + ("Dense_0",), f"{name}aux", out)
+    _cnas([(m.low, "low"), (m.decode1, "decode1"), (m.decode2, "decode2")], src, path, name, out)
+    _conv(m.head, src, path + ("Conv_0",), f"{name}head", out)
+
+
+def _efficientnet_unet(m: EfficientNetUNet, src, path, name, out):
+    _backbone(m.backbone, src, path, f"{name}backbone.", out)
     _dense(src, path + ("Dense_0",), f"{name}aux", out)
     for i, up in enumerate(m.decoder):
         _up_block(up, src, path + (f"UpBlock_{i}",), f"{name}decoder.{i}.", out)
@@ -223,6 +339,15 @@ def _pillar_feature_net(m: PillarFeatureNet, src, path, name, out):
         _norm(src, path + (f"LayerNorm_{i}",), f"{name}norms.{i}", out)
 
 
+def _vfe(m: VoxelFeatureExtractor, src, path, name, out):
+    for i in range(len(m.vfe)):
+        lp, ln = path + (f"VFELayer_{i}",), f"{name}vfe.{i}."
+        _dense(src, lp + ("Dense_0",), f"{ln}linear", out, bias=False)
+        _norm(src, lp + ("LayerNorm_0",), f"{ln}norm", out)
+    _dense(src, path + ("Dense_0",), f"{name}linear", out, bias=False)
+    _norm(src, path + ("LayerNorm_0",), f"{name}norm", out)
+
+
 def _rpn(m: RPN, src, path, name, out):
     k = 0  # flax numbers every ConvNormAct in creation order: block, then its up branch
     for bi, (block, up) in enumerate(zip(m.blocks, m.ups)):
@@ -236,10 +361,13 @@ def _rpn(m: RPN, src, path, name, out):
 
 
 def _sparse_layer(m, src, path, name, out):
-    """A sparse conv layer: its kernel, and LayerNorm_0 ("layer") or bias ("folded")."""
+    """A sparse conv layer: its kernel, and LayerNorm_0 ("layer"), BatchNorm_0
+    with its running statistics ("batch") or a bias ("folded")."""
     out[f"{name}kernel"] = src.take("params", path + ("kernel",))
-    if m.norm is not None:
+    if isinstance(m.norm, LayerNorm):
         _norm(src, path + ("LayerNorm_0",), f"{name}norm", out)
+    elif isinstance(m.norm, nn.BatchNorm2d):  # the port's BatchNorm over the last dim
+        _batch_norm(src, path + ("BatchNorm_0",), f"{name}norm", out)
     if m.bias is not None:
         out[f"{name}bias"] = src.take("params", path + ("bias",))
 
@@ -258,14 +386,17 @@ _sparse_middle_voxels = _sparse_middle("SubMConvLayer", "SparseConvLayer")
 
 
 def _voxelnet(m: VoxelNet, src, path, name, out):
-    if isinstance(m.middle, SparseMiddleUnits):  # SimpleVoxel has no parameters
+    # SimpleVoxel has no parameters.
+    if isinstance(m.encoder, PillarFeatureNet):
+        _pillar_feature_net(m.encoder, src, path + ("PillarFeatureNet_0",), f"{name}encoder.", out)
+    elif isinstance(m.encoder, VoxelFeatureExtractor):
+        _vfe(m.encoder, src, path + ("VoxelFeatureExtractor_0",), f"{name}encoder.", out)
+    if isinstance(m.middle, SparseMiddleUnits):
         _sparse_middle_units(m.middle, src, path + ("SparseMiddleUnits_0",), f"{name}middle.", out)
     elif isinstance(m.middle, SparseMiddle):
         # nn.vmap over the samples shares one set of parameters.
         _sparse_middle_voxels(m.middle, src, path + ("Vmap_SparseMiddleBatch_0", "SparseMiddle_0"),
                               f"{name}middle.", out)
-    else:
-        _pillar_feature_net(m.encoder, src, path + ("PillarFeatureNet_0",), f"{name}encoder.", out)
     _rpn(m.rpn, src, path + ("RPN_0",), f"{name}rpn.", out)
 
 
@@ -326,10 +457,15 @@ _MAPPERS: Dict[type, Callable] = {
     SEModule: _se,
     ASPP: _aspp,
     UpBlock: _up_block,
-    SEResNeXt: _seresnext,
+    **{cls: mapper for cls, (_, mapper) in _BACKBONE_MAPPERS.items()},
     LyftUNet: _lyft_unet,
+    DeepLabV3Plus: _deeplab,
+    EfficientNetUNet: _efficientnet_unet,
+    SeparableConv: _separable_conv,
+    MBConv: _mb_conv,
     ReferenceUNet: _reference_unet,
     PillarFeatureNet: _pillar_feature_net,
+    VoxelFeatureExtractor: _vfe,
     RPN: _rpn,
     SparseMiddleUnits: _sparse_middle_units,
     SparseMiddle: _sparse_middle_voxels,

@@ -247,8 +247,8 @@ def test_the_two_port_middles_agree(per_voxel_middle):
 def test_unported_middle_variants_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         SparseMiddleColumns(4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SubMUnitLayer(4, 8, 2, norm_type="batch")
+    # "batch" is ported now (tests/test_torch_second_leftovers.py): a BatchNorm over the channels.
+    assert SubMUnitLayer(4, 8, 2, norm_type="batch").norm.channel_dim == -1
     with pytest.raises(ValueError, match="unknown norm_type"):
         SubMUnitLayer(4, 8, 2, norm_type="group")
 

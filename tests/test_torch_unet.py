@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from lyft3d_tpu.models import build_model as jax_build_model
+from lyft3d_tpu.models import list_models as jax_list_models
 from lyft3d_tpu_torch.models import build_model, list_models
 from lyft3d_tpu_torch.utils.flax_params import load_flax_params
 
@@ -110,10 +111,11 @@ def test_bridge_raises_on_missing_and_extra_leaves(x):
 
 
 def test_registry_names():
-    assert list_models() == [
-        "unet_reference", "unet_resnet18", "unet_resnet34", "unet_resnet50",
-        "unet_seresnext101", "unet_seresnext26", "unet_seresnext50",
-    ]
+    """The port's registry has every name of the JAX package's, and no other."""
+    assert list_models() == jax_list_models()
+    assert {"unet_reference", "unet_resnet18", "unet_resnet34", "unet_resnet50", "unet_seresnext101",
+            "unet_seresnext26", "unet_seresnext50", "unet_dpn68", "deeplab_seresnext50",
+            "efficientnet_b5_unet"} <= set(list_models())
 
 
 def test_same_generator_seed_gives_same_weights():
