@@ -4,8 +4,10 @@ segmentation with ``unet_resnet50``, ``unet_seresnext101``,
 ``deeplab_seresnext50`` and every other registered BEV model, SECOND pillars
 with the pillar and the VFE encoder, PointRCNN, sparse SECOND at the FHD
 geometry with LayerNorm and BatchNorm middles), SECOND training (pillars,
-VFE pillars and both sparse middles), BEV training (UNets and DeepLabV3+) and
-PointRCNN training.
+VFE pillars and both sparse middles), BEV training (UNets and DeepLabV3+),
+PointRCNN training, and the serving path: the viewer's HTTP server answering
+``/api/detect`` requests with ``unet_resnet50`` on the card, one raster
+kernel launch a request, beside the native host runtime.
 
     python3 chip_smoke.py
 
@@ -280,6 +282,36 @@ Phases, one line of numbers each:
     ``make_second_infer_fn`` at batch 4 x 262,144 (the stencil 9 and the fill
     2 a call). Phases 28-32 print one JSON line each (a line a model in 29);
     their launches join the others' in the ``kernels`` line.
+
+33. serve: a Lyft-format tree written with numpy and ``json`` alone
+    (:func:`serve_tree`: 2 scenes x 8 samples, one ``LIDAR_TOP`` sweep of
+    65,536 points of :func:`lidar_cloud` a sample, 8 boxes a sample, the
+    map raster absent, so the map channel is zeros); the port's viewer on a
+    ``ThreadingHTTPServer`` at 127.0.0.1 in a thread, ``device`` the card,
+    driven over HTTP: the page, ``load_dataset``, ``samples``, ``sample``
+    (20,000 points), a detect before any model (a 500 with an error),
+    ``load_model`` (``unet_resnet50``, full width, bfloat16, GroupNorm), the
+    16 tokens' ``/api/detect`` in turn and again from 4 client threads at
+    once, the raster kernel's count set to 0 before each run and exactly 16
+    after it; every answer's ``boxes_world`` equal to the pipeline called
+    directly, the concurrent answers equal to the sequential ones. One JSON
+    line: the first request's ms apart, p50 / p90 / max of the others on
+    the host's clock, one request split into ``sample_arrays`` (host),
+    ``infer_fn`` (CUDA events), world records and sensor records + JSON
+    (host), the same request's ``detect`` in the main thread, peak memory;
+    one more request and one more ``detect`` in the main thread under
+    ``utils/profiler.py::trace``, whose file must name the raster kernel;
+34. native: ``native/loader.cpp`` built by g++ at first use
+    (``native_available()`` must be true), over the 16 sweeps of phase 33:
+    ``read_lidar`` equal to its numpy fallback, ``transform_points`` and
+    ``load_batch`` within 2 float32 ulps of the largest coordinate (the
+    fallback's BLAS product sums in another order) and ``load_batch`` equal
+    to read + transform, ``bev_raster`` equal to float64 binning (the C++)
+    and, capped at 16, to the fallback in every cell that no point on a bin
+    edge reaches (float32 and float64 bin it differently); each native call
+    and its fallback timed on the host's clock. Phases 33-34 print one JSON
+    line each; phase 33's raster launches join the others' in the
+    ``kernels`` line.
 
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
@@ -4147,6 +4179,376 @@ def fhd_batch_norm_phase(dev, card):
     return launches
 
 
+# The front ends (phases 33-34): the viewer answering detect requests on the
+# card at the flagship's width, and the native host runtime.
+SERVE_SCENES = 2
+SERVE_SAMPLES = 8  # a scene: 16 tokens
+SERVE_BOXES = 8  # annotated boxes a sample
+SERVE_MODEL = "unet_resnet50"
+SERVE_CLIENTS = 4
+HOST_REPEATS = 5
+RASTER_TRACE_NAME = "bev_raster_kernel"  # csrc/bev_raster.cu's kernel, as the trace names it
+
+
+def serve_tree(root, scenes, samples, n, boxes, seed):
+    """A Lyft-format tree written with numpy and ``json`` only (a CUDA host
+    need not have PIL): the 13 tables, one ``LIDAR_TOP`` sweep a sample of
+    ``n`` points of :func:`lidar_cloud` in the sensor frame (float32 x, y, z,
+    intensity, ring), ``boxes`` annotated car-sized boxes a sample, ego poses
+    along a curve with a turning yaw. The map table names a raster that is
+    not written, so each sample's map channel is zeros."""
+    from pathlib import Path
+
+    from lyft3d_tpu_torch.core.quaternion import quat_from_yaw
+
+    root = Path(root)
+    for sub in ("data", "lidar"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    t = {name: [] for name in ("category", "attribute", "visibility", "instance", "sensor", "calibrated_sensor",
+                               "ego_pose", "log", "scene", "sample", "sample_data", "sample_annotation", "map")}
+    t["category"].append({"token": "cat_car", "name": "car", "description": "car"})
+    t["sensor"].append({"token": "sensor_lidar", "channel": "LIDAR_TOP", "modality": "lidar"})
+    t["calibrated_sensor"].append({"token": "cs_lidar", "sensor_token": "sensor_lidar",
+                                   "translation": [0.0, 0.0, 1.8], "rotation": [1.0, 0.0, 0.0, 0.0],
+                                   "camera_intrinsic": []})
+    t["map"].append({"token": "map_0", "filename": "maps/absent.png", "category": "semantic_prior",
+                     "log_tokens": [f"log_{s}" for s in range(scenes)]})
+    clouds, _ = lidar_cloud(scenes * samples, n, seed)
+    clouds = clouds.numpy()
+    for s in range(scenes):
+        t["log"].append({"token": f"log_{s}", "logfile": f"log{s}", "vehicle": "chip", "date_captured": "",
+                         "location": "chip"})
+        tokens = [f"sample_{s}_{k:02d}" for k in range(samples)]
+        t["scene"].append({"token": f"scene_{s}", "log_token": f"log_{s}", "nbr_samples": samples,
+                           "first_sample_token": tokens[0], "last_sample_token": tokens[-1],
+                           "name": f"scene_{s}", "description": ""})
+        for k, tok in enumerate(tokens):
+            i = s * samples + k
+            yaw = 0.35 * k - 1.0 + s
+            ego = np.array([1000.0 + 40.0 * s + 6.0 * k, -500.0 + 2.0 * k * k, 0.5 * s])
+            ts = 1_500_000_000_000_000 + i * 500_000
+            t["ego_pose"].append({"token": f"pose_{i}", "timestamp": ts, "translation": ego.tolist(),
+                                  "rotation": list(map(float, quat_from_yaw(yaw)))})
+            t["sample"].append({"token": tok, "timestamp": ts, "scene_token": f"scene_{s}",
+                                "prev": tokens[k - 1] if k else "",
+                                "next": tokens[k + 1] if k + 1 < samples else ""})
+            t["sample_data"].append({"token": f"sd_{i}", "sample_token": tok, "ego_pose_token": f"pose_{i}",
+                                     "calibrated_sensor_token": "cs_lidar", "timestamp": ts, "fileformat": "bin",
+                                     "is_key_frame": True, "filename": f"lidar/sd_{i}.bin", "prev": "", "next": ""})
+            sweep = np.column_stack([clouds[i], rng.uniform(0, 100, n), rng.randint(0, 64, n)])
+            sweep.astype(np.float32).tofile(root / "lidar" / f"sd_{i}.bin")
+            for b in range(boxes):
+                xy = ego[:2] + rng.uniform(-40, 40, 2)
+                wlh = np.array([1.93, 4.76, 1.72]) * rng.uniform(0.9, 1.1, 3)
+                inst = f"inst_{i}_{b}"
+                t["instance"].append({"token": inst, "category_token": "cat_car", "nbr_annotations": 1,
+                                      "first_annotation_token": f"ann_{i}_{b}",
+                                      "last_annotation_token": f"ann_{i}_{b}"})
+                t["sample_annotation"].append({
+                    "token": f"ann_{i}_{b}", "sample_token": tok, "instance_token": inst, "attribute_tokens": [],
+                    "visibility_token": "", "translation": [float(xy[0]), float(xy[1]), float(ego[2] + 0.9)],
+                    "size": wlh.tolist(), "rotation": list(map(float, quat_from_yaw(rng.uniform(-3, 3)))),
+                    "num_lidar_pts": 64, "num_radar_pts": 0, "prev": "", "next": ""})
+    for name, recs in t.items():
+        with open(root / "data" / f"{name}.json", "w") as f:
+            json.dump(recs, f)
+    return root
+
+
+class Client:
+    """JSON over HTTP to a local server, through no proxy."""
+
+    def __init__(self, port):
+        import urllib.request
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def get(self, path, raw=False):
+        body = self.opener.open(self.base + path, timeout=300).read()
+        return body if raw else json.loads(body)
+
+    def post(self, path, payload):
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=json.dumps(payload).encode(), method="POST")
+        return json.loads(self.opener.open(req, timeout=600).read())
+
+    def error(self, path):
+        import urllib.error
+
+        try:
+            self.opener.open(self.base + path, timeout=60)
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read())
+        raise AssertionError(f"{path} answered without an error")
+
+
+def serve_phase(dev, card, tmp):
+    """Phase 33: the port's viewer (``serve/viewer.py``) on a
+    ``ThreadingHTTPServer`` at 127.0.0.1 in a thread, the model on the card.
+    Over HTTP: the page, ``load_dataset``, ``samples``, one ``sample``, a
+    detect before any model (the error payload), ``load_model``
+    (``unet_resnet50``, full width, bfloat16, GroupNorm as the viewer builds
+    it), then ``/api/detect`` for all 16 tokens in turn and again from 4
+    client threads at once, B1's count set to 0 before each run and read
+    after it (one launch a request). Each answer's ``boxes_world`` equals
+    the pipeline called directly, the concurrent answers the sequential
+    ones. Returns (B1 launches, the tree's root)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from lyft3d_tpu_torch.models import build_model
+    from lyft3d_tpu_torch.ops import bev_raster
+    from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
+    from lyft3d_tpu_torch.pipelines.bev import detections_to_world, make_bev_input, to_host
+    from lyft3d_tpu_torch.serve import viewer
+    from lyft3d_tpu_torch.utils.profiler import trace
+
+    root = serve_tree(tmp / "lyft", SERVE_SCENES, SERVE_SAMPLES, N_POINTS, SERVE_BOXES, seed=33)
+    viewer.STATE = state = viewer.ViewerState(device=dev)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), viewer.Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    client = Client(server.server_address[1])
+    try:
+        page = client.get("/", raw=True).decode()
+        if "lyft3d_tpu_torch viewer" not in page or "<canvas" not in page:
+            raise AssertionError("serve: / did not serve the viewer page")
+        if client.post("/api/load_dataset", {"data_root": str(root)}) != {"ok": True, "num_samples": 16}:
+            raise AssertionError("serve: load_dataset")
+        tokens = client.get("/api/samples")["tokens"]
+        sample = client.get(f"/api/sample?token={tokens[0]}&max_points=20000")
+        if len(tokens) != SERVE_SCENES * SERVE_SAMPLES or len(sample["points"]) != 20000 \
+                or len(sample["gt_boxes"]) != SERVE_BOXES:
+            raise AssertionError("serve: samples / sample")
+        code, payload = client.error(f"/api/detect?token={tokens[0]}")
+        if code != 500 or "error" not in payload:
+            raise AssertionError(f"serve: detect before a model gave {code} {payload}")
+        t0 = time.perf_counter()
+        if client.post("/api/load_model", {"model": SERVE_MODEL}) != {"ok": True, "model": SERVE_MODEL}:
+            raise AssertionError("serve: load_model")
+        load_s = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 2**30
+        bev_raster.KERNEL_LAUNCHES = 0
+        host_ms, answers = [], {}
+        for tok in tokens:
+            t0 = time.perf_counter()
+            answers[tok] = client.get(f"/api/detect?token={tok}")
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        sequential = bev_raster.KERNEL_LAUNCHES
+        if sequential != len(tokens):
+            raise AssertionError(f"serve: {len(tokens)} sequential detects launched B1 {sequential} times")
+
+        bev_raster.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            together = list(pool.map(lambda tok: client.get(f"/api/detect?token={tok}"), tokens))
+        together_s = time.perf_counter() - t0
+        concurrent = bev_raster.KERNEL_LAUNCHES
+        if concurrent != len(tokens):
+            raise AssertionError(f"serve: {len(tokens)} concurrent detects launched B1 {concurrent} times")
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        if together != [answers[tok] for tok in tokens]:
+            raise AssertionError("serve: the concurrent answers differ from the sequential ones")
+
+        n_boxes = 0
+        for tok in tokens:
+            direct = json.loads(json.dumps(state.pipeline.detect_all([tok], batch_size=1)[tok]))
+            if answers[tok]["boxes_world"] != direct:
+                raise AssertionError(f"serve: {tok}'s boxes_world differ from the pipeline called directly")
+            if len(answers[tok]["boxes_sensor"]) != len(direct):
+                raise AssertionError(f"serve: {tok}'s sensor boxes")
+            n_boxes += len(direct)
+        scores = [b["score"] for a in answers.values() for b in a["boxes_sensor"]]
+        if not all(math.isfinite(s) and 0.0 <= s <= 1.0 for s in scores):
+            raise AssertionError("serve: scores outside [0, 1]")
+
+        # One request's split: the host load, the device program (CUDA
+        # events), world records, sensor records + JSON (host clock).
+        pipe, tok = state.pipeline, tokens[1]
+        arrays, load_ms = None, []
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            arrays = pipe.gen.sample_arrays(tok)
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        inputs = [torch.from_numpy(np.ascontiguousarray(a[None])).to(dev) for a in
+                  (arrays["points"][:, :3], arrays["points_valid"], arrays["map"])]
+        infer_ms = cuda_ms(lambda: pipe.infer_fn(*inputs))
+        det = pipe.infer_fn(*inputs)
+        t0 = time.perf_counter()
+        host = to_host(det)
+        records = detections_to_world(pipe.gen, tok, {k: v[0] for k, v in host.items()})
+        world_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        sensor = viewer.sensor_boxes(state.db, tok, records)
+        sensor_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        json.dumps({"token": tok, "boxes_world": records, "boxes_sensor": sensor})
+        json_ms = (time.perf_counter() - t0) * 1e3
+        if json.loads(json.dumps(records)) != answers[tok]["boxes_world"]:
+            raise AssertionError("serve: the split's records differ from the request's")
+        # The device program's parts (the same weights, built again) and the
+        # request without HTTP: ``detect`` called in this thread.
+        net = build_model(SERVE_MODEL, n_classes=10, device=dev, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0)).eval()
+        with torch.inference_mode():
+            x = make_bev_input(*inputs, pipe.cfg)
+            lg = net(x)[0]
+            infer_parts = {"input": cuda_ms(lambda: make_bev_input(*inputs, pipe.cfg)),
+                           "model": cuda_ms(lambda: net(x)),
+                           "extract": cuda_ms(lambda: extract_detections_from_logits(lg))}
+        del net, x, lg
+        direct_ms, samples_ms = [], []
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            state.detect(tok)
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            client.get("/api/samples")  # a request with a small answer and no model
+            samples_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # A detect request and a detect in this thread under the port's
+        # trace: the file names B1 (twice where it holds both launches).
+        with trace(str(tmp / "trace")):
+            client.get(f"/api/detect?token={tokens[2]}")
+            state.detect(tokens[3])
+            torch.cuda.synchronize()
+        files = sorted((tmp / "trace").glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"serve: trace wrote {files}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        raster_events = [e for e in events if RASTER_TRACE_NAME in str(e.get("name", ""))]
+        traced_kernels = sum(e.get("cat") == "kernel" for e in events)
+        if not raster_events:
+            raise AssertionError(f"serve: the trace does not name the raster kernel "
+                                 f"({len(events)} events, {traced_kernels} kernels)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    rest = sorted(host_ms[1:])
+    pct = lambda q: rest[min(len(rest) - 1, int(round(q * (len(rest) - 1))))]
+    phase_json("serve", card, model=SERVE_MODEL, norm="group", dtype="bfloat16", batch=1,
+               points_per_sweep=N_POINTS, requests=len(tokens), clients=SERVE_CLIENTS,
+               load_model_s=round(load_s, 3), first_request_ms=round(host_ms[0], 3),
+               request_ms_p50=round(pct(0.5), 3), request_ms_p90=round(pct(0.9), 3),
+               request_ms_max=round(rest[-1], 3),
+               concurrent_wall_ms=round(together_s * 1e3, 3),
+               concurrent_requests_per_s=round(len(tokens) / together_s, 2),
+               split_ms={"sample_arrays": round(float(np.median(load_ms)), 3),
+                         "infer_fn_cuda": round(infer_ms, 3), "world_records": round(world_ms, 3),
+                         "sensor_records": round(sensor_ms, 3), "json": round(json_ms, 3)},
+               infer_fn_parts_cuda_ms={k: round(v, 3) for k, v in infer_parts.items()},
+               detect_in_thread_ms=round(float(np.median(direct_ms)), 3),
+               samples_request_ms=round(float(np.median(samples_ms)), 3),
+               b1_launches={"sequential": sequential, "concurrent": concurrent},
+               detections=n_boxes, trace_raster_events=len(raster_events), trace_kernels=traced_kernels,
+               base_mem_gb=round(base_gb, 3), peak_mem_gb=round(peak_gb, 3),
+               boxes_world="equal to the pipeline called directly")
+    del state, pipe, det, inputs
+    viewer.STATE = viewer.ViewerState()
+    torch.cuda.empty_cache()
+    return sequential + concurrent, root
+
+
+def native_phase(root, card):
+    """Phase 34: the native host runtime (``native/loader.cpp``, built by g++
+    at first use) over the 16 sweeps of phase 33 against its numpy
+    fallbacks: reads equal, transforms within 2 float32 ulps of the largest
+    coordinate (the fallback's BLAS product sums in another order), the
+    raster's counts equal to float64 binning (the C++) and, capped at 16,
+    to the fallback wherever float32 and float64 put every point in the same
+    cell; each timed on the host's clock."""
+    from unittest import mock
+
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.data.lyftdb import LyftDB
+    from lyft3d_tpu_torch.native import bindings as nb
+
+    t0 = time.perf_counter()
+    if not nb.native_available():
+        raise AssertionError("native: g++ did not build loader.cpp")
+    build_s = time.perf_counter() - t0
+    db = LyftDB(root, root / "data")
+    sds = [s["data"]["LIDAR_TOP"] for s in db.sample]
+    paths = [db.get_sample_data_path(sd) for sd in sds]
+    world = np.stack([db.ego_pose_matrix(sd) @ db.sensor_pose_matrix(sd) for sd in sds])
+    car = np.stack([db.sensor_pose_matrix(sd) for sd in sds])
+    cfg = BEVConfig()
+
+    def timed(fn):
+        best = []
+        for _ in range(HOST_REPEATS):
+            t0 = time.perf_counter()
+            out = fn()
+            best.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(best))
+
+    def ulps(a, b):
+        return float(np.abs(a - b).max() / np.spacing(np.float32(np.abs(b).max())))
+
+    calls = {
+        "read_lidar": lambda: [nb.read_lidar(p) for p in paths],
+        "transform_points": lambda: [nb.transform_points(np.fromfile(p, np.float32).reshape(-1, 5)[:, :4], tm)
+                                     for p, tm in zip(paths, world)],
+        "load_batch": lambda: nb.load_batch(paths, world, N_POINTS, n_threads=8),
+        "bev_raster": lambda: [nb.bev_raster(c, cfg.shape, cfg.voxel_size, cfg.z_offset) for c in car_clouds],
+    }
+    car_clouds = [np.fromfile(p, np.float32).reshape(-1, 5)[:, :4] for p in paths]
+    for c, tm in zip(car_clouds, car):
+        c[:, :3] = c[:, :3] @ tm[:3, :3].T.astype(np.float32) + tm[:3, 3].astype(np.float32)
+    native, fallback, ms = {}, {}, {}
+    for name, fn in calls.items():
+        native[name], native_ms = timed(fn)
+        with mock.patch.object(nb, "_get", lambda: None):
+            fallback[name], fallback_ms = timed(fn)
+        ms[name] = {"native": round(native_ms, 3), "numpy": round(fallback_ms, 3)}
+
+    if not all(np.array_equal(a, b) for a, b in zip(native["read_lidar"], fallback["read_lidar"])):
+        raise AssertionError("native: read_lidar differs from the fallback")
+    t_ulps = max(ulps(a, b) for a, b in zip(native["transform_points"], fallback["transform_points"]))
+    (nb_pts, nb_n), (fb_pts, fb_n) = native["load_batch"], fallback["load_batch"]
+    b_ulps = ulps(nb_pts, fb_pts)
+    if t_ulps > 2 or b_ulps > 2 or not np.array_equal(nb_n, fb_n) or nb_n.tolist() != [N_POINTS] * len(paths):
+        raise AssertionError(f"native: transforms {t_ulps} / load_batch {b_ulps} ulps, counts {nb_n.tolist()}")
+    for i, pts in enumerate(native["transform_points"]):
+        if not np.array_equal(nb_pts[i, :nb_n[i]], pts):
+            raise AssertionError("native: load_batch differs from read + transform")
+    h, w, c = cfg.shape
+    edge_points = edge_cells = 0
+    for cloud, got, want in zip(car_clouds, native["bev_raster"], fallback["bev_raster"]):
+        counts = []
+        for dt in (np.float32, np.float64):
+            q = cloud.astype(dt)
+            col = np.floor(q[:, 0] / dt(cfg.voxel_size[0]) + w / 2).astype(np.int64)
+            row = np.floor(q[:, 1] / dt(cfg.voxel_size[1]) + h / 2).astype(np.int64)
+            ch = np.floor((q[:, 2] - dt(cfg.z_offset)) / dt(cfg.voxel_size[2])).astype(np.int64)
+            ok = (col >= 0) & (col < w) & (row >= 0) & (row < h) & (ch >= 0) & (ch < c)
+            counts.append((np.bincount((row[ok] * w + col[ok]) * c + ch[ok], minlength=h * w * c)
+                           .reshape(h, w, c).astype(np.float32), (col, row, ch, ok)))
+        (c32, k32), (c64, k64) = counts
+        if not np.array_equal(got, c64):
+            raise AssertionError("native: bev_raster differs from float64 binning")
+        moved = (k32[0] != k64[0]) | (k32[1] != k64[1]) | (k32[2] != k64[2]) | (k32[3] != k64[3])
+        differ = np.minimum(got, 16.0) != want
+        touched = c32 != c64
+        if (differ & ~touched).any():
+            raise AssertionError("native: bev_raster differs from the fallback in a cell no edge point reaches")
+        edge_points += int(moved.sum())
+        edge_cells += int(differ.sum())
+    phase_json("native", card, sweeps=len(paths), points_per_sweep=N_POINTS, build_s=round(build_s, 3),
+               host_ms=ms, transform_max_ulps=t_ulps, load_batch_max_ulps=b_ulps,
+               raster_edge_points=edge_points, raster_cells_off_fallback=edge_cells,
+               raster_max_count=float(max(g.max() for g in native["bev_raster"])))
+
+
 def torch_equal(a, b):
     import torch
 
@@ -4154,6 +4556,9 @@ def torch_equal(a, b):
 
 
 def main():
+    import tempfile
+    from pathlib import Path
+
     import torch
 
     # 1. device
@@ -4625,6 +5030,13 @@ def main():
     vfe_fill, train_launches["vfe"] = vfe_phase(dev, card)
     fhd_batch = fhd_batch_norm_phase(dev, card)
 
+    # 33-34. the front ends: the viewer answering detect requests on the
+    # card, then the native host runtime over the viewer's sweeps
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_launches, serve_root = serve_phase(dev, card, Path(tmp))
+        native_phase(serve_root, card)
+    launches += serve_launches
+
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the five training runs."""
         return sum(c[kernel] for c in train_launches.values())
@@ -4639,8 +5051,9 @@ def main():
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
-        # Launched by four paths: the flagship, the unet_seresnext101 row, the
-        # deeplab_seresnext50 row and the batch-2 pass of the new models.
+        # Launched by five paths: the flagship, the unet_seresnext101 row, the
+        # deeplab_seresnext50 row, the batch-2 pass of the new models and the
+        # viewer's detect requests (one a request).
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
         # Launched by five paths: pillars, sparse (2 a call), per-voxel (1 a
         # call), VFE pillars and the FHD BatchNorm middle (2 a call).

@@ -7,7 +7,8 @@ module layout and public names so each module's counterpart is easy to find:
     config    — the experiment dataclasses, yaml IO, dotted overrides
     data      — Lyft JSON-table DB, point clouds, map masks, the BEV sample
                 generator, KITTI calibration / labels / export, training
-                augmentation and GT-database sampling, prefetchers (numpy)
+                augmentation and GT-database sampling, prefetchers, the
+                synthetic dataset writer (numpy)
     eval      — official Lyft mAP, numpy rotated IoU, submission CSV,
                 KITTI-style AP and recall (numpy)
     ops       — BEV raster, canvas fill, the four PointNet++ selections
@@ -31,14 +32,20 @@ module layout and public names so each module's counterpart is easy to find:
                 step-loop Trainer with float32 master parameters, the
                 checkpoint registry, metric logs, precision/recall and
                 accuracy counters
-    utils     — the flax ↔ torch weight bridge
+    utils     — the flax ↔ torch weight bridge, the torch-checkpoint
+                importer (torch to torch), profiler helpers, BEV and
+                camera debug images, a progress bar
+    serve     — the viewer's JSON-over-HTTP backend and its page
+    native    — the host runtime: threaded lidar reads, SE(3) transforms,
+                a host BEV raster (C++ built by g++ at first use; numpy
+                fallbacks)
     pipelines — BEV inference (lidar → raster → UNet → boxes → world
                 records), SECOND inference (points → voxelize → VoxelNet →
                 NMS → world records) with its host-side sample loader,
                 SECOND training (targets → loss → Trainer), and PointRCNN
                 inference and evaluation over a KITTI-layout dataset
-    cli       — ``infer-bev``, ``create-infos``, ``create-gtdb``,
-                ``train-second``
+    cli       — the JAX package's 13 subcommands (``synth-data`` …
+                ``import-weights``), each device command with ``--device``
 
 The package stands alone: it imports nothing of ``lyft3d_tpu`` and keeps its
 own copies of the host-side numpy modules. Nothing here imports ``jax``,

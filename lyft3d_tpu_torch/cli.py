@@ -1,6 +1,7 @@
 """Command-line interface of the port: ``python -m lyft3d_tpu_torch.cli <command>``.
 
-Commands (the JAX package's arguments, plus ``--device``):
+Commands (the JAX package's 13, with its arguments, plus ``--device``):
+    synth-data      generate a synthetic Lyft-format dataset (host only; PIL)
     generate-bev    rasterize BEV PNGs from a Lyft DB (host only; cv2)
     train-bev       train a BEV segmentation model
     run-experiments train a queue of BEV configs, surviving failed jobs
@@ -9,6 +10,11 @@ Commands (the JAX package's arguments, plus ``--device``):
     create-gtdb     build the copy-paste GT database (host only)
     train-second    train the voxelnet detector
     train-pointrcnn train PointRCNN's RPN, then its RCNN online or offline
+    serve           the dataset/detection viewer over HTTP
+    eval-map        score a submission CSV with the official Lyft mAP (host only)
+    export-kitti    write a KITTI-layout dataset (host only; cv2)
+    import-weights  a torch backbone checkpoint → a snapshot of the named model
+                    (host only)
 
 Device commands run on the first CUDA card (the trunk in bfloat16, as the JAX
 package's default; PointRCNN trains in float32, as the JAX trainers do) and
@@ -39,6 +45,14 @@ def _device(name: str):
             "visible. Pass --device cpu to run on the CPU."
         )
     return device
+
+
+def cmd_synth_data(args):
+    from lyft3d_tpu_torch.data.synthetic import make_synthetic_lyft
+
+    root = make_synthetic_lyft(args.out, num_scenes=args.scenes, samples_per_scene=args.samples,
+                               seed=args.seed)
+    print(f"synthetic dataset at {root}")
 
 
 def cmd_generate_bev(args):
@@ -229,6 +243,55 @@ def cmd_train_pointrcnn(args):
         print(f"final rcnn loss: {rcnn_losses[-1]:.4f}")
 
 
+def cmd_serve(args):
+    from lyft3d_tpu_torch.serve.viewer import serve
+
+    serve(args.port, _device(args.device))
+
+
+def cmd_eval_map(args):
+    from lyft3d_tpu_torch.eval.map_eval import evaluate_map
+    from lyft3d_tpu_torch.eval.submission import read_submission, records_from_detections
+    from lyft3d_tpu_torch.pipelines.bev import gt_records
+
+    db = _db(args)
+    preds = records_from_detections(read_submission(args.submission))
+    tokens = sorted({p["sample_token"] for p in preds}) or [s["token"] for s in db.sample]
+    overall, per_class = evaluate_map(gt_records(db, tokens), preds)
+    print(json.dumps({"mAP": overall, "per_class": per_class}, indent=2))
+
+
+def cmd_export_kitti(args):
+    from lyft3d_tpu_torch.data.kitti import export_kitti
+
+    out = export_kitti(_db(args), args.out)
+    print(f"KITTI tree at {out}")
+
+
+def cmd_import_weights(args):
+    """Torch ImageNet checkpoint → a snapshot of the named model with the
+    backbone's weights copied in (the reference's transfer-learning path,
+    modelzoo hub weights → models/model.py:50-60 load_pretrain). The snapshot
+    is a float32 ``state_dict`` with no masters, registered under the model's
+    name (what ``train-bev --set init_from=<out>`` reads) and under
+    ``model`` (what ``infer-bev <model>:<out>`` reads)."""
+    import torch
+
+    from lyft3d_tpu_torch.models import build_model
+    from lyft3d_tpu_torch.train import checkpoint as ckpt
+    from lyft3d_tpu_torch.utils.torch_import import load_pretrained_backbone, load_torch_state_dict
+
+    sd = load_torch_state_dict(args.torch_ckpt)
+    model_name = args.model or f"unet_{args.backbone}"
+    model = build_model(model_name, n_classes=args.n_classes, in_features=args.in_channels,
+                        generator=torch.Generator().manual_seed(0))
+    load_pretrained_backbone(model, sd, args.backbone, in_channels=args.in_channels, verbose=True)
+    snapshot = {"model": model.state_dict(), "masters": []}
+    path = ckpt.save(args.out, snapshot, name=model_name)
+    ckpt.save(args.out, snapshot, name="model")
+    print(f"imported {args.backbone} weights → {path}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="lyft3d_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
@@ -240,6 +303,13 @@ def build_parser() -> argparse.ArgumentParser:
     def add_device_arg(sp):
         sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cuda (bfloat16 trunk; fails without a card) or cpu (float32)")
+
+    sp = sub.add_parser("synth-data")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--scenes", type=int, default=2)
+    sp.add_argument("--samples", type=int, default=3)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_synth_data)
 
     sp = sub.add_parser("generate-bev")
     add_db_args(sp)
@@ -311,6 +381,32 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (fails without a card) or cpu; float32 on both")
     sp.set_defaults(fn=cmd_train_pointrcnn)
+
+    sp = sub.add_parser("serve")
+    sp.add_argument("--port", type=int, default=16666)
+    add_device_arg(sp)
+    sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("eval-map")
+    add_db_args(sp)
+    sp.add_argument("--submission", required=True)
+    sp.set_defaults(fn=cmd_eval_map)
+
+    sp = sub.add_parser("export-kitti")
+    add_db_args(sp)
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_export_kitti)
+
+    sp = sub.add_parser("import-weights")
+    sp.add_argument("--torch-ckpt", required=True)
+    sp.add_argument("--backbone", required=True)
+    sp.add_argument("--model", default=None)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--n-classes", type=int, default=10)
+    sp.add_argument("--in-channels", type=int, default=6)
+    sp.add_argument("--image-size", type=int, default=336,
+                    help="the JAX CLI's init shape; the port's modules build without one")
+    sp.set_defaults(fn=cmd_import_weights)
     return p
 
 

@@ -24,6 +24,7 @@ mask of the same leading shape.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -49,8 +50,10 @@ MAX_INTENSITY = 16.0
 RASTER_CHUNK_BYTES = 32 << 20  # float32 grid of one chunk, at most, where the points reach it all
 RASTER_MAX_POINTS = 1 << 24  # float32 counts are exact below this many points a sample
 
-# Number of times bev_rasterize launched the CUDA kernel in this process.
+# Number of times bev_rasterize launched the CUDA kernel in this process;
+# counted under a lock, since the viewer's server threads launch it at once.
 KERNEL_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def voxel_indices(points, shape, voxel_size, z_offset):
@@ -189,7 +192,8 @@ def _bev_rasterize_cuda(points, valid, shape, voxel_size, z_offset, chunk=None):
     )
     if err != 0:
         raise RuntimeError(f"bev_raster kernel launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES += 1
+    with _COUNT_LOCK:
+        KERNEL_LAUNCHES += 1
     return grid if batched else grid[0]
 
 

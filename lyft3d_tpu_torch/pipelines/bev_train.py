@@ -28,7 +28,7 @@ from lyft3d_tpu_torch.pipelines.second_train import _training_device
 from lyft3d_tpu_torch.train import checkpoint as ckpt
 from lyft3d_tpu_torch.train.losses import bev_segmentation_loss
 from lyft3d_tpu_torch.train.optim import build_optimizer
-from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig, TrainState
+from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 __all__ = [
     "split_tokens",
@@ -117,11 +117,7 @@ def _init_from(model, cfg: BEVExperiment):
     snapshot, step = ckpt.restore_latest(cfg.init_from, name=cfg.model)
     if step is None:
         raise FileNotFoundError(f"init_from={cfg.init_from!r} has no {cfg.model!r} checkpoint")
-    own = model.state_dict()
-    donor = dict(snapshot["model"]) if "model" in snapshot else dict(snapshot)
-    if "masters" in snapshot and donor.keys() == own.keys():
-        donor.update(TrainState.masters_by_name(model, snapshot))
-    model.load_state_dict(ckpt.partial_restore(own, donor, verbose=True))
+    ckpt.load_partial(model, snapshot, verbose=True)
 
 
 def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, log_every: int = 50, eval_every: int = 500,

@@ -29,6 +29,7 @@ __all__ = [
     "restore",
     "load_trained_weights",
     "partial_restore",
+    "load_partial",
     "list_checkpoints",
     "repeat_eval_checkpoints",
 ]
@@ -142,6 +143,20 @@ def partial_restore(params: Dict[str, torch.Tensor], donor_params: Dict[str, tor
     if verbose:
         print(f"partial_restore: copied {len(copied)}/{len(params)} leaves")
     return out
+
+
+def load_partial(module, snapshot, verbose: bool = False):
+    """Load the shape-matching weights of ``snapshot`` into ``module`` (in
+    place; returns it). ``snapshot`` is a train state's (its float32 masters
+    where the architectures are the same) or a bare ``state_dict``."""
+    from lyft3d_tpu_torch.train.trainer import TrainState  # trainer imports this module
+
+    own = module.state_dict()
+    donor = dict(snapshot["model"]) if "model" in snapshot else dict(snapshot)
+    if "masters" in snapshot and donor.keys() == own.keys():
+        donor.update(TrainState.masters_by_name(module, snapshot))
+    module.load_state_dict(partial_restore(own, donor, verbose=verbose))
+    return module
 
 
 def list_checkpoints(model_dir, name: str = "model") -> List[Path]:

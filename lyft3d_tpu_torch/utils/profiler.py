@@ -1,11 +1,12 @@
-"""Section timers (port of ``SectionTimers`` of ``lyft3d_tpu/utils/profiler.py``).
+"""Section timing + device profiling (port of ``lyft3d_tpu/utils/profiler.py``).
 
 Capability of the reference's built-in profiler (``voxelnet.py:191-228``:
-start_timer/end_timer pairs with a CUDA sync around the stages, averaged ms).
-A section's time is the host's clock around its block; where the block hands
-a CUDA tensor it computed to ``set_sentinel``, the clock stops only after the
-card has finished the work queued before it (PyTorch returns before the card
-does). For a card's own traces, ``torch.profiler`` is the tool.
+start_timer/end_timer pairs with a CUDA sync around the stages, averaged ms;
+``second/utils/timer.py`` ``simple_timer``). A section's time is the host's
+clock around its block; where the block hands a CUDA tensor it computed to
+``set_sentinel``, the clock stops only after the card has finished the work
+queued before it (PyTorch returns before the card does). :func:`trace` writes
+a ``torch.profiler`` trace, the card's kernels included where there is one.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SectionTimers"]
+__all__ = ["SectionTimers", "simple_timer", "trace"]
 
 
 class SectionTimers:
@@ -62,3 +63,29 @@ class SectionTimers:
 
     def report(self) -> str:
         return ", ".join(f"{k}={v:.2f}ms" for k, v in sorted(self.averages_ms().items()))
+
+
+@contextlib.contextmanager
+def simple_timer(name: str = ""):
+    """Print-elapsed context manager (second/utils/timer.py)."""
+    t0 = time.perf_counter()
+    yield
+    print(f"{name} elapsed: {time.perf_counter() - t0:.4f}s")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` trace of the block, written into ``log_dir`` as a
+    ``*.pt.trace.json`` file (TensorBoard's profiler plugin or
+    chrome://tracing read it), like ``jax.profiler``'s trace of the whole
+    process: the host's operators of every thread (a server's requests run
+    on its own threads), and the CUDA kernels when a card is present. Yields
+    the profiler."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir)),
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+        yield prof

@@ -6,6 +6,7 @@ the same code; every case is one parametrised test."""
 
 import dataclasses
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +34,8 @@ import lyft3d_tpu.eval.submission as jsub
 import lyft3d_tpu.pipelines.second_pipeline as jsec
 import lyft3d_tpu.train.logging as jlog
 import lyft3d_tpu.utils.profiler as jprof
+import lyft3d_tpu.utils.progress as jprog
+import lyft3d_tpu.utils.visualize as jvis
 import lyft3d_tpu_torch.config as tconfig
 import lyft3d_tpu_torch.core as tcore
 import lyft3d_tpu_torch.core.box as tbox
@@ -55,6 +58,8 @@ import lyft3d_tpu_torch.eval.submission as tsub
 import lyft3d_tpu_torch.pipelines.second_pipeline as tsec
 import lyft3d_tpu_torch.train.logging as tlog
 import lyft3d_tpu_torch.utils.profiler as tprof
+import lyft3d_tpu_torch.utils.progress as tprog
+import lyft3d_tpu_torch.utils.visualize as tvis
 from lyft3d_tpu.data.synthetic import make_synthetic_lyft
 
 
@@ -601,3 +606,94 @@ def test_aug_scene_copy(kitti_roots, tmp_path):
     grown = sum(len(jkitti.read_label_file(outs["jax"] / "label_2" / f"{stem}_0.txt"))
                 > len(jkitti.read_label_file(jroot / "label_2" / f"{stem}.txt")) for stem in stems)
     assert grown > 0
+
+
+def _vis_inputs(db):
+    sample = db.sample[1]
+    lidar = sample["data"]["LIDAR_TOP"]
+    pts = np.fromfile(db.get_sample_data_path(lidar), np.float32).reshape(-1, 5)
+    boxes = np.stack([b.as_xyzwlhr() for b in db.get_boxes_in_sensor_frame(lidar)])
+    return sample, pts, boxes
+
+
+VIS_CASES = {
+    "points_to_bev_image": lambda m, db, s, pts, boxes: m.points_to_bev_image(pts, extent=40.0, resolution=0.2),
+    "draw_boxes_bev": lambda m, db, s, pts, boxes: m.draw_boxes_bev(
+        np.zeros((200, 200, 3), np.uint8), boxes, np.arange(len(boxes)), extent=16.0, thickness=2),
+    "bev_debug_image": lambda m, db, s, pts, boxes: m.bev_debug_image(
+        pts, boxes, boxes[::-1] + [1.0, 1.0, 0, 0, 0, 0, 0.5], extent=40.0, resolution=0.2),
+    "map_pointcloud_to_image": lambda m, db, s, pts, boxes: m.map_pointcloud_to_image(
+        db, s["data"]["LIDAR_TOP"], s["data"]["CAM_FRONT"]),
+    "render_pointcloud_in_image": lambda m, db, s, pts, boxes: m.render_pointcloud_in_image(db, s["token"]),
+    "render_boxes_in_image": lambda m, db, s, pts, boxes: m.render_boxes_in_image(db, s["token"]),
+    "draw_box_edges_cv2": lambda m, db, s, pts, boxes: m.draw_box_edges_cv2(
+        img := np.zeros((48, 64, 3), np.uint8), np.random.RandomState(2).uniform(0, 60, (2, 8)), (9, 200, 30)) or img,
+}
+
+
+@pytest.mark.parametrize("case", sorted(VIS_CASES))
+def test_visualize_copy(dbs, case):
+    """``utils/visualize.py``: every image equal to the original's on the
+    same sample (each package's DB and boxes), and not blank."""
+    outs = []
+    for m, db in zip((jvis, tvis), dbs):
+        sample, pts, boxes = _vis_inputs(db)
+        outs.append(VIS_CASES[case](m, db, sample, pts, boxes))
+    same(outs[1], outs[0])
+    assert any(np.asarray(o).any() for o in (outs[1] if isinstance(outs[1], tuple) else [outs[1]]))
+
+
+@pytest.mark.parametrize("total", [0, 1, 7])
+def test_progress_copy(monkeypatch, total):
+    """``ProgressBar`` writes the original's text on a clock that both read
+    alike; ``progress_iter`` yields every item."""
+    import io
+    import itertools
+    import time
+
+    texts = []
+    for m in (jprog, tprog):
+        clock = itertools.count(100.0, 0.25)
+        monkeypatch.setattr(time, "time", lambda: next(clock))
+        out = io.StringIO()
+        bar = m.ProgressBar(total, width=12, stream=out)
+        for n in (1, 2, 3, 1):
+            bar.update(n)
+        texts.append(out.getvalue())
+    assert texts[1] == texts[0] and texts[1].startswith("\r[")
+    monkeypatch.undo()
+    items = list(range(total))
+    assert list(tprog.progress_iter(items)) == list(jprog.progress_iter(items)) == items
+
+
+@pytest.mark.parametrize("case", ["simple_timer", "trace"])
+def test_profiler_helpers_copy(tmp_path, capsys, case):
+    """``simple_timer`` prints the original's line; ``trace`` (the
+    counterpart of ``jax.profiler``'s) writes a ``torch.profiler`` trace
+    file into its directory, with the operators of every thread."""
+    import torch
+
+    if case == "simple_timer":
+        lines = []
+        for m in (jprof, tprof):
+            with m.simple_timer("stage"):
+                pass
+            lines.append(capsys.readouterr().out)
+        assert all(re.fullmatch(r"stage elapsed: \d+\.\d{4}s\n", line) for line in lines)
+        assert tprof.__all__ == jprof.__all__
+    else:
+        import threading
+
+        def request():  # a server's request runs on a thread of its own
+            torch.ones(8, 8).matmul(torch.ones(8, 8))
+
+        with tprof.trace(str(tmp_path / "tb")) as prof:
+            torch.ones(8).cumsum(0)
+            worker = threading.Thread(target=request)
+            worker.start()
+            worker.join(timeout=60)
+        assert not worker.is_alive() and prof is not None
+        files = list((tmp_path / "tb").glob("*.pt.trace.json"))
+        assert len(files) == 1
+        names = {e.get("name", "") for e in json.loads(files[0].read_text())["traceEvents"]}
+        assert {"aten::cumsum", "aten::mm"} <= names

@@ -1,7 +1,8 @@
 """Boundaries of the port package ``lyft3d_tpu_torch``:
 
 - none of its modules imports jax, flax or optax, nor anything of the JAX
-  package ``lyft3d_tpu``, and neither does ``chip_smoke.py``;
+  package ``lyft3d_tpu``, and neither does ``chip_smoke.py``; none imports
+  cv2 or PIL when it is imported;
 - ``bev_rasterize`` picks its path by ``device.type`` alone, and the CUDA
   path never falls back to the plain version (``fill_rows_by_id``: see
   ``test_torch_dense_fill.py``);
@@ -48,12 +49,17 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fla
 assert not bad, bad
 ours = sorted(m for m in sys.modules if m == "lyft3d_tpu" or m.startswith("lyft3d_tpu."))
 assert not ours, ours
-assert len(names) >= 59, names
+# cv2 and PIL are imported inside the functions that draw or read images:
+# a CUDA host need not have either.
+images = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "PIL"))
+assert not images, images
+assert len(names) >= 88, names
 for new in ("config", "data.augment", "data.prefetch", "train.losses", "train.optim", "train.trainer",
             "train.checkpoint", "train.logging", "pipelines.second_train", "models.backbones.seresnext",
             "data.bev_dataset", "train.swa", "pipelines.bev_train", "train.metrics", "models.deeplab",
             "models.backbones.efficientnet", "models.backbones.dpn", "models.backbones.wide_resnet",
-            "models.backbones.xception"):
+            "models.backbones.xception", "serve.viewer", "serve.frontend", "native.bindings",
+            "data.synthetic", "utils.visualize", "utils.progress", "utils.torch_import"):
     assert "lyft3d_tpu_torch." + new in names, new
 print("ok", len(names))
 """
