@@ -313,6 +313,28 @@ Phases, one line of numbers each:
     line each; phase 33's raster launches join the others' in the
     ``kernels`` line.
 
+35. data parallel: ``lyft3d_tpu_torch/parallel/mesh.py``'s ranks, each a
+    process :func:`~lyft3d_tpu_torch.parallel.mesh.spawn` starts, training
+    the SECOND pillars model (:func:`lyft9_config`, bfloat16 with float32
+    masters, phase 17a's ``adam_onecycle``) through ``Trainer.step_fn`` at
+    global batch 8 x 262,144 uniform points: NCCL over ``min(cards, 4)``
+    cards (the largest count that divides 8) where there are two or more;
+    on one card, two gloo ranks on it (batch 4 each) and then a one-rank
+    NCCL group (batch 8). The same step in this process at batch 8 first.
+    Held: each run's first loss to the one-process loss within 1e-5
+    relative, the float32 masters after the step and the averaged float32
+    gradient bucket to the one-process ones within ``GRAD_NORM_TOL`` in
+    the 2-norm (the step itself, Adam's ±lr an element, is reported with
+    the share of elements stepping the other way), every rank's weights
+    and masters bit-equal to rank 0's, the
+    fill kernel and its backward launched on every rank; then
+    ``bev_rasterize_point_sharded`` over the ranks on 32 x 65,536 sweeps
+    split by points ``torch.equal`` to one raster launch on all of them.
+    Printed: the backend, the rank count, each rank's step ms (CUDA events,
+    ``DP_TIMED`` steps), the all-reduce ms of the gradient bucket and its
+    bytes, each rank's peak memory. Its launches join B1's, B2's and B2'\'s
+    in the ``kernels`` line.
+
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
 version's, its bound and, where one PyTorch call computes the same function,
@@ -4549,6 +4571,189 @@ def native_phase(root, card):
                raster_max_count=float(max(g.max() for g in native["bev_raster"])))
 
 
+# Phase 35: data-parallel SECOND pillars training.
+DP_MAX_RANKS = 4
+DP_TIMED = 3  # steps timed after the step that is held to the one-process step
+
+
+def dp_batch():
+    """Phase 35's global batch, on the CPU: pillars clouds and GT boxes."""
+    pts, pvalid = pillar_points(SEC_BATCH, SEC_POINTS, seed=40)
+    return {"points": pts, "points_valid": pvalid, **gt_batch(SEC_BATCH, seed=41)}
+
+
+def dp_onecycle(params):
+    """Phase 17a's optimizer (``build_optimizer`` hands adam_onecycle no clip)."""
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    return build_optimizer(params, "adam_onecycle", ONECYCLE["lr"], total_steps=ONECYCLE["total_steps"],
+                           weight_decay=ONECYCLE["weight_decay"], clip_norm=ONECYCLE["clip_norm"])
+
+
+def dp_flat(tensors):
+    """One float32 vector of ``tensors`` (zeros for a missing gradient), on the CPU."""
+    import torch
+
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in tensors])
+
+
+def dp_trainer(dev, model_dir, group=None):
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.pipelines.second_train import make_second_loss_fn
+    from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = lyft9_config()
+    net = VoxelNet(cfg, in_features=4, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    return Trainer(net, dp_onecycle, make_second_loss_fn(cfg, dev),
+                   TrainerConfig(model_dir=model_dir, total_steps=10 ** 6), group=group)
+
+
+def dp_steps(trainer, state, batch, dev):
+    """The held step, then ``DP_TIMED`` more: (state, first loss, masters and
+    their gradients after the first step, mean ms of the others)."""
+    import torch
+
+    state, metrics = trainer.step_fn(state, batch)
+    held = (float(metrics["loss"]), dp_flat(state.masters),
+            dp_flat([m.grad if m.grad is not None else torch.zeros_like(m) for m in state.masters]))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(DP_TIMED):
+        state, _ = trainer.step_fn(state, batch)
+    end.record()
+    torch.cuda.synchronize(dev)
+    return state, held, start.elapsed_time(end) / DP_TIMED
+
+
+def dp_rank(group):
+    """One rank of phase 35, in a process of its own: the training steps on
+    this rank's shard, the gradient bucket's all-reduce alone, the
+    point-sharded raster. Rank 0 returns every rank's numbers."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from lyft3d_tpu_torch.ops import bev_raster, dense_fill
+    from lyft3d_tpu_torch.parallel import mesh
+
+    dev = group.device
+    batch = to_dev(mesh.shard_batch(group, dp_batch()), dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = dp_trainer(dev, tmp, group)
+        state = trainer.init_or_resume()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh.barrier(group)
+        dense_fill.KERNEL_LAUNCHES = dense_fill.BWD_KERNEL_LAUNCHES = 0
+        state, (loss, masters, grads), step_ms = dp_steps(trainer, state, batch, dev)
+        fill = (dense_fill.KERNEL_LAUNCHES, dense_fill.BWD_KERNEL_LAUNCHES)
+        agree = mesh.ranks_agree(group, [state.module, state.masters])
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        # The bucket's all-reduce alone, on copies of the last step's gradients.
+        probe = [torch.nn.Parameter(m.detach().clone()) for m in state.masters]
+        for p, m in zip(probe, state.masters):
+            p.grad = None if m.grad is None else m.grad.clone()
+        mesh.barrier(group)
+        bucket_bytes = mesh.all_reduce_gradients(group, probe)
+        reduce_ms = cuda_ms(lambda: mesh.all_reduce_gradients(group, probe), warmup=1, iters=5)
+        del trainer, state, probe, batch
+    torch.cuda.empty_cache()
+
+    pts, valid = (t.to(dev) for t in sweep_points(BATCH, N_POINTS, seed=42))
+    mesh.barrier(group)
+    bev_raster.KERNEL_LAUNCHES = 0
+    counts = mesh.bev_rasterize_point_sharded(group, pts, valid, shape=SHAPE)
+    raster_launches = bev_raster.KERNEL_LAUNCHES
+    raster_equal = torch.equal(counts, bev_raster.bev_rasterize(pts, valid, SHAPE))  # the one-launch grid
+    raster_ms = cuda_ms(lambda: mesh.bev_rasterize_point_sharded(group, pts, valid, shape=SHAPE), warmup=1, iters=5)
+    numbers = dict(rank=group.rank, device=str(dev), loss=loss, step_ms=step_ms, reduce_ms=reduce_ms,
+                   bucket_bytes=bucket_bytes, peak_gb=peak_gb, fill=fill[0], fill_bwd=fill[1],
+                   raster=raster_launches, raster_equal=raster_equal, raster_ms=raster_ms, agree=agree)
+    every = [None] * group.size
+    dist.all_gather_object(every, numbers)
+    return {"ranks": every, "masters": masters, "grads": grads} if group.rank == 0 else None
+
+
+def data_parallel_phase(dev, card):
+    """Phase 35. Returns the launches of the raster, the fill and its
+    backward over every rank of every run."""
+    import tempfile
+
+    import torch
+
+    from lyft3d_tpu_torch.parallel import mesh
+
+    # The same step in this process at the global batch.
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = dp_trainer(dev, tmp)
+        state = trainer.init_or_resume()
+        start = dp_flat(state.masters)
+        torch.cuda.reset_peak_memory_stats()
+        state, (ref_loss, ref_masters, ref_grads), one_ms = dp_steps(trainer, state, to_dev(dp_batch(), dev), dev)
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        del trainer, state
+    torch.cuda.empty_cache()
+    log(f"data parallel, one process: SECOND pillars lyft9 bf16 (f32 masters) B={SEC_BATCH} N={SEC_POINTS} "
+        f"loss={ref_loss:.6f} step_ms={one_ms:.3f} peak_mem_gb={one_peak:.2f} [{card}]")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = mesh.make_data_group(SEC_BATCH, min(cards, DP_MAX_RANKS))
+        runs = [("nccl", n, f"{n} cards", dict(device="cuda"))]
+    else:
+        runs = [("gloo", 2, "2 ranks sharing cuda:0 (host-staged gloo all-reduce)",
+                 dict(backend="gloo", device="cuda:0")),
+                ("nccl", 1, "1 rank (the NCCL path on one card)", dict(device="cuda"))]
+    launches = dict(raster=0, fill=0, fill_bwd=0)
+    moved = ref_masters - start
+    for backend, n, where, kw in runs:
+        out = mesh.spawn(dp_rank, n, **kw)
+        ranks = out["ranks"]
+        loss_err = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+        param_err = float((out["masters"] - ref_masters).norm() / ref_masters.norm())
+        grad_err = float((out["grads"] - ref_grads).norm() / ref_grads.norm())
+        # Adam's first step moves each element by ±lr whatever its gradient's
+        # size, so an element whose gradient is zero up to rounding may step
+        # the other way: the update's difference is reported, not held.
+        update_err = float((out["masters"] - ref_masters).norm() / moved.norm())
+        flipped = float(((out["masters"] - start).sign() != moved.sign()).float().mean())
+        what = f"data parallel {backend} x{n}"
+        if not loss_err <= 1e-5:
+            raise AssertionError(f"{what}: loss {ranks[0]['loss']} against {ref_loss} in one process")
+        if not (param_err <= GRAD_NORM_TOL and grad_err <= GRAD_NORM_TOL):
+            raise AssertionError(f"{what}: parameters off by {param_err}, gradient bucket by {grad_err} (2-norm)")
+        for r in ranks:
+            if not r["agree"]:
+                raise AssertionError(f"{what}: rank {r['rank']}'s weights differ from rank 0's after the step")
+            if r["fill"] <= 0 or r["fill_bwd"] <= 0 or r["raster"] <= 0:
+                raise AssertionError(f"{what}: rank {r['rank']} launched fill {r['fill']}, fill backward "
+                                     f"{r['fill_bwd']}, raster {r['raster']}")
+            if not r["raster_equal"]:
+                raise AssertionError(f"{what}: the point-sharded raster on rank {r['rank']} differs from one launch")
+            for k in launches:
+                launches[k] += r[k]
+        log(f"{what} ({where}): SECOND pillars lyft9 bf16 global B={SEC_BATCH} N={SEC_POINTS}, "
+            f"{SEC_BATCH // n} a rank; loss {ranks[0]['loss']:.6f} vs {ref_loss:.6f} in one process "
+            f"(rel {loss_err:.2g}, tol 1e-5); float32 masters after the step off by {param_err:.3g}, the "
+            f"averaged f32 gradient bucket by {grad_err:.3g} in the 2-norm (tol {GRAD_NORM_TOL}); the step "
+            f"itself off by {update_err:.3g}, {flipped:.2%} of the elements stepping the other way (Adam's "
+            f"first step is ±lr an element); every rank bit-equal to rank 0; "
+            f"point-sharded raster (32 x 65,536 split by points) torch.equal to one launch [{card}]")
+        phase_json("data parallel", card, backend=backend, world_size=n, placement=where, batch=SEC_BATCH,
+                   points=SEC_POINTS, one_process_step_ms=one_ms, one_process_peak_mem_gb=one_peak,
+                   step_ms=[r["step_ms"] for r in ranks], allreduce_ms=[r["reduce_ms"] for r in ranks],
+                   bucket_bytes=ranks[0]["bucket_bytes"], peak_mem_gb=[r["peak_gb"] for r in ranks],
+                   raster_sharded_ms=[r["raster_ms"] for r in ranks],
+                   launches={k: [r[k] for r in ranks] for k in ("fill", "fill_bwd", "raster")},
+                   loss_rel_err=loss_err, param_rel_err=param_err, grad_rel_err=grad_err,
+                   update_rel_err=update_err, update_sign_flipped=flipped,
+                   cards_seen=cards)
+    return launches
+
+
 def torch_equal(a, b):
     import torch
 
@@ -5037,6 +5242,11 @@ def main():
         native_phase(serve_root, card)
     launches += serve_launches
 
+    # 35. data parallel: SECOND pillars training over ranks, the point-sharded raster
+    dp_launches = data_parallel_phase(dev, card)
+    launches += dp_launches["raster"]
+    fill_launches += dp_launches["fill"]
+
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the five training runs."""
         return sum(c[kernel] for c in train_launches.values())
@@ -5051,12 +5261,14 @@ def main():
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
-        # Launched by five paths: the flagship, the unet_seresnext101 row, the
-        # deeplab_seresnext50 row, the batch-2 pass of the new models and the
-        # viewer's detect requests (one a request).
+        # Launched by six paths: the flagship, the unet_seresnext101 row, the
+        # deeplab_seresnext50 row, the batch-2 pass of the new models, the
+        # viewer's detect requests (one a request) and phase 35's point-sharded
+        # raster (one a rank a call).
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
-        # Launched by five paths: pillars, sparse (2 a call), per-voxel (1 a
-        # call), VFE pillars and the FHD BatchNorm middle (2 a call).
+        # Launched by six paths: pillars, sparse (2 a call), per-voxel (1 a
+        # call), VFE pillars, the FHD BatchNorm middle (2 a call) and phase 35's
+        # data-parallel pillars steps (every rank's).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"]
                + vfe_fill + fhd_batch["dense_fill"], fill_numbers),
@@ -5075,9 +5287,9 @@ def main():
                voxel_launches["subm_conv"], subm_record),
         # The backward sides, launched by the training paths (10 timed steps each
         # of pillars, unit middle, per-voxel middle, the bench-shaped step and
-        # VFE pillars).
-        record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153", trained("dense_fill_bwd"),
-               fill_bwd_record, source="dense_fill"),
+        # VFE pillars; the fill's also by every rank of phase 35).
+        record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153",
+               trained("dense_fill_bwd") + dp_launches["fill_bwd"], fill_bwd_record, source="dense_fill"),
         # d_src is the forward stencil kernel launched on the reverse queries,
         # as the JAX backward launches its Pallas kernel a second time.
         record("stencil_dgrad", "lyft3d_tpu/ops/column_sparse.py:773", trained("stencil_dgrad"),

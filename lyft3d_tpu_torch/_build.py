@@ -74,13 +74,25 @@ def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
+def _current(out: Path) -> bool:
+    """Whether ``out`` was built after the last change to any source of
+    ``csrc/`` (a library and the headers it includes)."""
+    if not out.exists():
+        return False
+    newest = max(f.stat().st_mtime for f in CSRC_DIR.iterdir() if f.suffix in (".cu", ".cuh"))
+    return out.stat().st_mtime >= newest
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on the first call in this process."""
+    """The loaded kernel library ``name``, built on the first call in this
+    process unless ``BUILD_DIR`` holds one built from the current sources
+    (the ranks of a data-parallel run load what their parent built)."""
     with _LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            out = BUILD_DIR / f"lib{name}.so"
+            lib = ctypes.CDLL(str(out if _current(out) else build(name)))
             _LIBS[name] = lib
         return lib

@@ -16,10 +16,17 @@ Commands (the JAX package's 13, with its arguments, plus ``--device``):
     import-weights  a torch backbone checkpoint → a snapshot of the named model
                     (host only)
 
-Device commands run on the first CUDA card (the trunk in bfloat16, as the JAX
-package's default; PointRCNN trains in float32, as the JAX trainers do) and
+Device commands run on the first CUDA card (``train-bev`` and
+``train-second`` on every card, below), the trunk in bfloat16, as the JAX
+package's default (PointRCNN trains in float32, as the JAX trainers do), and
 fail when there is none; ``--device cpu`` is the explicit CPU run, in
 float32. Reading a ``--config`` yaml needs pyyaml.
+
+``train-bev`` and ``train-second`` train data-parallel over every visible
+card, as the JAX CLI trains over every chip: the largest count of cards that
+divides the batch size, one process a card (NCCL), each loading its slice of
+every global batch. ``train-pointrcnn`` trains on one card, and ``--device
+cpu`` is always one process.
 """
 
 from __future__ import annotations
@@ -318,7 +325,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--overwrite", action="store_true")
     sp.set_defaults(fn=cmd_generate_bev)
 
-    sp = sub.add_parser("train-bev")
+    data_parallel = ("data-parallel over every visible card: one process a card, the largest card "
+                     "count that divides the batch size (--device cpu: one process)")
+    sp = sub.add_parser("train-bev", help="train a BEV segmentation model, " + data_parallel)
     sp.add_argument("--bev-dir", required=True)
     sp.add_argument("--config")
     sp.add_argument("--model-dir")
@@ -357,7 +366,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--classes", default="car,truck,bus")
     sp.set_defaults(fn=cmd_create_gtdb)
 
-    sp = sub.add_parser("train-second")
+    sp = sub.add_parser("train-second", help="train the voxelnet detector, " + data_parallel)
     add_db_args(sp)
     sp.add_argument("--infos", required=True)
     sp.add_argument("--gtdb", help="GT database dir for copy-paste augmentation")

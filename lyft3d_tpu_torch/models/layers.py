@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lyft3d_tpu_torch.parallel.mesh import all_reduce_sum
+
 __all__ = [
     "upsample2x",
     "resize_to",
@@ -178,7 +180,15 @@ class BatchNorm(nn.BatchNorm2d):
     ``use_running_average = True`` normalises with the running statistics in
     train mode too and updates nothing (flax's ``use_running_average``; see
     ``pipelines/second_train.py::batch_stats_as_parameters``, where the
-    running statistics are also parameters)."""
+    running statistics are also parameters).
+
+    ``group`` (a :class:`~lyft3d_tpu_torch.parallel.mesh.DataGroup`, set by
+    :func:`~lyft3d_tpu_torch.parallel.mesh.sync_batch_norms`): the train-mode
+    statistics span the global batch of a data-parallel run, as flax's do
+    under ``jax.jit`` over a sharded batch. Each rank's float32 ``(Σx, Σx²,
+    count)`` is summed over the ranks and the same one-pass formula applied;
+    the sum's backward sums the ranks' gradients of those statistics. With
+    ``group=None`` (the default) the statistics are this process's batch's."""
 
     def __init__(self, features: int, eps: float = BATCH_NORM_EPS, device=None, dtype=None,
                  channel_dim: int = 1):
@@ -189,6 +199,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.running_var = self.running_var.float()
         self.batch_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.use_running_average = False
+        self.group = None
 
     def _apply(self, fn, *args, **kwargs):
         # A cast would round the statistics; keep the float32 values, on the
@@ -211,8 +222,14 @@ class BatchNorm(nn.BatchNorm2d):
         shape[axis] = xf.shape[axis]
         if self.training and not self.use_running_average:
             dims = tuple(d for d in range(xf.dim()) if d != axis)
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            if self.group is None:
+                mean = xf.mean(dim=dims)
+                var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            else:
+                count = xf.new_full((xf.shape[axis],), xf.numel() // xf.shape[axis])
+                total = all_reduce_sum(self.group, torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+                mean = total[0] / total[2]
+                var = (total[1] / total[2] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = BATCH_NORM_MOMENTUM
                 # In the buffers' float32, also for a float64 input: the

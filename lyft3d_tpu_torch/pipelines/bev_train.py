@@ -15,7 +15,7 @@ pieces, usable without PNGs (``chip_smoke.py`` feeds them tensors).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from lyft3d_tpu_torch.config import BEVExperiment, snapshot_config
 from lyft3d_tpu_torch.data.bev_dataset import BEVImageDataset, index_batches
 from lyft3d_tpu_torch.data.prefetch import MappedPrefetcher
 from lyft3d_tpu_torch.models import build_model
+from lyft3d_tpu_torch.parallel.mesh import DataGroup, make_data_group, reseed_for_rank, shard_batch, spawn
 from lyft3d_tpu_torch.pipelines.second_train import _training_device
 from lyft3d_tpu_torch.train import checkpoint as ckpt
 from lyft3d_tpu_torch.train.losses import bev_segmentation_loss
@@ -56,18 +57,20 @@ def build_bev_model(cfg: BEVExperiment, dtype: torch.dtype = torch.bfloat16, dev
                        generator=torch.Generator().manual_seed(cfg.data.seed), **cfg.model_kwargs)
 
 
-def make_bev_loss_fn(cfg: BEVExperiment, device="cuda") -> Callable:
+def make_bev_loss_fn(cfg: BEVExperiment, device="cuda", group: Optional[DataGroup] = None) -> Callable:
     """``loss_fn(model, batch, generator) -> (loss, metrics)`` for the
     :class:`~lyft3d_tpu_torch.train.trainer.Trainer`: ``batch`` holds
     ``image`` ``(B, H, W, C)`` float32 and ``label`` ``(B, H, W)`` int on
     ``device``, the card by default (``"cpu"`` to run without one). The
-    generator is not used (no dropout)."""
+    generator is not used (no dropout). Under a data-parallel ``group`` the
+    batch is this rank's shard and the weighted CE's normaliser spans the
+    global batch."""
     device = _training_device(device, "make_bev_loss_fn")
     class_weights = torch.tensor(cfg.class_weights, dtype=torch.float32, device=device)
 
     def loss_fn(model, batch, generator=None):
         logits, aux = model(batch["image"])
-        return bev_segmentation_loss(logits, aux, batch["label"], class_weights, cfg.size_weight)
+        return bev_segmentation_loss(logits, aux, batch["label"], class_weights, cfg.size_weight, group)
 
     return loss_fn
 
@@ -120,33 +123,24 @@ def _init_from(model, cfg: BEVExperiment):
     ckpt.load_partial(model, snapshot, verbose=True)
 
 
-def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, log_every: int = 50, eval_every: int = 500,
-              num_workers: int = 4, dtype: torch.dtype = torch.bfloat16, device="cuda"):
-    """Train a BEV segmentation model from a generated PNG dataset; returns
-    ``(state, model)``. ``device`` defaults to the card; pass ``"cpu"``
-    (with float32) to run without one."""
-    device = _training_device(device, "train_bev")
-    bev_dir = Path(bev_dir)
-    if tokens is None:
-        tokens = sorted({p.name.rsplit("_", 1)[0] for p in bev_dir.glob("*_input.png")})
-    train_tokens, val_tokens = split_tokens(list(tokens), cfg.data.seed)
+def _fit_bev(group: Optional[DataGroup], cfg: BEVExperiment, bev_dir: Path, train_tokens, val_tokens,
+             log_every: int, eval_every: int, num_workers: int, dtype: torch.dtype, device=None):
+    """The step loop of :func:`train_bev` on one rank (``group``) or alone
+    (``group=None``, on ``device``); returns ``(state, model)``."""
+    device = group.device if group is not None else device
     train_ds = BEVImageDataset(bev_dir, train_tokens, with_map=cfg.with_map, augment=True)
     val_ds = BEVImageDataset(bev_dir, val_tokens, with_map=cfg.with_map, augment=False)
-
-    model = build_bev_model(cfg, dtype, device)
-    if cfg.init_from:
-        _init_from(model, cfg)
-
-    opt = cfg.optimizer
-    tcfg = TrainerConfig(model_dir=cfg.model_dir, total_steps=opt.total_steps, log_every=log_every,
-                         eval_every=eval_every, ckpt_every=eval_every)
-    snapshot_config(cfg, cfg.model_dir)
-    trainer = Trainer(model, make_bev_optimizer_fn(cfg), make_bev_loss_fn(cfg, device), tcfg,
-                      eval_fn=make_bev_eval_fn(cfg, val_ds, device))
+    reseed_for_rank(train_ds, group)  # each rank flips and cuts out with a stream of its own
+    trainer = _bev_trainer(cfg, log_every, eval_every, dtype, device, val_ds, group)
+    if trainer.lead:
+        snapshot_config(cfg, cfg.model_dir)
     state = trainer.init_or_resume()
+    opt = cfg.optimizer
 
     def assemble(take):
-        b = train_ds.assemble(take)
+        # Every rank walks the same schedule of global batches and loads its
+        # own slice of each.
+        b = train_ds.assemble(shard_batch(group, take))
         return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
     # Work items are cheap index chunks; imread + augmentation run on
@@ -155,4 +149,51 @@ def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, log_every: int = 50, eva
         lambda: index_batches(len(train_ds), cfg.batch_size, steps=opt.total_steps, seed=cfg.data.seed),
         assemble, num_workers=num_workers, depth=4)
     state = trainer.fit(state, iter(batches))
-    return state, model
+    return state, trainer.model
+
+
+def _bev_trainer(cfg: BEVExperiment, log_every: int, eval_every: int, dtype: torch.dtype, device,
+                 val_ds: BEVImageDataset, group: Optional[DataGroup] = None) -> Trainer:
+    model = build_bev_model(cfg, dtype, device)
+    if cfg.init_from:
+        _init_from(model, cfg)
+    opt = cfg.optimizer
+    tcfg = TrainerConfig(model_dir=cfg.model_dir, total_steps=opt.total_steps, log_every=log_every,
+                         eval_every=eval_every, ckpt_every=eval_every)
+    # Rank 0 evaluates the replicated weights alone, on its own card.
+    return Trainer(model, make_bev_optimizer_fn(cfg), make_bev_loss_fn(cfg, device, group), tcfg,
+                   eval_fn=make_bev_eval_fn(cfg, val_ds, device), group=group)
+
+
+def _bev_rank(group: DataGroup, *args):
+    _fit_bev(group, *args)
+
+
+def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, n_devices: Optional[int] = None,
+              log_every: int = 50, eval_every: int = 500, num_workers: int = 4,
+              dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """Train a BEV segmentation model from a generated PNG dataset; returns
+    ``(state, model)``. ``device`` defaults to the card; pass ``"cpu"``
+    (with float32) to run without one.
+
+    ``n_devices``: data parallelism as the JAX trainer's, over
+    :func:`~lyft3d_tpu_torch.parallel.mesh.make_data_group`'s rank count
+    (``None``: every card, one rank on the CPU; the largest divisor of the
+    batch size up to it). More than one rank spawns a process a rank, each
+    loading its slice of every global batch, with BatchNorm statistics and
+    the weighted CE's normaliser over the global batch; rank 0 evaluates and
+    writes the checkpoints, and the state returned here is restored from the
+    last of them."""
+    device = _training_device(device, "train_bev")
+    bev_dir = Path(bev_dir)
+    if tokens is None:
+        tokens = sorted({p.name.rsplit("_", 1)[0] for p in bev_dir.glob("*_input.png")})
+    train_tokens, val_tokens = split_tokens(list(tokens), cfg.data.seed)
+    args = (cfg, bev_dir, train_tokens, val_tokens, log_every, eval_every, num_workers, dtype)
+    n = make_data_group(cfg.batch_size, n_devices, device)
+    if n == 1:
+        return _fit_bev(None, *args, device=device)
+    spawn(_bev_rank, n, args=args, device=device.type)
+    val_ds = BEVImageDataset(bev_dir, val_tokens, with_map=cfg.with_map, augment=False)
+    trainer = _bev_trainer(cfg, log_every, eval_every, dtype, device, val_ds)
+    return trainer.init_or_resume(), trainer.model

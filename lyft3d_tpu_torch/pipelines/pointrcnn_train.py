@@ -23,12 +23,22 @@ package's initialisation carried over by
 :func:`~lyft3d_tpu_torch.utils.flax_params.load_flax_params`) and the RCNN
 trainers a ``draws`` function for the uniforms of RoI sampling and noise
 (by default drawn from a ``torch.Generator``), and return ``(model,
-losses)``: the weights are the model's own. JAX's ``n_devices`` data
-parallelism has no counterpart: the port trains on one card.
+losses)``: the weights are the model's own.
+
+``n_devices`` (default one rank) trains data-parallel as the JAX trainers
+do: a process a rank (:func:`~lyft3d_tpu_torch.parallel.mesh.spawn`), each
+loading its slice of every global batch and taking its slice of the global
+batch's RoI draws, the float32 gradients averaged over the ranks. The losses
+need no normaliser of their own: each frame's loss is normalised within the
+frame (the JAX trainers ``vmap`` ``rpn_loss`` and ``rcnn_loss`` a frame at a
+time) and the batch's loss is the mean over frames, which equal shards
+average to the global value. The trained weights come back from rank 0 into
+the caller's model.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -53,6 +63,17 @@ from lyft3d_tpu_torch.models.pointrcnn.net import (
     rpn_point_labels,
 )
 from lyft3d_tpu_torch.ops.pointnet2 import roi_pool3d
+from lyft3d_tpu_torch.parallel.mesh import (
+    DataGroup,
+    all_reduce_gradients,
+    average_metrics,
+    make_data_group,
+    replicate,
+    reseed_for_rank,
+    shard_batch,
+    spawn,
+    sync_batch_norms,
+)
 from lyft3d_tpu_torch.pipelines.pointrcnn import KittiPointRCNNLoader
 from lyft3d_tpu_torch.pipelines.second_train import _training_device
 from lyft3d_tpu_torch.train.optim import build_optimizer
@@ -82,12 +103,19 @@ def _zero_features(xyz):
     return xyz.new_zeros((*xyz.shape[:2], 1))
 
 
-def make_rpn_step(model: PointRCNN_RPN, cfg: PointRCNNConfig, optimizer) -> Callable:
+def _params(optimizer) -> List[torch.Tensor]:
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def make_rpn_step(model: PointRCNN_RPN, cfg: PointRCNNConfig, optimizer,
+                  group: Optional[DataGroup] = None) -> Callable:
     """``step(batch) -> (loss, metrics)``: one RPN training step on a batch
     on the model's device (points ``(B, N, 3)``, points_valid ``(B, N)``,
     gt_boxes ``(B, G, 7)``, gt_valid ``(B, G)``): point labels, forward, the
     mean over the batch of the per-sample losses (and of each metric),
-    backward, ``optimizer.step()``. Loss and metrics come back detached."""
+    backward, ``optimizer.step()``. Loss and metrics come back detached.
+    Under a data-parallel ``group`` the batch is this rank's shard, and the
+    gradients, loss and metrics are averaged over the ranks."""
 
     def step(batch):
         xyz, gt = batch["points"], batch["gt_boxes"]
@@ -97,8 +125,11 @@ def make_rpn_step(model: PointRCNN_RPN, cfg: PointRCNNConfig, optimizer) -> Call
         losses, metrics = rpn_loss(out, xyz, labels, assigned, gt, cfg)
         loss = losses.mean()
         loss.backward()
+        all_reduce_gradients(group, _params(optimizer))
         optimizer.step()
-        return loss.detach(), {k: v.detach().mean() for k, v in metrics.items()}
+        metrics = average_metrics(group, {"loss": loss.detach(),
+                                          **{k: v.detach().mean() for k, v in metrics.items()}})
+        return metrics.pop("loss"), metrics
 
     return step
 
@@ -127,14 +158,71 @@ def rpn_schedule(stems: Sequence[str], steps: int, batch_size: int, num_parts: i
     return schedule
 
 
+def _ranks(batch_size: int, n_devices: Optional[int], device) -> int:
+    """The rank count of a PointRCNN trainer: one unless ``n_devices`` asks
+    for more (the JAX trainers' default), then ``make_data_group``'s."""
+    return 1 if not n_devices or n_devices == 1 else make_data_group(batch_size, n_devices, device)
+
+
+def _on_rank(group: Optional[DataGroup], model):
+    """The model a rank trains: on its card, rank 0's weights, BatchNorm
+    statistics over the global batch."""
+    if group is None:
+        return model
+    model = model.to(group.device)
+    replicate(group, model)
+    return sync_batch_norms(model, group)
+
+
+def _to_caller(model, trained):
+    """Rank 0's trained weights (a CPU state dict) into the caller's model."""
+    model.load_state_dict(trained)
+    return model
+
+
+def _rank_draws(group: Optional[DataGroup], drawn, device):
+    """This rank's slice of a step's draws for the global batch (tensors in
+    tuples and dicts), on ``device``."""
+    drawn = shard_batch(group, drawn)
+    if isinstance(drawn, dict):
+        return {k: _rank_draws(None, v, device) for k, v in drawn.items()}
+    if isinstance(drawn, (list, tuple)):
+        return type(drawn)(_rank_draws(None, v, device) for v in drawn)
+    return drawn.to(device)
+
+
+def _from_rank(model, losses):
+    return {k: v.cpu() for k, v in model.state_dict().items()}, losses
+
+
+def _fit_rpn(group: Optional[DataGroup], loader, cfg, steps, batch_size, lr, num_parts, seed, num_workers,
+             model, device=None):
+    device = group.device if group is not None else device
+    model = _on_rank(group, model).train()
+    loader = reseed_for_rank(loader, group)
+    optimizer = build_optimizer(list(model.parameters()), "adam_onecycle", lr, total_steps=steps)
+    step = make_rpn_step(model, cfg, optimizer, group)
+    schedule = rpn_schedule(loader.stems, steps, batch_size, num_parts, seed)
+    batches = MappedPrefetcher(lambda: iter(schedule),
+                               lambda stems: _on(loader.batch(shard_batch(group, stems)), device),
+                               num_workers=num_workers)
+    return model, [float(step(batch)[0]) for batch in batches]
+
+
+def _rpn_rank(group: DataGroup, *args):
+    return _from_rank(*_fit_rpn(group, *args))
+
+
 def train_pointrcnn_rpn(loader: KittiPointRCNNLoader, cfg: PointRCNNConfig, steps: int = 100,
                         batch_size: int = 2, lr: float = 2e-3, num_parts: int = 4, seed: int = 0,
                         num_workers: int = 4, model: Optional[PointRCNN_RPN] = None,
-                        device="cuda"):
+                        device="cuda", n_devices: Optional[int] = None):
     """RPN training over the round-robin schedule with ``adam_onecycle``;
     batches are assembled on ``num_workers`` prefetch threads. ``model``
     (on ``device``) is trained in place; by default a float32 RPN is built
-    from a generator seeded ``seed``. Returns ``(model, losses)``."""
+    from a generator seeded ``seed``. ``n_devices`` > 1 trains data-parallel
+    (every batch of the schedule must split evenly). Returns ``(model,
+    losses)``."""
     device = _training_device(device, "train_pointrcnn_rpn")
     # The JAX trainer assembles a first batch for its init: so does this one,
     # so that a seeded loader draws the same batches after it.
@@ -142,13 +230,12 @@ def train_pointrcnn_rpn(loader: KittiPointRCNNLoader, cfg: PointRCNNConfig, step
     if model is None:
         model = PointRCNN_RPN(cfg, in_features=1, device=device,
                               generator=torch.Generator().manual_seed(seed))
-    model.train()
-    optimizer = build_optimizer(list(model.parameters()), "adam_onecycle", lr, total_steps=steps)
-    step = make_rpn_step(model, cfg, optimizer)
-    schedule = rpn_schedule(loader.stems, steps, batch_size, num_parts, seed)
-    batches = MappedPrefetcher(lambda: iter(schedule), lambda stems: _on(loader.batch(stems), device),
-                               num_workers=num_workers)
-    return model, [float(step(batch)[0]) for batch in batches]
+    args = (loader, cfg, steps, batch_size, lr, num_parts, seed, num_workers)
+    n = _ranks(batch_size, n_devices, device)
+    if n == 1:
+        return _fit_rpn(None, *args, model, device=device)
+    trained, losses = spawn(_rpn_rank, n, args=args + (copy.deepcopy(model).cpu(),), device=device.type)
+    return _to_caller(model.train(), trained), losses
 
 
 def rcnn_inputs(xyz, point_features, valid, rois, cfg: PointRCNNConfig):
@@ -184,16 +271,20 @@ def make_rcnn_stage1(rpn_model: PointRCNN_RPN, cfg: PointRCNNConfig, roi_noise: 
     return stage1
 
 
-def rcnn_step(model, optimizer, roi_points, counts, rois, targets, gt_boxes, cfg):
+def rcnn_step(model, optimizer, roi_points, counts, rois, targets, gt_boxes, cfg,
+              group: Optional[DataGroup] = None):
     """One RCNN training step on stage 1's output: forward, the mean over
     the batch of the per-frame losses, backward, ``optimizer.step()``.
-    Returns the loss, detached."""
+    Returns the loss, detached. Under a data-parallel ``group`` the inputs
+    are this rank's shard, and the gradients and the loss are averaged over
+    the ranks."""
     optimizer.zero_grad(set_to_none=True)
     losses, _ = rcnn_loss(model(roi_points, counts), rois, targets, gt_boxes, cfg)
     loss = losses.mean()
     loss.backward()
+    all_reduce_gradients(group, _params(optimizer))
     optimizer.step()
-    return loss.detach()
+    return average_metrics(group, {"loss": loss.detach()})["loss"]
 
 
 def _rcnn_model(model, cfg, in_features, seed, device):
@@ -230,19 +321,10 @@ def cache_rcnn_samples(rpn_model: PointRCNN_RPN, loader: KittiPointRCNNLoader, c
     return cache
 
 
-def train_rcnn_offline(cache: Sequence[dict], cfg: PointRCNNConfig, steps: int = 100,
-                       lr: float = 1e-3, seed: int = 0, batch_size: int = 1,
-                       model: Optional[PointRCNN_RCNN] = None,
-                       draws: Optional[Callable] = None, device="cuda"):
-    """Offline RCNN training on cached frames (:func:`cache_rcnn_samples`),
-    ``batch_size`` frames a step picked by ``np.random.RandomState(seed)``,
-    ``adam(lr)``. ``draws(step)`` gives the three ``(batch_size,
-    num_proposals)`` priorities of RoI sampling; by default every step and
-    every frame take the same draw, from a generator seeded 0 anew, as the
-    JAX trainer samples from ``PRNGKey(0)`` each time. Returns ``(model,
-    losses)``."""
-    device = _training_device(device, "train_rcnn_offline")
-    model = _rcnn_model(model, cfg, 3 + cache[0]["point_features"].shape[-1], seed, device)
+def _fit_rcnn_offline(group: Optional[DataGroup], cache, cfg, steps, lr, seed, batch_size, model, draws,
+                      device=None):
+    device = group.device if group is not None else device
+    model = _on_rank(group, model)
     optimizer = build_optimizer(list(model.parameters()), "adam", lr)
     if draws is None:
         def draws(step):
@@ -252,36 +334,53 @@ def train_rcnn_offline(cache: Sequence[dict], cfg: PointRCNNConfig, steps: int =
     rng = np.random.RandomState(seed)
     losses = []
     for i in range(steps):
-        picks = [cache[rng.randint(len(cache))] for _ in range(batch_size)]
+        # The global batch's frames and draws; this rank's slice of each.
+        picks = shard_batch(group, [cache[rng.randint(len(cache))] for _ in range(batch_size)])
+        priorities = _rank_draws(group, draws(i), device)
         b = _on({k: np.stack([s[k] for s in picks]) for k in CACHE_KEYS}, device)
         with torch.no_grad():
             roi_points, counts = rcnn_inputs(b["xyz"], b["point_features"], b["points_valid"], b["rois"], cfg)
             targets = proposal_target_layer(b["rois"], b["roi_valid"], b["gt_boxes"], b["gt_valid"], cfg,
-                                            draws(i))
+                                            priorities)
         losses.append(float(rcnn_step(model, optimizer, roi_points, counts, b["rois"], targets,
-                                       b["gt_boxes"], cfg)))
+                                       b["gt_boxes"], cfg, group)))
     return model, losses
 
 
-def train_rcnn_online(rpn_model: PointRCNN_RPN, loader: KittiPointRCNNLoader, cfg: PointRCNNConfig,
-                      steps: int = 100, lr: float = 1e-3, seed: int = 0, roi_noise: bool = True,
-                      batch_size: int = 1, num_workers: int = 4,
-                      model: Optional[PointRCNN_RCNN] = None, draws: Optional[Callable] = None,
-                      device="cuda"):
-    """Online RCNN training: the frozen RPN (put in eval mode) runs every
-    step on ``batch_size`` frames picked by ``np.random.RandomState(seed)``
-    (:func:`make_rcnn_stage1`), and the RCNN trains on its RoIs with
-    ``adam(lr)``; only the RCNN's parameters change. ``draws(step)`` gives
-    ``(priorities, noise)`` for the step's ``(batch_size, num_proposals)``
-    RoIs; by default both are drawn from a generator seeded ``seed``.
-    Returns ``(model, losses)``."""
-    device = _training_device(device, "train_rcnn_online")
-    rpn_model.eval()
-    # The JAX trainer runs stage 1 on the first frame for its init: the
-    # frame is loaded here too, so that a seeded loader draws the same
-    # frames after it.
-    loader.sample(loader.stems[0])
-    model = _rcnn_model(model, cfg, 3 + cfg.fp_width, seed, device)
+def _rcnn_offline_rank(group: DataGroup, *args):
+    return _from_rank(*_fit_rcnn_offline(group, *args))
+
+
+def train_rcnn_offline(cache: Sequence[dict], cfg: PointRCNNConfig, steps: int = 100,
+                       lr: float = 1e-3, seed: int = 0, batch_size: int = 1,
+                       model: Optional[PointRCNN_RCNN] = None,
+                       draws: Optional[Callable] = None, device="cuda", n_devices: Optional[int] = None):
+    """Offline RCNN training on cached frames (:func:`cache_rcnn_samples`),
+    ``batch_size`` frames a step picked by ``np.random.RandomState(seed)``,
+    ``adam(lr)``. ``draws(step)`` gives the three ``(batch_size,
+    num_proposals)`` priorities of RoI sampling; by default every step and
+    every frame take the same draw, from a generator seeded 0 anew, as the
+    JAX trainer samples from ``PRNGKey(0)`` each time. ``n_devices`` > 1
+    trains data-parallel, each rank on its slice of the frames and of the
+    draws (``draws`` is then pickled into the ranks). Returns ``(model,
+    losses)``."""
+    device = _training_device(device, "train_rcnn_offline")
+    model = _rcnn_model(model, cfg, 3 + cache[0]["point_features"].shape[-1], seed, device)
+    args = (cache, cfg, steps, lr, seed, batch_size)
+    n = _ranks(batch_size, n_devices, device)
+    if n == 1:
+        return _fit_rcnn_offline(None, *args, model, draws, device=device)
+    trained, losses = spawn(_rcnn_offline_rank, n, args=args + (copy.deepcopy(model).cpu(), draws),
+                            device=device.type)
+    return _to_caller(model, trained), losses
+
+
+def _fit_rcnn_online(group: Optional[DataGroup], rpn_model, loader, cfg, steps, lr, seed, roi_noise, batch_size,
+                     num_workers, model, draws, device=None):
+    device = group.device if group is not None else device
+    rpn_model = rpn_model.to(device).eval()
+    model = _on_rank(group, model)
+    loader = reseed_for_rank(loader, group)
     optimizer = build_optimizer(list(model.parameters()), "adam", lr)
     stage1 = make_rcnn_stage1(rpn_model, cfg, roi_noise)
     if draws is None:
@@ -295,15 +394,51 @@ def train_rcnn_online(rpn_model: PointRCNN_RPN, loader: KittiPointRCNNLoader, cf
     rng = np.random.RandomState(seed)
     picks = [[loader.stems[rng.randint(len(loader.stems))] for _ in range(batch_size)]
              for _ in range(steps)]
-    batches = MappedPrefetcher(lambda: iter(picks), lambda stems: _on(loader.batch(stems), device),
+    # Every rank walks the global picks and loads its own slice of each.
+    batches = MappedPrefetcher(lambda: iter(picks),
+                               lambda stems: _on(loader.batch(shard_batch(group, stems)), device),
                                num_workers=num_workers)
     losses = []
     for i, b in enumerate(batches):
         roi_points, counts, rois, targets = stage1(b["points"], b["points_valid"], b["gt_boxes"],
-                                                   b["gt_valid"], *draws(i))
+                                                   b["gt_valid"], *_rank_draws(group, draws(i), device))
         losses.append(float(rcnn_step(model, optimizer, roi_points, counts, rois, targets,
-                                       b["gt_boxes"], cfg)))
+                                       b["gt_boxes"], cfg, group)))
     return model, losses
+
+
+def _rcnn_online_rank(group: DataGroup, *args):
+    return _from_rank(*_fit_rcnn_online(group, *args))
+
+
+def train_rcnn_online(rpn_model: PointRCNN_RPN, loader: KittiPointRCNNLoader, cfg: PointRCNNConfig,
+                      steps: int = 100, lr: float = 1e-3, seed: int = 0, roi_noise: bool = True,
+                      batch_size: int = 1, num_workers: int = 4,
+                      model: Optional[PointRCNN_RCNN] = None, draws: Optional[Callable] = None,
+                      device="cuda", n_devices: Optional[int] = None):
+    """Online RCNN training: the frozen RPN (put in eval mode) runs every
+    step on ``batch_size`` frames picked by ``np.random.RandomState(seed)``
+    (:func:`make_rcnn_stage1`), and the RCNN trains on its RoIs with
+    ``adam(lr)``; only the RCNN's parameters change. ``draws(step)`` gives
+    ``(priorities, noise)`` for the step's ``(batch_size, num_proposals)``
+    RoIs; by default both are drawn from a generator seeded ``seed``.
+    ``n_devices`` > 1 trains data-parallel, each rank on its slice of the
+    frames and of the draws. Returns ``(model, losses)``."""
+    device = _training_device(device, "train_rcnn_online")
+    rpn_model.eval()
+    # The JAX trainer runs stage 1 on the first frame for its init: the
+    # frame is loaded here too, so that a seeded loader draws the same
+    # frames after it.
+    loader.sample(loader.stems[0])
+    model = _rcnn_model(model, cfg, 3 + cfg.fp_width, seed, device)
+    args = (loader, cfg, steps, lr, seed, roi_noise, batch_size, num_workers)
+    n = _ranks(batch_size, n_devices, device)
+    if n == 1:
+        return _fit_rcnn_online(None, rpn_model, *args, model, draws, device=device)
+    trained, losses = spawn(_rcnn_online_rank, n,
+                            args=(copy.deepcopy(rpn_model).cpu(),) + args + (copy.deepcopy(model).cpu(), draws),
+                            device=device.type)
+    return _to_caller(model, trained), losses
 
 
 @torch.no_grad()

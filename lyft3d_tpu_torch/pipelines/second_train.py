@@ -25,6 +25,7 @@ from lyft3d_tpu_torch.ops.anchors import (
 )
 from lyft3d_tpu_torch.ops.box_ops import box_corners_2d, corners_to_standup_2d
 from lyft3d_tpu_torch.ops.voxelize import voxelize
+from lyft3d_tpu_torch.parallel.mesh import DataGroup, make_data_group, reseed_for_rank, shard_batch, spawn
 from lyft3d_tpu_torch.pipelines.second import evaluate_second, voxelnet_config_from_experiment
 from lyft3d_tpu_torch.pipelines.second_pipeline import SecondSampleLoader
 from lyft3d_tpu_torch.train.optim import build_optimizer
@@ -118,32 +119,35 @@ def make_second_loss_fn(vcfg: VoxelNetConfig, device="cuda") -> Callable:
     return loss_fn
 
 
-def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens: Sequence[str],
-                 vcfg: Optional[VoxelNetConfig] = None, log_every: int = 50, num_workers: int = 4,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
-    """Train SECOND on ``train_tokens``; returns ``(state, model, vcfg)``.
-    ``device`` defaults to the card; pass ``"cpu"`` (with float32) to run
-    without one."""
-    device = _training_device(device, "train_second")
-    vcfg = vcfg or voxelnet_config_from_experiment(exp)
-    sample0 = loader.batch(list(train_tokens)[: exp.batch_size])
-    model = VoxelNet(vcfg, in_features=sample0["points"].shape[-1], dtype=dtype, device=device,
+def _second_trainer(exp: SecondExperiment, vcfg: VoxelNetConfig, in_features: int, log_every: int,
+                    dtype: torch.dtype, device, group: Optional[DataGroup] = None) -> Trainer:
+    model = VoxelNet(vcfg, in_features=in_features, dtype=dtype, device=device,
                      generator=torch.Generator().manual_seed(0))
     batch_stats_as_parameters(model)  # a "batch" unit middle's; no other norm is a BatchNorm
-
     opt = exp.optimizer
     tcfg = TrainerConfig(
         model_dir=exp.model_dir, total_steps=opt.total_steps, log_every=log_every,
         eval_every=0, ckpt_every=max(opt.total_steps // 4, 1),
     )
-    snapshot_config(exp, exp.model_dir)
-    trainer = Trainer(
+    return Trainer(
         model,
         lambda params: build_optimizer(
             params, opt.name, opt.lr, total_steps=opt.total_steps, weight_decay=opt.weight_decay,
             clip_norm=opt.clip_norm, grad_accum=opt.grad_accum),
-        make_second_loss_fn(vcfg, device), tcfg,
+        make_second_loss_fn(vcfg, device), tcfg, group=group,
     )
+
+
+def _fit_second(group: Optional[DataGroup], exp: SecondExperiment, loader: SecondSampleLoader,
+                train_tokens: Sequence[str], vcfg: VoxelNetConfig, in_features: int, log_every: int,
+                num_workers: int, dtype: torch.dtype, device=None):
+    """The step loop of :func:`train_second` on one rank (``group``) or alone
+    (``group=None``, on ``device``); returns ``(state, model)``."""
+    device = group.device if group is not None else device
+    loader = reseed_for_rank(loader, group)
+    if group is None or group.rank == 0:
+        snapshot_config(exp, exp.model_dir)
+    trainer = _second_trainer(exp, vcfg, in_features, log_every, dtype, device, group)
     state = trainer.init_or_resume()
 
     def token_chunks():
@@ -155,11 +159,45 @@ def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens
                 yield toks[i : i + exp.batch_size]
 
     def assemble(chunk):
-        b = loader.batch(chunk, train=True)
+        # Every rank walks the same schedule of global batches and loads its
+        # own slice of each.
+        b = loader.batch(shard_batch(group, chunk), train=True)
         return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
 
     # Work items are cheap token chunks; the heavy sample assembly (multi-sweep
     # load and augmentation) runs on parallel workers.
     state = trainer.fit(
         state, iter(MappedPrefetcher(token_chunks, assemble, num_workers=num_workers, depth=4)))
-    return state, model, vcfg
+    return state, trainer.model
+
+
+def _second_rank(group: DataGroup, *args):
+    _fit_second(group, *args)
+
+
+def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens: Sequence[str],
+                 vcfg: Optional[VoxelNetConfig] = None, n_devices: Optional[int] = None,
+                 log_every: int = 50, num_workers: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 device="cuda"):
+    """Train SECOND on ``train_tokens``; returns ``(state, model, vcfg)``.
+    ``device`` defaults to the card; pass ``"cpu"`` (with float32) to run
+    without one.
+
+    ``n_devices``: data parallelism as the JAX trainer's, over
+    :func:`~lyft3d_tpu_torch.parallel.mesh.make_data_group`'s rank count
+    (``None``: every card, one rank on the CPU; the largest divisor of the
+    batch size up to it). More than one rank spawns a process a rank, each
+    loading its slice of every global batch; rank 0 writes the checkpoints,
+    and the state returned here is restored from the last of them."""
+    device = _training_device(device, "train_second")
+    vcfg = vcfg or voxelnet_config_from_experiment(exp)
+    sample0 = loader.batch(list(train_tokens)[: exp.batch_size])
+    args = (exp, loader, list(train_tokens), vcfg, sample0["points"].shape[-1], log_every, num_workers,
+            dtype)
+    n = make_data_group(exp.batch_size, n_devices, device)
+    if n == 1:
+        state, model = _fit_second(None, *args, device=device)
+        return state, model, vcfg
+    spawn(_second_rank, n, args=args, device=device.type)
+    trainer = _second_trainer(exp, vcfg, args[4], log_every, dtype, device)
+    return trainer.init_or_resume(), trainer.model, vcfg

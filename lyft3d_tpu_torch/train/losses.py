@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from lyft3d_tpu_torch.parallel.mesh import all_reduce_sum
+
 __all__ = [
     "weighted_softmax_ce",
     "soft_dice_loss",
@@ -32,15 +34,24 @@ def _stable_bce(logits, targets):
     return torch.maximum(logits, logits.new_zeros(())) - logits * targets + torch.log1p(torch.exp(-abs_x))
 
 
-def weighted_softmax_ce(logits, labels, class_weights=None):
+def weighted_softmax_ce(logits, labels, class_weights=None, group=None):
     """Mean softmax cross-entropy with per-class weights. ``logits``
-    ``(…, C)``, ``labels`` ``(…)`` integer, ``class_weights`` ``(C,)`` or None."""
+    ``(…, C)``, ``labels`` ``(…)`` integer, ``class_weights`` ``(C,)`` or None.
+
+    ``group`` (a data-parallel :class:`~lyft3d_tpu_torch.parallel.mesh.DataGroup`):
+    the normaliser ``Σ w`` is the global batch's, summed over the ranks, and
+    this rank's value is its share of the global loss times the rank count,
+    so that the mean over the ranks is the global batch's loss. (A mean over
+    the ranks of each rank's own ratio would be another loss.)"""
     logp = F.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if class_weights is None:
         return -ll.mean()
     wts = torch.as_tensor(class_weights, dtype=logits.dtype, device=logits.device)[labels.long()]
-    return -(ll * wts).sum() / torch.clamp(wts.sum(), min=1e-12)
+    if group is None:
+        return -(ll * wts).sum() / torch.clamp(wts.sum(), min=1e-12)
+    total = all_reduce_sum(group, wts.sum().detach())
+    return -(ll * wts).sum() / (torch.clamp(total, min=1e-12) / group.size)
 
 
 def bce_with_logits(logits, targets, weights=None):
@@ -63,14 +74,18 @@ def soft_dice_loss(logits, targets_onehot, eps: float = 1.0, skip_background: bo
     return 1.0 - ((2.0 * inter + eps) / (denom + eps)).mean()
 
 
-def bev_segmentation_loss(logits, aux_logits, labels, class_weights=None, size_weight: float = 336.0):
+def bev_segmentation_loss(logits, aux_logits, labels, class_weights=None, size_weight: float = 336.0,
+                          group=None):
     """The UNet training objective: weighted CE + SIZE·BCE(one-hot) +
     SoftDice, plus BCE on the auxiliary image-level head against per-image
     class presence. ``logits`` ``(B, H, W, C)`` (channels last). Returns
-    ``(total, components)``."""
+    ``(total, components)``. Under a data-parallel ``group`` the CE's
+    normaliser spans the global batch (:func:`weighted_softmax_ce`); the
+    other terms are means over elements or samples, which equal shards
+    average to the global value as they stand."""
     n_classes = logits.shape[-1]
     onehot = F.one_hot(labels.long(), n_classes).to(logits.dtype)
-    ce = weighted_softmax_ce(logits, labels, class_weights)
+    ce = weighted_softmax_ce(logits, labels, class_weights, group)
     bce = bce_with_logits(logits, onehot)
     dice = soft_dice_loss(logits, onehot)
     present = (onehot.amax(dim=tuple(range(1, onehot.dim() - 1))) > 0).to(logits.dtype)

@@ -14,6 +14,18 @@ parameters, and the train state keeps a float32 master copy of each of them:
 the gradient is cast up, the optimizer updates the masters, and the module's
 parameters are refreshed from them after every step. Float32 parameters (a
 float32 module, the heads) are their own masters.
+
+**Data parallel.** Given a :class:`~lyft3d_tpu_torch.parallel.mesh.DataGroup`
+(one rank of a :func:`~lyft3d_tpu_torch.parallel.mesh.spawn`), the trainer
+computes what the JAX trainer computes over a mesh: its BatchNorms take
+global statistics, the float32 master gradients are averaged over the ranks
+in one flat bucket after ``push_grads`` (so ``grad_norm``, clipping and
+gradient accumulation see the global gradient), and the metrics are averaged
+over the ranks. Each rank's ``loss_fn`` sees its own shard of the global
+batch and returns a loss whose mean over the ranks is the global one (see
+``parallel/mesh.py``). Every rank reads the checkpoint to resume and then
+takes rank 0's weights; only rank 0 logs, evaluates and writes checkpoints,
+and the ranks wait for it after each.
 """
 
 from __future__ import annotations
@@ -26,6 +38,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from lyft3d_tpu_torch.parallel.mesh import (
+    DataGroup,
+    all_reduce_gradients,
+    average_metrics,
+    barrier,
+    replicate,
+    sync_batch_norms,
+)
 from lyft3d_tpu_torch.train import checkpoint as ckpt
 from lyft3d_tpu_torch.train.logging import MetricLog
 from lyft3d_tpu_torch.train.optim import global_norm
@@ -114,19 +134,33 @@ class TrainerConfig:
     use_tensorboard: bool = False
 
 
+class _Silent:
+    """The log of a rank other than 0: it writes nothing."""
+
+    def log_metrics(self, *args, **kwargs):
+        pass
+
+    def log_text(self, *args, **kwargs):
+        pass
+
+
 class Trainer:
     """``optimizer_fn(params) -> torch.optim.Optimizer`` builds the optimizer
     over the master parameters (e.g. ``lambda p: build_optimizer(p, "adam",
-    1e-3)``)."""
+    1e-3)``). ``group``: this process's rank of a data-parallel run, or
+    ``None`` to train alone."""
 
     def __init__(self, model: nn.Module, optimizer_fn: Callable, loss_fn: Callable,
-                 config: TrainerConfig, eval_fn: Optional[Callable] = None):
-        self.model = model
+                 config: TrainerConfig, eval_fn: Optional[Callable] = None,
+                 group: Optional[DataGroup] = None):
+        self.model = sync_batch_norms(model, group) if group is not None else model
         self.optimizer_fn = optimizer_fn
         self.loss_fn = loss_fn
         self.cfg = config
         self.eval_fn = eval_fn
-        self.log = MetricLog(config.model_dir, use_tensorboard=config.use_tensorboard)
+        self.group = group
+        self.lead = group is None or group.rank == 0
+        self.log = MetricLog(config.model_dir, use_tensorboard=config.use_tensorboard) if self.lead else _Silent()
         self.best_val = float("inf")
 
     def step_fn(self, state: TrainState, batch, generator=None):
@@ -140,8 +174,10 @@ class Trainer:
         loss.backward()
         metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in dict(metrics).items()}
         metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = global_norm([p.grad for p in state.params])
         state.push_grads()
+        all_reduce_gradients(self.group, state.masters)
+        metrics = average_metrics(self.group, metrics)
+        metrics["grad_norm"] = global_norm([m.grad for m in state.masters])
         state.optimizer.step()
         state.pull_params()
         state.step += 1
@@ -153,11 +189,15 @@ class Trainer:
         _, step = ckpt.restore_latest(self.cfg.model_dir, state, name=self.cfg.ckpt_name)
         if step is not None:
             self.log.log_text(f"resumed from step {step}", step)
+        replicate(self.group, [self.model, state.masters])
         return state
 
-    def _save(self, state: TrainState, name: str, max_to_keep: int):
-        ckpt.save(self.cfg.model_dir, state, name=name, global_step=int(state.step),
-                  max_to_keep=max_to_keep)
+    def _save(self, state: TrainState, name: str, max_to_keep: int, wait: bool = True):
+        if self.lead:
+            ckpt.save(self.cfg.model_dir, state, name=name, global_step=int(state.step),
+                      max_to_keep=max_to_keep)
+        if wait:
+            barrier(self.group)
 
     def fit(self, state: TrainState, batches: Iterable, generator=None) -> TrainState:
         """Run the step loop over ``batches`` (a host iterator of batches the
@@ -179,17 +219,20 @@ class Trainer:
                     t0, window = time.time(), []
                     self.log.log_metrics({"train": m}, step)
                 if cfg.eval_every and step % cfg.eval_every == 0 and self.eval_fn:
-                    val = self.eval_fn(state)
-                    self.log.log_metrics({"eval": val}, step)
-                    vloss = float(val.get("loss", np.inf))
-                    if vloss < self.best_val:
-                        self.best_val = vloss
-                        self._save(state, "best", 2)
+                    if self.lead:
+                        val = self.eval_fn(state)
+                        self.log.log_metrics({"eval": val}, step)
+                        vloss = float(val.get("loss", np.inf))
+                        if vloss < self.best_val:
+                            self.best_val = vloss
+                            self._save(state, "best", 2, wait=False)
+                    barrier(self.group)
                 if cfg.ckpt_every and step % cfg.ckpt_every == 0:
                     self._save(state, cfg.ckpt_name, cfg.max_to_keep)
         except (KeyboardInterrupt, Exception):
-            # Checkpoint on failure, then re-raise.
-            self._save(state, cfg.ckpt_name, cfg.max_to_keep)
+            # Checkpoint on failure, then re-raise (no wait: another rank
+            # may be gone).
+            self._save(state, cfg.ckpt_name, cfg.max_to_keep, wait=False)
             self.log.log_text(f"interrupted at step {int(state.step)}; checkpoint saved")
             raise
         self._save(state, cfg.ckpt_name, cfg.max_to_keep)

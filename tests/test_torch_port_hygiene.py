@@ -59,7 +59,8 @@ for new in ("config", "data.augment", "data.prefetch", "train.losses", "train.op
             "data.bev_dataset", "train.swa", "pipelines.bev_train", "train.metrics", "models.deeplab",
             "models.backbones.efficientnet", "models.backbones.dpn", "models.backbones.wide_resnet",
             "models.backbones.xception", "serve.viewer", "serve.frontend", "native.bindings",
-            "data.synthetic", "utils.visualize", "utils.progress", "utils.torch_import"):
+            "data.synthetic", "utils.visualize", "utils.progress", "utils.torch_import", "parallel",
+            "parallel.mesh"):
     assert "lyft3d_tpu_torch." + new in names, new
 print("ok", len(names))
 """
