@@ -7,7 +7,8 @@ geometry with LayerNorm and BatchNorm middles), SECOND training (pillars,
 VFE pillars and both sparse middles), BEV training (UNets and DeepLabV3+),
 PointRCNN training, and the serving path: the viewer's HTTP server answering
 ``/api/detect`` requests with ``unet_resnet50`` on the card, one raster
-kernel launch a request, beside the native host runtime.
+kernel launch a request, beside the native host runtime; then training over
+ranks, data-parallel (phase 35) and tensor-parallel (phase 36).
 
     python3 chip_smoke.py
 
@@ -334,6 +335,31 @@ Phases, one line of numbers each:
     ``DP_TIMED`` steps), the all-reduce ms of the gradient bucket and its
     bytes, each rank's peak memory. Its launches join B1's, B2's and B2'\'s
     in the ``kernels`` line.
+36. tensor parallel: ``lyft3d_tpu_torch/parallel/tensor.py`` on a 2 x 2
+    ``(data, model)`` layout (``spawn(..., model_parallel=2)``): NCCL over
+    four cards where there are four, else four gloo ranks sharing card 0.
+    The one-process side runs first, in float32 with TF32 off, and is saved
+    for the ranks to hold themselves to: (a) the multichip dry run's
+    ``TPConvStack`` (128, 128, 10 features, ``min_features=128``) with Adam
+    1e-3 at batch 4 x 16² x 6, loss within 1e-5 relative, gradients within
+    1e-4 of their scale, parameters within 1e-5 wherever the gradient
+    exceeds 100 x Adam's eps (below, Adam's first step is not resolved) and
+    within 2·lr everywhere; (b) ``unet_seresnext101`` at ``min_features=256``: every
+    sharded layer's gathered output within 1e-5 of the unsharded layer's
+    scale on the same input, then one ``ranger`` update (clip 5.0) at batch
+    4 x 336² x 6, loss within 1e-5 relative, parameters and gradients within
+    ``GRAD_NORM_TOL`` in the 2-norm, the weights bit-equal across each data
+    group; then three steps as the yaml trains (bf16 trunk, float32
+    masters), timed and not held: each rank's step ms and peak memory
+    against one process, the all-gathers and input-gradient all-reduces a
+    step (count and bytes) and the step's all-gathers replayed alone; (c)
+    the FHD unit middle at ``min_features=32`` (its 32- and 64-wide layers
+    split into 16 and 32 columns a rank), one forward+backward in float32:
+    each rank's dense BEV and feature gradient within 1e-5 of the one
+    process's scale, the kernels' gradients within ``WGRAD_TOL``, and the
+    fill, its backward, the stencil and both its backward kernels launched
+    on every rank. Those launches join B2's, B2'\'s, B3's and B3'\'s in the
+    ``kernels`` line.
 
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
@@ -346,6 +372,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -4754,6 +4781,435 @@ def data_parallel_phase(dev, card):
     return launches
 
 
+# Phase 36: tensor parallelism (the model axis).
+def tp_conv_stack(device=None, dtype=None, generator=None):
+    """The multichip dry run's ``TPConvStack``: two 3x3 convs of 128
+    features with ReLU, then a 1x1 conv to 10 classes (flax ``"SAME"`` pads,
+    biases), NCHW on 6 channels."""
+    import torch
+    from torch import nn
+
+    from lyft3d_tpu_torch.models.layers import init_params
+
+    fk = dict(device=device, dtype=dtype)
+    model = nn.Sequential(nn.Conv2d(6, 128, 3, padding=1, **fk), nn.ReLU(),
+                          nn.Conv2d(128, 128, 3, padding=1, **fk), nn.ReLU(), nn.Conv2d(128, 10, 1, **fk))
+    if generator is not None:
+        init_params(model, generator)
+    return model
+
+
+def tp_stack_loss(model, batch):
+    """The dry run's TP loss: the mean over pixels of the one-hot cross-entropy
+    of ``model(image)`` (``image`` NHWC, ``label`` (B, H, W))."""
+    import torch.nn.functional as F
+
+    logp = F.log_softmax(model(batch["image"].permute(0, 3, 1, 2)), dim=1)
+    return -logp.gather(1, batch["label"][:, None].long()).mean()
+
+
+TP_DATA, TP_MODEL_PARALLEL = 2, 2
+TP_BEV_MODEL = "unet_seresnext101"  # the reference-parity model, the BEV yaml's default
+TP_TIMED = 3  # bf16 steps timed after one warm-up step
+TP_FHD_MIN_FEATURES = 32  # the 32- and 64-wide layers of the FHD middle split
+TP_HW = 336  # the BEV yaml's image
+# Phase 36b's float32 ranger update against one process, in the 2-norm: the
+# averaged gradients (read 2.6e-4 with TF32 off, the same on gloo and NCCL:
+# the batch's sums split over the data ranks) and the update itself, the
+# parameters' move (read 5.7e-4; a rank-local clip norm scales it off by
+# more, as tests/test_torch_tensor_parallel.py shows).
+TP_GRAD_TOL, TP_UPDATE_TOL = 1e-3, 1e-2
+
+
+def tp_layout(cards):
+    """``(spawn keywords, where)``: 2 x 2 over NCCL on four cards, else four
+    gloo ranks sharing card 0 (NCCL takes one rank a card)."""
+    if cards >= TP_DATA * TP_MODEL_PARALLEL:
+        return dict(device="cuda"), f"{TP_DATA} x {TP_MODEL_PARALLEL} over 4 cards (NCCL)"
+    return (dict(backend="gloo", device="cuda:0"),
+            f"{TP_DATA} x {TP_MODEL_PARALLEL}, four gloo ranks sharing cuda:0 (collectives staged through the host)")
+
+
+def tp_stack_case():
+    """Phase 36a's weights (seed 2) and batch (2·D x 16² x 6), on the CPU."""
+    import torch
+
+    rng = np.random.RandomState(36)
+    weights = tp_conv_stack(generator=torch.Generator().manual_seed(2)).state_dict()
+    batch = {"image": torch.from_numpy(rng.rand(2 * TP_DATA, 16, 16, 6).astype(np.float32)),
+             "label": torch.from_numpy((rng.rand(2 * TP_DATA, 16, 16) * 10).astype(np.int32))}
+    return weights, batch
+
+
+def tp_stack_step(weights, batch, dev, group=None):
+    """Phase 36a's Adam step (1e-3) through ``make_train_step_dp``: the loss,
+    the whole parameters after it and their averaged gradients, on the CPU."""
+    from lyft3d_tpu_torch.parallel import tensor as tp
+    from lyft3d_tpu_torch.parallel.mesh import make_train_step_dp, shard_batch
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    model = tp_conv_stack(device=dev)
+    model.load_state_dict(weights)
+    tp.tensor_parallel_params(group, model, min_features=128)
+    step = make_train_step_dp(lambda b: tp_stack_loss(model, b),
+                              build_optimizer(list(model.parameters()), "adam", 1e-3), group)
+    loss = float(step(to_dev(shard_batch(group, batch), dev)))
+    named = list(model.named_parameters())
+    return (loss, {n: tp.unshard(p.detach(), p).cpu() for n, p in named},
+            {n: tp.unshard(p.grad, p).cpu() for n, p in named})
+
+
+def tp_bev_config():
+    """The BEV yaml with :data:`TP_BEV_MODEL`, one ``ranger`` update a step
+    (``grad_accum`` 1; the yaml's clip 5.0 and rate)."""
+    import dataclasses
+
+    cfg = bev_train_config(TP_BEV_MODEL, batch_size=2 * TP_DATA)
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, grad_accum=1))
+
+
+def tp_bev_trainer(cfg, dtype, dev, model_dir, group=None, min_features=256):
+    """(trainer, state) of the BEV step, the module sharded under ``group``."""
+    from lyft3d_tpu_torch.parallel import tensor as tp
+    from lyft3d_tpu_torch.pipelines.bev_train import build_bev_model, make_bev_loss_fn, make_bev_optimizer_fn
+    from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    model = tp.tensor_parallel_params(group, build_bev_model(cfg, dtype, dev), min_features)
+    trainer = Trainer(model, make_bev_optimizer_fn(cfg), make_bev_loss_fn(cfg, dev, group),
+                      TrainerConfig(model_dir=model_dir, total_steps=10 ** 6), group=group)
+    return trainer, trainer.init_or_resume()
+
+
+def tp_whole(params, tensors):
+    """One float32 vector of ``tensors`` (values or gradients of ``params``),
+    each sharded one gathered whole, on the CPU."""
+    from lyft3d_tpu_torch.parallel import tensor as tp
+
+    return dp_flat([tp.unshard(t, p) for p, t in zip(params, tensors)])
+
+
+def tp_bev_held(cfg, batch, dev, tmp, group=None):
+    """Phase 36b's float32 ranger update: (loss, parameters and gradients
+    after it as flat vectors, whether the data ranks agree)."""
+    import torch
+
+    from lyft3d_tpu_torch.parallel import mesh
+
+    trainer, state = tp_bev_trainer(cfg, torch.float32, dev, tmp, group)
+    state, metrics = trainer.step_fn(state, to_dev(mesh.shard_batch(group, batch), dev))
+    masters = state.masters
+    out = (float(metrics["loss"]), tp_whole(masters, masters),
+           tp_whole(masters, [m.grad if m.grad is not None else torch.zeros_like(m) for m in masters]),
+           mesh.ranks_agree(group, state.module))
+    del trainer, state
+    return out
+
+
+def tp_layer_errors(cfg, image, dev, group):
+    """Each sharded layer's gathered output against the unsharded layer on the
+    same input, in one no-grad float32 forward of this rank's shard:
+    ``{layer: max_err / scale}``."""
+    import copy
+
+    import torch
+
+    from lyft3d_tpu_torch.parallel import tensor as tp
+    from lyft3d_tpu_torch.pipelines.bev_train import build_bev_model
+
+    model = build_bev_model(cfg, torch.float32, dev)
+    whole = copy.deepcopy(model)
+    names = [n.rsplit(".", 1)[0] for n in tp.tensor_parallel_selection(model, group.model_size, 256)]
+    tp.tensor_parallel_params(group, model, 256)
+    layers, ref = dict(model.named_modules()), dict(whole.named_modules())
+    errs = {}
+
+    def check(name):
+        def hook(module, inputs, out):
+            errs[name] = rel_diff(out, ref[name](inputs[0]))
+        return hook
+
+    hooks = [layers[n].register_forward_hook(check(n)) for n in names]
+    with torch.no_grad():
+        model(image)
+    for h in hooks:
+        h.remove()
+    return errs
+
+
+def tp_bev_timed(cfg, batch, dev, tmp, group=None):
+    """Phase 36b's timed steps as the yaml trains (bf16 trunk, float32
+    masters): (step ms, peak GB, collectives a step, all-gather ms a step from
+    a replay of the step's gathers)."""
+    import torch
+
+    from lyft3d_tpu_torch.parallel import mesh
+    from lyft3d_tpu_torch.parallel import tensor as tp
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer, state = tp_bev_trainer(cfg, torch.bfloat16, dev, tmp, group)
+    shard = to_dev(mesh.shard_batch(group, batch), dev)
+    state, _ = trainer.step_fn(state, shard)
+    for k in tp.COLLECTIVES:
+        tp.COLLECTIVES[k] = 0
+    mesh.barrier(group)
+    with recorded(tp, "_all_gather") as gathers:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        for _ in range(TP_TIMED):
+            state, _ = trainer.step_fn(state, shard)
+        end.record()
+        torch.cuda.synchronize(dev)
+    step_ms = start.elapsed_time(end) / TP_TIMED
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = {k: v / TP_TIMED for k, v in tp.COLLECTIVES.items()}
+    gather_ms = None
+    if group is not None:
+        step_calls = gathers.calls[:len(gathers.calls) // TP_TIMED]
+        pieces = [(torch.empty_like(args[0]), args[1], args[2]) for args, _ in step_calls]
+        mesh.barrier(group)
+        gather_ms = cuda_ms(lambda: [tp._all_gather(*a) for a in pieces], warmup=1, iters=3)
+    del trainer, state, shard
+    torch.cuda.empty_cache()
+    return step_ms, peak_gb, per_step, gather_ms
+
+
+def tp_fhd_case(dev):
+    """Phase 36c's inputs: the FHD ``VoxelNet`` (seed 0, float32) and the
+    encoder's features, coords, validity and a dense-BEV cotangent of
+    :data:`FHD_BATCH` x :data:`FHD_POINTS` uniform points, on ``dev``."""
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+
+    cfg = fhd_config()
+    net = VoxelNet(cfg, in_features=3, device=dev, generator=torch.Generator().manual_seed(0)).train()
+    pts, valid = (t.to(dev) for t in fhd_points(FHD_BATCH, FHD_POINTS, seed=36))
+    with torch.no_grad():
+        vox = voxelize(pts, valid, cfg.grid, cfg.max_voxels, cfg.max_points_per_voxel)
+        feats = net.encoder(vox["voxels"], vox["num_points"], vox["coords"])
+        shape = net.dense_bev(feats, vox["coords"], vox["voxel_valid"]).shape
+    cot = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(37), device=dev)
+    return net, feats, vox["coords"], vox["voxel_valid"], cot
+
+
+def tp_fhd_pass(dev, group=None):
+    """Phase 36c's forward+backward of the FHD middle (sharded under
+    ``group`` at :data:`TP_FHD_MIN_FEATURES`): this rank's dense BEV and
+    feature gradient (its data shard), every middle kernel's gradient summed
+    over the data group and gathered whole, the launches of the pass, all on
+    the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from lyft3d_tpu_torch.parallel import mesh
+    from lyft3d_tpu_torch.parallel import tensor as tp
+
+    net, feats, coords, valid, cot = tp_fhd_case(dev)
+    tp.tensor_parallel_params(group, net.middle, TP_FHD_MIN_FEATURES)
+    feats, coords, valid, cot = mesh.shard_batch(group, (feats, coords, valid, cot))
+    feats = feats.clone().requires_grad_(True)
+    train_counts(reset=True)
+    bev = net.dense_bev(feats, coords, valid)
+    bev.backward(cot)
+    torch.cuda.synchronize(dev)
+    launches = train_counts()
+    kernels = [p for n, p in net.middle.named_parameters() if n.endswith("kernel")]
+    grads = []
+    for p in kernels:
+        g = p.grad.clone()
+        if group is not None:
+            dist.all_reduce(g, group=group.data_group)
+        grads.append(tp.unshard(g, p).cpu())
+    sharded = sum(tp.shard_of(p) is not None for p in kernels)
+    return bev.detach().cpu(), feats.grad.cpu(), grads, launches, sharded
+
+
+def tp_references(dev, card, path):
+    """Phase 36's one-process side, saved to ``path`` for the ranks to hold
+    themselves to: (a) the TPConvStack step, (b) the float32 ranger update of
+    ``unet_seresnext101`` at batch 2·D (parameters before and after, the
+    gradients), (c) the FHD middle pass; and the bf16 step timed alone.
+    Returns (stack weights, stack batch, BEV batch, one-process ms and GB)."""
+    import tempfile
+
+    import torch
+
+    weights, batch = tp_stack_case()
+    stack = tp_stack_step(weights, batch, dev)
+    cfg = tp_bev_config()
+    bev_batch = {k: v.cpu() for k, v in bev_train_batch(2 * TP_DATA, TP_HW, seed=36, dev=dev).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, state = tp_bev_trainer(cfg, torch.float32, dev, tmp)
+        start = dp_flat(state.masters)
+        del trainer, state
+        loss, params, grads, _ = tp_bev_held(cfg, bev_batch, dev, tmp)
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        one_ms, one_peak, _, _ = tp_bev_timed(cfg, bev_batch, dev, tmp)
+        torch.backends.cudnn.allow_tf32 = False
+    bev, dfeats, kernel_grads, launches, _ = tp_fhd_pass(dev)
+    torch.save({"stack": stack, "bev": (loss, start, params, grads), "fhd": (bev, dfeats, kernel_grads)}, path)
+    log(f"tensor parallel, one process: TPConvStack B={2 * TP_DATA} 16x16x6 loss {stack[0]:.6f}; {TP_BEV_MODEL} "
+        f"f32 ranger update B={2 * TP_DATA} {TP_HW}x{TP_HW}x6 loss {loss:.6f}, bf16 (f32 masters) step_ms={one_ms:.3f} "
+        f"peak_mem_gb={one_peak:.2f}; FHD unit middle f32 B={FHD_BATCH} N={FHD_POINTS} forward+backward, "
+        f"launches {launches} [{card}]")
+    del bev, dfeats, kernel_grads
+    torch.cuda.empty_cache()
+    return weights, batch, bev_batch, one_ms, one_peak
+
+
+def tp_rank(group, weights, batch, bev_batch, ref_path):
+    """One rank of phase 36, held to the one-process side in ``ref_path``:
+    (a) the TPConvStack step, (b) ``unet_seresnext101``'s sharded layers,
+    its float32 ranger update and its timed bf16 steps, (c) the FHD middle
+    pass. Rank 0 returns every rank's numbers."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from lyft3d_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = group.device
+    ref = torch.load(ref_path, map_location="cpu", weights_only=False)
+    out = {"rank": group.world_rank, "coords": (group.rank, group.model_rank)}
+
+    loss, params, grads = tp_stack_step(weights, batch, dev, group)
+    want_loss, want_p, want_g = ref["stack"]
+    # Adam's first step moves an element by lr·g/(|g| + eps), eps = 1e-8: for
+    # |g| > 100·eps a rounding δ of g moves it by at most lr·δ/(100·eps) = 10·δ;
+    # below, the step is not resolved (an element may step the other way), so
+    # the 1e-5 hold skips those and holds every element within 2·lr.
+    scale = max(float(g.abs().max()) for g in want_g.values())
+    resolved = {k: want_g[k].abs() > 1e-6 for k in want_g}
+    out["stack"] = dict(loss_err=abs(loss - want_loss) / abs(want_loss),
+                        grad_err=max(float((grads[k] - g).abs().max()) for k, g in want_g.items()) / scale,
+                        param_err=max(float(((params[k] - w) * resolved[k]).abs().max())
+                                      for k, w in want_p.items()),
+                        param_err_all=max(float((params[k] - w).abs().max()) for k, w in want_p.items()),
+                        unresolved=sum(int((~r).sum()) for r in resolved.values()))
+
+    cfg = tp_bev_config()
+    errs = tp_layer_errors(cfg, to_dev(mesh.shard_batch(group, bev_batch), dev)["image"], dev, group)
+    worst = max(errs, key=errs.get)
+    torch.cuda.empty_cache()
+    want_loss, start, want_p, want_g = ref["bev"]
+    with tempfile.TemporaryDirectory() as tmp:
+        loss, params, grads, agree = tp_bev_held(cfg, bev_batch, dev, tmp, group)
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        step_ms, peak_gb, per_step, gather_ms = tp_bev_timed(cfg, bev_batch, dev, tmp, group)
+        torch.backends.cudnn.allow_tf32 = False
+    out["bev"] = dict(layers=len(errs), layer_err=errs[worst], worst_layer=worst,
+                      loss_err=abs(loss - want_loss) / abs(want_loss),
+                      param_err=float((params - want_p).norm() / want_p.norm()),
+                      grad_err=float((grads - want_g).norm() / want_g.norm()),
+                      update_err=float(((params - start) - (want_p - start)).norm() / (want_p - start).norm()),
+                      agree=agree, step_ms=step_ms, peak_gb=peak_gb, gather_ms=gather_ms, **per_step)
+    del params, grads, ref["bev"]
+
+    bev, dfeats, kernel_grads, launches, sharded = tp_fhd_pass(dev, group)
+    want_bev, want_dfeats = (mesh.shard_batch(group, t) for t in ref["fhd"][:2])
+    want_kg = ref["fhd"][2]
+    out["fhd"] = dict(bev_err=rel_diff(bev, want_bev), dfeats_err=rel_diff(dfeats, want_dfeats),
+                      wgrad_err=max(rel_diff(g, w) for g, w in zip(kernel_grads, want_kg)),
+                      sharded=sharded, launches=launches)
+    every = [None] * (group.size * group.model_size)
+    dist.all_gather_object(every, out)
+    return every if group.world_rank == 0 else None
+
+
+def tensor_parallel_phase(dev, card):
+    """Phase 36. Returns the launches of B2, B2′, B3 and B3′ over the ranks'
+    FHD passes."""
+    import tempfile
+
+    import torch
+
+    from lyft3d_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cards = torch.cuda.device_count()
+    kw, where = tp_layout(cards)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "one_process.pt")
+        weights, batch, bev_batch, one_ms, one_peak = tp_references(dev, card, ref_path)
+        ranks = mesh.spawn(tp_rank, TP_DATA * TP_MODEL_PARALLEL, args=(weights, batch, bev_batch, ref_path),
+                           model_parallel=TP_MODEL_PARALLEL, **kw)
+    torch.backends.cudnn.allow_tf32 = True
+    what = f"tensor parallel ({where})"
+    launches = dict.fromkeys(("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad"), 0)
+    failed = []
+    for r in ranks:
+        a, b, c = r["stack"], r["bev"], r["fhd"]
+        at = f"rank {r['rank']} (data {r['coords'][0]}, model {r['coords'][1]})"
+        if not (a["loss_err"] <= 1e-5 and a["grad_err"] <= 1e-4 and a["param_err"] <= 1e-5
+                and a["param_err_all"] <= 2e-3):
+            failed.append(f"{at}: TPConvStack loss off by {a['loss_err']}, gradients by {a['grad_err']} of "
+                          f"their scale, parameters by {a['param_err']} ({a['param_err_all']} with the "
+                          f"{a['unresolved']} unresolved elements)")
+        if not b["layer_err"] <= 1e-5:
+            failed.append(f"{at}: sharded layer {b['worst_layer']} off by {b['layer_err']} of its scale")
+        if not b["loss_err"] <= 1e-5:
+            failed.append(f"{at}: {TP_BEV_MODEL} loss off by {b['loss_err']} (relative)")
+        if not (b["param_err"] <= GRAD_NORM_TOL and b["grad_err"] <= TP_GRAD_TOL
+                and b["update_err"] <= TP_UPDATE_TOL):
+            failed.append(f"{at}: parameters off by {b['param_err']}, gradients by {b['grad_err']}, the update "
+                          f"by {b['update_err']} (2-norm)")
+        if not b["agree"]:
+            failed.append(f"{at}: the weights differ across the data group after the step")
+        if not (c["bev_err"] <= 1e-5 and c["dfeats_err"] <= 1e-5 and c["wgrad_err"] <= WGRAD_TOL):
+            failed.append(f"{at}: FHD middle off: dense BEV {c['bev_err']}, feature gradient "
+                          f"{c['dfeats_err']}, kernel gradients {c['wgrad_err']}")
+        for k in launches:
+            if c["launches"][k] <= 0:
+                failed.append(f"{at}: the sharded FHD middle never launched {k}")
+            launches[k] += c["launches"][k]
+    r0 = ranks[0]
+    log(f"{what}: (a) TPConvStack (128, 128, 10; min_features=128) Adam 1e-3 B={2 * TP_DATA} 16x16x6: loss within "
+        f"{max(r['stack']['loss_err'] for r in ranks):.2g} of one process (tol 1e-5), gradients "
+        f"{max(r['stack']['grad_err'] for r in ranks):.2g} of their scale (tol 1e-4), parameters "
+        f"{max(r['stack']['param_err'] for r in ranks):.2g} (tol 1e-5) where the gradient is above 1e-6 "
+        f"(100 x Adam's eps), {max(r['stack']['param_err_all'] for r in ranks):.2g} with the "
+        f"{r0['stack']['unresolved']} elements below (tol 2e-3); (b) {TP_BEV_MODEL} min_features=256, "
+        f"{r0['bev']['layers']} sharded layers, each rank's gathered output within "
+        f"{max(r['bev']['layer_err'] for r in ranks):.2g} of the unsharded layer's scale (tol 1e-5), f32 ranger "
+        f"update (clip 5.0) B={2 * TP_DATA} {TP_HW}x{TP_HW}x6: loss within "
+        f"{max(r['bev']['loss_err'] for r in ranks):.2g} "
+        f"(tol 1e-5), parameters {max(r['bev']['param_err'] for r in ranks):.3g} (tol {GRAD_NORM_TOL}), gradients "
+        f"{max(r['bev']['grad_err'] for r in ranks):.3g} (tol {TP_GRAD_TOL}), the update itself "
+        f"{max(r['bev']['update_err'] for r in ranks):.3g} (tol {TP_UPDATE_TOL}) in the 2-norm, data ranks "
+        f"bit-equal; bf16 (f32 masters) "
+        f"step_ms {[round(r['bev']['step_ms'], 3) for r in ranks]} against {one_ms:.3f} in one process, "
+        f"peak_mem_gb {[round(r['bev']['peak_gb'], 2) for r in ranks]} against {one_peak:.2f}, a step "
+        f"{r0['bev']['all_gather']:.0f} all-gathers of {r0['bev']['all_gather_bytes'] / 1e6:.1f} MB in "
+        f"{[round(r['bev']['gather_ms'], 3) for r in ranks]} ms and {r0['bev']['all_reduce']:.0f} input-gradient "
+        f"all-reduces of {r0['bev']['all_reduce_bytes'] / 1e6:.1f} MB; (c) FHD unit middle f32 "
+        f"min_features={TP_FHD_MIN_FEATURES} ({r0['fhd']['sharded']} of 9 kernels sharded) B={FHD_BATCH}: dense "
+        f"BEV within {max(r['fhd']['bev_err'] for r in ranks):.2g}, feature gradient "
+        f"{max(r['fhd']['dfeats_err'] for r in ranks):.2g} (tol 1e-5), kernel gradients "
+        f"{max(r['fhd']['wgrad_err'] for r in ranks):.2g} (tol {WGRAD_TOL}); launches over the ranks {launches} "
+        f"[{card}]")
+    phase_json("tensor parallel", card, placement=where, cards_seen=cards, data=TP_DATA, model=TP_MODEL_PARALLEL,
+               one_process_step_ms=one_ms, one_process_peak_mem_gb=one_peak,
+               step_ms=[r["bev"]["step_ms"] for r in ranks], peak_mem_gb=[r["bev"]["peak_gb"] for r in ranks],
+               all_gather_ms=[r["bev"]["gather_ms"] for r in ranks],
+               all_gathers=r0["bev"]["all_gather"], all_gather_bytes=r0["bev"]["all_gather_bytes"],
+               all_reduces=r0["bev"]["all_reduce"], all_reduce_bytes=r0["bev"]["all_reduce_bytes"],
+               stack=[r["stack"] for r in ranks], bev={k: [r["bev"][k] for r in ranks] for k in
+                                                      ("layer_err", "loss_err", "param_err", "grad_err", "update_err")},
+               fhd=[{k: v for k, v in r["fhd"].items() if k != "launches"} for r in ranks], launches=launches)
+    if failed:
+        raise AssertionError(f"{what}: " + "; ".join(failed))
+    return launches
+
+
 def torch_equal(a, b):
     import torch
 
@@ -5247,6 +5703,11 @@ def main():
     launches += dp_launches["raster"]
     fill_launches += dp_launches["fill"]
 
+    # 36. tensor parallel: the model axis on 2 x 2 ranks (TPConvStack,
+    # unet_seresnext101, the FHD unit middle)
+    tp_launches = tensor_parallel_phase(dev, card)
+    fill_launches += tp_launches["dense_fill"]
+
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the five training runs."""
         return sum(c[kernel] for c in train_launches.values())
@@ -5266,9 +5727,10 @@ def main():
         # viewer's detect requests (one a request) and phase 35's point-sharded
         # raster (one a rank a call).
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
-        # Launched by six paths: pillars, sparse (2 a call), per-voxel (1 a
-        # call), VFE pillars, the FHD BatchNorm middle (2 a call) and phase 35's
-        # data-parallel pillars steps (every rank's).
+        # Launched by seven paths: pillars, sparse (2 a call), per-voxel (1 a
+        # call), VFE pillars, the FHD BatchNorm middle (2 a call), phase 35's
+        # data-parallel pillars steps (every rank's) and phase 36's sharded FHD
+        # middle (every rank's, in fill_launches).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"]
                + vfe_fill + fhd_batch["dense_fill"], fill_numbers),
@@ -5280,21 +5742,27 @@ def main():
         record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"], select["knn"]),
         record("roi_select", f"{sel}:127", prc_launches["roi_select"] + prc_train["roi_select"],
                select["roi_select"]),
-        # Launched by the unit middle with LayerNorm and with BatchNorm.
+        # Launched by the unit middle with LayerNorm and with BatchNorm, and by
+        # phase 36's sharded unit middle on every rank (on output-column slices).
         record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
-               sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"], stencil_record),
+               sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"] + tp_launches["stencil_conv"],
+               stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
                voxel_launches["subm_conv"], subm_record),
         # The backward sides, launched by the training paths (10 timed steps each
         # of pillars, unit middle, per-voxel middle, the bench-shaped step and
-        # VFE pillars; the fill's also by every rank of phase 35).
+        # VFE pillars; the fill's also by every rank of phase 35; the fill's and
+        # the stencil's also by every rank of phase 36's sharded FHD middle).
         record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153",
-               trained("dense_fill_bwd") + dp_launches["fill_bwd"], fill_bwd_record, source="dense_fill"),
+               trained("dense_fill_bwd") + dp_launches["fill_bwd"] + tp_launches["dense_fill_bwd"],
+               fill_bwd_record, source="dense_fill"),
         # d_src is the forward stencil kernel launched on the reverse queries,
         # as the JAX backward launches its Pallas kernel a second time.
-        record("stencil_dgrad", "lyft3d_tpu/ops/column_sparse.py:773", trained("stencil_dgrad"),
+        record("stencil_dgrad", "lyft3d_tpu/ops/column_sparse.py:773",
+               trained("stencil_dgrad") + tp_launches["stencil_dgrad"],
                stencil_bwd["dgrad"], source="stencil_conv"),
-        record("stencil_wgrad", "lyft3d_tpu/ops/column_sparse.py:777", trained("stencil_wgrad"),
+        record("stencil_wgrad", "lyft3d_tpu/ops/column_sparse.py:777",
+               trained("stencil_wgrad") + tp_launches["stencil_wgrad"],
                stencil_bwd["wgrad"], source="stencil_conv"),
         # df is the forward rank gather kernel launched on the reverse ranks,
         # as d_src is the forward stencil on the reverse queries.

@@ -46,6 +46,12 @@ BACKBONES = {
 }
 
 
+def register_backbone(name: str, fn) -> None:
+    """Make ``fn(**kwargs)`` the backbone ``name`` (a new family, or another
+    constructor for a name that exists)."""
+    BACKBONES[name] = fn
+
+
 def build_backbone(name: str, **kwargs):
     if name not in BACKBONES:
         raise KeyError(

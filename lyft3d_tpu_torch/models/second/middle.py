@@ -71,7 +71,13 @@ NORM_TYPES = ("layer", "batch", "folded")
 
 class _SparseConvBase(nn.Module):
     """A ``(27, Cin, Cout)`` kernel with its norm: LayerNorm ("layer"),
-    BatchNorm over the channels ("batch") or a bias ("folded")."""
+    BatchNorm over the channels ("batch") or a bias ("folded"). Each layer's
+    ``conv`` is its convolution alone, ``(…, C)`` rows in and ``(…, Cout)``
+    out (a strided layer's also its output activity), before ``norm_act``:
+    what ``parallel/tensor.py`` shards on ``Cout``, the kernel's dim
+    ``kernel_out_dim`` (flax's output axis)."""
+
+    kernel_out_dim = 2
 
     def __init__(self, in_features: int, features: int, norm_type: str, device=None, dtype=None):
         super().__init__()
@@ -110,13 +116,16 @@ class SubMConvLayer(_SparseConvBase):
     def __init__(self, in_features: int, features: int, device=None, dtype=None):
         super().__init__(in_features, features, "layer", device, dtype)
 
-    def forward(self, features, active: ActiveSet, hash_, neighbors=None):
-        if neighbors is None:
-            neighbors = subm_neighbors(active, hash_, kernel_offsets(3, features.device))
+    def conv(self, features, hash_, neighbors):
         # Ranks index the sorted order; their V axis is the active list's, so
         # the output needs no un-permute.
         f_sorted = take_rows(features, hash_[1]).to(self.kernel.dtype)
-        return self.norm_act(subm_conv(f_sorted, neighbors, self.kernel), active.valid)
+        return subm_conv(f_sorted, neighbors, self.kernel)
+
+    def forward(self, features, active: ActiveSet, hash_, neighbors=None):
+        if neighbors is None:
+            neighbors = subm_neighbors(active, hash_, kernel_offsets(3, features.device))
+        return self.norm_act(self.conv(features, hash_, neighbors), active.valid)
 
 
 class SparseConvLayer(_SparseConvBase):
@@ -131,11 +140,13 @@ class SparseConvLayer(_SparseConvBase):
         self.stride = tuple(stride)
         self.padding = tuple(padding)
 
+    def conv(self, features, active: ActiveSet, out_active: ActiveSet):
+        gathered = sparse_conv3d_gather(features, active, out_active, 3, self.stride, self.padding)
+        return torch.einsum("...kvc,kcd->...vd", gathered.to(self.kernel.dtype), self.kernel)
+
     def forward(self, features, active: ActiveSet):
         out_active = downsample_coords(active, self.max_out, 3, self.stride, self.padding)
-        gathered = sparse_conv3d_gather(features, active, out_active, 3, self.stride, self.padding)
-        out = torch.einsum("...kvc,kcd->...vd", gathered.to(self.kernel.dtype), self.kernel)
-        return self.norm_act(out, out_active.valid), out_active
+        return self.norm_act(self.conv(features, active, out_active), out_active.valid), out_active
 
 
 def sparse_to_dense_bev(features, active: ActiveSet):
@@ -197,9 +208,11 @@ class SubMUnitLayer(_SparseConvBase):
         super().__init__(in_features, features, norm_type, device, dtype)
         self.ncs = ncs
 
+    def conv(self, colf, cols: ColumnSet):
+        return subm_conv_units_batched(colf.to(self.kernel.dtype), cols, self.kernel, self.ncs)
+
     def forward(self, colf, cols: ColumnSet):
-        out = subm_conv_units_batched(colf.to(self.kernel.dtype), cols, self.kernel, self.ncs)
-        return self.norm_act(out, cols.mask)
+        return self.norm_act(self.conv(colf, cols), cols.mask)
 
 
 class StridedUnitLayer(_SparseConvBase):
@@ -212,11 +225,14 @@ class StridedUnitLayer(_SparseConvBase):
         self.ncs = ncs
         self.max_out = max_out
 
+    def conv(self, colf, cols: ColumnSet, out_cols: ColumnSet):
+        """``(out, output activity)``: the activity rides as one more channel
+        of the stencil pass, whatever slice of the kernel it runs on."""
+        return strided_conv_units_batched(colf.to(self.kernel.dtype), cols, out_cols, self.kernel, self.ncs)
+
     def forward(self, colf, cols: ColumnSet):
         out_cols = downsample_units(cols, self.ncs, self.max_out)
-        out, omask = strided_conv_units_batched(
-            colf.to(self.kernel.dtype), cols, out_cols, self.kernel, self.ncs
-        )
+        out, omask = self.conv(colf, cols, out_cols)
         out_cols = out_cols.replace(mask=omask)
         return self.norm_act(out, omask), out_cols
 

@@ -24,8 +24,9 @@ from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["ActiveSet", "kernel_offsets", "build_hash", "resolve_ids", "subm_neighbors",
-           "take_rows", "gather_by_rank", "downsample_coords", "sparse_conv3d_gather"]
+__all__ = ["ActiveSet", "kernel_offsets", "build_hash", "lookup", "resolve_ids", "subm_neighbors",
+           "take_rows", "gather_by_rank", "subm_conv3d_gather", "downsample_coords",
+           "sparse_conv3d_gather"]
 
 
 @dataclass(frozen=True)
@@ -72,6 +73,15 @@ def resolve_ids(sorted_ids, big: int, qids):
     return torch.where(hit, pos, -1).reshape(qids.shape)
 
 
+def lookup(sorted_ids, perm, big: int, query_coords, query_ok, spatial_shape):
+    """Row indices of ``query_coords (…, Q, 3)`` in the hashed active set
+    (:func:`build_hash`), −1 where absent, out of range or not
+    ``query_ok``."""
+    qids, _ = _flat_query_ids(query_coords, query_ok, spatial_shape)
+    rank = resolve_ids(sorted_ids, big, qids[..., None, :])[..., 0, :]
+    return torch.where(rank >= 0, torch.gather(perm, -1, rank.clamp(min=0)), -1)
+
+
 def kernel_offsets(kernel_size: int = 3, device=None):
     """``(K, 3)`` integer offsets centred at 0 (27 for 3³), x slowest."""
     r = range(-(kernel_size // 2), kernel_size // 2 + 1)
@@ -101,6 +111,12 @@ def gather_by_rank(features, perm, rank):
     rows = take_rows(f_sorted, rank.clamp(0, v - 1).reshape(*rank.shape[:-2], k * q))
     rows = rows.reshape(*rank.shape, features.shape[-1])
     return rows * (rank >= 0)[..., None].to(features.dtype)
+
+
+def subm_conv3d_gather(features, active: ActiveSet, hash_, offsets):
+    """``(…, K, V, C)`` neighbour rows of a submanifold conv over ``offsets``
+    (zeros where absent): ``out[v] = Σ_k rows[k, v] @ W[k]`` is the conv."""
+    return gather_by_rank(features, hash_[1], subm_neighbors(active, hash_, offsets))
 
 
 def downsample_coords(

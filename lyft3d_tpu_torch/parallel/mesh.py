@@ -1,5 +1,5 @@
-"""Data parallelism over the host's cards (port of
-``lyft3d_tpu/parallel/mesh.py``'s data axis).
+"""Data and tensor parallelism over the host's cards (port of
+``lyft3d_tpu/parallel/mesh.py``: its ``data`` and ``model`` axes).
 
 Under ``jax.jit`` over a batch sharded on the ``data`` axis, XLA computes the
 function of the global batch: every reduction over the batch spans all
@@ -27,10 +27,22 @@ statistics' gradients). Metrics are averaged over the ranks
 With one rank nothing spawns and no process group exists: the trainers pass
 ``group=None`` and run the single-process path.
 
+**The mesh.** :func:`make_mesh` describes a ``(data, model)`` layout of
+ranks as the JAX ``make_mesh`` lays its devices out: rank ``r`` sits at
+``divmod(r, M)``. ``spawn(..., model_parallel=M)`` gives each rank a
+:class:`DataGroup` whose ``size`` and ``rank`` are its data axis (D ranks,
+each with a shard of the batch) and whose ``model_size`` and ``model_rank``
+are its model axis, with a process group for each: the ranks with the same
+``m`` (the data group, over which everything above runs) and the ranks with
+the same ``d`` (the model group, which only
+:func:`~lyft3d_tpu_torch.parallel.tensor.tensor_parallel_params` uses). The
+model ranks of one data index hold the same shard of the batch. With
+``model_parallel=1`` the data group is the default process group and
+nothing differs from a data-parallel run.
+
 The JAX module's ``ensure_devices`` (which forces JAX's virtual CPU
 platform) and ``data_parallel_sharding`` (pjit's in/out shardings) have no
-meaning for ``torch.distributed`` and have no counterpart here;
-``tensor_parallel_params`` (the ``model`` axis) is not ported yet.
+meaning for ``torch.distributed`` and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -42,15 +54,20 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from lyft3d_tpu_torch.parallel.tensor import tensor_parallel_params
+
 __all__ = [
     "DataGroup",
+    "Mesh",
+    "make_mesh",
+    "make_data_mesh",
     "make_data_group",
     "shard_batch",
     "replicate",
@@ -64,20 +81,78 @@ __all__ = [
     "make_train_step_dp",
     "bev_rasterize_point_sharded",
     "spawn",
+    "tensor_parallel_params",
 ]
 
 
 @dataclass(frozen=True)
 class DataGroup:
-    """This process's place in a data-parallel run that :func:`spawn`
-    started: ``size`` ranks, this one ``rank``, its ``device`` and the
-    ``backend`` of the default process group, which every collective here
-    uses. Code given ``group=None`` runs alone, with no collective."""
+    """This process's place in a run that :func:`spawn` started: ``size``
+    data ranks, this one ``rank`` on the data axis, its ``device`` and the
+    ``backend`` of the process groups. ``data_group`` is the process group of
+    the data axis (``None``: the default group, as in a run without a model
+    axis), over which every collective of this module runs;
+    ``model_size``, ``model_rank`` and ``model_group`` are the model axis
+    (one rank and no group without one). Code given ``group=None`` runs
+    alone, with no collective."""
 
     size: int
     rank: int
     device: torch.device
     backend: str
+    model_size: int = 1
+    model_rank: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def world_rank(self) -> int:
+        """The rank in the default process group: ``rank · model_size + model_rank``."""
+        return self.rank * self.model_size + self.model_rank
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A ``(data, model)`` layout of ranks: ``devices[d, m]`` is the rank at
+    data index ``d`` and model index ``m``, row-major as the JAX ``make_mesh``
+    reshapes its device list."""
+
+    devices: np.ndarray
+    axis_names = ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def _ranks_available(n_devices: Optional[int], device, what: str) -> int:
+    """``n_devices``, or every card on ``device="cuda"`` (one rank on the
+    CPU); more ranks than cards raise."""
+    if torch.device(device).type != "cuda":
+        return n_devices or 1
+    cards = torch.cuda.device_count()
+    avail = n_devices or cards
+    if avail < 1:
+        raise RuntimeError(f"{what}: no CUDA device found")
+    if avail > cards:
+        raise ValueError(f"{what}: {avail} ranks asked for, {cards} cards found")
+    return avail
+
+
+def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1, device="cuda") -> Mesh:
+    """The ``(data, model)`` layout of ``n_devices`` ranks (every card on
+    ``device="cuda"`` where not given, one rank on the CPU):
+    ``shape == {"data": n // model_parallel, "model": model_parallel}``."""
+    n = _ranks_available(n_devices, device, "make_mesh")
+    if n % model_parallel:
+        raise ValueError(f"make_mesh: {n} ranks do not split into model groups of {model_parallel}")
+    return Mesh(np.arange(n).reshape(n // model_parallel, model_parallel))
+
+
+def make_data_mesh(batch_size: int, n_devices: Optional[int] = None, device="cuda") -> Mesh:
+    """The largest data-only mesh whose size divides ``batch_size``
+    (:func:`make_data_group`'s rank count)."""
+    return make_mesh(make_data_group(batch_size, n_devices, device), device=device)
 
 
 def make_data_group(batch_size: int, n_devices: Optional[int] = None, device="cuda") -> int:
@@ -86,16 +161,7 @@ def make_data_group(batch_size: int, n_devices: Optional[int] = None, device="cu
     shard is uneven). ``n_devices=None`` means every card on ``device="cuda"``
     and one rank on the CPU; on the CPU a larger ``n_devices`` runs that many
     gloo ranks."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        cards = torch.cuda.device_count()
-        avail = n_devices or cards
-        if avail < 1:
-            raise RuntimeError("make_data_group: no CUDA device found")
-        if avail > cards:
-            raise ValueError(f"make_data_group: {avail} ranks asked for, {cards} cards found")
-    else:
-        avail = n_devices or 1
+    avail = _ranks_available(n_devices, device, "make_data_group")
     return max(d for d in range(1, avail + 1) if batch_size % d == 0)
 
 
@@ -130,12 +196,12 @@ def _collective_tensors(module_or_tensors) -> List[torch.Tensor]:
 
 @torch.no_grad()
 def replicate(group: Optional[DataGroup], module_or_tensors):
-    """Rank 0's values into every rank, in place: the parameters and buffers
-    of a module, or each tensor of a tensor, list, tuple or dict (nested).
-    Returns its argument."""
+    """Data rank 0's values into every rank of the data group, in place: the
+    parameters and buffers of a module, or each tensor of a tensor, list,
+    tuple or dict (nested). Returns its argument."""
     if group is not None:
         for t in _collective_tensors(module_or_tensors):
-            dist.broadcast(t.data, src=0)
+            dist.broadcast(t.data, src=group.model_rank, group=group.data_group)
     return module_or_tensors
 
 
@@ -151,15 +217,15 @@ def barrier(group: Optional[DataGroup]) -> None:
 
 @torch.no_grad()
 def ranks_agree(group: Optional[DataGroup], module_or_tensors) -> bool:
-    """Whether every rank holds rank 0's values, bit for bit, in each tensor
-    (or the parameters and buffers of a module); the same answer on every
-    rank."""
+    """Whether every rank of the data group holds data rank 0's values, bit
+    for bit, in each tensor (or the parameters and buffers of a module); the
+    same answer on every rank of the run."""
     if group is None:
         return True
     same = True
     for t in _collective_tensors(module_or_tensors):
         ref = t.detach().clone()
-        dist.broadcast(ref, src=0)
+        dist.broadcast(ref, src=group.model_rank, group=group.data_group)
         same = same and torch.equal(ref, t.detach())
     flag = torch.tensor([float(same)], device=group.device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
@@ -167,32 +233,36 @@ def ranks_agree(group: Optional[DataGroup], module_or_tensors) -> bool:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks; its backward sums the ranks' cotangents, so
-    each rank's gradient is that of the sum of every rank's loss."""
+    """The sum over a process group; its backward sums the ranks'
+    cotangents, so each rank's gradient is that of the sum of every rank's
+    loss."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, process_group):
+        ctx.process_group = process_group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=process_group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.process_group)
+        return grad, None
 
 
 def all_reduce_sum(group: Optional[DataGroup], x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks (``x`` itself without a group),
+    """``x`` summed over the data group (``x`` itself without a group),
     differentiable: the backward all-reduces the gradient."""
-    return x if group is None else _AllReduceSum.apply(x)
+    return x if group is None else _AllReduceSum.apply(x, group.data_group)
 
 
 @torch.no_grad()
 def all_reduce_gradients(group: Optional[DataGroup], params: Sequence[torch.Tensor]) -> int:
-    """Average the float32 ``.grad`` of ``params`` over the ranks, in one flat
-    bucket (summed, then divided by the rank count). A parameter without a
+    """Average the float32 ``.grad`` of ``params`` over the data group, in one
+    flat bucket (summed, then divided by the rank count): a replicated
+    parameter's gradient and a tensor-parallel slice's alike, since the
+    slices of one model rank meet only the same slices. A parameter without a
     gradient on some rank counts zeros there; one that no rank gave a
     gradient keeps ``None``, as a single-process step leaves it. Returns the
     bucket's bytes (0 without a group)."""
@@ -206,7 +276,7 @@ def all_reduce_gradients(group: Optional[DataGroup], params: Sequence[torch.Tens
              else torch.zeros(p.numel(), dtype=torch.float32, device=group.device) for p in params]
     present = torch.tensor([p.grad is not None for p in params], dtype=torch.float32, device=group.device)
     bucket = torch.cat(parts + [present])
-    dist.all_reduce(bucket)
+    dist.all_reduce(bucket, group=group.data_group)
     n = bucket.numel() - len(params)
     bucket[:n].div_(group.size)
     views = bucket[:n].split([p.numel() for p in params])
@@ -221,14 +291,14 @@ def all_reduce_gradients(group: Optional[DataGroup], params: Sequence[torch.Tens
 
 @torch.no_grad()
 def average_metrics(group: Optional[DataGroup], metrics: Dict) -> Dict:
-    """Each scalar metric averaged over the ranks, as float32 tensors (in one
-    all-reduce); ``metrics`` itself without a group."""
+    """Each scalar metric averaged over the data group, as float32 tensors
+    (in one all-reduce); ``metrics`` itself without a group."""
     if group is None or not metrics:
         return metrics
     keys = list(metrics)
     vals = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32).to(group.device).reshape(())
                         for k in keys])
-    dist.all_reduce(vals)
+    dist.all_reduce(vals, group=group.data_group)
     vals /= group.size
     return dict(zip(keys, vals.unbind()))
 
@@ -260,11 +330,16 @@ def make_train_step_dp(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                        group: Optional[DataGroup]) -> Callable:
     """``step(batch) -> loss``: ``loss_fn(batch)`` on this rank's shard of the
     global batch, backward, the gradients of the optimizer's (float32)
-    parameters averaged over the ranks, ``optimizer.step()``. The loss comes
-    back detached, averaged over the ranks: the global loss where
+    parameters averaged over the data group, ``optimizer.step()``. The loss
+    comes back detached, averaged over the data group: the global loss where
     ``loss_fn`` is a mean over the batch. The counterpart of the JAX
     ``make_train_step_dp`` (the reference's ``DataParallel``), which takes the
-    global batch and shards it; here each rank holds its shard."""
+    global batch and shards it; here each rank holds its shard. Under a
+    model axis the module's wide layers are sharded by
+    :func:`~lyft3d_tpu_torch.parallel.tensor.tensor_parallel_params` and
+    ``optimizer`` works on the slices; the global-norm clip of a
+    :class:`~lyft3d_tpu_torch.train.optim.ChainOptimizer` sees the whole
+    model's norm."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch):
@@ -299,11 +374,34 @@ def bev_rasterize_point_sharded(group: Optional[DataGroup], points, valid, **ras
         points, valid = points[..., take, :].contiguous(), valid[..., take].contiguous()
     counts = bev_rasterize(points, valid, **raster_kw)
     if group is not None:
-        dist.all_reduce(counts)
+        dist.all_reduce(counts, group=group.data_group)
     return counts
 
 
-def _rank_main(rank: int, payload: bytes, size: int, backend: str, device: str, workdir: str) -> None:
+def _mesh_groups(rank: int, size: int, model_parallel: int, backend: str, device: torch.device):
+    """This rank's :class:`DataGroup`. Every rank creates every subgroup, in
+    the same order (data groups, then model groups), as ``new_group``
+    requires."""
+    m_size = model_parallel
+    d_size = size // m_size
+    data_group = model_group = None
+    if m_size > 1:
+        grid = make_mesh(size, m_size, device="cpu").devices
+        for m in range(m_size):
+            g = dist.new_group(grid[:, m].tolist())
+            if rank % m_size == m:
+                data_group = g
+        for d in range(d_size):
+            g = dist.new_group(grid[d].tolist())
+            if rank // m_size == d:
+                model_group = g
+    return DataGroup(size=d_size, rank=rank // m_size, device=device, backend=backend,
+                     model_size=m_size, model_rank=rank % m_size, data_group=data_group,
+                     model_group=model_group)
+
+
+def _rank_main(rank: int, payload: bytes, size: int, backend: str, device: str, workdir: str,
+               model_parallel: int = 1) -> None:
     fn, args = pickle.loads(payload)
 
     dev = torch.device(device)
@@ -316,7 +414,7 @@ def _rank_main(rank: int, payload: bytes, size: int, backend: str, device: str, 
     dist.init_process_group(backend, init_method="file://" + os.path.join(workdir, "rendezvous"),
                             world_size=size, rank=rank)
     try:
-        out = fn(DataGroup(size=size, rank=rank, device=dev, backend=backend), *args)
+        out = fn(_mesh_groups(rank, size, model_parallel, backend, dev), *args)
         if rank == 0:
             torch.save(out, os.path.join(workdir, "result.pt"))
     except BaseException:
@@ -344,9 +442,12 @@ def _first_failure(workdir: str, size: int) -> str:
 
 
 def spawn(fn: Callable, n_devices: int, args: Iterable = (), backend: Optional[str] = None,
-          device="cuda"):
+          device="cuda", model_parallel: int = 1):
     """Run ``fn(group, *args)`` on ``n_devices`` ranks, one process each
     (``torch.multiprocessing``'s spawn), and return rank 0's result.
+    ``model_parallel=M`` lays the ranks out as ``make_mesh(n_devices, M)``:
+    ``group`` carries the rank's data and model groups (see the module
+    docstring).
 
     ``device="cuda"`` puts rank ``r`` on card ``r`` (``torch.cuda.set_device``)
     with NCCL; a card named by index (``"cuda:0"``) takes every rank, which
@@ -359,6 +460,7 @@ def spawn(fn: Callable, n_devices: int, args: Iterable = (), backend: Optional[s
     are stopped and this raises ``RuntimeError`` with its traceback."""
     import torch.multiprocessing as mp
 
+    make_mesh(n_devices, model_parallel, device="cpu")  # refuses an uneven model axis
     dev = torch.device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
@@ -376,7 +478,7 @@ def spawn(fn: Callable, n_devices: int, args: Iterable = (), backend: Optional[s
             # Plain pickle: torch.multiprocessing would hand every rank the
             # same shared memory for a CPU tensor, and each would train it.
             payload = pickle.dumps((fn, tuple(args)))
-            mp.start_processes(_rank_main, args=(payload, n_devices, backend, str(dev), workdir),
+            mp.start_processes(_rank_main, args=(payload, n_devices, backend, str(dev), workdir, model_parallel),
                                nprocs=n_devices, join=True, start_method="spawn")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             cause = _first_failure(workdir, n_devices) or f"rank {e.error_index} of {n_devices}: {e}"
@@ -384,3 +486,4 @@ def spawn(fn: Callable, n_devices: int, args: Iterable = (), backend: Optional[s
         return torch.load(os.path.join(workdir, "result.pt"), weights_only=False)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+

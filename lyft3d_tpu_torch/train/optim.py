@@ -23,6 +23,9 @@ import math
 from typing import Callable, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
+
+from lyft3d_tpu_torch.parallel.tensor import shard_of
 
 __all__ = [
     "ChainOptimizer",
@@ -110,12 +113,26 @@ def cosine_warm_restarts(lr_max: float, period: int, t_mult: int = 1, cycles: in
 # ------------------------------------------------------------------ optimizer
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(Σ ‖t‖²)`` in float32 over a sequence of tensors."""
-    tensors = [t for t in tensors if t is not None]
-    if not tensors:
+def global_norm(tensors, params=None) -> torch.Tensor:
+    """``sqrt(Σ ‖t‖²)`` in float32 over a sequence of tensors. ``params``:
+    the parameters the tensors belong to (as gradients or updates), in the
+    same order. Where one is a slice of a tensor-parallel weight
+    (:func:`~lyft3d_tpu_torch.parallel.tensor.tensor_parallel_params`), the
+    slices' squares are summed over the model group, so that every rank gets
+    the whole model's norm; a replicated tensor counts once."""
+    params = [None] * len(tensors) if params is None else list(params)
+    pairs = [(t, shard_of(p)) for t, p in zip(tensors, params) if t is not None]
+    if not pairs:
         return torch.zeros(())
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    sharded = [(t, s) for t, s in pairs if s is not None]
+    if not sharded:
+        return torch.sqrt(sum((t.float() * t.float()).sum() for t, _ in pairs))
+    whole = sum((t.float() * t.float()).sum() for t, s in sharded)
+    dist.all_reduce(whole, group=sharded[0][1].group.model_group)
+    for t, s in pairs:
+        if s is None:
+            whole = whole + (t.float() * t.float()).sum()
+    return torch.sqrt(whole)
 
 
 def _value(x: ScalarOrSchedule, step: int) -> float:
@@ -206,7 +223,7 @@ class ChainOptimizer(torch.optim.Optimizer):
                 self._slot(p, "acc").zero_()
 
         if self.clip_norm:
-            norm = global_norm(grads)
+            norm = global_norm(grads, params)
             if not bool(norm < self.clip_norm):
                 grads = [(g / norm.to(g.dtype)) * self.clip_norm for g in grads]
 

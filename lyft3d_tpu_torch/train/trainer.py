@@ -26,6 +26,18 @@ batch and returns a loss whose mean over the ranks is the global one (see
 ``parallel/mesh.py``). Every rank reads the checkpoint to resume and then
 takes rank 0's weights; only rank 0 logs, evaluates and writes checkpoints,
 and the ranks wait for it after each.
+
+**Tensor parallel.** Under a model axis (a module sharded by
+:func:`~lyft3d_tpu_torch.parallel.tensor.tensor_parallel_params`), the
+masters are slices as their parameters are, and a checkpoint holds the
+whole model as one process would: the model ranks of data rank 0 gather
+the slices of the module, the masters and the optimizer's slots, world rank
+0 writes them, and every rank takes its own slice back on resume, so that a
+checkpoint resumes with or without a model axis. Those model ranks also
+evaluate together (the sharded layers' gathers run over their model group)
+and take model rank 0's loss to decide on the best checkpoint. An interrupt
+under a model axis writes no checkpoint: the gather needs every model rank,
+and one may be gone.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lyft3d_tpu_torch.parallel.mesh import (
@@ -46,6 +59,7 @@ from lyft3d_tpu_torch.parallel.mesh import (
     replicate,
     sync_batch_norms,
 )
+from lyft3d_tpu_torch.parallel import tensor as tp
 from lyft3d_tpu_torch.train import checkpoint as ckpt
 from lyft3d_tpu_torch.train.logging import MetricLog
 from lyft3d_tpu_torch.train.optim import global_norm
@@ -63,10 +77,11 @@ class TrainState:
         named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
         self.params: List[nn.Parameter] = [p for _, p in named]
         self.masters: List[nn.Parameter] = [
-            nn.Parameter(p.detach().float()) if n in own else p for n, p in named
+            tp.carry_shard(nn.Parameter(p.detach().float()), p) if n in own else p for n, p in named
         ]
         self.optimizer = optimizer_fn(self.masters)
         self.step = 0
+        self.sharded = any(tp.shard_of(m) is not None for m in self.masters)
 
     @staticmethod
     def master_names(module: nn.Module, dtypes: Optional[Dict[str, torch.dtype]] = None) -> List[str]:
@@ -103,22 +118,30 @@ class TrainState:
                 p.copy_(m)
 
     def state_dict(self):
+        """The snapshot; of the whole model where the state is sharded (a
+        collective: every rank of the model group calls it)."""
+        own = [m for p, m in zip(self.params, self.masters) if m is not p]
+        if not self.sharded:
+            return {"model": self.module.state_dict(), "masters": [m.detach() for m in own],
+                    "optimizer": self.optimizer.state_dict(), "step": int(self.step)}
         return {
-            "model": self.module.state_dict(),
-            "masters": [m.detach() for p, m in zip(self.params, self.masters) if m is not p],
-            "optimizer": self.optimizer.state_dict(),
+            "model": tp.gather_tensor_parallel_state(self.module),
+            "masters": [tp.unshard(m.detach(), m).contiguous().clone() for m in own],
+            "optimizer": tp.gather_optimizer_state(self.optimizer),
             "step": int(self.step),
         }
 
     def load_state_dict(self, sd):
-        self.module.load_state_dict(sd["model"])
+        """Load a snapshot of the whole model, each sharded tensor's slice where
+        the state is sharded."""
         own = [m for p, m in zip(self.params, self.masters) if m is not p]
         if len(own) != len(sd["masters"]):
             raise ValueError(f"checkpoint holds {len(sd['masters'])} master parameters, the state {len(own)}")
+        self.module.load_state_dict(tp.slice_tensor_parallel_state(self.module, sd["model"]))
         with torch.no_grad():
             for m, saved in zip(own, sd["masters"]):
-                m.copy_(saved)
-        self.optimizer.load_state_dict(sd["optimizer"])
+                m.copy_(tp.local_slice(saved, m))
+        self.optimizer.load_state_dict(tp.slice_optimizer_state(self.optimizer, sd["optimizer"]))
         self.step = int(sd["step"])
 
 
@@ -159,7 +182,9 @@ class Trainer:
         self.cfg = config
         self.eval_fn = eval_fn
         self.group = group
-        self.lead = group is None or group.rank == 0
+        self.lead = group is None or group.world_rank == 0
+        # The model ranks of data rank 0: they evaluate and gather what the lead writes.
+        self.writer = group is None or group.rank == 0
         self.log = MetricLog(config.model_dir, use_tensorboard=config.use_tensorboard) if self.lead else _Silent()
         self.best_val = float("inf")
 
@@ -177,7 +202,7 @@ class Trainer:
         state.push_grads()
         all_reduce_gradients(self.group, state.masters)
         metrics = average_metrics(self.group, metrics)
-        metrics["grad_norm"] = global_norm([m.grad for m in state.masters])
+        metrics["grad_norm"] = global_norm([m.grad for m in state.masters], state.masters)
         state.optimizer.step()
         state.pull_params()
         state.step += 1
@@ -193,11 +218,21 @@ class Trainer:
         return state
 
     def _save(self, state: TrainState, name: str, max_to_keep: int, wait: bool = True):
-        if self.lead:
-            ckpt.save(self.cfg.model_dir, state, name=name, global_step=int(state.step),
-                      max_to_keep=max_to_keep)
+        if self.writer:
+            sd = state.state_dict()
+            if self.lead:
+                ckpt.save(self.cfg.model_dir, sd, name=name, global_step=int(state.step),
+                          max_to_keep=max_to_keep)
         if wait:
             barrier(self.group)
+
+    def _model_rank_0(self, x: float) -> float:
+        """Model rank 0's ``x`` on every rank of this model group."""
+        if self.group is None or self.group.model_size == 1:
+            return x
+        t = torch.tensor([x], dtype=torch.float64, device=self.group.device)
+        dist.broadcast(t, src=self.group.rank * self.group.model_size, group=self.group.model_group)
+        return float(t.item())
 
     def fit(self, state: TrainState, batches: Iterable, generator=None) -> TrainState:
         """Run the step loop over ``batches`` (a host iterator of batches the
@@ -219,10 +254,10 @@ class Trainer:
                     t0, window = time.time(), []
                     self.log.log_metrics({"train": m}, step)
                 if cfg.eval_every and step % cfg.eval_every == 0 and self.eval_fn:
-                    if self.lead:
+                    if self.writer:
                         val = self.eval_fn(state)
                         self.log.log_metrics({"eval": val}, step)
-                        vloss = float(val.get("loss", np.inf))
+                        vloss = self._model_rank_0(float(val.get("loss", np.inf)))
                         if vloss < self.best_val:
                             self.best_val = vloss
                             self._save(state, "best", 2, wait=False)
@@ -231,7 +266,10 @@ class Trainer:
                     self._save(state, cfg.ckpt_name, cfg.max_to_keep)
         except (KeyboardInterrupt, Exception):
             # Checkpoint on failure, then re-raise (no wait: another rank
-            # may be gone).
+            # may be gone; so no gather of slices either).
+            if state.sharded:
+                self.log.log_text(f"interrupted at step {int(state.step)}; no checkpoint under a model axis")
+                raise
             self._save(state, cfg.ckpt_name, cfg.max_to_keep, wait=False)
             self.log.log_text(f"interrupted at step {int(state.step)}; checkpoint saved")
             raise

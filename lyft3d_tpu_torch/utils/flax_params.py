@@ -28,7 +28,7 @@ leaf. It raises on a torch tensor the mapping does not name.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +66,7 @@ from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet, Voxel
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
 from lyft3d_tpu_torch.models.unet import LyftUNet, ReferenceUNet
 
-__all__ = ["load_flax_params", "export_flax_params"]
+__all__ = ["load_flax_params", "export_flax_params", "flax_leaves"]
 
 Path = Tuple[str, ...]
 
@@ -534,16 +534,25 @@ class _Recorder:
         return _Ref(collection, path)
 
 
-@torch.no_grad()
-def export_flax_params(module: nn.Module):
-    """The flax variables of ``module``: ``{"params": …}`` (and
-    ``"batch_stats"`` where the module has running statistics) as nested
-    dicts of float32 numpy arrays in flax's layouts and names."""
+def flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, Path, Optional[tuple]]]:
+    """Each torch tensor name of ``module`` the mapping names → ``(collection,
+    flax path, permutation)`` of its flax leaf: the torch tensor is the flax
+    leaf transposed by the permutation (``None``: as it is). Needs only the
+    module's structure (a ``meta`` module will do)."""
     mapper = _MAPPERS.get(type(module))
     if mapper is None:
         raise TypeError(f"no flax mapping for {type(module).__name__}")
     refs: Dict[str, _Ref] = {}
     mapper(module, _Recorder(), (), "", refs)
+    return {k: (r.collection, r.path, r.perm) for k, r in refs.items()}
+
+
+@torch.no_grad()
+def export_flax_params(module: nn.Module):
+    """The flax variables of ``module``: ``{"params": …}`` (and
+    ``"batch_stats"`` where the module has running statistics) as nested
+    dicts of float32 numpy arrays in flax's layouts and names."""
+    refs = {k: _Ref(*leaf) for k, leaf in flax_leaves(module).items()}
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
     unmapped = sorted(

@@ -60,7 +60,7 @@ for new in ("config", "data.augment", "data.prefetch", "train.losses", "train.op
             "models.backbones.efficientnet", "models.backbones.dpn", "models.backbones.wide_resnet",
             "models.backbones.xception", "serve.viewer", "serve.frontend", "native.bindings",
             "data.synthetic", "utils.visualize", "utils.progress", "utils.torch_import", "parallel",
-            "parallel.mesh"):
+            "parallel.mesh", "parallel.tensor"):
     assert "lyft3d_tpu_torch." + new in names, new
 print("ok", len(names))
 """
