@@ -8,7 +8,8 @@ VFE pillars and both sparse middles), BEV training (UNets and DeepLabV3+),
 PointRCNN training, and the serving path: the viewer's HTTP server answering
 ``/api/detect`` requests with ``unet_resnet50`` on the card, one raster
 kernel launch a request, beside the native host runtime; then training over
-ranks, data-parallel (phase 35) and tensor-parallel (phase 36).
+ranks, data-parallel (phase 35) and tensor-parallel (phase 36), and the
+learning demos, each family trained until its loss falls (phase 37).
 
     python3 chip_smoke.py
 
@@ -361,6 +362,24 @@ Phases, one line of numbers each:
     on every rank. Those launches join B2's, B2'\'s, B3's and B3'\'s in the
     ``kernels`` line.
 
+37. learning: the learning demos' code (``tools/demo_*_e2e.py``) at
+    :data:`LEARN_STEPS` steps on one card, on a Lyft tree
+    (:func:`learning_tree`: :func:`serve_tree` with a share of each sweep
+    moved into its boxes, no map raster) and a KITTI tree
+    (:func:`kitti_training_tree`) written with numpy alone, and BEV samples
+    rasterised here and quantised to uint8 as the PNGs store them:
+    ``train_bev`` itself on the BEV card route's dataset (``unet_resnet34``,
+    batch 4, bfloat16 with float32 masters), ``train_second`` itself for pillars and the unit sparse
+    middle, ``train_pointrcnn_rpn`` and ``train_rcnn_online``, each then its
+    family's inference and mAP (printed, not held). Held: the mean loss of
+    the last five steps below that of the first five by
+    :data:`LEARN_MARGIN` (for the online RCNN the median of five steps),
+    ``experiment.yaml`` and checkpoints written
+    (BEV, SECOND), and every kernel of each path launched (B1 in BEV
+    inference; B2, B2' in pillars; B2, B2', B3, B3' in the unit middle; B5,
+    B6, B7 in the RPN steps; B5, B6, B8 in the RCNN steps; all four in the
+    joint net), those launches joining the ``kernels`` line.
+
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
 version's, its bound and, where one PyTorch call computes the same function,
@@ -370,6 +389,7 @@ non-zero without printing them.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -5210,6 +5230,241 @@ def tensor_parallel_phase(dev, card):
     return launches
 
 
+# Phase 37: the learning demos (tools/demo_{bev,second,pointrcnn}_e2e.py) at a
+# few dozen steps on inputs built here with numpy alone.
+LEARN_STEPS = 30
+LEARN_SCENES, LEARN_SAMPLES, LEARN_BOXES = 2, 4, 6  # 8 samples, car boxes
+LEARN_POINTS = 16384
+LEARN_INSIDE = 0.3  # the share of a sweep's points inside its boxes
+# The least fall of the mean loss of the last five steps below that of the
+# first five, a family (1 - last / first): about half of what a float32 CPU
+# rehearsal of this phase fell (0.61, 0.995, 0.98, 0.36; the RCNN's medians
+# ~1.0), well above what a rehearsal with the optimizer step removed fell.
+# The online RCNN's loss is ~0 on a step whose RoIs are all background and
+# 10-100 times its mean on a step that draws a foreground RoI, so its five
+# steps are summed up by their median, which one or two such steps leave.
+LEARN_MARGIN = {"bev": 0.3, "second": 0.5, "second_sparse": 0.5, "pointrcnn_rpn": 0.15,
+                "pointrcnn_rcnn": 0.5}
+
+
+def learning_tree(root, seed):
+    """:func:`serve_tree`'s Lyft tree (:data:`LEARN_SCENES` x
+    :data:`LEARN_SAMPLES` samples, :data:`LEARN_BOXES` car boxes a sample,
+    no map raster) with :data:`LEARN_INSIDE` of each sweep's points moved
+    into the sample's boxes (uniform within 95% of each extent), so that the
+    boxes can be learned. Returns the port's ``LyftDB`` of it."""
+    from pathlib import Path
+
+    from lyft3d_tpu_torch.data.lyftdb import LyftDB
+
+    root = Path(root)
+    serve_tree(root, LEARN_SCENES, LEARN_SAMPLES, LEARN_POINTS, LEARN_BOXES, seed)
+    db = LyftDB(root, root / "data")
+    rng = np.random.RandomState(seed)
+    held = int(LEARN_INSIDE * LEARN_POINTS)
+    for sd in db.sample_data:
+        path = db.get_sample_data_path(sd["token"])
+        sweep = np.fromfile(path, np.float32).reshape(LEARN_POINTS, 5)
+        boxes = db.get_boxes_in_sensor_frame(sd["token"])
+        which = rng.randint(0, len(boxes), held)
+        local = (rng.rand(held, 3) - 0.5) * 0.95
+        for i, box in enumerate(boxes):
+            at = which == i
+            w, l, h = box.wlh
+            pts = local[at] * np.array([l, w, h])
+            sweep[:held][at, :3] = pts @ box.rotation_matrix.T + box.center
+        sweep.tofile(path)
+    return db
+
+
+def learning_bev_arrays(db, cfg, dev):
+    """The BEV card form of ``db`` built here: each sample's lidar raster
+    (:func:`numpy_bev_raster`) quantised to uint8 as the PNG stores it, its
+    targets filled by ``rasterize_boxes_bev`` on the card, the map zeros.
+    Returns ``(arrays, tokens, maps)`` as ``demo_bev_e2e.load_arrays``."""
+    import torch
+
+    from lyft3d_tpu_torch.data.bev_dataset import numpy_bev_raster
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVSampleGenerator
+    from lyft3d_tpu_torch.ops.bev_raster import rasterize_boxes_bev
+
+    gen = BEVSampleGenerator(db, cfg)
+    tokens = sorted(s["token"] for s in db.sample)
+    inputs, targets = [], []
+    for tok in tokens:
+        pts = gen.points_in_car_frame(tok)
+        inputs.append((numpy_bev_raster(pts[pts[:, 3] >= 0], cfg) * 255).astype(np.uint8))
+        corners, classes, valid = (torch.from_numpy(a).to(dev) for a in gen.box_corners_px(tok))
+        targets.append(rasterize_boxes_bev(corners, classes, valid, cfg.shape[:2]).cpu().numpy().astype(np.uint8))
+    arrays = {"input": np.stack(inputs), "map": np.zeros_like(np.stack(inputs)), "target": np.stack(targets)}
+    return arrays, tokens, {tok: gen.map_channel(tok) for tok in tokens}
+
+
+def logged_losses(model_dir):
+    """The ``train.loss`` of every step a ``Trainer`` logged in ``model_dir``."""
+    from pathlib import Path
+
+    rows = [json.loads(line) for line in (Path(model_dir) / "log.json.lst").read_text().splitlines() if line]
+    return [r["train.loss"] for r in rows if "train.loss" in r]
+
+
+def loss_fall(losses, stat=np.mean):
+    """``(first, last, fall)``: ``stat`` (the mean) of the loss of the first
+    and of the last five steps and ``1 - last / first``."""
+    first, last = float(stat(losses[:5])), float(stat(losses[-5:]))
+    return first, last, 1.0 - last / first
+
+
+def learn_counts(reset=False):
+    """Every launch count of the learning demos' paths (B1, the training
+    path's eight and the four PointNet++ kernels); ``reset`` zeroes them."""
+    from lyft3d_tpu_torch.ops import bev_raster
+
+    if reset:
+        bev_raster.KERNEL_LAUNCHES = 0
+        prc_reset()
+    return {"bev_raster": bev_raster.KERNEL_LAUNCHES, **train_counts(reset), **prc_counts()}
+
+
+def counted(what, fn, expect, counts):
+    """Runs ``fn`` with every count set to 0 just before and read just
+    after; fails unless each kernel of ``expect`` launched. Adds the counts
+    to ``counts`` and returns ``(fn's result, the run's counts, host s)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    learn_counts(reset=True)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    run = learn_counts()
+    missing = [k for k in expect if run[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: no launch of {missing} ({run})")
+    for k, v in run.items():
+        counts[k] = counts.get(k, 0) + v
+    return out, {k: v for k, v in run.items() if v}, seconds
+
+
+def learning_phase(dev, card):
+    """Phase 37: each learning demo's code at :data:`LEARN_STEPS` steps on
+    one card, on inputs built here with numpy and ``json`` alone: the BEV
+    card route, ``train_bev`` itself on ``demo_bev_e2e.BEVArrayDataset``
+    (``unet_resnet34``, batch 4, bfloat16 with float32 masters), then its
+    inference and mAP;
+    ``train_second`` itself through ``demo_second_e2e.run``, pillars and the
+    unit sparse middle, each then ``evaluate_second`` and the mAP;
+    ``train_pointrcnn_rpn``, ``train_rcnn_online`` and the joint net a frame
+    at a time through ``demo_pointrcnn_e2e.run`` on :func:`kitti_training_tree`.
+    Held: each family's loss falls by :data:`LEARN_MARGIN` (the online
+    RCNN's by the median of five steps); ``experiment.yaml``
+    and checkpoints are written (BEV, SECOND); every kernel of each path
+    launches (B1 in BEV inference; B2, B2' in pillars; B2, B2', B3, B3' in
+    the unit middle; B5, B6, B7 in the RPN steps, B5, B6, B8 in the RCNN
+    steps, all four in the joint net). The mAP is printed, not held. Returns
+    the launches of every kernel over the phase."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import demo_bev_e2e
+    import demo_inputs
+    import demo_pointrcnn_e2e
+    import demo_second_e2e
+
+    from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
+    from lyft3d_tpu_torch.pipelines.bev_train import train_bev
+
+    counts, lines, failed = {}, {}, []
+
+    def held(family, losses, stat=np.mean, **numbers):
+        first, last, fall = loss_fall(losses, stat)
+        ok = fall >= LEARN_MARGIN[family]
+        if not ok:
+            failed.append(f"{family}: loss {first:.4g} -> {last:.4g}, a fall of {fall:.3f} "
+                          f"< {LEARN_MARGIN[family]}")
+        lines[family] = dict(statistic=stat.__name__, first5=first, last5=last, fall=fall,
+                             margin=LEARN_MARGIN[family], **numbers)
+        log(f"learning {family}: {len(losses)} steps, {stat.__name__} loss of the first five {first:.5g}, of "
+            f"the last five {last:.5g}, fall {fall:.4f} (at least {LEARN_MARGIN[family]}) "
+            + " ".join(f"{k}={v}" for k, v in numbers.items()) + f" [{card}]")
+
+    def written(model_dir):
+        model_dir = Path(model_dir)
+        ckpts = sorted(p.name for p in model_dir.glob("model-*.ckpt"))
+        if not (model_dir / "experiment.yaml").is_file() or not (model_dir / "checkpoints.json").is_file() \
+                or not ckpts:
+            raise AssertionError(f"{model_dir}: experiment.yaml, checkpoints.json or a checkpoint is missing")
+        return ckpts
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        db = learning_tree(tmp / "lyft", seed=37)
+
+        # BEV: train_bev on the card route's dataset, then inference and the mAP.
+        bev_cfg = BEVConfig(**demo_inputs.BEV_CONFIG)
+        arrays, tokens, maps = learning_bev_arrays(db, bev_cfg, dev)
+        cfg = demo_bev_e2e.experiment(LEARN_STEPS, tmp / "bev" / "run")
+        t0 = time.perf_counter()
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32  # the demos' rule
+        dataset_fn = functools.partial(demo_bev_e2e.BEVArrayDataset, arrays, tokens, with_map=cfg.with_map)
+        _, model = train_bev(cfg, None, tokens=tokens, n_devices=1, log_every=1, eval_every=0, dtype=dtype,
+                             device=dev, dataset_fn=dataset_fn)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        ckpts = written(cfg.model_dir)
+        (_, m_ap, _), run, infer_s = counted(
+            "BEV inference", lambda: demo_bev_e2e.detect_and_score(db, model, bev_cfg, tokens, ("car",),
+                                                                   tmp / "bev", maps), ("bev_raster",), counts)
+        held("bev", logged_losses(cfg.model_dir), train_s=round(train_s, 2),
+             step_ms=round(train_s * 1e3 / LEARN_STEPS, 2), infer_s=round(infer_s, 2), mAP=round(m_ap, 4),
+             checkpoints=ckpts, launches=run)
+        del model
+        torch.cuda.empty_cache()
+
+        # SECOND: train_second itself, pillars and the unit sparse middle.
+        for family, sparse, expect in (
+                ("second", False, ("dense_fill", "dense_fill_bwd")),
+                ("second_sparse", True, ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad",
+                                         "stencil_wgrad"))):
+            out = tmp / family
+            r, run, seconds = counted(
+                f"{family} demo", lambda: demo_second_e2e.run(LEARN_STEPS, out, sparse=sparse, device=dev,
+                                                              log_every=1, root=db.data_path), expect, counts)
+            ckpts = written(out / "run")
+            held(family, logged_losses(out / "run"), step_ms=r["step_ms"], wall_s=round(seconds, 2),
+                 mAP=r["mAP"], records=r["num_pred_records"], checkpoints=ckpts, launches=run)
+            torch.cuda.empty_cache()
+
+        # PointRCNN: both trainers and the joint net, each stage counted.
+        kitti = kitti_training_tree(tmp / "kitti", PRC_TRAIN_FRAMES, PRC_FRAME_POINTS, PRC_TRAIN_CARS, seed=37)
+        stage_out, stage_runs = {}, {}
+        expect = {"rpn": ("fps", "ball_query", "knn"), "rcnn": ("fps", "ball_query", "roi_select"),
+                  "joint": PRC_KERNELS}
+
+        def stage(name, fn):
+            stage_out[name], stage_runs[name], _ = counted(f"PointRCNN {name}", fn, expect[name], counts)
+            return stage_out[name]
+
+        r = demo_pointrcnn_e2e.run(LEARN_STEPS, device=dev, rcnn_steps=LEARN_STEPS, root=kitti, stage=stage)
+        held("pointrcnn_rpn", stage_out["rpn"][1], step_ms=r["step_ms"], ap_proposals=r["ap_bev@0.5_proposals"],
+             launches=stage_runs["rpn"])
+        held("pointrcnn_rcnn", stage_out["rcnn"][1], stat=np.median, step_ms=r["rcnn_step_ms"],
+             ap_refined=r["ap_bev@0.5_refined"], launches=stage_runs["rcnn"], joint_launches=stage_runs["joint"])
+        del stage_out
+    phase_s = time.perf_counter() - t_phase
+    phase_json("learning", card, steps=LEARN_STEPS, seconds=round(phase_s, 1), families=lines, launches=counts)
+    if failed:
+        raise AssertionError("learning: " + "; ".join(failed))
+    return counts
+
+
 def torch_equal(a, b):
     import torch
 
@@ -5708,9 +5963,17 @@ def main():
     tp_launches = tensor_parallel_phase(dev, card)
     fill_launches += tp_launches["dense_fill"]
 
+    # 37. the learning demos: BEV, pillars, the unit sparse middle and
+    # PointRCNN trained a few dozen steps through the demos' code, then
+    # inferred and scored
+    learn = learning_phase(dev, card)
+    launches += learn["bev_raster"]
+    fill_launches += learn["dense_fill"]
+
     def trained(kernel):
-        """Launches of ``kernel`` over the timed steps of the five training runs."""
-        return sum(c[kernel] for c in train_launches.values())
+        """Launches of ``kernel`` over the timed steps of the five training runs
+        and over phase 37's learning demos."""
+        return sum(c[kernel] for c in train_launches.values()) + learn[kernel]
 
     def record(name, replaces, launches, numbers, library_ms=None, source=None):
         return {"name": name, "route": "cuda",
@@ -5722,37 +5985,41 @@ def main():
     fill_numbers = dict(fill[torch.bfloat16],
                         max_abs_err=max(f["max_abs_err"] for f in fill.values()))
     print(json.dumps({"kernels": [
-        # Launched by six paths: the flagship, the unet_seresnext101 row, the
+        # Launched by seven paths: the flagship, the unet_seresnext101 row, the
         # deeplab_seresnext50 row, the batch-2 pass of the new models, the
-        # viewer's detect requests (one a request) and phase 35's point-sharded
-        # raster (one a rank a call).
+        # viewer's detect requests (one a request), phase 35's point-sharded
+        # raster (one a rank a call) and phase 37's BEV demo inference.
         record("bev_raster", "lyft3d_tpu/ops/bev_raster.py:146", launches, raster),
-        # Launched by seven paths: pillars, sparse (2 a call), per-voxel (1 a
+        # Launched by eight paths: pillars, sparse (2 a call), per-voxel (1 a
         # call), VFE pillars, the FHD BatchNorm middle (2 a call), phase 35's
-        # data-parallel pillars steps (every rank's) and phase 36's sharded FHD
-        # middle (every rank's, in fill_launches).
+        # data-parallel pillars steps (every rank's), phase 36's sharded FHD
+        # middle (every rank's) and phase 37's two SECOND demos (the last
+        # three in fill_launches).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"]
                + vfe_fill + fhd_batch["dense_fill"], fill_numbers),
-        # Launched by two paths: PointRCNN inference and training (the three
-        # trainers' entry points).
-        record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"] + prc_train["fps"], select["fps"]),
-        record("ball_query", f"{sel}:94", prc_launches["ball_query"] + prc_train["ball_query"],
-               select["ball_query"]),
-        record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"], select["knn"]),
-        record("roi_select", f"{sel}:127", prc_launches["roi_select"] + prc_train["roi_select"],
-               select["roi_select"]),
-        # Launched by the unit middle with LayerNorm and with BatchNorm, and by
-        # phase 36's sharded unit middle on every rank (on output-column slices).
+        # Launched by three paths: PointRCNN inference, training (the three
+        # trainers' entry points) and phase 37's PointRCNN demo.
+        record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"] + prc_train["fps"] + learn["fps"],
+               select["fps"]),
+        record("ball_query", f"{sel}:94", prc_launches["ball_query"] + prc_train["ball_query"]
+               + learn["ball_query"], select["ball_query"]),
+        record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"] + learn["knn"], select["knn"]),
+        record("roi_select", f"{sel}:127", prc_launches["roi_select"] + prc_train["roi_select"]
+               + learn["roi_select"], select["roi_select"]),
+        # Launched by the unit middle with LayerNorm and with BatchNorm, by
+        # phase 36's sharded unit middle on every rank (on output-column
+        # slices) and by phase 37's sparse demo.
         record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
-               sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"] + tp_launches["stencil_conv"],
-               stencil_record),
+               sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"] + tp_launches["stencil_conv"]
+               + learn["stencil_conv"], stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
                voxel_launches["subm_conv"], subm_record),
         # The backward sides, launched by the training paths (10 timed steps each
         # of pillars, unit middle, per-voxel middle, the bench-shaped step and
-        # VFE pillars; the fill's also by every rank of phase 35; the fill's and
-        # the stencil's also by every rank of phase 36's sharded FHD middle).
+        # VFE pillars, and phase 37's SECOND demos; the fill's also by every
+        # rank of phase 35; the fill's and the stencil's also by every rank of
+        # phase 36's sharded FHD middle).
         record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153",
                trained("dense_fill_bwd") + dp_launches["fill_bwd"] + tp_launches["dense_fill_bwd"],
                fill_bwd_record, source="dense_fill"),

@@ -14,6 +14,7 @@ pieces, usable without PNGs (``chip_smoke.py`` feeds them tensors).
 
 from __future__ import annotations
 
+from functools import partial
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -123,13 +124,17 @@ def _init_from(model, cfg: BEVExperiment):
     ckpt.load_partial(model, snapshot, verbose=True)
 
 
-def _fit_bev(group: Optional[DataGroup], cfg: BEVExperiment, bev_dir: Path, train_tokens, val_tokens,
+def _png_dataset(bev_dir: Path, with_map: bool, tokens: Sequence[str], augment: bool) -> BEVImageDataset:
+    return BEVImageDataset(bev_dir, tokens, with_map=with_map, augment=augment)
+
+
+def _fit_bev(group: Optional[DataGroup], cfg: BEVExperiment, dataset_fn: Callable, train_tokens, val_tokens,
              log_every: int, eval_every: int, num_workers: int, dtype: torch.dtype, device=None):
     """The step loop of :func:`train_bev` on one rank (``group``) or alone
     (``group=None``, on ``device``); returns ``(state, model)``."""
     device = group.device if group is not None else device
-    train_ds = BEVImageDataset(bev_dir, train_tokens, with_map=cfg.with_map, augment=True)
-    val_ds = BEVImageDataset(bev_dir, val_tokens, with_map=cfg.with_map, augment=False)
+    train_ds = dataset_fn(train_tokens, augment=True)
+    val_ds = dataset_fn(val_tokens, augment=False)
     reseed_for_rank(train_ds, group)  # each rank flips and cuts out with a stream of its own
     trainer = _bev_trainer(cfg, log_every, eval_every, dtype, device, val_ds, group)
     if trainer.lead:
@@ -171,10 +176,17 @@ def _bev_rank(group: DataGroup, *args):
 
 def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, n_devices: Optional[int] = None,
               log_every: int = 50, eval_every: int = 500, num_workers: int = 4,
-              dtype: torch.dtype = torch.bfloat16, device="cuda"):
+              dtype: torch.dtype = torch.bfloat16, device="cuda", dataset_fn: Optional[Callable] = None):
     """Train a BEV segmentation model from a generated PNG dataset; returns
     ``(state, model)``. ``device`` defaults to the card; pass ``"cpu"``
     (with float32) to run without one.
+
+    ``dataset_fn(tokens, augment=...)`` builds the training and validation
+    datasets, with ``BEVImageDataset``'s interface (``__len__``,
+    ``assemble``, ``load``, an ``rng`` for the augmentation draws); by
+    default a ``BEVImageDataset`` over ``bev_dir``'s PNGs. With one,
+    ``tokens`` is required and ``bev_dir`` is not read. Under more than one
+    rank it must pickle.
 
     ``n_devices``: data parallelism as the JAX trainer's, over
     :func:`~lyft3d_tpu_torch.parallel.mesh.make_data_group`'s rank count
@@ -185,15 +197,19 @@ def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, n_devices: Optional[int]
     writes the checkpoints, and the state returned here is restored from the
     last of them."""
     device = _training_device(device, "train_bev")
-    bev_dir = Path(bev_dir)
-    if tokens is None:
-        tokens = sorted({p.name.rsplit("_", 1)[0] for p in bev_dir.glob("*_input.png")})
+    if dataset_fn is None:
+        bev_dir = Path(bev_dir)
+        dataset_fn = partial(_png_dataset, bev_dir, cfg.with_map)
+        if tokens is None:
+            tokens = sorted({p.name.rsplit("_", 1)[0] for p in bev_dir.glob("*_input.png")})
+    elif tokens is None:
+        raise ValueError("train_bev: a dataset_fn needs the tokens")
     train_tokens, val_tokens = split_tokens(list(tokens), cfg.data.seed)
-    args = (cfg, bev_dir, train_tokens, val_tokens, log_every, eval_every, num_workers, dtype)
+    args = (cfg, dataset_fn, train_tokens, val_tokens, log_every, eval_every, num_workers, dtype)
     n = make_data_group(cfg.batch_size, n_devices, device)
     if n == 1:
         return _fit_bev(None, *args, device=device)
     spawn(_bev_rank, n, args=args, device=device.type)
-    val_ds = BEVImageDataset(bev_dir, val_tokens, with_map=cfg.with_map, augment=False)
+    val_ds = dataset_fn(val_tokens, augment=False)
     trainer = _bev_trainer(cfg, log_every, eval_every, dtype, device, val_ds)
     return trainer.init_or_resume(), trainer.model

@@ -45,6 +45,14 @@ for name in names:
     importlib.import_module(name)
 import runpy
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # defines, runs nothing
+# The learning demos and the writer of their inputs: no JAX, no image library and
+# no pyyaml when imported (the card's machine has none of the three).
+sys.path.insert(0, "tools")
+for tool in ("demo_inputs", "demo_bev_e2e", "demo_second_e2e", "demo_pointrcnn_e2e", "regression_curves",
+             "demo_probe", "learning_rehearsal"):
+    importlib.import_module(tool)
+libs = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "PIL", "yaml"))
+assert not libs, f"a module imports {libs} when it is imported"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not bad, bad
 ours = sorted(m for m in sys.modules if m == "lyft3d_tpu" or m.startswith("lyft3d_tpu."))
