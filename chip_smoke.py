@@ -8,8 +8,10 @@ VFE pillars and both sparse middles), BEV training (UNets and DeepLabV3+),
 PointRCNN training, and the serving path: the viewer's HTTP server answering
 ``/api/detect`` requests with ``unet_resnet50`` on the card, one raster
 kernel launch a request, beside the native host runtime; then training over
-ranks, data-parallel (phase 35) and tensor-parallel (phase 36), and the
-learning demos, each family trained until its loss falls (phase 37).
+ranks, data-parallel (phase 35) and tensor-parallel (phase 36), the
+learning demos, each family trained until its loss falls (phase 37), and
+every family's data-parallel train step over ranks with the multichip dry
+run (phase 38): 38 phases.
 
     python3 chip_smoke.py
 
@@ -379,6 +381,34 @@ Phases, one line of numbers each:
     inference; B2, B2' in pillars; B2, B2', B3, B3' in the unit middle; B5,
     B6, B7 in the RPN steps; B5, B6, B8 in the RCNN steps; all four in the
     joint net), those launches joining the ``kernels`` line.
+
+38. data-parallel families: (a) each family's train step at full width,
+    first in this process at the global batch, then over ranks, one spawn a
+    layout serving every family (``min(cards, 4)`` NCCL ranks, a card each;
+    on one card two gloo ranks sharing it, then a one-rank NCCL group):
+    ``unet_seresnext101`` GroupNorm bf16 with float32 masters at the BEV
+    yaml's microbatch 32, one whole ``ranger`` update of ``grad_accum`` 4;
+    the same model with ``norm_type="batch"`` in float32 at 4 x 336², whose
+    running statistics must equal one process's within 1e-5 of their scale;
+    the unit-sparse SECOND of :func:`fhd_config` at 4 x 262,144 points in
+    float32 (B2, B2', B3, B3' on every rank), and again in bfloat16 as it
+    trains, timed, its differences reported (:data:`FAM_F32_HELD`); the
+    PointRCNN RPN of ``lyft_pointrcnn_config("train")`` at 4 x 16,384 points
+    (B5, B6, B7); the RCNN a frame a rank (B5, B6, B8), online behind an RPN
+    that ``train_pointrcnn_rpn`` warmed :data:`FAM_RPN_WARM` steps until its
+    proposals hold foreground RoIs, or, for the gloo ranks sharing one card
+    (two online steps of 35 GB do not fit beside each other), offline on
+    its cached proposals. A float32 model's held update runs with TF32 off.
+    Held as phase 35: the first loss within 1e-5 relative, the float32
+    masters and the averaged gradient bucket within ``GRAD_NORM_TOL`` in the
+    2-norm, every rank bit-equal to rank 0 and the path's kernels launched
+    on every rank; printed, a line a family and layout: the step's own
+    difference and the share of elements stepping the other way, each
+    rank's step ms (two steps after the held ones, as the trainers run),
+    the bucket's all-reduce ms and bytes, peak memory and launches a rank.
+    (b) ``dryrun_multichip(max(cards, 2))`` of ``lyft3d_tpu_torch/dryrun.py``.
+    The launches of both join the ``kernels`` line. The trainers' entry
+    points over ranks are ``tools/entry_points_over_ranks.py``'s.
 
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
@@ -4802,32 +4832,6 @@ def data_parallel_phase(dev, card):
 
 
 # Phase 36: tensor parallelism (the model axis).
-def tp_conv_stack(device=None, dtype=None, generator=None):
-    """The multichip dry run's ``TPConvStack``: two 3x3 convs of 128
-    features with ReLU, then a 1x1 conv to 10 classes (flax ``"SAME"`` pads,
-    biases), NCHW on 6 channels."""
-    import torch
-    from torch import nn
-
-    from lyft3d_tpu_torch.models.layers import init_params
-
-    fk = dict(device=device, dtype=dtype)
-    model = nn.Sequential(nn.Conv2d(6, 128, 3, padding=1, **fk), nn.ReLU(),
-                          nn.Conv2d(128, 128, 3, padding=1, **fk), nn.ReLU(), nn.Conv2d(128, 10, 1, **fk))
-    if generator is not None:
-        init_params(model, generator)
-    return model
-
-
-def tp_stack_loss(model, batch):
-    """The dry run's TP loss: the mean over pixels of the one-hot cross-entropy
-    of ``model(image)`` (``image`` NHWC, ``label`` (B, H, W))."""
-    import torch.nn.functional as F
-
-    logp = F.log_softmax(model(batch["image"].permute(0, 3, 1, 2)), dim=1)
-    return -logp.gather(1, batch["label"][:, None].long()).mean()
-
-
 TP_DATA, TP_MODEL_PARALLEL = 2, 2
 TP_BEV_MODEL = "unet_seresnext101"  # the reference-parity model, the BEV yaml's default
 TP_TIMED = 3  # bf16 steps timed after one warm-up step
@@ -4854,6 +4858,8 @@ def tp_stack_case():
     """Phase 36a's weights (seed 2) and batch (2·D x 16² x 6), on the CPU."""
     import torch
 
+    from lyft3d_tpu_torch.dryrun import tp_conv_stack
+
     rng = np.random.RandomState(36)
     weights = tp_conv_stack(generator=torch.Generator().manual_seed(2)).state_dict()
     batch = {"image": torch.from_numpy(rng.rand(2 * TP_DATA, 16, 16, 6).astype(np.float32)),
@@ -4864,6 +4870,7 @@ def tp_stack_case():
 def tp_stack_step(weights, batch, dev, group=None):
     """Phase 36a's Adam step (1e-3) through ``make_train_step_dp``: the loss,
     the whole parameters after it and their averaged gradients, on the CPU."""
+    from lyft3d_tpu_torch.dryrun import tp_conv_stack, tp_stack_loss
     from lyft3d_tpu_torch.parallel import tensor as tp
     from lyft3d_tpu_torch.parallel.mesh import make_train_step_dp, shard_batch
     from lyft3d_tpu_torch.train.optim import build_optimizer
@@ -5318,12 +5325,9 @@ def loss_fall(losses, stat=np.mean):
 def learn_counts(reset=False):
     """Every launch count of the learning demos' paths (B1, the training
     path's eight and the four PointNet++ kernels); ``reset`` zeroes them."""
-    from lyft3d_tpu_torch.ops import bev_raster
+    from lyft3d_tpu_torch import dryrun
 
-    if reset:
-        bev_raster.KERNEL_LAUNCHES = 0
-        prc_reset()
-    return {"bev_raster": bev_raster.KERNEL_LAUNCHES, **train_counts(reset), **prc_counts()}
+    return dryrun.launch_counts(reset)
 
 
 def counted(what, fn, expect, counts):
@@ -5465,6 +5469,454 @@ def learning_phase(dev, card):
     return counts
 
 
+# Phase 38: every family's data-parallel train step at full width, held to one
+# process; the multichip dry run.
+FAM_MAX_RANKS = 4
+FAM_BEV_ACCUM = 4  # the yaml's grad_accum: one whole ranger update of microbatch 32
+FAM_BN_BATCH = 4  # the float32 BatchNorm update, 4 x 336² x 6
+FAM_TIMED = 2  # steps timed after the held ones
+# The held update of a float32 model runs with TF32 off: cuDNN picks its
+# algorithms by batch size, and with TF32 (or in bfloat16) a convolution's
+# rounding then depends on the batch a sample runs in (the sparse RPN's heads
+# 0.5% of scale in bf16 at batch 2 against 4, 4e-4 with TF32, 3e-6 without:
+# tools/batch_dependence_probe.py), which the held loss would read as a
+# rank's fault. The
+# timed steps run as the trainers do (TF32 on); "sparse_bf16", the unit
+# middle as it trains in bfloat16, is timed and its differences reported,
+# not held.
+FAM_F32_HELD = ("bev_batchnorm", "sparse", "rpn", "rcnn")
+FAM_TIMED_FAMILIES = ("bev", "sparse_bf16", "rpn", "rcnn")
+FAM_REPORTED = ("sparse_bf16",)
+FAM_RPN_WARM = 100  # RPN steps before the online RCNN's frozen RPN proposes foreground RoIs
+FAM_STAT_TOL = 1e-5  # BatchNorm running statistics against one process, of each tensor's scale
+FAM_SPARSE_KERNELS = ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad")
+FAM_EXPECT = {"bev": (), "bev_batchnorm": (), "sparse": FAM_SPARSE_KERNELS, "sparse_bf16": FAM_SPARSE_KERNELS,
+              "rpn": ("fps", "ball_query", "knn"), "rcnn": ("fps", "ball_query", "roi_select")}
+
+
+def family_layouts(cards):
+    """``[(backend, ranks, where, spawn keywords)]``: NCCL over ``min(cards,
+    4)`` cards (the largest of 1, 2, 4 that fits: every family's batch splits
+    evenly) where there are two or more; on one card two gloo ranks sharing
+    it, then a one-rank NCCL group (NCCL takes one rank a card)."""
+    if cards >= 2:
+        n = max(d for d in (1, 2, 4) if d <= min(cards, FAM_MAX_RANKS))
+        return [("nccl", n, f"{n} cards", dict(device="cuda"))]
+    return [("gloo", 2, "2 ranks sharing cuda:0", dict(backend="gloo", device="cuda:0")),
+            ("nccl", 1, "1 rank", dict(device="cuda"))]
+
+
+def family_bev_config(batchnorm):
+    """The BEV yaml with ``unet_seresnext101`` at its microbatch 32 and
+    ``grad_accum`` 4 (GroupNorm), or with ``norm_type="batch"`` at
+    :data:`FAM_BN_BATCH`, one update a step."""
+    import dataclasses
+
+    if not batchnorm:
+        return bev_train_config(TP_BEV_MODEL, batch_size=BEV_YAML_BATCH)
+    cfg = bev_train_config(TP_BEV_MODEL, batch_size=FAM_BN_BATCH, model_kwargs={"norm_type": "batch"})
+    return dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer, grad_accum=1))
+
+
+def family_trainer(family, dev, model_dir, group=None):
+    """The ``Trainer`` of a BEV or sparse family under ``group``: bf16 with
+    float32 masters, the BatchNorm BEV model and the held sparse one in
+    float32."""
+    import torch
+
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
+    from lyft3d_tpu_torch.pipelines.bev_train import build_bev_model, make_bev_loss_fn, make_bev_optimizer_fn
+    from lyft3d_tpu_torch.pipelines.second_train import make_second_loss_fn
+    from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(model_dir=model_dir, total_steps=10 ** 6)
+    if family in ("sparse", "sparse_bf16"):
+        cfg = fhd_config()
+        net = VoxelNet(cfg, in_features=3, dtype=torch.float32 if family == "sparse" else torch.bfloat16,
+                       device=dev, generator=torch.Generator().manual_seed(0))
+        return Trainer(net, dp_onecycle, make_second_loss_fn(cfg, dev), tcfg, group=group)
+    cfg = family_bev_config(family == "bev_batchnorm")
+    dtype = torch.float32 if family == "bev_batchnorm" else torch.bfloat16
+    return Trainer(build_bev_model(cfg, dtype, dev), make_bev_optimizer_fn(cfg), make_bev_loss_fn(cfg, dev, group),
+                   tcfg, group=group)
+
+
+def family_prc_model(family, dev, weights=None):
+    """``(cfg, model)``: the float32 RPN or RCNN of ``lyft_pointrcnn_config("train")``."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn.net import PointRCNN_RCNN, PointRCNN_RPN, lyft_pointrcnn_config
+
+    cfg = lyft_pointrcnn_config("train")
+    gen = torch.Generator().manual_seed(0)
+    model = (PointRCNN_RPN(cfg, device=dev, generator=gen) if family == "rpn"
+             else PointRCNN_RCNN(cfg, 3 + cfg.fp_width, device=dev, generator=gen))
+    if weights is not None:
+        model.load_state_dict(weights)
+    return cfg, model.train()
+
+
+def family_rcnn_step(data, dev, group=None):
+    """The RCNN family's ``(step, model)`` on this rank's frames of ``data``:
+    the online step behind the frozen RPN of ``data["rpn"]``, or, without
+    one, the offline step on the frames' cached proposals. One frame goes through
+    ``rcnn_step``; more (one process at the global batch) a frame at a time,
+    the gradients of the mean over frames accumulated, so that one process
+    holds one frame's activations at a time."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn.net import proposal_target_layer, rcnn_loss
+    from lyft3d_tpu_torch.parallel import mesh
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    cfg, model = family_prc_model("rcnn", dev)
+    optimizer = build_optimizer(list(model.parameters()), "adam", 1e-3)
+    frames = mesh.shard_batch(group, data["frames"])
+    priorities, noise = mesh.shard_batch(group, data["draws"])
+    stage1 = None
+    if "rpn" in data:
+        stage1 = prt.make_rcnn_stage1(family_prc_model("rpn", dev, data["rpn"])[1].eval(), cfg)
+
+    def inputs(i):
+        f = to_dev({k: v[i:i + 1] for k, v in frames.items()}, dev)
+        pri = tuple(p[i:i + 1].to(dev) for p in priorities)
+        if stage1 is not None:
+            return (*stage1(f["points"], f["points_valid"], f["gt_boxes"], f["gt_valid"], pri,
+                            {k: v[i:i + 1].to(dev) for k, v in noise.items()}), f["gt_boxes"])
+        with torch.no_grad():
+            roi_points, counts = prt.rcnn_inputs(f["xyz"], f["point_features"], f["points_valid"], f["rois"], cfg)
+            targets = proposal_target_layer(f["rois"], f["roi_valid"], f["gt_boxes"], f["gt_valid"], cfg, pri)
+        return roi_points, counts, f["rois"], targets, f["gt_boxes"]
+
+    n = len(priorities[0])
+
+    def step():
+        if n == 1:
+            roi_points, counts, rois, targets, gt = inputs(0)
+            return prt.rcnn_step(model, optimizer, roi_points, counts, rois, targets, gt, cfg, group)
+        optimizer.zero_grad(set_to_none=True)
+        total = 0.0
+        for i in range(n):
+            roi_points, counts, rois, targets, gt = inputs(i)
+            loss = rcnn_loss(model(roi_points, counts), rois, targets, gt, cfg)[0].mean() / n
+            loss.backward()
+            total += float(loss.detach())
+        mesh.all_reduce_gradients(group, list(model.parameters()))
+        optimizer.step()
+        return mesh.average_metrics(group, {"loss": torch.tensor(total, device=dev)})["loss"]
+
+    return step, model
+
+
+def family_step(family, data, dev, group=None):
+    """``(step, masters, model)`` of one family on this rank's shard of
+    ``data`` (the global inputs, on the CPU): ``step()`` runs one step (a
+    microstep of the BEV trainer) and returns its loss; the masters are the
+    float32 parameters the optimizer updates."""
+    import tempfile
+
+    from lyft3d_tpu_torch.parallel import mesh
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+    from lyft3d_tpu_torch.train.optim import build_optimizer
+
+    if family in ("bev", "bev_batchnorm", "sparse", "sparse_bf16"):
+        trainer = family_trainer(family, dev, tempfile.mkdtemp(prefix="lyft3d_family_"), group)
+        state = [trainer.init_or_resume()]
+        batch = to_dev(mesh.shard_batch(group, data), dev)
+
+        def step():
+            state[0], metrics = trainer.step_fn(state[0], batch)
+            return metrics["loss"]
+        return step, state[0].masters, state[0].module
+    if family == "rpn":
+        cfg, model = family_prc_model("rpn", dev)
+        run = prt.make_rpn_step(model, cfg, build_optimizer(list(model.parameters()), "adam_onecycle", 2e-3,
+                                                            total_steps=100), group)
+        batch = to_dev(mesh.shard_batch(group, data), dev)
+        return (lambda: run(batch)[0]), list(model.parameters()), model
+    step, model = family_rcnn_step(data, dev, group)
+    return step, list(model.parameters()), model
+
+
+def family_held(family, data, dev, group=None):
+    """One family's held update on ``dev`` (four microsteps of the BEV
+    yaml, one step of the others; a float32 model's with TF32 off), then
+    :data:`FAM_TIMED` steps timed by CUDA events where the family is timed:
+    the first loss, the masters before and after and their gradients (of
+    the last microstep, averaged), BatchNorm running statistics, the held
+    steps' kernel launches, ms a step, peak GB and whether every rank holds
+    rank 0's weights."""
+    import torch
+
+    from lyft3d_tpu_torch import dryrun
+    from lyft3d_tpu_torch.parallel import mesh
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, masters, model = family_step(family, data, dev, group)
+    start = dp_flat(masters)
+    mesh.barrier(group)
+    torch.cuda.synchronize(dev)
+    dryrun.launch_counts(reset=True)
+    torch.backends.cudnn.allow_tf32 = family not in FAM_F32_HELD
+    losses = [float(step()) for _ in range(FAM_BEV_ACCUM if family == "bev" else 1)]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.synchronize(dev)
+    out = dict(loss=losses[0], losses=losses, start=start, masters=dp_flat(masters),
+               grads=dp_flat([m.grad if m.grad is not None else torch.zeros_like(m) for m in masters]),
+               launches={k: v for k, v in dryrun.launch_counts().items() if v},
+               stats=dp_flat([b for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))])
+               if family == "bev_batchnorm" else None,
+               agree=mesh.ranks_agree(group, [model, masters]), step_ms=None)
+    if family in FAM_TIMED_FAMILIES:
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        losses = [step() for _ in range(FAM_TIMED)]
+        end.record()
+        torch.cuda.synchronize(dev)
+        out["step_ms"] = begin.elapsed_time(end) / FAM_TIMED
+        if not all(math.isfinite(float(l)) for l in losses + out["losses"]):
+            raise AssertionError(f"{family}: a loss is not finite: {out['losses']} {losses}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if group is not None:
+        # The bucket's all-reduce alone, on copies of the last step's gradients.
+        probe = [torch.nn.Parameter(m.detach().clone()) for m in masters]
+        for p, m in zip(probe, masters):
+            p.grad = None if m.grad is None else m.grad.clone()
+        mesh.barrier(group)
+        out["bucket_bytes"] = mesh.all_reduce_gradients(group, probe)
+        out["reduce_ms"] = cuda_ms(lambda: mesh.all_reduce_gradients(group, probe), warmup=1, iters=3)
+        del probe
+    del step, masters, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rank(group, data):
+    """One rank of phase 38: every family of ``data`` in turn. Rank 0
+    returns every rank's numbers and its own masters, gradients and
+    statistics."""
+    import torch.distributed as dist
+
+    numbers, flats = {}, {}
+    for family, inputs in data.items():
+        held = family_held(family, inputs, group.device, group)
+        flats[family] = {k: held.pop(k) for k in ("start", "masters", "grads", "stats")}
+        numbers[family] = dict(held, rank=group.rank)
+    every = [None] * group.size
+    dist.all_gather_object(every, numbers)
+    return {"ranks": every, "flats": flats} if group.rank == 0 else None
+
+
+def family_inputs(dev, tmp, card):
+    """Phase 38's global inputs on the CPU, and the frozen RPN of the online
+    RCNN: ``train_pointrcnn_rpn`` for :data:`FAM_RPN_WARM` steps on the
+    tree's frames, whose proposals must hold foreground RoIs (a random RPN's
+    hold none). Returns ``(inputs, loader, rpn)``."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn.net import lyft_pointrcnn_config
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+    from lyft3d_tpu_torch.pipelines.pointrcnn import KittiLoaderConfig, KittiPointRCNNLoader
+
+    cpu = lambda b: {k: v.cpu() for k, v in b.items()}  # noqa: E731
+    pts, valid = fhd_points(FHD_BATCH, FHD_POINTS, seed=38)
+    sparse = {"points": pts, "points_valid": valid, **gt_batch(FHD_BATCH, seed=38)}
+    inputs = {"bev": cpu(bev_train_batch(BEV_YAML_BATCH, TP_HW, seed=38, dev=dev)),
+              "bev_batchnorm": cpu(bev_train_batch(FAM_BN_BATCH, TP_HW, seed=39, dev=dev)),
+              "sparse": sparse, "sparse_bf16": sparse}
+    root = kitti_training_tree(tmp / "kitti", PRC_TRAIN_FRAMES, PRC_FRAME_POINTS, PRC_TRAIN_CARS, seed=38)
+    loader = KittiPointRCNNLoader(root, KittiLoaderConfig(num_points=PRC_POINTS), seed=0)
+    inputs["rpn"] = {k: torch.from_numpy(v) for k, v in loader.batch(loader.stems[:PRC_TRAIN_FRAMES]).items()}
+    cfg = lyft_pointrcnn_config("train")
+    t0 = time.perf_counter()
+    rpn, losses = prt.train_pointrcnn_rpn(loader, cfg, steps=FAM_RPN_WARM, batch_size=PRC_TRAIN_BATCH,
+                                          num_parts=1, num_workers=2, device=dev)
+    torch.cuda.synchronize()
+    log(f"data-parallel families: the online RCNN's RPN, train_pointrcnn_rpn {FAM_RPN_WARM} steps of "
+        f"{PRC_TRAIN_BATCH} x {PRC_POINTS} in {time.perf_counter() - t0:.1f} s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} [{card}]")
+    return inputs, loader, rpn.eval()
+
+
+def rcnn_family_data(rpn, loader, stems, online, dev):
+    """The RCNN family's global inputs, a frame of ``stems`` a rank: the
+    frames and the frozen RPN's weights (online) or the frames' cached
+    proposals (offline), and the draws of RoI sampling and noise for the
+    frames; with the foreground RoIs the draws sample a frame."""
+    import torch
+
+    from lyft3d_tpu_torch.models.pointrcnn.net import (
+        draw_roi_noise,
+        draw_target_priorities,
+        lyft_pointrcnn_config,
+        proposal_layer,
+        proposal_target_layer,
+    )
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
+
+    cfg = lyft_pointrcnn_config("train")
+    gen = torch.Generator().manual_seed(38)
+    shape = (len(stems), cfg.num_proposals)
+    draws = (draw_target_priorities(shape, gen), draw_roi_noise(shape, cfg.roi_fg_aug_times, gen))
+    if online:
+        data = {"frames": {k: torch.from_numpy(v) for k, v in loader.batch(stems).items()},
+                "rpn": {k: v.cpu() for k, v in rpn.state_dict().items()}}
+    else:
+        cache = prt.cache_rcnn_samples(rpn, loader, cfg, stems)
+        data = {"frames": {k: torch.from_numpy(np.stack([c[k] for c in cache])) for k in prt.CACHE_KEYS}}
+    data["draws"] = draws
+    f = to_dev(data["frames"], dev)
+    with torch.no_grad():
+        if online:
+            xyz, valid = f["points"], f["points_valid"]
+            out = rpn(xyz, xyz.new_zeros((*xyz.shape[:2], 1)), valid)
+            props = proposal_layer(xyz, out["cls"], out["reg"], valid, cfg)
+            rois, roi_valid = props["rois"], props["roi_valid"]
+        else:
+            rois, roi_valid = f["rois"], f["roi_valid"]
+        tg = proposal_target_layer(rois, roi_valid, f["gt_boxes"], f["gt_valid"], cfg,
+                                   tuple(p.to(dev) for p in draws[0]))
+    return data, [int(x) for x in tg["fg"].sum(-1).tolist()]
+
+
+def family_line(family, what, where, ref, out, card):
+    """Holds one family's ranks to one process (``ref``); logs and returns
+    its JSON numbers. Raises on a failed hold."""
+    ranks, flats = out["ranks"], out["flats"][family]
+    r0 = ranks[0][family]
+    loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    param_err = float((flats["masters"] - ref["masters"]).norm() / ref["masters"].norm())
+    grad_err = float((flats["grads"] - ref["grads"]).norm() / ref["grads"].norm())
+    moved = ref["masters"] - ref["start"]
+    update_err = float((flats["masters"] - ref["masters"]).norm() / moved.norm())
+    flipped = float(((flats["masters"] - ref["start"]).sign() != moved.sign()).float().mean())
+    failed, held = [], family not in FAM_REPORTED
+    if held and not loss_err <= 1e-5:
+        failed.append(f"first loss {r0['loss']} against {ref['loss']} in one process")
+    if held and not (param_err <= GRAD_NORM_TOL and grad_err <= GRAD_NORM_TOL):
+        failed.append(f"masters off by {param_err}, the gradient bucket by {grad_err} (2-norm)")
+    stat_err = None
+    if family == "bev_batchnorm":
+        stat_err = float((flats["stats"] - ref["stats"]).abs().max() / ref["stats"].abs().max())
+        if not stat_err <= FAM_STAT_TOL:
+            failed.append(f"BatchNorm running statistics off by {stat_err} of their scale")
+    for r in (x[family] for x in ranks):
+        if not r["agree"]:
+            failed.append(f"rank {r['rank']}'s weights differ from rank 0's")
+        missing = [k for k in FAM_EXPECT[family] if r["launches"].get(k, 0) <= 0]
+        if missing:
+            failed.append(f"rank {r['rank']} launched no {missing} ({r['launches']})")
+    numbers = dict(family=family, what=what, placement=where, ranks=len(ranks), held=held, loss=r0["loss"],
+                   one_process_loss=ref["loss"], loss_rel_err=loss_err, param_rel_err=param_err,
+                   grad_rel_err=grad_err, update_rel_err=update_err, update_sign_flipped=flipped,
+                   stat_err_of_scale=stat_err, step_ms=[x[family]["step_ms"] for x in ranks],
+                   one_process_step_ms=ref["step_ms"], allreduce_ms=[x[family]["reduce_ms"] for x in ranks],
+                   bucket_bytes=r0["bucket_bytes"], peak_mem_gb=[x[family]["peak_gb"] for x in ranks],
+                   one_process_peak_mem_gb=ref["peak_gb"], launches=[x[family]["launches"] for x in ranks],
+                   one_process_launches=ref["launches"])
+    tol = ("tol 1e-5", f"tol {GRAD_NORM_TOL}") if held else ("reported, not held",) * 2
+    log(f"data parallel family {family} ({where}): {what}; first loss {r0['loss']:.6f} vs {ref['loss']:.6f} in "
+        f"one process (rel {loss_err:.2g}, {tol[0]}); f32 masters off by {param_err:.3g}, the averaged "
+        f"gradient bucket by {grad_err:.3g} (2-norm, {tol[1]}); the step itself {update_err:.3g}, "
+        f"{flipped:.2%} of the elements the other way"
+        + (f"; running statistics within {stat_err:.2g} of their scale (tol {FAM_STAT_TOL})" if stat_err is not None
+           else "")
+        + f"; ranks bit-equal {all(x[family]['agree'] for x in ranks)}; step_ms "
+        f"{[None if x[family]['step_ms'] is None else round(x[family]['step_ms'], 3) for x in ranks]} "
+        f"(one process {ref['step_ms'] if ref['step_ms'] is None else round(ref['step_ms'], 3)}); bucket "
+        f"{r0['bucket_bytes']:,} B all-reduced in {[round(x[family]['reduce_ms'], 3) for x in ranks]} ms; peak_mem_gb "
+        f"{[round(x[family]['peak_gb'], 2) for x in ranks]} (one process {ref['peak_gb']:.2f}); launches a rank "
+        f"{[x[family]['launches'] for x in ranks]} (one process {ref['launches']}) [{card}]")
+    phase_json("data parallel family", card, **numbers)
+    if failed:
+        raise AssertionError(f"data parallel family {family} ({where}): " + "; ".join(failed))
+    return numbers
+
+
+FAM_WHAT = {
+    "bev": f"{TP_BEV_MODEL} GroupNorm bf16 (f32 masters), ranger lr 1e-3 clip 5.0, global microbatch "
+           f"{BEV_YAML_BATCH} x {TP_HW}x{TP_HW}x6, one update of grad_accum {FAM_BEV_ACCUM}",
+    "bev_batchnorm": f"{TP_BEV_MODEL} norm_type=batch f32 (TF32 off), ranger clip 5.0, global batch "
+                     f"{FAM_BN_BATCH} x {TP_HW}x{TP_HW}x6, one update",
+    "sparse": f"unit-sparse SECOND (fhd_config) f32 (TF32 off), adam_onecycle, global batch {FHD_BATCH} x "
+              f"{FHD_POINTS}",
+    "sparse_bf16": f"unit-sparse SECOND (fhd_config) bf16 (f32 masters) as it trains, adam_onecycle, global batch "
+                   f"{FHD_BATCH} x {FHD_POINTS}",
+    "rpn": f'PointRCNN RPN lyft_pointrcnn_config("train") f32 (the held step with TF32 off), adam_onecycle '
+           f"2e-3, global batch {PRC_TRAIN_FRAMES} x {PRC_POINTS}",
+}
+
+
+def families_phase(dev, card, tmp):
+    """Phase 38a: each family's held update at full width in this process
+    at the global batch, then over each layout's ranks (one spawn a layout
+    serves every family), held to it. Returns every rank's launches summed."""
+    import torch
+
+    from lyft3d_tpu_torch.parallel import mesh
+
+    inputs, loader, rpn = family_inputs(dev, tmp, card)
+    # The RCNN's frames, those whose RoIs hold the most foreground first.
+    _, fg = rcnn_family_data(rpn, loader, loader.stems, True, dev)
+    stems = [loader.stems[i] for i in sorted(range(len(fg)), key=lambda i: -fg[i])]
+    refs = {}
+    families = ("bev", "bev_batchnorm", "sparse", "sparse_bf16", "rpn")
+    for family in families:
+        refs[family] = family_held(family, inputs[family], dev)
+    launches = {}
+    for backend, n, where, kw in family_layouts(torch.cuda.device_count()):
+        online = backend == "nccl"
+        rcnn, fg = rcnn_family_data(rpn, loader, stems[:n], online, dev)
+        if sum(fg) <= 0:
+            raise AssertionError(f"the RCNN family's frames hold no foreground RoI after {FAM_RPN_WARM} RPN steps")
+        refs["rcnn"] = family_held("rcnn", rcnn, dev)
+        data = {f: inputs[f] for f in families}
+        data["rcnn"] = rcnn
+        torch.cuda.empty_cache()
+        out = mesh.spawn(family_rank, n, args=(data,), **kw)
+        what = dict(FAM_WHAT, rcnn=(f"PointRCNN {'online' if online else 'offline'} RCNN "
+                                    f'lyft_pointrcnn_config("train") f32 (the held step with TF32 off), adam '
+                                    f"1e-3, a frame of {PRC_POINTS} points a rank, foreground RoIs sampled a frame "
+                                    f"{fg}"))
+        for family in data:
+            numbers = family_line(family, what[family], f"{backend} x{n}, {where}", refs[family], out, card)
+            for per_rank in numbers["launches"]:
+                for k, v in per_rank.items():
+                    launches[k] = launches.get(k, 0) + v
+        del out
+    return launches
+
+
+def data_parallel_families_phase(dev, card):
+    """Phase 38: the families' held updates over ranks (38a), then
+    ``dryrun_multichip(max(cards, 2))`` (38b). Returns the launches of every
+    rank of both."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from lyft3d_tpu_torch import dryrun
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = families_phase(dev, card, Path(tmp))
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    stages = dryrun.dryrun_multichip(max(cards, 2))
+    for stage in stages:
+        for per_rank in stage["launches"]:
+            for k, v in per_rank.items():
+                launches[k] = launches.get(k, 0) + v
+    phase_json("data parallel families", card, cards_seen=cards, families_s=round(t1 - t0, 1),
+               dryrun_s=round(time.perf_counter() - t1, 1),
+               dryrun_stages=[dryrun.NAMES[s["stage"]] for s in stages], launches=launches)
+    return launches
+
+
 def torch_equal(a, b):
     import torch
 
@@ -5487,7 +5939,7 @@ def main():
         f"count {torch.cuda.device_count()}")
 
     from lyft3d_tpu_torch.data.bev_pipeline import BEVConfig
-    from lyft3d_tpu_torch import _build
+    from lyft3d_tpu_torch import _build, dryrun
     from lyft3d_tpu_torch.models import build_model
     from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
     from lyft3d_tpu_torch.models.pointrcnn import modules as prc_modules
@@ -5970,6 +6422,12 @@ def main():
     launches += learn["bev_raster"]
     fill_launches += learn["dense_fill"]
 
+    # 38. every family's data-parallel train step at full width held to one
+    # process, the trainers' entry points over ranks, the multichip dry run
+    fam = dict.fromkeys(dryrun.KERNELS, 0)
+    fam.update(data_parallel_families_phase(dev, card))
+    fill_launches += fam["dense_fill"]
+
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the five training runs
         and over phase 37's learning demos."""
@@ -5993,43 +6451,48 @@ def main():
         # Launched by eight paths: pillars, sparse (2 a call), per-voxel (1 a
         # call), VFE pillars, the FHD BatchNorm middle (2 a call), phase 35's
         # data-parallel pillars steps (every rank's), phase 36's sharded FHD
-        # middle (every rank's) and phase 37's two SECOND demos (the last
-        # three in fill_launches).
+        # middle (every rank's), phase 37's two SECOND demos and phase 38's
+        # sparse family and dry-run stages 3-4 (every rank's; the last four in
+        # fill_launches).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"]
                + vfe_fill + fhd_batch["dense_fill"], fill_numbers),
-        # Launched by three paths: PointRCNN inference, training (the three
-        # trainers' entry points) and phase 37's PointRCNN demo.
-        record("fps", "lyft3d_tpu/ops/pointnet2.py:112", prc_launches["fps"] + prc_train["fps"] + learn["fps"],
-               select["fps"]),
+        # Launched by four paths: PointRCNN inference, training (the three
+        # trainers' entry points), phase 37's PointRCNN demo and phase 38's
+        # RPN and RCNN families and dry-run stages 5-6 (every rank's).
+        record("fps", "lyft3d_tpu/ops/pointnet2.py:112",
+               prc_launches["fps"] + prc_train["fps"] + learn["fps"] + fam["fps"], select["fps"]),
         record("ball_query", f"{sel}:94", prc_launches["ball_query"] + prc_train["ball_query"]
-               + learn["ball_query"], select["ball_query"]),
-        record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"] + learn["knn"], select["knn"]),
+               + learn["ball_query"] + fam["ball_query"], select["ball_query"]),
+        record("knn", f"{sel}:115", prc_launches["knn"] + prc_train["knn"] + learn["knn"] + fam["knn"],
+               select["knn"]),
         record("roi_select", f"{sel}:127", prc_launches["roi_select"] + prc_train["roi_select"]
-               + learn["roi_select"], select["roi_select"]),
+               + learn["roi_select"] + fam["roi_select"], select["roi_select"]),
         # Launched by the unit middle with LayerNorm and with BatchNorm, by
         # phase 36's sharded unit middle on every rank (on output-column
-        # slices) and by phase 37's sparse demo.
+        # slices), by phase 37's sparse demo and by every rank of phase 38's
+        # sparse family and dry-run stage 4.
         record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
                sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"] + tp_launches["stencil_conv"]
-               + learn["stencil_conv"], stencil_record),
+               + learn["stencil_conv"] + fam["stencil_conv"], stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
                voxel_launches["subm_conv"], subm_record),
         # The backward sides, launched by the training paths (10 timed steps each
         # of pillars, unit middle, per-voxel middle, the bench-shaped step and
         # VFE pillars, and phase 37's SECOND demos; the fill's also by every
         # rank of phase 35; the fill's and the stencil's also by every rank of
-        # phase 36's sharded FHD middle).
+        # phase 36's sharded FHD middle and of phase 38's sparse family and
+        # dry-run stages 3-4, the stencil's of stage 4).
         record("dense_fill_bwd", "lyft3d_tpu/ops/dense_fill.py:153",
-               trained("dense_fill_bwd") + dp_launches["fill_bwd"] + tp_launches["dense_fill_bwd"],
-               fill_bwd_record, source="dense_fill"),
+               trained("dense_fill_bwd") + dp_launches["fill_bwd"] + tp_launches["dense_fill_bwd"]
+               + fam["dense_fill_bwd"], fill_bwd_record, source="dense_fill"),
         # d_src is the forward stencil kernel launched on the reverse queries,
         # as the JAX backward launches its Pallas kernel a second time.
         record("stencil_dgrad", "lyft3d_tpu/ops/column_sparse.py:773",
-               trained("stencil_dgrad") + tp_launches["stencil_dgrad"],
+               trained("stencil_dgrad") + tp_launches["stencil_dgrad"] + fam["stencil_dgrad"],
                stencil_bwd["dgrad"], source="stencil_conv"),
         record("stencil_wgrad", "lyft3d_tpu/ops/column_sparse.py:777",
-               trained("stencil_wgrad") + tp_launches["stencil_wgrad"],
+               trained("stencil_wgrad") + tp_launches["stencil_wgrad"] + fam["stencil_wgrad"],
                stencil_bwd["wgrad"], source="stencil_conv"),
         # df is the forward rank gather kernel launched on the reverse ranks,
         # as d_src is the forward stencil on the reverse queries.

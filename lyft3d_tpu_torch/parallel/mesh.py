@@ -69,6 +69,7 @@ __all__ = [
     "make_mesh",
     "make_data_mesh",
     "make_data_group",
+    "rank_placement",
     "shard_batch",
     "replicate",
     "barrier",
@@ -125,10 +126,15 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
 
-def _ranks_available(n_devices: Optional[int], device, what: str) -> int:
+def _ranks_available(n_devices: Optional[int], device, what: str, backend: Optional[str] = None) -> int:
     """``n_devices``, or every card on ``device="cuda"`` (one rank on the
-    CPU); more ranks than cards raise."""
+    CPU); more ranks than cards raise, unless gloo ranks share one card
+    (``backend="gloo"``)."""
     if torch.device(device).type != "cuda":
+        return n_devices or 1
+    if backend == "gloo":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what}: no CUDA device found")
         return n_devices or 1
     cards = torch.cuda.device_count()
     avail = n_devices or cards
@@ -155,14 +161,27 @@ def make_data_mesh(batch_size: int, n_devices: Optional[int] = None, device="cud
     return make_mesh(make_data_group(batch_size, n_devices, device), device=device)
 
 
-def make_data_group(batch_size: int, n_devices: Optional[int] = None, device="cuda") -> int:
+def make_data_group(batch_size: int, n_devices: Optional[int] = None, device="cuda",
+                    backend: Optional[str] = None) -> int:
     """The rank count of a data-parallel run: ``make_data_mesh``'s rule, the
     largest divisor of ``batch_size`` that is at most ``n_devices`` (so no
     shard is uneven). ``n_devices=None`` means every card on ``device="cuda"``
     and one rank on the CPU; on the CPU a larger ``n_devices`` runs that many
-    gloo ranks."""
-    avail = _ranks_available(n_devices, device, "make_data_group")
+    gloo ranks, and so does one card with ``backend="gloo"``
+    (:func:`rank_placement`)."""
+    avail = _ranks_available(n_devices, device, "make_data_group", backend)
     return max(d for d in range(1, avail + 1) if batch_size % d == 0)
+
+
+def rank_placement(device, backend: Optional[str] = None) -> Dict[str, Any]:
+    """:func:`spawn`'s ``device`` and ``backend`` for the ranks of a trainer
+    run on ``device``: a card each over NCCL (``backend=None``), or, with
+    ``backend="gloo"``, every rank on the card ``device`` names (card 0 where
+    it names none; NCCL takes one rank a card); gloo ranks on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and backend == "gloo":
+        return {"device": f"cuda:{device.index or 0}", "backend": "gloo"}
+    return {"device": device.type, "backend": backend}
 
 
 def shard_batch(group: Optional[DataGroup], batch):

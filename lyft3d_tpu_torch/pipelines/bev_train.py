@@ -25,7 +25,14 @@ from lyft3d_tpu_torch.config import BEVExperiment, snapshot_config
 from lyft3d_tpu_torch.data.bev_dataset import BEVImageDataset, index_batches
 from lyft3d_tpu_torch.data.prefetch import MappedPrefetcher
 from lyft3d_tpu_torch.models import build_model
-from lyft3d_tpu_torch.parallel.mesh import DataGroup, make_data_group, reseed_for_rank, shard_batch, spawn
+from lyft3d_tpu_torch.parallel.mesh import (
+    DataGroup,
+    make_data_group,
+    rank_placement,
+    reseed_for_rank,
+    shard_batch,
+    spawn,
+)
 from lyft3d_tpu_torch.pipelines.second_train import _training_device
 from lyft3d_tpu_torch.train import checkpoint as ckpt
 from lyft3d_tpu_torch.train.losses import bev_segmentation_loss
@@ -176,7 +183,8 @@ def _bev_rank(group: DataGroup, *args):
 
 def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, n_devices: Optional[int] = None,
               log_every: int = 50, eval_every: int = 500, num_workers: int = 4,
-              dtype: torch.dtype = torch.bfloat16, device="cuda", dataset_fn: Optional[Callable] = None):
+              dtype: torch.dtype = torch.bfloat16, device="cuda", dataset_fn: Optional[Callable] = None,
+              backend: Optional[str] = None):
     """Train a BEV segmentation model from a generated PNG dataset; returns
     ``(state, model)``. ``device`` defaults to the card; pass ``"cpu"``
     (with float32) to run without one.
@@ -195,7 +203,8 @@ def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, n_devices: Optional[int]
     loading its slice of every global batch, with BatchNorm statistics and
     the weighted CE's normaliser over the global batch; rank 0 evaluates and
     writes the checkpoints, and the state returned here is restored from the
-    last of them."""
+    last of them. ``backend="gloo"`` runs the ranks on one card, the one
+    ``device`` names (:func:`~lyft3d_tpu_torch.parallel.mesh.rank_placement`)."""
     device = _training_device(device, "train_bev")
     if dataset_fn is None:
         bev_dir = Path(bev_dir)
@@ -206,10 +215,10 @@ def train_bev(cfg: BEVExperiment, bev_dir, tokens=None, n_devices: Optional[int]
         raise ValueError("train_bev: a dataset_fn needs the tokens")
     train_tokens, val_tokens = split_tokens(list(tokens), cfg.data.seed)
     args = (cfg, dataset_fn, train_tokens, val_tokens, log_every, eval_every, num_workers, dtype)
-    n = make_data_group(cfg.batch_size, n_devices, device)
+    n = make_data_group(cfg.batch_size, n_devices, device, backend)
     if n == 1:
         return _fit_bev(None, *args, device=device)
-    spawn(_bev_rank, n, args=args, device=device.type)
+    spawn(_bev_rank, n, args=args, **rank_placement(device, backend))
     val_ds = dataset_fn(val_tokens, augment=False)
     trainer = _bev_trainer(cfg, log_every, eval_every, dtype, device, val_ds)
     return trainer.init_or_resume(), trainer.model

@@ -33,7 +33,9 @@ need no normaliser of their own: each frame's loss is normalised within the
 frame (the JAX trainers ``vmap`` ``rpn_loss`` and ``rcnn_loss`` a frame at a
 time) and the batch's loss is the mean over frames, which equal shards
 average to the global value. The trained weights come back from rank 0 into
-the caller's model.
+the caller's model, after a check that every rank holds them bit for bit.
+``backend="gloo"`` runs the ranks on one card, the one ``device`` names
+(:func:`~lyft3d_tpu_torch.parallel.mesh.rank_placement`).
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ from lyft3d_tpu_torch.parallel.mesh import (
     all_reduce_gradients,
     average_metrics,
     make_data_group,
+    rank_placement,
+    ranks_agree,
     replicate,
     reseed_for_rank,
     shard_batch,
@@ -158,10 +162,10 @@ def rpn_schedule(stems: Sequence[str], steps: int, batch_size: int, num_parts: i
     return schedule
 
 
-def _ranks(batch_size: int, n_devices: Optional[int], device) -> int:
+def _ranks(batch_size: int, n_devices: Optional[int], device, backend: Optional[str]) -> int:
     """The rank count of a PointRCNN trainer: one unless ``n_devices`` asks
     for more (the JAX trainers' default), then ``make_data_group``'s."""
-    return 1 if not n_devices or n_devices == 1 else make_data_group(batch_size, n_devices, device)
+    return 1 if not n_devices or n_devices == 1 else make_data_group(batch_size, n_devices, device, backend)
 
 
 def _on_rank(group: Optional[DataGroup], model):
@@ -191,7 +195,11 @@ def _rank_draws(group: Optional[DataGroup], drawn, device):
     return drawn.to(device)
 
 
-def _from_rank(model, losses):
+def _from_rank(group: DataGroup, model, losses):
+    """Rank 0's weights as a CPU state dict, and the losses; raises on every
+    rank unless every rank holds rank 0's weights."""
+    if not ranks_agree(group, model):
+        raise RuntimeError(f"rank {group.rank}: the ranks' weights differ after training")
     return {k: v.cpu() for k, v in model.state_dict().items()}, losses
 
 
@@ -210,13 +218,13 @@ def _fit_rpn(group: Optional[DataGroup], loader, cfg, steps, batch_size, lr, num
 
 
 def _rpn_rank(group: DataGroup, *args):
-    return _from_rank(*_fit_rpn(group, *args))
+    return _from_rank(group, *_fit_rpn(group, *args))
 
 
 def train_pointrcnn_rpn(loader: KittiPointRCNNLoader, cfg: PointRCNNConfig, steps: int = 100,
                         batch_size: int = 2, lr: float = 2e-3, num_parts: int = 4, seed: int = 0,
                         num_workers: int = 4, model: Optional[PointRCNN_RPN] = None,
-                        device="cuda", n_devices: Optional[int] = None):
+                        device="cuda", n_devices: Optional[int] = None, backend: Optional[str] = None):
     """RPN training over the round-robin schedule with ``adam_onecycle``;
     batches are assembled on ``num_workers`` prefetch threads. ``model``
     (on ``device``) is trained in place; by default a float32 RPN is built
@@ -231,10 +239,11 @@ def train_pointrcnn_rpn(loader: KittiPointRCNNLoader, cfg: PointRCNNConfig, step
         model = PointRCNN_RPN(cfg, in_features=1, device=device,
                               generator=torch.Generator().manual_seed(seed))
     args = (loader, cfg, steps, batch_size, lr, num_parts, seed, num_workers)
-    n = _ranks(batch_size, n_devices, device)
+    n = _ranks(batch_size, n_devices, device, backend)
     if n == 1:
         return _fit_rpn(None, *args, model, device=device)
-    trained, losses = spawn(_rpn_rank, n, args=args + (copy.deepcopy(model).cpu(),), device=device.type)
+    trained, losses = spawn(_rpn_rank, n, args=args + (copy.deepcopy(model).cpu(),),
+                            **rank_placement(device, backend))
     return _to_caller(model.train(), trained), losses
 
 
@@ -348,13 +357,14 @@ def _fit_rcnn_offline(group: Optional[DataGroup], cache, cfg, steps, lr, seed, b
 
 
 def _rcnn_offline_rank(group: DataGroup, *args):
-    return _from_rank(*_fit_rcnn_offline(group, *args))
+    return _from_rank(group, *_fit_rcnn_offline(group, *args))
 
 
 def train_rcnn_offline(cache: Sequence[dict], cfg: PointRCNNConfig, steps: int = 100,
                        lr: float = 1e-3, seed: int = 0, batch_size: int = 1,
                        model: Optional[PointRCNN_RCNN] = None,
-                       draws: Optional[Callable] = None, device="cuda", n_devices: Optional[int] = None):
+                       draws: Optional[Callable] = None, device="cuda", n_devices: Optional[int] = None,
+                       backend: Optional[str] = None):
     """Offline RCNN training on cached frames (:func:`cache_rcnn_samples`),
     ``batch_size`` frames a step picked by ``np.random.RandomState(seed)``,
     ``adam(lr)``. ``draws(step)`` gives the three ``(batch_size,
@@ -367,11 +377,11 @@ def train_rcnn_offline(cache: Sequence[dict], cfg: PointRCNNConfig, steps: int =
     device = _training_device(device, "train_rcnn_offline")
     model = _rcnn_model(model, cfg, 3 + cache[0]["point_features"].shape[-1], seed, device)
     args = (cache, cfg, steps, lr, seed, batch_size)
-    n = _ranks(batch_size, n_devices, device)
+    n = _ranks(batch_size, n_devices, device, backend)
     if n == 1:
         return _fit_rcnn_offline(None, *args, model, draws, device=device)
     trained, losses = spawn(_rcnn_offline_rank, n, args=args + (copy.deepcopy(model).cpu(), draws),
-                            device=device.type)
+                            **rank_placement(device, backend))
     return _to_caller(model, trained), losses
 
 
@@ -408,14 +418,14 @@ def _fit_rcnn_online(group: Optional[DataGroup], rpn_model, loader, cfg, steps, 
 
 
 def _rcnn_online_rank(group: DataGroup, *args):
-    return _from_rank(*_fit_rcnn_online(group, *args))
+    return _from_rank(group, *_fit_rcnn_online(group, *args))
 
 
 def train_rcnn_online(rpn_model: PointRCNN_RPN, loader: KittiPointRCNNLoader, cfg: PointRCNNConfig,
                       steps: int = 100, lr: float = 1e-3, seed: int = 0, roi_noise: bool = True,
                       batch_size: int = 1, num_workers: int = 4,
                       model: Optional[PointRCNN_RCNN] = None, draws: Optional[Callable] = None,
-                      device="cuda", n_devices: Optional[int] = None):
+                      device="cuda", n_devices: Optional[int] = None, backend: Optional[str] = None):
     """Online RCNN training: the frozen RPN (put in eval mode) runs every
     step on ``batch_size`` frames picked by ``np.random.RandomState(seed)``
     (:func:`make_rcnn_stage1`), and the RCNN trains on its RoIs with
@@ -432,12 +442,12 @@ def train_rcnn_online(rpn_model: PointRCNN_RPN, loader: KittiPointRCNNLoader, cf
     loader.sample(loader.stems[0])
     model = _rcnn_model(model, cfg, 3 + cfg.fp_width, seed, device)
     args = (loader, cfg, steps, lr, seed, roi_noise, batch_size, num_workers)
-    n = _ranks(batch_size, n_devices, device)
+    n = _ranks(batch_size, n_devices, device, backend)
     if n == 1:
         return _fit_rcnn_online(None, rpn_model, *args, model, draws, device=device)
     trained, losses = spawn(_rcnn_online_rank, n,
                             args=(copy.deepcopy(rpn_model).cpu(),) + args + (copy.deepcopy(model).cpu(), draws),
-                            device=device.type)
+                            **rank_placement(device, backend))
     return _to_caller(model, trained), losses
 
 

@@ -25,7 +25,14 @@ from lyft3d_tpu_torch.ops.anchors import (
 )
 from lyft3d_tpu_torch.ops.box_ops import box_corners_2d, corners_to_standup_2d
 from lyft3d_tpu_torch.ops.voxelize import voxelize
-from lyft3d_tpu_torch.parallel.mesh import DataGroup, make_data_group, reseed_for_rank, shard_batch, spawn
+from lyft3d_tpu_torch.parallel.mesh import (
+    DataGroup,
+    make_data_group,
+    rank_placement,
+    reseed_for_rank,
+    shard_batch,
+    spawn,
+)
 from lyft3d_tpu_torch.pipelines.second import evaluate_second, voxelnet_config_from_experiment
 from lyft3d_tpu_torch.pipelines.second_pipeline import SecondSampleLoader
 from lyft3d_tpu_torch.train.optim import build_optimizer
@@ -178,7 +185,7 @@ def _second_rank(group: DataGroup, *args):
 def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens: Sequence[str],
                  vcfg: Optional[VoxelNetConfig] = None, n_devices: Optional[int] = None,
                  log_every: int = 50, num_workers: int = 4, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", backend: Optional[str] = None):
     """Train SECOND on ``train_tokens``; returns ``(state, model, vcfg)``.
     ``device`` defaults to the card; pass ``"cpu"`` (with float32) to run
     without one.
@@ -188,16 +195,18 @@ def train_second(exp: SecondExperiment, loader: SecondSampleLoader, train_tokens
     (``None``: every card, one rank on the CPU; the largest divisor of the
     batch size up to it). More than one rank spawns a process a rank, each
     loading its slice of every global batch; rank 0 writes the checkpoints,
-    and the state returned here is restored from the last of them."""
+    and the state returned here is restored from the last of them.
+    ``backend="gloo"`` runs the ranks on one card, the one ``device`` names
+    (:func:`~lyft3d_tpu_torch.parallel.mesh.rank_placement`)."""
     device = _training_device(device, "train_second")
     vcfg = vcfg or voxelnet_config_from_experiment(exp)
     sample0 = loader.batch(list(train_tokens)[: exp.batch_size])
     args = (exp, loader, list(train_tokens), vcfg, sample0["points"].shape[-1], log_every, num_workers,
             dtype)
-    n = make_data_group(exp.batch_size, n_devices, device)
+    n = make_data_group(exp.batch_size, n_devices, device, backend)
     if n == 1:
         state, model = _fit_second(None, *args, device=device)
         return state, model, vcfg
-    spawn(_second_rank, n, args=args, device=device.type)
+    spawn(_second_rank, n, args=args, **rank_placement(device, backend))
     trainer = _second_trainer(exp, vcfg, args[4], log_every, dtype, device)
     return trainer.init_or_resume(), trainer.model, vcfg

@@ -49,7 +49,8 @@ runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # defines, runs nothing
 # no pyyaml when imported (the card's machine has none of the three).
 sys.path.insert(0, "tools")
 for tool in ("demo_inputs", "demo_bev_e2e", "demo_second_e2e", "demo_pointrcnn_e2e", "regression_curves",
-             "demo_probe", "learning_rehearsal"):
+             "demo_probe", "learning_rehearsal", "entry_points_over_ranks", "data_parallel_families_phase",
+             "batch_dependence_probe"):
     importlib.import_module(tool)
 libs = sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "PIL", "yaml"))
 assert not libs, f"a module imports {libs} when it is imported"
@@ -68,7 +69,7 @@ for new in ("config", "data.augment", "data.prefetch", "train.losses", "train.op
             "models.backbones.efficientnet", "models.backbones.dpn", "models.backbones.wide_resnet",
             "models.backbones.xception", "serve.viewer", "serve.frontend", "native.bindings",
             "data.synthetic", "utils.visualize", "utils.progress", "utils.torch_import", "parallel",
-            "parallel.mesh", "parallel.tensor"):
+            "parallel.mesh", "parallel.tensor", "dryrun"):
     assert "lyft3d_tpu_torch." + new in names, new
 print("ok", len(names))
 """

@@ -111,3 +111,39 @@ def fails_on_rank_one(group):
         raise ValueError("rank 1 cannot go on")
     barrier(group)
     return "rank 0 was not stopped"
+
+
+def dryrun_stage(group, stage, weights, batch):
+    """``dryrun.stage_step`` of one dry-run stage on this rank's shard: the
+    loss, the flax tree after the step and the averaged gradients as a flax
+    tree, and whether every rank holds rank 0's weights."""
+    from lyft3d_tpu_torch import dryrun
+
+    ran = dryrun.stage_step(stage, weights, batch, "cpu", group)
+    model = ran["model"]
+    shadow = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in shadow.named_parameters():
+            p.copy_(ran["grads"][name])
+    return {"loss": ran["loss"], "variables": export_flax_params(model),
+            "grad_tree": export_flax_params(shadow)["params"], "agree": ranks_agree(group, model)}
+
+
+def from_rank_check(group):
+    """``pointrcnn_train._from_rank`` on equal weights, then on weights that
+    differ on rank 1: what each call did, by case."""
+    from lyft3d_tpu_torch.pipelines import pointrcnn_train
+
+    out = {}
+    for case in ("same", "differ"):
+        model = torch.nn.Linear(3, 2)
+        for p in model.parameters():
+            torch.nn.init.constant_(p, 1.0)
+        if case == "differ" and group.rank == 1:
+            model.weight.data[0, 0] += 1e-6
+        try:
+            pointrcnn_train._from_rank(group, model, [])
+            out[case] = "returned"
+        except RuntimeError as e:
+            out[case] = str(e).split(": ", 1)[1]
+    return out

@@ -4,9 +4,7 @@ function by its module and each rank process imports that module, so a rank
 never imports JAX (the references are computed in the test process)."""
 
 import copy
-import sys
 from functools import partial
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -14,6 +12,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from lyft3d_tpu_torch.dryrun import tp_conv_stack, tp_stack_loss
 from lyft3d_tpu_torch.models.backbones import register_backbone
 from lyft3d_tpu_torch.models.backbones.seresnext import seresnext26
 from lyft3d_tpu_torch.models.layers import SameConv2d
@@ -28,8 +27,6 @@ from lyft3d_tpu_torch.train import optim
 from lyft3d_tpu_torch.train.optim import build_optimizer
 from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402  the TPConvStack counterpart and its loss
 
 NARROW_BACKBONE = "seresnext26_narrow"
 
@@ -134,20 +131,39 @@ def layer_cases(group):
 
 
 def graft_step(group, weights, batch):
-    """The dry run's TP stage: ``chip_smoke.tp_conv_stack`` with ``weights``
+    """The dry run's TP stage: ``dryrun.tp_conv_stack`` with ``weights``
     (torch layout), ``min_features=128``, Adam 1e-3, one step of
     ``make_train_step_dp`` on this rank's shard of ``batch``: the loss and
-    the whole state after the step."""
-    model = chip_smoke.tp_conv_stack()
+    the whole state and the averaged gradients after the step."""
+    model = tp_conv_stack()
     model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
     tp.tensor_parallel_params(group, model, min_features=128)
-    step = make_train_step_dp(lambda b: chip_smoke.tp_stack_loss(model, b),
+    step = make_train_step_dp(lambda b: tp_stack_loss(model, b),
                               build_optimizer(list(model.parameters()), "adam", 1e-3), group)
     loss = step(shard_batch(group, {k: torch.from_numpy(v) for k, v in batch.items()}))
     state = tp.gather_tensor_parallel_state(model)
-    return {"loss": float(loss), "state": {k: v.numpy() for k, v in state.items()},
+    grads = {n: tp.unshard(p.grad, p).numpy() for n, p in model.named_parameters()}
+    return {"loss": float(loss), "state": {k: v.numpy() for k, v in state.items()}, "grads": grads,
             "sharded": sorted(n for n, p in model.named_parameters() if tp.shard_of(p) is not None),
-            "agree": ranks_agree(group, model)}
+            "agree": ranks_agree(group, model), "apart": data_rank_differences(group, model)}
+
+
+def data_rank_differences(group, model):
+    """Where a rank's parameter or its gradient differs from data rank 0's:
+    ``{(world rank, name, "value" or "grad"): largest difference}`` over
+    every rank of the run (empty where all agree)."""
+    diffs = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            for kind, t in (("value", p), ("grad", p.grad)):
+                ref = t.detach().clone()
+                dist.broadcast(ref, src=group.model_rank, group=group.data_group)
+                d = float((ref - t).abs().max())
+                if d or not torch.equal(ref, t):
+                    diffs[(group.world_rank, name, kind)] = d
+    every = [None] * (group.size * group.model_size)
+    dist.all_gather_object(every, diffs)
+    return {k: v for d in every for k, v in d.items()}
 
 
 def narrow_unet(generator_seed=0):
@@ -203,16 +219,16 @@ def _stack_trainer(model_dir, weights, group, eval_batch):
     ``weights``, sharded at ``min_features=128`` under ``group``: ``ranger``
     (lr 1e-2, clip 1.0), two steps, each logged, evaluated on
     ``eval_batch`` and checkpointed."""
-    model = chip_smoke.tp_conv_stack(dtype=torch.bfloat16)
+    model = tp_conv_stack(dtype=torch.bfloat16)
     model.load_state_dict({k: torch.tensor(v) for k, v in weights.items()})
     tp.tensor_parallel_params(group, model, min_features=128)
 
     def eval_fn(state):
         with torch.no_grad():
-            return {"loss": float(chip_smoke.tp_stack_loss(state.module, eval_batch))}
+            return {"loss": float(tp_stack_loss(state.module, eval_batch))}
 
     return Trainer(model, lambda p: build_optimizer(p, "ranger", 1e-2, clip_norm=1.0),
-                   lambda m, b, gen: (chip_smoke.tp_stack_loss(m, b), {}),
+                   lambda m, b, gen: (tp_stack_loss(m, b), {}),
                    TrainerConfig(model_dir=model_dir, total_steps=2, log_every=1, eval_every=1, ckpt_every=1),
                    eval_fn=eval_fn, group=group)
 
