@@ -9,9 +9,11 @@ PointRCNN training, and the serving path: the viewer's HTTP server answering
 ``/api/detect`` requests with ``unet_resnet50`` on the card, one raster
 kernel launch a request, beside the native host runtime; then training over
 ranks, data-parallel (phase 35) and tensor-parallel (phase 36), the
-learning demos, each family trained until its loss falls (phase 37), and
+learning demos, each family trained until its loss falls (phase 37),
 every family's data-parallel train step over ranks with the multichip dry
-run (phase 38): 38 phases.
+run (phase 38), and the dense-z column middle with the stencil kernel at its
+wide shapes, the last encoder/middle pairs and PointRCNN's grid ball query
+(phase 39): 39 phases.
 
     python3 chip_smoke.py
 
@@ -409,6 +411,22 @@ Phases, one line of numbers each:
     (b) ``dryrun_multichip(max(cards, 2))`` of ``lyft3d_tpu_torch/dryrun.py``.
     The launches of both join the ``kernels`` line. The trainers' entry
     points over ranks are ``tools/entry_points_over_ranks.py``'s.
+
+39. columns (:func:`column_phase`): the dense-z column middle
+    (``middle: sparse_columns``) of :func:`fhd_config`. The float32 model
+    on the card against the CPU stage by stage (TF32 off for that hold);
+    ``make_second_infer_fn`` in bfloat16 at 4 x 262,144 points on a uniform
+    and a LiDAR-like cloud, 12 stencil launches a call at chunk counts 1 to 5
+    (B2, B3), timed stage by stage; each of its nine convs and three mask
+    convs held to the plain versions forward, ``d_src`` and ``d_wc``, in
+    bfloat16 and float32 (:func:`column_stencil_replay`: outputs up to 640
+    columns, contractions up to 640 lanes); the bfloat16 model's loss held
+    to the float32 one's; one ``train_second`` step and ``evaluate_second``
+    (B2', B3 ``d_src``, ``d_wc``); ``pillars + sparse_units`` and
+    ``simple + scatter`` at the FHD and the pillars grids; PointRCNN of
+    ``lyft_pointrcnn_config("test")`` with ``grid_bounds`` at 4 x 16,384
+    points (B5, B7, B8 counted; the grid query replaces B6 in the first two
+    SA stages). Its launches join the ``kernels`` line.
 
 The last two lines are a JSON object describing each kernel (its launches on
 the main path, its error against the plain version, its time, the plain
@@ -894,6 +912,10 @@ STENCIL_EDGES = (
     (2, 500, 500, 2, 256, 65, 0.5), (2, 333, 400, 1, 128, 66, 0.4), (1, 257, 129, 1, 128, 256, "all"),
     (2, 400, 400, 1, 256, 256, 0.2), (3, 640, 640, 1, 128, 128, "holes"), (2, 500, 500, 1, 256, 128, "one"),
     (2, 100, 90, 1, 30, 16, 0.5),
+    # The dense-z column middle's widths: 640, 448 and 384 columns in 256-column
+    # tiles at 1 to 5 chunks; their d_src contracts over 640, 448 and 384 lanes.
+    (2, 400, 400, 1, 128, 640, 0.3), (2, 400, 380, 2, 256, 448, 0.3), (1, 500, 500, 3, 256, 384, 0.2),
+    (2, 300, 300, 4, 256, 640, "holes"), (2, 300, 310, 5, 128, 448, "one"), (1, 257, 129, 2, 256, 384, "all"),
 )
 # (C, Cout) of the rank gather's edge checks: every width of the per-voxel
 # middle (3 to 5 point features in, 16 to 64 channels) and two shapes that are
@@ -5917,6 +5939,393 @@ def data_parallel_families_phase(dev, card):
     return launches
 
 
+# Phase 39: the dense-z column middle. (Cin, Cout, output cells, strided) of
+# its nine convs at the FHD geometry, then the three strided layers' 1-channel
+# mask convs; a layer runs 1 to 5 chunks of the z axis.
+FHD_COLUMN_LAYERS = ((3, 16, 40, 0), (16, 16, 40, 0), (16, 16, 20, 1), (16, 32, 20, 0), (32, 32, 20, 0),
+                     (32, 32, 10, 1), (32, 64, 10, 0), (64, 64, 10, 0), (64, 64, 5, 1))
+COLUMN_MASK_LAYERS = ((1, 1, 20, 1), (1, 1, 10, 1), (1, 1, 5, 1))
+COLUMN_CHECK_POINTS = 65536  # the float32 card-vs-CPU hold, one sample
+COLUMN_TRAIN_POINTS = 65536  # the bfloat16-vs-float32 loss hold, two samples
+PRC_GRID_BOUNDS = ((-64.0, 64.0), (-8.0, 120.0))
+
+
+def column_stencil_replay(calls, card, cloud):
+    """The twelve recorded stencil calls of one forward pass of the column
+    middle (nine convs, three mask convs) on the card: forward in bfloat16
+    and float32 against the plain version (1e-5 of scale: float32 sums of the
+    same products; the mask counts exact), and for the nine convs ``d_src``
+    (the stencil on the reverse queries) and ``d_wc`` against the plain
+    backward on a random cotangent with every third row zero (1e-5 float32,
+    2^-7 where rounded to bfloat16; ``WGRAD_TOL``). Returns ``{forward,
+    dgrad, wgrad: [per-layer dict]}`` with the kernel's, the plain version's
+    and the bound's milliseconds."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    layers = FHD_COLUMN_LAYERS[:2] + FHD_COLUMN_LAYERS[2:3] + COLUMN_MASK_LAYERS[:1] + FHD_COLUMN_LAYERS[3:6] \
+        + COLUMN_MASK_LAYERS[1:2] + FHD_COLUMN_LAYERS[6:9] + COLUMN_MASK_LAYERS[2:]
+    assert len(calls) == len(layers), len(calls)
+    rows = {"forward": [], "dgrad": [], "wgrad": []}
+    g = torch.Generator(device=calls[0][0][0].device).manual_seed(39)
+    for (args, kwargs), (cin, cout, z_out, strided) in zip(calls, layers):
+        src, qids, src_ids, wc, nc = args
+        b, vs, _ = src.shape
+        vq, (kzp, n) = qids.shape[-1], wc.shape[1:]
+        plan = cs._chunk_plan(cin, z_out, 2 if strided else 1)
+        assert (kzp, n, nc) == (plan.kzp, plan.z * cout, plan.nc), (kzp, n, nc, plan)
+        hits = int((cs.stencil_positions_ref(qids, src_ids) >= 0).sum())
+        shape = f"{cin}->{cout} cells={z_out} nc={nc} kzp={kzp} N={n} B={b} Vs={vs} Vq={vq}"
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            s_, w_ = src.to(dtype), wc.to(dtype)
+            got = cs.stencil_conv_batched(s_, qids, src_ids, w_, nc)
+            want = cs.stencil_conv_ref(s_, qids, src_ids, w_, nc)
+            errs[dtype] = rel_diff(got, want)
+            if not errs[dtype] <= 1e-5:
+                raise AssertionError(f"column stencil {shape} {dtype}: forward differs by {errs[dtype]}")
+            if cin == 1 and not torch.equal(got, want):
+                raise AssertionError(f"column stencil {shape}: the mask counts differ")
+            del got, want
+        s16, w16 = src.to(torch.bfloat16), wc.to(torch.bfloat16)
+        k_ms = cuda_ms(lambda: cs.stencil_conv_batched(s16, qids, src_ids, w16, nc), warmup=1, iters=5)
+        p_ms = cuda_ms(lambda: cs.stencil_conv_ref(s16, qids, src_ids, w16, nc), warmup=1, iters=2)
+        ids_bytes = (b * 9 * vq + b * vs) * 4
+        # Every hit multiplies its chunk's whole band (kzp x N, the band's
+        # zeros included) in each of the nc chunks.
+        ops = 2 * hits * nc * kzp * n
+        fb = bound(b * vs * nc * kzp * 2 + 9 * kzp * n * 2 + ids_bytes + b * vq * nc * n * 4, ops, BF16_PEAK)
+        rows["forward"].append(dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=fb[0], bound_by=fb[1]))
+        line = (f"column stencil ({cloud}): {shape} hits={hits} forward max_err/scale "
+                + " ".join(f"{str(d)[6:]}={e:.3g}" for d, e in errs.items())
+                + f" (tol 1e-5) kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={fb[0]:.5f} ({fb[1]})")
+        rq, rids = kwargs.get("rev_qids"), kwargs.get("rev_src_ids")
+        if rq is None:
+            log(line + f" [{card}]")
+            continue
+        rq = rq.contiguous()
+        cot = torch.randn(b, vq, nc * n, generator=g, device=src.device)
+        cot[:, ::3] = 0
+        s32 = src.detach().float().requires_grad_(True)
+        w32 = wc.detach().float().requires_grad_(True)
+        out = cs.stencil_conv_ref(s32, qids, src_ids, w32, nc)
+        want_s, want_w = torch.autograd.grad(out, (s32, w32), cot, retain_graph=True)
+        berrs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            w_t = wc.detach().to(dtype).transpose(1, 2).contiguous()
+            got_s = cs._stencil_conv_cuda(cot.to(dtype), rq, rids, w_t, nc, dgrad=True, out_dtype=dtype)
+            got_w = cs._stencil_wgrad_cuda(src.detach().to(dtype), qids, src_ids, cot, nc, kzp, n)
+            berrs[dtype] = (rel_diff(got_s, want_s), rel_diff(got_w, want_w))
+            tol_s = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            if not (berrs[dtype][0] <= tol_s and berrs[dtype][1] <= WGRAD_TOL):
+                raise AssertionError(f"column stencil {shape} {dtype}: d_src, d_wc differ from the plain "
+                                     f"backward by {berrs[dtype]}")
+            del got_s, got_w
+        cot16, wt16 = cot.to(torch.bfloat16), w16.transpose(1, 2).contiguous()
+        d_ms = cuda_ms(lambda: cs._stencil_conv_cuda(cot16, rq, rids, wt16, nc, dgrad=True,
+                                                     out_dtype=torch.bfloat16), warmup=1, iters=5)
+        w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s16, qids, src_ids, cot, nc, kzp, n), warmup=1, iters=5)
+        pd_ms = retained_grad_ms(out, (s32,), cot)
+        pw_ms = retained_grad_ms(out, (w32,), cot)
+        ids_b = (b * 9 * vq + b * 9 * vs + b * vs + b * vq) * 4
+        db = bound((b * vq * nc * n + 9 * kzp * n) * 2 + ids_b + b * vs * nc * kzp * 2, ops, BF16_PEAK)
+        wb = bound(b * vs * nc * kzp * 2 + b * vq * nc * n * 4 + ids_b + 9 * kzp * n * 4, ops, BF16_PEAK)
+        rows["dgrad"].append(dict(shape=shape, ms=d_ms, plain_ms=pd_ms, bound_ms=db[0], bound_by=db[1]))
+        rows["wgrad"].append(dict(shape=shape, ms=w_ms, plain_ms=pw_ms, bound_ms=wb[0], bound_by=wb[1]))
+        log(line + " backward max_err/scale (d_src, d_wc) "
+            + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in berrs.items())
+            + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (plain "
+            f"{pd_ms:.3f}, bound {db[0]:.5f} {db[1]}, contraction {-(-n // 64) * 64} lanes) d_wc_ms={w_ms:.4f} "
+            f"(plain {pw_ms:.3f}, bound {wb[0]:.5f} {wb[1]}) [{card}]")
+        del out, s32, w32, want_s, want_w, cot
+    for k, rs in rows.items():
+        log(f"column stencil ({cloud}): {len(rs)} {k} launches of one pass: kernel_ms="
+            f"{sum(r['ms'] for r in rs):.3f} plain_ms={sum(r['plain_ms'] for r in rs):.3f} "
+            f"bound_ms={sum(r['bound_ms'] for r in rs):.4f} [{card}]")
+    return rows
+
+
+def column_phase(dev, card, tmp):
+    """Phase 39: the dense-z column middle (``middle: sparse_columns``) at
+    the FHD geometry, and the last config options of the JAX package.
+
+    a. float32 check: the column model on the card against the CPU, stage by
+       stage on the CPU's inputs, TF32 off, one sample of
+       :data:`COLUMN_CHECK_POINTS` points: column ids and masks equal, each
+       stage within 1e-3 of its scale.
+    b. main path: ``make_second_infer_fn`` in bfloat16 (folded norms) at
+       batch 4 x 262,144 points on the uniform cloud and on
+       :func:`lidar_cloud`, the counts reset before and read after the path:
+       12 stencil launches a call (the chunk counts 1 to 5 each launched) and
+       2 fill launches; CUDA-event times stage by stage.
+    c. every stencil call of a pass held to the plain versions
+       (:func:`column_stencil_replay`): forward, ``d_src`` and ``d_wc``.
+    d. the bfloat16 model's loss against the float32 one's on the card
+       (``GRAD_NORM_TOL``, relative).
+    e. one ``train_second`` step of the column model on a synthetic Lyft
+       tree through the entry point, then ``evaluate_second``: fill, fill
+       backward, stencil, ``d_src`` and ``d_wc`` counted.
+    f. ``pillars + sparse_units`` and ``simple + scatter`` at the FHD and the
+       pillars grids, once each.
+    g. PointRCNN (``lyft_pointrcnn_config("test")``) with ``grid_bounds``
+       at 4 x 16,384 points: FPS, 3-NN and RoI select counted; the
+       backbone's first two SA stages (clouds of 16,384 and 4,096 points)
+       take the grid query, in plain PyTorch, instead of the ball-query
+       kernel, which still serves its last two and the RCNN's.
+    Returns the launches of each kernel counted here."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import demo_second_e2e
+    from lyft3d_tpu_torch.models.pointrcnn.net import PointRCNN, lyft_pointrcnn_config
+    from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, voxelnet_predict
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops import pointnet2 as p2
+    from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
+    from lyft3d_tpu_torch.ops.voxelize import voxelize
+    from lyft3d_tpu_torch.pipelines.pointrcnn import make_pointrcnn_infer_fn
+    from lyft3d_tpu_torch.pipelines.second import evaluate_second, make_second_infer_fn
+    from lyft3d_tpu_torch.pipelines.second_train import make_second_loss_fn, train_second
+
+    t_phase = time.perf_counter()
+    keys = ("voxels", "num_points", "coords", "voxel_valid")
+    counts = dict.fromkeys(TRAIN_COUNTERS + PRC_KERNELS, 0)
+
+    def active_of(cfg, vox):
+        return ActiveSet(vox["coords"], vox["voxel_valid"], cfg.grid.grid_size)
+
+    # a. float32 card vs CPU, stage by stage.
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = fhd_config(middle="sparse_columns")
+    grid_args = (cfg.grid, cfg.max_voxels, cfg.max_points_per_voxel)
+    pts, pvalid = fhd_points(1, COLUMN_CHECK_POINTS, seed=39)
+    ref_net = VoxelNet(cfg, in_features=3, generator=torch.Generator().manual_seed(0)).eval()
+    card_net = VoxelNet(cfg, in_features=3, device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    errs, columns = {}, []
+    with torch.inference_mode():
+        vox = voxelize(pts, pvalid, *grid_args)
+        feats = ref_net.encoder(*[vox[k] for k in keys[:3]])
+        cols, x = ref_net.middle.to_columns(feats, active_of(cfg, vox))
+        ccols, cx = card_net.middle.to_columns(feats.to(dev), active_of(cfg, to_dev(vox, dev)))
+        if not (torch.equal(ccols.col_ids.cpu(), cols.col_ids) and torch.equal(ccols.mask.cpu(), cols.mask)
+                and torch.equal(cx.cpu(), x)):
+            raise AssertionError("column check: columns_from_voxels on the card differs from the CPU's")
+        columns.append(int(cols.valid.sum()))
+        for i in range(len(cfg.middle_features)):
+            nx_, ncols = ref_net.middle.stage(i, x, cols)
+            cxn, ccols = card_net.middle.stage(i, x.to(dev), cols_to(cols, dev))
+            if not (torch.equal(ccols.col_ids.cpu(), ncols.col_ids) and torch.equal(ccols.mask.cpu(), ncols.mask)):
+                raise AssertionError(f"column check: stage {i}'s columns on the card differ from the CPU's")
+            errs[f"stage{i}"] = rel_diff(cxn.cpu(), nx_)
+            x, cols = nx_, ncols
+            columns.append(int(cols.valid.sum()))
+        bev = ref_net.middle.to_dense(x, cols)
+        errs["bev"] = rel_diff(card_net.middle.to_dense(x.to(dev), cols_to(cols, dev)).cpu(), bev)
+        ref_heads = ref_net.rpn(bev.permute(0, 3, 1, 2))
+        card_heads = card_net.rpn(bev.to(dev).permute(0, 3, 1, 2))
+        errs.update({k: rel_diff(card_heads[k].cpu(), h) for k, h in ref_heads.items()})
+    if not max(errs.values()) <= 1e-3:
+        raise AssertionError(f"float32 column VoxelNet card vs cpu: {errs} > 1e-3 of their scale")
+    log(f"column check: VoxelNet FHD sparse_columns f32 B=1 N={COLUMN_CHECK_POINTS}, TF32 off for this hold, "
+        f"card vs cpu stage by stage: column ids, masks and placed features equal, columns per stage {columns} "
+        f"(caps {(cfg.max_voxels,) + cfg.middle_max_voxels}), max_err/scale "
+        + " ".join(f"{k}={v:.3g}" for k, v in errs.items()) + f" (tol 1e-3) [{card}]")
+    del ref_net, card_net, vox, feats, cols, ccols, x, cx, bev, ref_heads, card_heads
+    # cuDNN's TF32 back on for the timed path; the plain versions' matmuls
+    # stay float32 (PyTorch's default), as the replays' tolerances need.
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32[0], False
+    torch.cuda.empty_cache()
+
+    # b. the main path, then c. the replays, on both clouds.
+    cfg = fhd_config(middle="sparse_columns", middle_norm="folded")
+    net = VoxelNet(cfg, in_features=3, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    infer = make_second_infer_fn(net, cfg)
+    mid = net.middle
+    anchors, _, _, anchor_class = cfg.make_anchors(dev)
+    records = {}
+    for cloud, (pts, pvalid) in (("uniform cloud", fhd_points(FHD_BATCH, FHD_POINTS, seed=39)),
+                                 ("lidar cloud", lidar_cloud(FHD_BATCH, FHD_POINTS, seed=39))):
+        pts, pvalid = pts.to(dev), pvalid.to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        train_counts(reset=True)
+        e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
+        det = infer(pts, pvalid)
+        torch.cuda.synchronize()
+        run = train_counts()
+        calls = 2 + TIMED_ITERS + 1
+        if run["stencil_conv"] != 12 * calls or run["dense_fill"] != 2 * calls:
+            raise AssertionError(f"column path ({cloud}): {run} launches in {calls} calls, expected 12 stencil "
+                                 "and 2 fill launches a call")
+        counts["stencil_conv"] += run["stencil_conv"]
+        counts["dense_fill"] += run["dense_fill"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not (bool(torch.isfinite(det["boxes"]).all()) and tuple(det["boxes"].shape) == (FHD_BATCH, cfg.nms_post, 7)):
+            raise AssertionError(f"column path ({cloud}): boxes of shape {tuple(det['boxes'].shape)} or not finite")
+        with torch.inference_mode():
+            vox = voxelize(pts, pvalid, *grid_args)
+            feats = net.encoder(*[vox[k] for k in keys[:3]])
+            with recorded(cs, "stencil_conv_batched") as stencil_calls:
+                states = [mid.to_columns(feats, active_of(cfg, vox))[::-1]]
+                for i in range(len(cfg.middle_features)):
+                    states.append(mid.stage(i, *states[-1]))
+                bev = mid.to_dense(*states[-1]).permute(0, 3, 1, 2)
+            chunks = sorted({c[0][4] for c in stencil_calls.calls})
+            if chunks != [1, 2, 3, 4, 5]:
+                raise AssertionError(f"column path: the stencil ran at chunk counts {chunks}, expected 1 to 5")
+            preds = net.rpn(bev)
+            preds = {"box": preds["box"].reshape(FHD_BATCH, -1, cfg.box_code_size),
+                     "cls": preds["cls"].reshape(FHD_BATCH, -1, cfg.num_classes),
+                     "dir": preds["dir"].reshape(FHD_BATCH, -1, 2)}
+            stage_ms = {"voxelize": cuda_ms(lambda: voxelize(pts, pvalid, *grid_args)),
+                        "columns_from_voxels": cuda_ms(lambda: mid.to_columns(feats, active_of(cfg, vox)))}
+            for i in range(len(cfg.middle_features)):
+                stage_ms[f"stage{i}"] = cuda_ms(lambda: mid.stage(i, *states[i]))
+            stage_ms["dense"] = cuda_ms(lambda: mid.to_dense(*states[-1]))
+            stage_ms["rpn"] = cuda_ms(lambda: net.rpn(bev))
+            stage_ms["predict"] = cuda_ms(lambda: voxelnet_predict(preds, anchors, anchor_class, cfg))
+            n_cols = [int(c.valid[0].sum()) for _, c in states]
+            active_cells = [int(c.mask[0].sum()) for _, c in states]
+        log(f"column e2e ({cloud}): VoxelNet FHD sparse_columns folded bf16 B={FHD_BATCH} N={FHD_POINTS} "
+            f"samples_per_s={FHD_BATCH / (e2e_ms / 1e3):.2f} e2e_ms={e2e_ms:.3f} stages_ms "
+            + " ".join(f"{n}={v:.3f}" for n, v in stage_ms.items())
+            + f" kept_voxels_sample0={int(vox['voxel_valid'][0].sum())} columns_sample0={n_cols} "
+            f"caps={(cfg.max_voxels,) + cfg.middle_max_voxels} active_cells_sample0={active_cells} "
+            f"chunk_counts={chunks} detections={int(det['valid'].sum())} peak_mem_gb={peak_gb:.2f} "
+            f"launches_per_call=12 stencil, 2 fill [{card}]")
+        records[cloud] = column_stencil_replay(stencil_calls.calls, card, cloud)
+        del vox, feats, states, bev, preds, det, stencil_calls
+        torch.cuda.empty_cache()
+    del net, infer, mid
+    torch.cuda.empty_cache()
+
+    # d. the bfloat16 model's loss against the float32 one's.
+    cfg_l = fhd_config(middle="sparse_columns")
+    pts, pvalid = fhd_points(2, COLUMN_TRAIN_POINTS, seed=40)
+    batch = to_dev({"points": pts, "points_valid": pvalid, **gt_batch(2, seed=40)}, dev)
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = VoxelNet(cfg_l, in_features=3, dtype=dtype, device=dev,
+                       generator=torch.Generator().manual_seed(3)).train()
+        loss, metrics = make_second_loss_fn(cfg_l, dev)(net, batch)
+        loss.backward()
+        losses[dtype] = (float(loss.detach()), float(metrics["num_pos"]),
+                         {k: p.grad.detach().float() for k, p in net.named_parameters() if p.grad is not None})
+        del net, loss
+    (l32, pos, g32), (l16, _, g16) = losses[torch.float32], losses[torch.bfloat16]
+    loss_err = abs(l16 - l32) / abs(l32)
+    grad_worst = max((float((g16[k] - g).norm() / g.norm()), k) for k, g in g32.items() if float(g.norm()) > 0)
+    if not loss_err <= GRAD_NORM_TOL:
+        raise AssertionError(f"column model: bfloat16 loss {l16} against float32 {l32} (rel {loss_err})")
+    log(f"column bf16 vs f32: FHD sparse_columns B=2 N={COLUMN_TRAIN_POINTS} loss bf16={l16:.6f} f32={l32:.6f} "
+        f"rel {loss_err:.3g} (tol {GRAD_NORM_TOL}), positives {pos:.0f}; gradients (reported, not held) worst "
+        f"2-norm error {grad_worst[0]:.3g} at {grad_worst[1]} [{card}]")
+    del losses, g32, g16, batch
+    torch.cuda.empty_cache()
+
+    # e. one train_second step through the entry point, then evaluate_second.
+    from lyft3d_tpu_torch.ops.anchors import AnchorSpec
+
+    learning_tree(tmp / "column_lyft", seed=39)
+    classes = demo_second_e2e.demo_inputs.CLASSES  # car, bus, truck: the 9-class anchors 1, 3 and 5
+    _, _, loader, tokens = demo_second_e2e.loader_of(tmp / "column_lyft", classes)
+    exp = demo_second_e2e.experiment(1, tmp / "column_run", sparse=True, middle="sparse_columns")
+    vcfg = fhd_config(middle="sparse_columns", anchor_specs=tuple(
+        AnchorSpec(*LYFT9_ANCHORS[i], class_id=j + 1) for j, i in enumerate((0, 2, 4))))
+    train_counts(reset=True)
+    t0 = time.perf_counter()
+    _, model, _ = train_second(exp, loader, tokens, vcfg=vcfg, n_devices=1, log_every=1,
+                               dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    trained = train_counts()
+    for k in ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad"):
+        if trained[k] <= 0:
+            raise AssertionError(f"column train_second: the {k} kernel was never launched ({trained})")
+        counts[k] += trained[k]
+    losses_logged = logged_losses(tmp / "column_run")
+    if not (losses_logged and all(math.isfinite(v) for v in losses_logged)):
+        raise AssertionError(f"column train_second: losses {losses_logged}")
+    train_counts(reset=True)
+    preds = evaluate_second(model, vcfg, loader, tokens, list(classes))
+    evaluated = train_counts()
+    counts["stencil_conv"] += evaluated["stencil_conv"]
+    counts["dense_fill"] += evaluated["dense_fill"]
+    if evaluated["stencil_conv"] <= 0:
+        raise AssertionError("column evaluate_second never launched the stencil kernel")
+    log(f"column train_second: one step of the FHD sparse_columns VoxelNet (bf16, batch {exp.batch_size}, "
+        f"{len(tokens)} samples of {LEARN_POINTS} points) through train_second in {step_s:.1f} s, losses "
+        f"{[round(v, 5) for v in losses_logged]}, launches {{{', '.join(f'{k}: {v}' for k, v in trained.items() if v)}}}; "
+        f"evaluate_second: {len(preds)} records, launches "
+        f"{{{', '.join(f'{k}: {v}' for k, v in evaluated.items() if v)}}} [{card}]")
+    del model, loader
+    torch.cuda.empty_cache()
+
+    # f. the last (encoder, middle) pairs at the FHD and the pillars grids.
+    pairs = []
+    for where, make, in_features, cloud in (("FHD", fhd_config, 3, fhd_points), ("pillars", lyft9_config, 4, pillar_points)):
+        for enc, middle in (("pillars", "sparse_units"), ("simple", "scatter")):
+            c = make(encoder=enc, middle=middle)
+            net = VoxelNet(c, in_features=in_features, dtype=torch.bfloat16, device=dev,
+                           generator=torch.Generator().manual_seed(5))
+            pts, pvalid = (a.to(dev) for a in cloud(2, FHD_POINTS // 2, seed=41))
+            train_counts(reset=True)
+            t0 = time.perf_counter()
+            det = make_second_infer_fn(net, c)(pts, pvalid)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            run = train_counts()
+            if not (bool(torch.isfinite(det["boxes"]).all()) and run["dense_fill"] > 0
+                    and (middle == "scatter" or run["stencil_conv"] > 0)):
+                raise AssertionError(f"{enc} + {middle} at the {where} grid: launches {run}, finite boxes "
+                                     f"{bool(torch.isfinite(det['boxes']).all())}")
+            counts["stencil_conv"] += run["stencil_conv"]
+            counts["dense_fill"] += run["dense_fill"]
+            pairs.append(f"{enc}+{middle}@{where}: {ms:.1f} ms (first call), detections {int(det['valid'].sum())}, "
+                         f"launches stencil {run['stencil_conv']} fill {run['dense_fill']}")
+            del net, det
+    log("other pairs (bf16, B=2, N=" + str(FHD_POINTS // 2) + ", finite boxes): " + "; ".join(pairs) + f" [{card}]")
+    torch.cuda.empty_cache()
+
+    # g. PointRCNN with grid_bounds.
+    pcfg = dataclasses.replace(lyft_pointrcnn_config("test"), grid_bounds=PRC_GRID_BOUNDS)
+    model = PointRCNN(pcfg, norm="folded", dtype=torch.bfloat16, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    infer = make_pointrcnn_infer_fn(model, pcfg)
+    pts, pvalid = (a.to(dev) for a in rcnn_cloud(PRC_BATCH, PRC_POINTS, seed=39))
+    for k in p2.KERNEL_LAUNCHES:
+        p2.KERNEL_LAUNCHES[k] = 0
+    prc_ms = cuda_ms(lambda: infer(pts, pvalid))
+    boxes, scores = infer(pts, pvalid)
+    torch.cuda.synchronize()
+    prc = dict(p2.KERNEL_LAUNCHES)
+    for k in ("fps", "knn", "roi_select"):
+        if prc[k] <= 0:
+            raise AssertionError(f"PointRCNN with grid_bounds never launched the {k} kernel ({prc})")
+    if not (bool(torch.isfinite(boxes).all()) and bool(torch.isfinite(scores).all())):
+        raise AssertionError("PointRCNN with grid_bounds: refined boxes or scores not finite")
+    for k in PRC_KERNELS:
+        counts[k] += prc[k]
+    log(f"PointRCNN grid_bounds={PRC_GRID_BOUNDS}: lyft test preset bf16 folded B={PRC_BATCH} N={PRC_POINTS} "
+        f"e2e_ms={prc_ms:.3f} samples_per_s={PRC_BATCH / (prc_ms / 1e3):.2f} launches in {2 + TIMED_ITERS + 1} "
+        f"calls {prc} (the grid query, plain PyTorch, serves SA stages 0-1; the ball-query kernel the rest "
+        f"and the RCNN) [{card}]")
+    del model, infer
+    torch.cuda.empty_cache()
+    phase_json("columns", card, seconds=round(time.perf_counter() - t_phase, 1),
+               launches={k: v for k, v in counts.items() if v})
+    return counts, records
+
+
+
 def torch_equal(a, b):
     import torch
 
@@ -6427,6 +6836,16 @@ def main():
     fam = dict.fromkeys(dryrun.KERNELS, 0)
     fam.update(data_parallel_families_phase(dev, card))
     fill_launches += fam["dense_fill"]
+
+    # 39. the dense-z column middle on the card (inference on two clouds, the
+    # wide stencil shapes held forward and backward, a train_second step), the
+    # last encoder/middle pairs and PointRCNN with the grid ball query
+    with tempfile.TemporaryDirectory() as tmp:
+        col, _ = column_phase(dev, card, Path(tmp))
+    fill_launches += col["dense_fill"]
+    for kernel in dryrun.KERNELS:
+        if kernel != "dense_fill" and kernel in col:
+            fam[kernel] += col[kernel]
 
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the five training runs

@@ -10,8 +10,10 @@
 // (n_pad, kp) bfloat16, the contraction index contiguous and zero-padded,
 // with one bit for every 16 x 8 block that holds a non-zero.
 //
-// `conv_mma_kernel`: a block owns 128 queries and ALL output columns, so a
-// query's rows are gathered once. It walks the (offset, SLICE-lane slice)
+// `conv_mma_kernel`: a block owns 128 queries and all output columns up to
+// the tile's width (128 or 256), so a query's rows are gathered once; wider
+// outputs take a grid dimension of column tiles, and each tile's block
+// gathers its queries' rows again. It walks the (offset, SLICE-lane slice)
 // pairs that have both a hit in the tile and a non-zero weight block,
 // through a ring of shared-memory stages filled by 16-byte `cp.async` (rows
 // of misses are zero-filled, 16-query groups without a hit are not copied at
@@ -26,7 +28,16 @@
 //
 // SLICE is the contraction a stage holds: 64 lanes for the stencil's wide
 // band rows, 16 or 32 for the rank gather's 16- and 32-channel rows, so that
-// a narrow layer does not pad its rows to 64. Rows whose width is not a
+// a narrow layer does not pad its rows to 64. The contraction is at most
+// MAXSTEPS 16-lane steps: 16 (256 lanes) for the rank gather, 40 (640) for
+// the stencil, whose feature gradient contracts over a dense-z column's
+// output (up to 640 lanes). The ring holds one slice a stage whatever the
+// contraction, so its shared memory does not grow with it.
+//
+// The block bitmap of the weights has one 32-bit word for every (offset,
+// 256-column tile, 16-lane step), bit o / 8 for the tile's column o:
+// wmask[(j·mask_tiles(n_pad) + t)·mask_steps(kp) + step]. Up to 256 lanes
+// and 256 columns that is the (offsets, 16) table of one tile. Rows whose width is not a
 // multiple of 16 lanes are first copied into padded bfloat16 rows
 // (`rows_prep_kernel`), which also converts float32 and can flag zero rows.
 
@@ -42,11 +53,19 @@
 namespace convmma {
 
 constexpr int kPrepThreads = 256;
-constexpr int kMaxSteps = 16;  // 16-lane steps of the contraction: kp ≤ 256
+constexpr int kMaxSteps = 16;      // 16-lane steps of the rank gather's contraction: kp ≤ 256
+constexpr int kMaxStepsWide = 40;  // of the stencil's: kp ≤ 640
+constexpr int kMaskCols = 256;     // columns of one bitmap word (a bit each 8)
+
+// Words of the bitmap a (offset, column tile): whole 16-step rows, as before
+// the contraction grew, so that narrow weights keep the (offsets, 16) table.
+__host__ __device__ inline int mask_steps(int kp) { return kp / 16 > kMaxSteps ? kp / 16 : kMaxSteps; }
+__host__ __device__ inline int mask_tiles(int n_pad) { return (n_pad + kMaskCols - 1) / kMaskCols; }
 
 // wt[j, o, k] = w[j·sj + k·sk + o·so] for o < n_out, k < k_in, zero up to
-// (n_pad, kp); wmask[j·16 + k / 16] has bit o / 8 set where the 16 x 8 block
-// holds a non-zero. One block: one offset (blockIdx.y), one 16-lane step.
+// (n_pad, kp); the bitmap word of (j, o / 256, k / 16) has bit (o % 256) / 8
+// set where the 16 x 8 block holds a non-zero. One block: one offset
+// (blockIdx.y), one 16-lane step, one 256-column tile (blockIdx.z).
 __global__ void __launch_bounds__(kPrepThreads)
 weight_prep_kernel(const __nv_bfloat16* __restrict__ w, long long sj, long long sk, long long so,
                    __nv_bfloat16* __restrict__ wt, uint32_t* __restrict__ wmask, int k_in, int n_out,
@@ -54,21 +73,25 @@ weight_prep_kernel(const __nv_bfloat16* __restrict__ w, long long sj, long long 
   __shared__ unsigned int mask;
   const int j = blockIdx.y;
   const int step = blockIdx.x;
+  const int tile = blockIdx.z;
+  const int o0 = tile * kMaskCols;
+  const int cols = min(kMaskCols, n_pad - o0);
   if (threadIdx.x == 0) mask = 0u;
   __syncthreads();
   unsigned int mine = 0u;
-  for (int item = threadIdx.x; item < n_pad * 16; item += kPrepThreads) {
-    const int o = item / 16;
-    const int k = step * 16 + (item - o * 16);
+  for (int item = threadIdx.x; item < cols * 16; item += kPrepThreads) {
+    const int ol = item / 16;
+    const int o = o0 + ol;
+    const int k = step * 16 + (item - ol * 16);
     __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
     if (o < n_out && k < k_in) v = w[j * sj + k * sk + o * so];
     wt[(static_cast<long long>(j) * n_pad + o) * kp + k] = v;
-    if (__bfloat162float(v) != 0.0f) mine |= 1u << (o / 8);
+    if (__bfloat162float(v) != 0.0f) mine |= 1u << (ol / 8);
   }
   mine = __reduce_or_sync(0xffffffffu, mine);
   if (threadIdx.x % 32 == 0 && mine != 0u) atomicOr(&mask, mine);
   __syncthreads();
-  if (threadIdx.x == 0) wmask[j * kMaxSteps + step] = mask;
+  if (threadIdx.x == 0) wmask[(j * mask_tiles(n_pad) + tile) * mask_steps(kp) + step] = mask;
 }
 
 // out[r, c·kp + k] = bfloat16(in[r, c·k_in + k]) for k < k_in, zero up to kp;
@@ -95,17 +118,18 @@ rows_prep_kernel(const T* __restrict__ in, __nv_bfloat16* __restrict__ out,
   if (lane == 0 && flags != nullptr) flags[row] = any != 0u;
 }
 
-// wt (offsets, n_pad, kp) bfloat16 and wmask (offsets, 16) uint32 from
-// bfloat16 weights whose element (j, k, o) lies at w[j·sj + k·sk + o·so]; kp
-// a multiple of 16 up to 256, n_pad a multiple of 16 up to 256.
+// wt (offsets, n_pad, kp) bfloat16 and wmask (offsets, mask_tiles(n_pad),
+// mask_steps(kp)) uint32 from bfloat16 weights whose element (j, k, o) lies
+// at w[j·sj + k·sk + o·so]; kp a multiple of 16 up to 640, n_pad a multiple
+// of 16.
 inline cudaError_t weight_prep(const void* w, long long sj, long long sk, long long so, void* wt,
                                void* wmask, int offsets, int k_in, int n_out, int kp, int n_pad,
                                cudaStream_t stream) {
-  if (offsets <= 0 || kp <= 0 || kp % 16 != 0 || kp / 16 > kMaxSteps || n_pad <= 0 || n_pad % 16 != 0 ||
-      n_pad > 256 || k_in > kp || n_out > n_pad) {
+  if (offsets <= 0 || offsets > 65535 || kp <= 0 || kp % 16 != 0 || kp / 16 > kMaxStepsWide || n_pad <= 0 ||
+      n_pad % 16 != 0 || mask_tiles(n_pad) > 65535 || k_in > kp || n_out > n_pad) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid(kp / 16, offsets);
+  const dim3 grid(kp / 16, offsets, mask_tiles(n_pad));
   weight_prep_kernel<<<grid, kPrepThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(w), sj, sk, so, static_cast<__nv_bfloat16*>(wt),
       static_cast<uint32_t*>(wmask), k_in, n_out, kp, n_pad);
@@ -135,21 +159,24 @@ inline cudaError_t rows_prep(const void* in, void* out, void* flags, long long n
 }
 
 // WM x WN warps; a warp owns MT m-tiles of 16 queries and NT n-tiles of 8
-// columns: the block 16·WM·MT queries and 8·WN·NT columns. MAXOFF offsets at
-// most, SLICE contraction lanes a stage. POS_SMEM keeps the block's positions
+// columns: the block 16·WM·MT queries and 8·WN·NT columns (a column tile of
+// 256 columns or a divisor of 256). MAXOFF offsets at most, SLICE contraction
+// lanes a stage, MAXSTEPS 16-lane steps of contraction at most. POS_SMEM keeps the block's positions
 // in shared memory after the first read (MAXOFF x 128 int32 behind the ring),
 // so that filling a stage waits on no global load; without it a stage's fill
 // reads them again from L2, which leaves the stencil's wide ring two blocks
 // an SM.
-template <int MAXOFF, int SLICE, int WM, int WN, int MT, int NT, int STAGES, bool POS_SMEM>
+template <int MAXOFF, int SLICE, int WM, int WN, int MT, int NT, int STAGES, bool POS_SMEM,
+          int MAXSTEPS = kMaxSteps>
 struct ConvTile {
   static_assert(NT % 2 == 0, "n-tiles come in pairs (ldmatrix.x4)");
-  static_assert(SLICE % 16 == 0 && 256 % SLICE == 0, "a slice is whole 16-lane steps");
+  static_assert(SLICE % 16 == 0 && (MAXSTEPS * 16) % SLICE == 0, "a slice is whole 16-lane steps");
   static constexpr int kThreads = WM * WN * 32;
   static constexpr int kQueries = WM * MT * 16;
   static constexpr int kCols = WN * NT * 8;
+  static_assert(kMaskCols % kCols == 0, "a column tile lies in one bitmap word");
   static constexpr int kLd = SLICE + 8;  // shared-memory row stride (no ldmatrix bank conflicts)
-  static constexpr int kMaxSlices = kMaxSteps * 16 / SLICE;
+  static constexpr int kMaxSlices = MAXSTEPS * 16 / SLICE;
   static constexpr int kStageElems = (kQueries + kCols) * kLd;
   static constexpr int kRingBytes = STAGES * kStageElems * static_cast<int>(sizeof(__nv_bfloat16));
   static constexpr int kSmemBytes = kRingBytes + (POS_SMEM ? MAXOFF * kQueries * 4 : 0);
@@ -162,22 +189,27 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __fl
 // src (batch, vs, nc·kp) bfloat16, pos (batch, offsets, vq) int32, wt and
 // wmask from weight_prep; out (batch, vq, nc·n) of TO: float32, or bfloat16,
 // the float32 sums rounded once here instead of in a pass of their own.
-// grid (query tiles, nc, batch).
-template <int MAXOFF, int SLICE, int WM, int WN, int MT, int NT, int STAGES, bool POS_SMEM, typename TO>
+// grid (query tiles, nc · column tiles, batch), the column tile minor.
+template <int MAXOFF, int SLICE, int WM, int WN, int MT, int NT, int STAGES, bool POS_SMEM, typename TO,
+          int MAXSTEPS = kMaxSteps>
 __global__ void __launch_bounds__(WM * WN * 32, 512 / (WM * WN * 32))
 conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict__ pos,
                 const __nv_bfloat16* __restrict__ wt, const uint32_t* __restrict__ wmask,
-                TO* __restrict__ out, int offsets, int vs, int vq, int nc, int kp, int n, int n_pad) {
-  using Tile = ConvTile<MAXOFF, SLICE, WM, WN, MT, NT, STAGES, POS_SMEM>;
+                TO* __restrict__ out, int offsets, int vs, int vq, int nc, int kp, int n, int n_pad,
+                int col_tiles) {
+  using Tile = ConvTile<MAXOFF, SLICE, WM, WN, MT, NT, STAGES, POS_SMEM, MAXSTEPS>;
   constexpr int kT = Tile::kThreads;
   constexpr int kQ = Tile::kQueries;
   constexpr int kLd = Tile::kLd;
   constexpr int kMaxSlices = Tile::kMaxSlices;
   constexpr int kKs = SLICE / 16;
+  constexpr int kTileBits = Tile::kCols / 8;
+  constexpr uint32_t kTileMask = kTileBits == 32 ? 0xffffffffu : (1u << kTileBits) - 1u;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   int32_t* pos_s = reinterpret_cast<int32_t*>(smem_raw + Tile::kRingBytes);  // POS_SMEM only
-  __shared__ uint32_t wmask_s[MAXOFF * kMaxSteps];
+  // This column tile's bits of the bitmap, shifted down to bit 0.
+  __shared__ uint32_t wmask_s[MAXOFF * MAXSTEPS];
   __shared__ unsigned int mt_any_s[MAXOFF];
   __shared__ int list_s[MAXOFF * kMaxSlices];
   __shared__ int n_it_s;
@@ -188,15 +220,23 @@ conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict
   const int wm = warp % WM;
   const int wn = warp / WM;
   const int b = blockIdx.z;
-  const int chunk = blockIdx.y;
+  const int chunk = blockIdx.y / col_tiles;
+  const int col0 = (blockIdx.y - chunk * col_tiles) * Tile::kCols;
+  const int tile_cols = min(Tile::kCols, n_pad - col0);
   const int q0 = blockIdx.x * kQ;
   const int steps = kp / 16;
+  const int msteps = mask_steps(kp);
+  const int mword = col0 / kMaskCols;
+  const int mshift = (col0 - mword * kMaskCols) / 8;
+  const int mtiles = mask_tiles(n_pad);
   const long long width = static_cast<long long>(nc) * kp;
   const __nv_bfloat16* src_b = src + static_cast<long long>(b) * vs * width + static_cast<long long>(chunk) * kp;
   const int32_t* pos_b = pos + static_cast<long long>(b) * offsets * vq;
 
-  for (int i = tid; i < offsets * kMaxSteps; i += kT) {
-    wmask_s[i] = (i % kMaxSteps) < steps ? wmask[i] : 0u;
+  for (int i = tid; i < offsets * MAXSTEPS; i += kT) {
+    const int j = i / MAXSTEPS;
+    const int s = i - j * MAXSTEPS;
+    wmask_s[i] = s < steps ? (wmask[(j * mtiles + mword) * msteps + s] >> mshift) & kTileMask : 0u;
   }
   for (int j = tid; j < offsets; j += kT) mt_any_s[j] = 0u;
   __syncthreads();
@@ -238,7 +278,7 @@ conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict
         const int j = idx / nsl;
         const int sl = idx - j * nsl;
         uint32_t any = 0u;
-        for (int ks = 0; ks < kKs; ++ks) any |= wmask_s[j * kMaxSteps + sl * kKs + ks];
+        for (int ks = 0; ks < kKs; ++ks) any |= wmask_s[j * MAXSTEPS + sl * kKs + ks];
         take = mt_any_s[j] != 0u && any != 0u;
         code = j * kMaxSlices + sl;
       }
@@ -281,10 +321,10 @@ conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict
       const __nv_bfloat16* g = src_b + static_cast<long long>(p >= 0 ? p : 0) * width + sl * SLICE + s * 8;
       mma::cp_async_16(mma::smem_addr(a_s + r * kLd + s * 8), g, p >= 0 ? 16 : 0);
     }
-    // The whole slice of the weights: leaving out its zero blocks measured no
-    // faster (the ring waits on latency, not on bytes).
-    const __nv_bfloat16* wj = wt + static_cast<long long>(j) * n_pad * kp + sl * SLICE;
-    for (int i = tid; i < n_pad * (SLICE / 8); i += kT) {
+    // The tile's whole slice of the weights: leaving out its zero blocks
+    // measured no faster (the ring waits on latency, not on bytes).
+    const __nv_bfloat16* wj = wt + (static_cast<long long>(j) * n_pad + col0) * kp + sl * SLICE;
+    for (int i = tid; i < tile_cols * (SLICE / 8); i += kT) {
       const int o = i / (SLICE / 8);
       const int s = i - o * (SLICE / 8);
       mma::cp_async_16(mma::smem_addr(b_s + o * kLd + s * 8), wj + static_cast<long long>(o) * kp + s * 8, 16);
@@ -311,7 +351,7 @@ conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict
     if ((mt_mask & ((1u << MT) - 1u)) == 0u) continue;
 #pragma unroll
     for (int ks = 0; ks < kKs; ++ks) {
-      const uint32_t m = (wmask_s[j * kMaxSteps + sl * kKs + ks] >> (wn * NT)) & ((1u << NT) - 1u);
+      const uint32_t m = (wmask_s[j * MAXSTEPS + sl * kKs + ks] >> (wn * NT)) & ((1u << NT) - 1u);
       if (m == 0u) continue;
       uint32_t afr[MT][4];
 #pragma unroll
@@ -348,31 +388,34 @@ conv_mma_kernel(const __nv_bfloat16* __restrict__ src, const int32_t* __restrict
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int q = q0 + (wm * MT + mi) * 16 + gq + (e >> 1) * 8;
-        const int col = (wn * NT + ni) * 8 + tq * 2 + (e & 1);
+        const int col = col0 + (wn * NT + ni) * 8 + tq * 2 + (e & 1);
         if (q < vq && col < n) store_out(o + static_cast<long long>(q) * out_width + col, acc[mi][ni][e]);
       }
 }
 
 // Launches conv_mma_kernel with its dynamic shared memory; kp a multiple of
-// SLICE, n_pad ≤ the tile's columns, offsets ≤ MAXOFF.
-template <int MAXOFF, int SLICE, int WM, int WN, int MT, int NT, int STAGES, bool POS_SMEM, typename TO>
+// SLICE of at most MAXSTEPS steps, offsets ≤ MAXOFF; n_pad wider than the
+// tile's columns takes several column tiles.
+template <int MAXOFF, int SLICE, int WM, int WN, int MT, int NT, int STAGES, bool POS_SMEM, typename TO,
+          int MAXSTEPS = kMaxSteps>
 cudaError_t launch_conv_mma(const void* src, const void* pos, const void* wt, const void* wmask, void* out,
                             int batch, int offsets, int vs, int vq, int nc, int kp, int n, int n_pad,
                             cudaStream_t stream) {
-  using Tile = ConvTile<MAXOFF, SLICE, WM, WN, MT, NT, STAGES, POS_SMEM>;
-  if (offsets <= 0 || offsets > MAXOFF || kp % SLICE != 0 || kp / 16 > kMaxSteps || n_pad > Tile::kCols ||
-      batch > 65535 || nc > 65535) {
+  using Tile = ConvTile<MAXOFF, SLICE, WM, WN, MT, NT, STAGES, POS_SMEM, MAXSTEPS>;
+  const int col_tiles = (n_pad + Tile::kCols - 1) / Tile::kCols;
+  if (offsets <= 0 || offsets > MAXOFF || kp <= 0 || kp % SLICE != 0 || kp / 16 > MAXSTEPS || n_pad <= 0 ||
+      n_pad % 16 != 0 || n > n_pad || batch > 65535 || static_cast<long long>(nc) * col_tiles > 65535) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = conv_mma_kernel<MAXOFF, SLICE, WM, WN, MT, NT, STAGES, POS_SMEM, TO>;
+  auto kernel = conv_mma_kernel<MAXOFF, SLICE, WM, WN, MT, NT, STAGES, POS_SMEM, TO, MAXSTEPS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Tile::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((vq + Tile::kQueries - 1) / Tile::kQueries, nc, batch);
+  const dim3 grid((vq + Tile::kQueries - 1) / Tile::kQueries, nc * col_tiles, batch);
   kernel<<<grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(src), static_cast<const int32_t*>(pos),
       static_cast<const __nv_bfloat16*>(wt), static_cast<const uint32_t*>(wmask), static_cast<TO*>(out),
-      offsets, vs, vq, nc, kp, n, n_pad);
+      offsets, vs, vq, nc, kp, n, n_pad, col_tiles);
   return cudaGetLastError();
 }
 

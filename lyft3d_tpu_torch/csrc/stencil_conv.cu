@@ -30,8 +30,13 @@
 //      16 x 8 block that holds a non-zero: the band weights are two thirds
 //      zeros, and kzp pads (zs+2)·C to 128 lanes.
 //   3. `convmma::conv_mma_kernel` over 9 offsets and 64-lane slices: a block
-//      owns 128 queries and ALL output columns (up to 128, or up to 256 with
-//      16 warps), so a query's rows are gathered once; a `cp.async` ring of
+//      owns 128 queries and all output columns up to 128, or up to 256 with
+//      16 warps, so a query's rows are gathered once; wider outputs (the
+//      dense-z column middle's 384, 448 and 640 columns) take a grid
+//      dimension of 256-column tiles, each of which gathers its queries'
+//      rows again (at most 5 chunks, 3 tiles). The contraction runs up to
+//      640 lanes (`d_src` of those layers: the cotangent's columns are its
+//      lanes) in 64-lane slices through the same ring; a `cp.async` ring of
 //      (offset, slice) stages feeds `mma.sync.m16n8k16`, and 16-query groups
 //      without a hit and zero weight block pairs are skipped. What bounds it
 //      now is the ring's latency: with one hit in nine (offset, query) pairs
@@ -51,8 +56,9 @@
 // Backward (the JAX package's `_stencil_bwd`, column_sparse.py:742):
 //   d_src  the same stencil launched a second time, as the JAX backward does
 //          (column_sparse.py:773): the cotangent rows are the source, the
-//          reverse queries pick them, the band weights are transposed and the
-//          output width is kzp (up to 256 columns in one pass).
+//          reverse queries pick them, the band weights are transposed, the
+//          contraction is N (up to 640 lanes) and the output width is kzp
+//          (up to 256 columns in one pass).
 //   d_wc[j] = Σ_{b,q,c} src[b, pos(qids[b, j, q])][chunk c]ᵀ g[b, q][chunk c]
 //          `wgrad::wgrad_mma_kernel` (bfloat16 sources, tensor cores, the
 //          float32 cotangent split in two bfloat16 halves) or
@@ -301,6 +307,7 @@ cudaError_t launch_wgrad(const void* src, const void* qids, const void* src_ids,
 // ---------------------------------------------------------------------------
 
 constexpr int kSlice = 64;  // contraction lanes a pipeline stage holds (conv_mma.cuh)
+constexpr int kSteps = convmma::kMaxStepsWide;  // the contraction: up to 640 lanes
 
 // pos[b, j, q] = position of qids[b, j, q] in src_ids[b], −1 where absent or,
 // with `src_flags` (batch, vs), where the source row's flag is 0.
@@ -321,16 +328,17 @@ stencil_positions_kernel(const int32_t* __restrict__ qids, const int32_t* __rest
 }
 
 // Up to 128 columns: 8 warps (4 x 2, a warp 32 queries x 64 columns), three
-// stages; up to 256: 16 warps (8 x 2, a warp 16 queries x 128 columns), two.
+// stages; more: 16 warps (8 x 2, a warp 16 queries x 128 columns), two, in
+// tiles of 256 columns.
 template <typename TO>
 cudaError_t launch_mma(const void* src, const void* pos, const void* wt, const void* wmask, void* out,
                        int batch, int vs, int vq, int nc, int kp, int n, int n_pad,
                        cudaStream_t stream) {
   if (n_pad <= 128) {
-    return convmma::launch_conv_mma<kOffsets, kSlice, 4, 2, 2, 8, 3, false, TO>(
+    return convmma::launch_conv_mma<kOffsets, kSlice, 4, 2, 2, 8, 3, false, TO, kSteps>(
         src, pos, wt, wmask, out, batch, kOffsets, vs, vq, nc, kp, n, n_pad, stream);
   }
-  return convmma::launch_conv_mma<kOffsets, kSlice, 8, 2, 1, 16, 2, false, TO>(
+  return convmma::launch_conv_mma<kOffsets, kSlice, 8, 2, 1, 16, 2, false, TO, kSteps>(
       src, pos, wt, wmask, out, batch, kOffsets, vs, vq, nc, kp, n, n_pad, stream);
 }
 
@@ -348,8 +356,8 @@ cudaError_t positions(const void* qids, const void* src_ids, const void* src_fla
   return cudaGetLastError();
 }
 
-// wt (9, n_pad, kp) bfloat16 and wmask (9, 16) uint32 (conv_mma.cuh); kp
-// whole 64-lane slices.
+// wt (9, n_pad, kp) bfloat16 and wmask (9, mask_tiles(n_pad), mask_steps(kp))
+// uint32 (conv_mma.cuh); kp whole 64-lane slices, up to 640.
 cudaError_t weight_prep(const void* w, long long sj, long long sk, long long so, void* wt,
                         void* wmask, int k_in, int n_out, int kp, int n_pad, cudaStream_t stream) {
   if (kp % kSlice != 0) return cudaErrorInvalidValue;
@@ -431,11 +439,12 @@ extern "C" int stencil_rows_prep_launch(const void* in, void* out, void* flags, 
 // (0 float32, 1 bfloat16), qids (batch, 9, vq), src_ids (batch, vs) and
 // bfloat16 weights whose element (j, k, o) lies at w[j·sj + k·sk + o·so].
 // Scratch of the caller: pos (batch, 9, vq) int32, wt (9, n_pad, kp)
-// bfloat16, wmask (9, 16) uint32 and, unless src is bfloat16 with k = kp and
+// bfloat16, wmask (9, mask_tiles(n_pad), mask_steps(kp)) uint32 and, unless src is bfloat16 with k = kp and
 // is to be read as it is (`rows` null), rows (batch, vs, nc·kp) bfloat16 and
 // flags (batch, vs) uint8: a hit on a row that is all zero is then a miss.
 // An empty shape is an error: nothing would be launched.
-// Up to 128 columns: 8 warps, 128 queries a block; up to 256: 16 warps.
+// Up to 128 columns: 8 warps, 128 queries a block; more: 16 warps, 256
+// columns a block.
 extern "C" int stencil_conv_mma_launch(const void* src, int src_dtype, void* rows, void* flags,
                                        const void* qids, const void* src_ids, void* pos,
                                        const void* w, long long sj, long long sk, long long so,

@@ -19,7 +19,8 @@ the flax modules:
   ``(0, 1)``, not the symmetric ``(1, 1)``.
 
 The flax modules infer their input width; here it is an explicit first
-argument. ``PackedGroupedConv`` is a TPU workaround and is not ported.
+argument. ``PackedGroupedConv`` (a TPU layout of the grouped conv) has no
+counterpart: a grouped ``nn.Conv2d`` computes the same function.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from torch import nn
 from lyft3d_tpu_torch.models.layers import BatchNorm, LayerNorm
 from lyft3d_tpu_torch.ops.pointnet2 import (
     fps,
+    grid_multi_radius_ball_query,
     group_points,
     multi_radius_ball_query,
     three_interpolate,
@@ -74,13 +75,21 @@ class SAModuleMSG(nn.Module):
 
     ``forward(xyz (B, N, 3), features (B, N, C) or None, valid (B, N))`` →
     ``(new_xyz (B, S, 3), new_features (B, S, ΣC'), new_valid (B, S))``.
-    ``in_features`` is C (0 without features).
+    ``in_features`` is C (0 without features). With ``grid_bounds`` (static
+    extents of the two ``grid_plane`` axes) a cloud of at least
+    ``grid_min_n`` points takes the grid-bucketed ball query
+    (:func:`~lyft3d_tpu_torch.ops.pointnet2.grid_multi_radius_ball_query`)
+    instead, as the JAX module does.
     """
 
     def __init__(self, in_features: int, npoint: int, radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]], use_xyz: bool = True,
-                 norm: str = "layer", device=None, dtype: Optional[torch.dtype] = None):
+                 norm: str = "layer", grid_bounds=None, grid_plane=(0, 2), grid_min_n: int = 2048,
+                 device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.grid_bounds = None if grid_bounds is None else tuple(tuple(map(float, ab)) for ab in grid_bounds)
+        self.grid_plane = tuple(grid_plane)
+        self.grid_min_n = grid_min_n
         self.npoint = npoint
         self.radii = tuple(float(r) for r in radii)
         self.nsamples = tuple(int(k) for k in nsamples)
@@ -101,7 +110,11 @@ class SAModuleMSG(nn.Module):
         # Features go to the compute dtype before the group gather (the
         # gathered tensor is the module's largest); geometry stays float32.
         feats_c = features.to(dtype) if features is not None else None
-        queries = multi_radius_ball_query(new_xyz, xyz, valid, self.radii, self.nsamples)
+        if self.grid_bounds is not None and xyz.shape[1] >= self.grid_min_n:
+            queries = grid_multi_radius_ball_query(new_xyz, xyz, valid, self.radii, self.nsamples,
+                                                   self.grid_bounds, self.grid_plane)
+        else:
+            queries = multi_radius_ball_query(new_xyz, xyz, valid, self.radii, self.nsamples)
         outs = []
         for (idx, count), nsample, mlp in zip(queries, self.nsamples, self.mlps):
             grouped = (group_points(xyz, idx) - new_xyz[:, :, None, :]).to(dtype)

@@ -25,8 +25,9 @@ their mean. ``dtype`` is the compute type of the MLP stacks; geometry, the
 The JAX package draws the random numbers of RoI sampling and RoI noise from
 ``jax.random`` inside the functions; here they are arguments (uniforms of
 the JAX draws' shapes and ranges), and :func:`draw_target_priorities` and
-:func:`draw_roi_noise` draw them from a ``torch.Generator``. The
-grid-bucketed ball query (``grid_bounds``) is not ported.
+:func:`draw_roi_noise` draw them from a ``torch.Generator``. With
+``grid_bounds`` the backbone's SA stages over clouds of 2,048 points or more
+take the grid-bucketed ball query, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -120,7 +121,9 @@ class PointRCNNConfig:
     roi_fg_aug_times: int = 10
     # final NMS over refined boxes at eval
     final_nms_iou: float = 0.1
-    # Grid-bucketed ball query of the JAX package: not ported, must stay None.
+    # Grid-bucketed ball query for the backbone's SA stages (None: the exact
+    # query): static ((lo_a, hi_a), (lo_b, hi_b)) extents of the two
+    # grid_plane axes (KITTI-rect clouds: plane (x, z)).
     grid_bounds: Any = None
     grid_plane: Tuple[int, int] = (0, 2)
 
@@ -189,14 +192,6 @@ def lyft_pointrcnn_config(mode: str = "test", class_name: str = "car") -> PointR
     )
 
 
-def _check_ported(cfg: PointRCNNConfig):
-    if cfg.grid_bounds is not None:
-        raise NotImplementedError(
-            "grid_bounds: the grid-bucketed ball query is not ported to lyft3d_tpu_torch; "
-            "the CUDA ball query serves every size"
-        )
-
-
 def _finish(module: nn.Module, device, dtype: torch.dtype, generator):
     """Allocate and initialise a module built on ``meta`` (see
     :func:`lyft3d_tpu_torch.models.layers.materialize`); a module that is
@@ -222,13 +217,13 @@ class PointRCNNBackbone(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
         widths = [in_features]
         self.sa = nn.ModuleList()
         for npoint, radii, nsamples, w in zip(cfg.sa_npoints, cfg.sa_radii, cfg.sa_nsamples,
                                               cfg.sa_widths):
             sa = SAModuleMSG(widths[-1], npoint, radii, nsamples, [[w, w] for _ in radii],
-                             norm=norm, device=_META)
+                             norm=norm, grid_bounds=cfg.grid_bounds, grid_plane=cfg.grid_plane,
+                             device=_META)
             self.sa.append(sa)
             widths.append(sa.out_features)
         # fp[0] is the coarsest level's: it runs first.
@@ -473,7 +468,6 @@ class PointRCNN_RCNN(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
         self.encoder = _RoIEncoder(cfg, in_features, norm, device=_META)
         self.fc = nn.Linear(self.encoder.out_features, cfg.rcnn_widths[-1], device=_META)
         self.cls = nn.Linear(cfg.rcnn_widths[-1], 1, device=_META)

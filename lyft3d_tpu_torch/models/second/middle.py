@@ -6,19 +6,23 @@ dense BEV map ``(B, ny, nx, nz·C)``.
 - :class:`SparseMiddleUnits` (config ``middle: sparse_units``) works on
   z-slab units of BEV columns (:mod:`lyft3d_tpu_torch.ops.column_sparse`);
   every conv is one launch of the stencil kernel ``csrc/stencil_conv.cu``.
+- :class:`SparseMiddleColumns` (config ``middle: sparse_columns``) works on
+  whole BEV columns with a dense z axis; every conv is one launch of the same
+  stencil kernel over 1 to 5 chunks of the z axis, and each strided layer
+  has a second launch on its 1-channel activity mask. Its caps bound
+  columns, not units, so where a cap fills it keeps other voxels than the
+  unit middle.
 - :class:`SparseMiddle` (config ``middle: sparse``) is the per-voxel
   formulation (:mod:`lyft3d_tpu_torch.ops.sparse_conv`): its submanifold
   convs run the rank gather kernel ``csrc/subm_conv.cu``, its strided convs
   a gather and an einsum, as in the JAX package.
 
-Both take batched inputs (``(B, V, C)`` features and a batched
-``ActiveSet``) and agree at active sites where no capacity cap truncates. The
-dense-z column middle (``SparseMiddleColumns``) stays in the JAX package as
-an oracle and raises here.
+All take batched inputs (``(B, V, C)`` features and a batched
+``ActiveSet``) and agree at active sites where no capacity cap truncates.
 
 The flax modules infer their input width; here it is an explicit first
 argument. Kernels are ``(27, Cin, Cout)`` as in flax, held in the module's
-dtype. ``norm_type`` of the unit middle: "layer" (LayerNorm with flax's
+dtype. ``norm_type`` of the unit and column middles: "layer" (LayerNorm with flax's
 statistics), "batch" (flax's BatchNorm over the ``(B, V, C)`` output: its
 statistics in train mode run over every row, inactive and padded ones
 included, as the flax layer's do; eval mode uses the running statistics) or
@@ -37,8 +41,13 @@ from torch import nn
 from lyft3d_tpu_torch.models.layers import BatchNorm, LayerNorm
 from lyft3d_tpu_torch.ops.column_sparse import (
     ColumnSet,
+    columns_from_voxels,
+    columns_to_dense_bev,
+    downsample_columns,
     downsample_units,
+    strided_conv_columns_batched,
     strided_conv_units_batched,
+    subm_conv_columns_batched,
     subm_conv_units_batched,
     units_from_voxels,
     units_to_dense_bev,
@@ -63,6 +72,8 @@ __all__ = [
     "SubMUnitLayer",
     "StridedUnitLayer",
     "SparseMiddleUnits",
+    "SubMColumnLayer",
+    "StridedColumnLayer",
     "SparseMiddleColumns",
 ]
 
@@ -290,11 +301,74 @@ class SparseMiddleUnits(nn.Module):
         return self.to_dense(x, cols), cols
 
 
-class SparseMiddleColumns(nn.Module):
-    """The dense-z BEV-column middle stays in the JAX package, where it is the
-    oracle the unit middle is tested against."""
+# ------------------------------------------------------------- dense-z columns
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SparseMiddleColumns is not ported (JAX-side oracle); use SparseMiddleUnits"
-        )
+
+class SubMColumnLayer(_SparseConvBase):
+    """Submanifold conv + norm + ReLU over dense-z BEV columns."""
+
+    def conv(self, colf, cols: ColumnSet):
+        return subm_conv_columns_batched(colf.to(self.kernel.dtype), cols, self.kernel)
+
+    def forward(self, colf, cols: ColumnSet):
+        return self.norm_act(self.conv(colf, cols), cols.mask)
+
+
+class StridedColumnLayer(_SparseConvBase):
+    """Strided (k3 s2 p1) sparse conv over columns → a new column set of half
+    the extent in x, y and z, at most ``max_out`` columns."""
+
+    def __init__(self, in_features: int, features: int, max_out: int, norm_type: str = "layer",
+                 device=None, dtype=None):
+        super().__init__(in_features, features, norm_type, device, dtype)
+        self.max_out = max_out
+
+    def conv(self, colf, cols: ColumnSet, out_cols: ColumnSet):
+        """``(out, output activity)``; the activity comes from a stencil pass of
+        its own over the input's mask, whatever slice of the kernel runs."""
+        return strided_conv_columns_batched(colf.to(self.kernel.dtype), cols, out_cols, self.kernel)
+
+    def forward(self, colf, cols: ColumnSet):
+        out_cols = downsample_columns(cols, self.max_out)
+        out, omask = self.conv(colf, cols, out_cols)
+        out_cols = out_cols.replace(mask=omask)
+        return self.norm_act(out, omask), out_cols
+
+
+class SparseMiddleColumns(nn.Module):
+    """The sparse stack over dense-z BEV columns: each column carries all its
+    z cells, so a layer's work scales with nz rather than with occupancy. The
+    caps bound columns per stage (columns ≤ voxels)."""
+
+    def __init__(self, in_features: int, stage_features: Sequence[int] = (16, 32, 64),
+                 stage_max_voxels: Sequence[int] = (8192, 4096, 2048), subm_per_stage: int = 2,
+                 norm_type: str = "layer", assume_sorted_voxels: bool = False, device=None, dtype=None):
+        super().__init__()
+        fk = {"norm_type": norm_type, "device": device, "dtype": dtype}
+        self.subm_per_stage = subm_per_stage
+        self.assume_sorted_voxels = assume_sorted_voxels
+        subm, strided, cin = [], [], in_features
+        for f, mo in zip(stage_features, stage_max_voxels):
+            for _ in range(subm_per_stage):
+                subm.append(SubMColumnLayer(cin, f, **fk))
+                cin = f
+            strided.append(StridedColumnLayer(f, f, max_out=mo, **fk))
+        self.subm = nn.ModuleList(subm)  # flax: SubMColumnLayer_i
+        self.strided = nn.ModuleList(strided)  # flax: StridedColumnLayer_i
+
+    def to_columns(self, features, active: ActiveSet):
+        return columns_from_voxels(features.to(self.subm[0].kernel.dtype), active, self.assume_sorted_voxels)
+
+    def stage(self, i: int, x, cols: ColumnSet):
+        for layer in self.subm[i * self.subm_per_stage:(i + 1) * self.subm_per_stage]:
+            x = layer(x, cols)
+        return self.strided[i](x, cols)
+
+    def to_dense(self, x, cols: ColumnSet):
+        return columns_to_dense_bev(x, cols)
+
+    def forward(self, features, active: ActiveSet):
+        cols, x = self.to_columns(features, active)
+        for i in range(len(self.strided)):
+            x, cols = self.stage(i, x, cols)
+        return self.to_dense(x, cols), cols

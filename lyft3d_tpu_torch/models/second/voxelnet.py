@@ -1,26 +1,29 @@
 """VoxelNet assembly and predict (port of ``lyft3d_tpu/models/second/voxelnet.py``).
 
-Ported, with the batched :func:`voxelnet_predict`:
+Any encoder (``simple``: :class:`SimpleVoxel`, ``vfe``:
+:class:`VoxelFeatureExtractor`, ``pillars``: :class:`PillarFeatureNet`) with
+any middle, as in the JAX package, then :class:`RPN` and the batched
+:func:`voxelnet_predict`:
 
-- the PointPillars path, ``encoder="pillars"`` with ``middle="scatter"``:
-  :class:`PillarFeatureNet` → :func:`pillar_scatter` (CUDA kernel
-  ``csrc/dense_fill.cu`` on the card) → :class:`RPN`;
-- the sparse paths, ``encoder="simple"`` with ``middle="sparse_units"``
-  (:class:`SparseMiddleUnits`, CUDA kernels ``csrc/stencil_conv.cu`` and
-  ``csrc/dense_fill.cu``) or ``middle="sparse"`` (:class:`SparseMiddle`,
-  ``csrc/subm_conv.cu`` and ``csrc/dense_fill.cu``) → :class:`RPN`;
-- the VFE encoder, ``encoder="vfe"`` (:class:`VoxelFeatureExtractor`), with
-  any of the three middles, which then take its ``encoder_features[-1]``
-  channels.
+- ``middle="scatter"``: :func:`pillar_scatter` (CUDA kernel
+  ``csrc/dense_fill.cu`` on the card) of the encoder's rows at their (x, y);
+  where the grid has several z cells, the voxels of a column sum;
+- ``middle="sparse_units"`` (:class:`SparseMiddleUnits`) and
+  ``middle="sparse_columns"`` (:class:`SparseMiddleColumns`): CUDA kernels
+  ``csrc/stencil_conv.cu`` and ``csrc/dense_fill.cu``;
+- ``middle="sparse"`` (:class:`SparseMiddle`): ``csrc/subm_conv.cu`` and
+  ``csrc/dense_fill.cu``.
+
+The middles take the encoder's channels (the point width for ``simple``,
+``encoder_features[-1]`` otherwise). As in the JAX package, an encoder name
+that is none of the three builds the pillar encoder and a middle name that is
+none of the four the scatter.
 
 :func:`voxelnet_loss` is the training objective (focal classification,
 sin-error smooth-L1 localization, direction cross-entropy). Only a unit
 middle with ``middle_norm="batch"`` behaves differently in ``train()`` mode
-(its BatchNorms; the rest is GroupNorm and LayerNorm), and every kernel
-wrapper on its path is differentiable.
-
-The ``sparse_columns`` middle (the dense-z columns the JAX package keeps for
-comparison) is not to be ported: building a model that needs it raises.
+(a unit or column middle's BatchNorms; the rest is GroupNorm and LayerNorm),
+and every kernel wrapper on its path is differentiable.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from torch import nn
 
 from lyft3d_tpu_torch.models.layers import materialize
 from lyft3d_tpu_torch.models.second.rpn import RPN
-from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleUnits
+from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleColumns, SparseMiddleUnits
 from lyft3d_tpu_torch.models.second.voxel_encoder import (
     PillarFeatureNet,
     SimpleVoxel,
@@ -68,14 +71,15 @@ class VoxelNetConfig:
     encoder: str = "pillars"  # "simple", "vfe" or "pillars"
     encoder_features: Tuple[int, ...] = (64,)
     # "scatter" (pillars), "sparse_units" (z-slab units of BEV columns, the
-    # sparse FHD config's) or "sparse" (per-voxel gather formulation).
+    # sparse FHD config's), "sparse_columns" (dense-z BEV columns) or
+    # "sparse" (per-voxel gather formulation).
     middle: str = "scatter"
     middle_features: Tuple[int, ...] = (16, 32, 64)
     middle_max_voxels: Tuple[int, ...] = (8192, 4096, 2048)
     # Stage-0 z-slab size of "sparse_units"; divisible by 2**(stages − 1).
     middle_z_slab: int = 8
-    # Norm of the unit middle's layers: "layer", "batch" (running statistics
-    # in eval mode) or "folded" (conv + bias).
+    # Norm of the unit and column middles' layers: "layer", "batch" (running
+    # statistics in eval mode) or "folded" (conv + bias).
     middle_norm: str = "layer"
     anchor_specs: Tuple[AnchorSpec, ...] = (
         AnchorSpec(size=(1.93, 4.76, 1.72), z_center=-1.0,
@@ -121,7 +125,6 @@ class VoxelNetConfig:
         """The RPN's output grid: each sparse stage's strided conv (k3 p1 s2:
         n → (n − 1)//2 + 1), the SAME-padded block-0 conv of stride s
         (n → ceil(n / s)), then ``int(· × up_strides[0])``."""
-        _check_ported(self)
         nx, ny, _ = self.grid.grid_size
         h, w = ny, nx
         if self.is_sparse:
@@ -145,18 +148,6 @@ class VoxelNetConfig:
         )
 
 
-_PORTED = (("pillars", "scatter"), ("simple", "sparse_units"), ("simple", "sparse"),
-           ("vfe", "scatter"), ("vfe", "sparse_units"), ("vfe", "sparse"))
-
-
-def _check_ported(cfg: VoxelNetConfig):
-    if (cfg.encoder, cfg.middle) not in _PORTED:
-        raise NotImplementedError(
-            f"VoxelNet encoder={cfg.encoder!r} middle={cfg.middle!r} is not yet ported to "
-            f"lyft3d_tpu_torch (ported (encoder, middle) pairs: {_PORTED})"
-        )
-
-
 class VoxelNet(nn.Module):
     """voxels → per-anchor predictions, batched (leading B).
 
@@ -176,7 +167,6 @@ class VoxelNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        _check_ported(config)
         self.config = config
         cfg = config
         self.middle = None
@@ -195,11 +185,14 @@ class VoxelNet(nn.Module):
         if cfg.is_sparse:
             common = dict(stage_features=cfg.middle_features,
                           stage_max_voxels=cfg.middle_max_voxels, device=_META)
+            # voxelize emits (y, x, z)-ordered flat ids: no sort needed.
             if cfg.middle == "sparse_units":
-                # voxelize emits (y, x, z)-ordered flat ids: no sort needed.
                 self.middle = SparseMiddleUnits(
                     enc_features, z_slab=cfg.middle_z_slab, norm_type=cfg.middle_norm,
                     assume_sorted_voxels=True, nz=cfg.grid.grid_size[2], **common)
+            elif cfg.middle == "sparse_columns":
+                self.middle = SparseMiddleColumns(
+                    enc_features, norm_type=cfg.middle_norm, assume_sorted_voxels=True, **common)
             else:
                 self.middle = SparseMiddle(enc_features, **common)
             nz = cfg.grid.grid_size[2]

@@ -1,5 +1,15 @@
-"""Sparse 3D convolution over z-slab units of BEV columns (port of the unit
-subset of ``lyft3d_tpu/ops/column_sparse.py``).
+"""Sparse 3D convolution over BEV columns with a dense z axis, and over
+z-slab units of them (port of ``lyft3d_tpu/ops/column_sparse.py``).
+
+A **column** is one active BEV cell ``(x, y)`` holding all ``nz`` z-cells
+densely with an activity mask (:func:`columns_from_voxels`); a 3³ conv over
+columns is a 9-offset BEV stencil whose z taps are folded into banded
+weights, the z axis cut into chunks of about 256 contraction lanes
+(:func:`_chunk_plan`), so that a layer runs 1 to 5 chunks
+(:func:`subm_conv_columns_batched`, :func:`strided_conv_columns_batched`).
+Capacity caps bound columns per stage. This is the ``middle: sparse_columns``
+formulation; :func:`subm_conv_columns` and :func:`strided_conv_columns` are
+its plain unbatched forms.
 
 A **unit** is one fixed z-slab of a BEV column: id
 ``(y·nx + x)·NC + slab`` with ``NC = ceil(nz / z_slab)``; only active units
@@ -12,9 +22,10 @@ whose z taps are folded into banded weights
 Every function takes one sample or a batch: leading dimensions are carried
 where the JAX package ``vmap``s. Capacities, the even-spread overflow
 policies and the ghost rules are the JAX package's integer arithmetic,
-literally, because they decide which units survive. Not ported: the dense-z
-column functions (kept in the JAX package for comparison) and the TPU
-kernel's window machinery with its ``t_tile``/``w_win`` knobs.
+literally, because they decide which columns and units survive. Not ported:
+the TPU kernel's window machinery with its ``t_tile``/``w_win`` knobs and its
+coverage fallback (a GPU reads a row by its address), and the ``method``
+switch of the neighbour lookups (one ``searchsorted`` serves).
 
 The gradient of the stencil (:class:`StencilConv`) has two sides. ``d_src`` is
 the stencil kernel itself, launched a second time on the cotangent rows with
@@ -38,7 +49,7 @@ import ctypes
 import dataclasses
 import itertools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,10 +57,18 @@ import torch.nn.functional as F
 from lyft3d_tpu_torch import _build
 from lyft3d_tpu_torch.ops._wgrad import wgrad_buffers, wgrad_mma_variant
 from lyft3d_tpu_torch.ops.dense_fill import fill_rows_by_id
-from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet, take_rows
+from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet, resolve_ids, take_rows
 
 __all__ = [
     "ColumnSet",
+    "columns_from_voxels",
+    "column_neighbors",
+    "subm_conv_columns",
+    "downsample_columns",
+    "strided_conv_columns",
+    "subm_qids_one",
+    "subm_conv_columns_batched",
+    "strided_conv_columns_batched",
     "units_from_voxels",
     "unit_qids_subm",
     "subm_conv_units_batched",
@@ -481,6 +500,261 @@ def strided_conv_units_batched(colf, in_cols: ColumnSet, out_cols: ColumnSet, w,
     return out_full[..., :cout], omask
 
 
+# ---------------------------------------------------------------------------
+# Dense-z columns.
+# ---------------------------------------------------------------------------
+
+
+def columns_from_voxels(features, active: ActiveSet, assume_sorted: bool = False):
+    """``(…, V, C)`` voxel features + 3D active set → (:class:`ColumnSet` of
+    capacity V, ``(…, V, nz, C)`` column features). ``assume_sorted``: the
+    active set is in (bev id, z) order with invalid entries at the tail, as
+    ``voxelize`` emits it; otherwise a stable sort puts it so (its gradient
+    is the inverse permutation). Each voxel lands in one (column, z) cell at
+    canvas row ``crank·nz + z``, ascending, through
+    :func:`~lyft3d_tpu_torch.ops.dense_fill.fill_rows_by_id` with a ones
+    channel that becomes the activity mask; the gradient is the fill's
+    backward, a gather."""
+    nx, ny, nz = active.spatial_shape
+    v, c = features.shape[-2:]
+    big2 = nx * ny
+    assert big2 * nz < 2 ** 30, (nx, ny, nz)
+    x, y, z = (active.coords[..., i].long() for i in range(3))
+    key = torch.where(active.valid, (y * nx + x) * nz + z, big2 * nz)
+    if assume_sorted:
+        skey, f_s = key, features
+    else:
+        skey, perm = torch.sort(key, dim=-1, stable=True)
+        f_s = take_rows(features, perm)
+    valid_s = skey < big2 * nz
+    bev_s = skey // nz
+    head = (_shift_right(bev_s, -1) != bev_s) & valid_s
+    crank = torch.cumsum(head, dim=-1) - 1  # column of each sorted row
+    col_ids = _scatter_dropping(v, big2, torch.where(head, crank, v), bev_s)
+    canvas = v * nz
+    dest = torch.where(valid_s, crank * nz + skey % nz, canvas)
+    f_aug = torch.cat([f_s, torch.ones_like(f_s[..., :1])], dim=-1)
+    filled = fill_rows_by_id(f_aug, dest, valid_s, canvas, assume_sorted=True)
+    cols = ColumnSet(col_ids=col_ids.to(torch.int32), valid=col_ids < big2,
+                     mask=(filled[..., c] > 0).unflatten(-1, (v, nz)), bev_shape=(nx, ny), nz=nz)
+    return cols, filled[..., :c].unflatten(-2, (v, nz))
+
+
+def _column_qids(coords, valid, offs, scale: int, nx: int, ny: int):
+    """``(…, 9, Vq)`` int32 ids ``q = scale·coord + δ_j`` over an (nx, ny)
+    grid, −1 where the query is invalid or outside the grid."""
+    qx = coords[..., None, :, 0] * scale + offs[:, None, 0]
+    qy = coords[..., None, :, 1] * scale + offs[:, None, 1]
+    return _in_grid_ids(valid, qx, qy, nx, ny, qy * nx + qx)
+
+
+def subm_qids_one(cols: ColumnSet):
+    """``(…, 9, Vc)`` int32 submanifold neighbour ids: the constant flat-id shift
+    ``dy·nx + dx`` per BEV offset; −1 where absent or out of the grid."""
+    nx, ny = cols.bev_shape
+    return _column_qids(cols.coords, cols.valid, _bev_offsets2d(cols.col_ids.device), 1, nx, ny)
+
+
+def column_neighbors(cols: ColumnSet):
+    """``(…, 9, Vc)`` column ranks of the 3×3 BEV stencil (−1 absent);
+    ``col_ids`` ascend, so a rank indexes the column arrays directly."""
+    nx, ny = cols.bev_shape
+    qids = subm_qids_one(cols).long()
+    return resolve_ids(cols.col_ids.long(), nx * ny, torch.where(qids >= 0, qids, nx * ny))
+
+
+def _gather_rows(padded, rank):
+    """``(…, Vc_in, L)`` flat z-padded columns + ``(…, Vq)`` ranks → ``(…, Vq,
+    L)``, zeros where the rank is −1."""
+    out = take_rows(padded, rank.clamp(0, padded.shape[-2] - 1))
+    return out * (rank >= 0)[..., None].to(padded.dtype)
+
+
+def _z_padded(fm):
+    """``(…, Vc, nz, C)`` → ``(…, Vc, (nz + 2)·C)``: one zero cell each end."""
+    return F.pad(fm, (0, 0, 1, 1)).flatten(-2)
+
+
+def subm_conv_columns(colf, cols: ColumnSet, neighbors, w):
+    """Plain submanifold 3³ conv over columns: ``colf`` ``(…, Vc, nz, C)``,
+    ``neighbors`` ``(…, 9, Vc)`` from :func:`column_neighbors`, ``w`` ``(27, C,
+    Cout)`` → ``(…, Vc, nz, Cout)`` float32, to be masked and normalised by
+    the caller."""
+    nz, cin = colf.shape[-2:]
+    cout = w.shape[-1]
+    w93 = w.reshape(9, 3, cin, cout)
+    padded = _z_padded(colf * cols.mask[..., None].to(colf.dtype))
+    out = 0
+    for j in range(9):
+        nf = _gather_rows(padded, neighbors[..., j, :])
+        out = out + nf.float() @ _banded_weight(w93[j], nz, nz + 2, 1).to(nf.dtype).float()
+    return out.unflatten(-1, (nz, cout))
+
+
+def downsample_columns(cols: ColumnSet, max_out: int) -> ColumnSet:
+    """Output :class:`ColumnSet` of a k=3 s=2 p=1 strided conv: every output
+    column that receives an active input column, ascending, more than
+    ``max_out`` spread evenly (:func:`_even_select`); its z mask is left empty
+    (the strided conv fills it)."""
+    nx, ny = cols.bev_shape
+    onx, ony = (nx - 1) // 2 + 1, (ny - 1) // 2 + 1
+    nzo = (cols.nz - 1) // 2 + 1
+    obig = onx * ony
+    dev = cols.col_ids.device
+    lead = cols.col_ids.shape[:-1]
+    num = cols.coords + 1  # + padding
+    o_hi = num // 2
+    o_lo = -((-(num - 2)) // 2)
+    combos = torch.tensor(list(itertools.product(range(2), range(2))), dtype=torch.int64, device=dev)
+    o = o_lo[..., None, :, :] + combos[:, None, :]  # (…, 4, Vc, 2)
+    ok = (cols.valid[..., None, :] & (o <= o_hi[..., None, :, :]).all(dim=-1)
+          & (o[..., 0] >= 0) & (o[..., 0] < onx) & (o[..., 1] >= 0) & (o[..., 1] < ony))
+    cand = torch.sort(torch.where(ok, o[..., 1] * onx + o[..., 0], obig).flatten(-2), dim=-1).values
+    is_head = (_shift_right(cand, -1) != cand) & (cand < obig)
+    heads = torch.sort(torch.where(is_head, cand, obig), dim=-1).values
+    if heads.shape[-1] < max_out:
+        heads = torch.cat([heads, heads.new_full((*lead, max_out - heads.shape[-1]), obig)], dim=-1)
+    sel = _even_select(heads, is_head.sum(-1, keepdim=True), max_out).expand(*lead, max_out)
+    out_ids = torch.gather(heads, -1, sel)
+    return ColumnSet(col_ids=out_ids.to(torch.int32), valid=out_ids < obig,
+                     mask=torch.zeros((*lead, max_out, nzo), dtype=torch.bool, device=dev),
+                     bev_shape=(onx, ony), nz=nzo)
+
+
+def _strided_qids(in_cols: ColumnSet, out_cols: ColumnSet):
+    """``(…, 9, Vco)`` int32 ids of the input columns an output column reads:
+    ``2·coord + δ_j``, −1 outside the input grid."""
+    nx, ny = in_cols.bev_shape
+    return _column_qids(out_cols.coords, out_cols.valid, _bev_offsets2d(out_cols.col_ids.device), 2, nx, ny)
+
+
+def _strided_window_band(nz_pad: int, nzo: int, device):
+    """``(nz_pad, nzo)`` float32: how many of output cell oz's 3 z taps read
+    padded input row iz."""
+    iz = torch.arange(nz_pad, device=device)[None, :, None]
+    oz = torch.arange(nzo, device=device)[None, None, :]
+    dz = torch.arange(3, device=device)[:, None, None]
+    return (iz == 2 * oz + dz).float().sum(0)
+
+
+def strided_conv_columns(colf, in_cols: ColumnSet, out_cols: ColumnSet, w):
+    """Plain k=3 s=2 p=1 strided conv over columns. Returns (``(…, Vco, nzo,
+    Cout)`` float32, ``(…, Vco, nzo)`` bool output activity: any active input
+    voxel in the 3³ window)."""
+    nz, cin = colf.shape[-2:]
+    nzo = out_cols.nz
+    cout = w.shape[-1]
+    nx, ny = in_cols.bev_shape
+    w93 = w.reshape(9, 3, cin, cout)
+    q = _strided_qids(in_cols, out_cols).long()
+    rank = resolve_ids(in_cols.col_ids.long(), nx * ny, torch.where(q >= 0, q, nx * ny))
+    padded = _z_padded(colf * in_cols.mask[..., None].to(colf.dtype))
+    mask_p = F.pad(in_cols.mask.float(), (1, 1))
+    msel = _strided_window_band(nz + 2, nzo, colf.device)
+    out, m_out = 0, 0
+    for j in range(9):
+        nf = _gather_rows(padded, rank[..., j, :])
+        out = out + nf.float() @ _banded_weight(w93[j], nzo, nz + 2, 2).to(nf.dtype).float()
+        m_out = m_out + _gather_rows(mask_p, rank[..., j, :]) @ msel
+    return out.unflatten(-1, (nzo, cout)), (m_out > 0.5) & out_cols.valid[..., None]
+
+
+class _ChunkPlan(NamedTuple):
+    z: int          # output z-cells a chunk
+    kzrows: int     # input (padded-z) rows a chunk window
+    kz: int         # kzrows · cin
+    kzp: int        # kz rounded up to a multiple of 128 lanes
+    nc: int         # number of chunks
+    need_rows: int  # padded-z input rows all chunks consume
+
+
+_TARGET_K = 256  # contraction lanes a chunk aims at
+
+
+def _chunk_plan(cin: int, nz_out: int, stride: int) -> _ChunkPlan:
+    z = max(1, min((_TARGET_K // cin - 3) // stride + 1, nz_out))
+    kzrows = stride * (z - 1) + 3
+    kz = kzrows * cin
+    nc = -(-nz_out // z)
+    return _ChunkPlan(z, kzrows, kz, _lane_pad(kz), nc, stride * z * (nc - 1) + kzrows)
+
+
+def _chunk_source(fm, plan: _ChunkPlan, stride: int):
+    """``(…, V, nz, C)`` masked features → ``(…, V, nc·kzp)`` chunked rows: chunk
+    c holds padded-z rows ``[stride·z·c, stride·z·c + kzrows)`` C-minor, zero
+    padded to kzp lanes. Plain slicing, so that autograd sums the halo rows
+    that neighbouring chunks share."""
+    nz, cin = fm.shape[-2:]
+    flat = F.pad(fm, (0, 0, 1, plan.need_rows - nz - 1)).flatten(-2)
+    chunks = []
+    for c in range(plan.nc):
+        s0 = stride * plan.z * c * cin
+        chunks.append(F.pad(flat[..., s0:s0 + plan.kz], (0, plan.kzp - plan.kz)))
+    return torch.cat(chunks, dim=-1)
+
+
+def _chunk_weights(w93, plan: _ChunkPlan, stride: int):
+    """``(9, 3, C, Cout)`` z taps → ``(9, kzp, z·Cout)`` band weights shared by
+    every chunk."""
+    wb = _banded_weight(w93, plan.z, plan.kzrows, stride)
+    return F.pad(wb, (0, 0, 0, plan.kzp - plan.kz))
+
+
+def subm_conv_columns_batched(colf, cols: ColumnSet, w):
+    """Submanifold 3³ conv over columns, one stencil launch (``nc`` chunks of
+    the z axis) a layer. ``colf`` ``(…, Vc, nz, C)``, ``w`` ``(27, C, Cout)``
+    → ``(…, Vc, nz, Cout)`` float32, to be masked and normalised by the
+    caller."""
+    nz, cin = colf.shape[-2:]
+    cout = w.shape[-1]
+    plan = _chunk_plan(cin, nz, 1)
+    src = _chunk_source(colf * cols.mask[..., None].to(colf.dtype), plan, 1)
+    wc = _chunk_weights(w.reshape(9, 3, cin, cout), plan, 1)
+    qids = subm_qids_one(cols)
+    # The nine BEV offsets are symmetric under j ↦ 8 − j: the query that reads
+    # column v at offset j is v's own neighbour at the opposite offset.
+    out = stencil_conv_batched(src, qids, cols.col_ids, wc, plan.nc,
+                               rev_qids=qids.flip(-2), rev_src_ids=cols.col_ids)
+    return out.unflatten(-1, (plan.nc * plan.z, cout))[..., :nz, :]
+
+
+def _rev_qids_columns(in_cols: ColumnSet, out_cols: ColumnSet):
+    """``(…, 9, Vc)`` int32 reverse queries of the strided conv: input column v
+    is read at offset j by the output column at ``(coord(v) − δ_j)/2`` where
+    both components divide evenly and it lies in the output grid, else −1."""
+    onx, ony = out_cols.bev_shape
+    offs = _bev_offsets2d(in_cols.col_ids.device)
+    coords = in_cols.coords
+    tx = coords[..., None, :, 0] - offs[:, None, 0]
+    ty = coords[..., None, :, 1] - offs[:, None, 1]
+    even = (torch.remainder(tx, 2) == 0) & (torch.remainder(ty, 2) == 0)
+    qx = torch.div(tx, 2, rounding_mode="floor")
+    qy = torch.div(ty, 2, rounding_mode="floor")
+    inb = in_cols.valid[..., None, :] & even & (qx >= 0) & (qx < onx) & (qy >= 0) & (qy < ony)
+    return torch.where(inb, qy * onx + qx, -1).to(torch.int32)
+
+
+def strided_conv_columns_batched(colf, in_cols: ColumnSet, out_cols: ColumnSet, w):
+    """k=3 s=2 p=1 strided conv over columns: one stencil launch for the
+    features and one on the 1-channel activity mask, whose window counts
+    above 0.5 are the output activity. Returns (``(…, Vco, nzo, Cout)``
+    float32, ``(…, Vco, nzo)`` bool)."""
+    nzo = out_cols.nz
+    cin, cout = colf.shape[-1], w.shape[-1]
+    qids = _strided_qids(in_cols, out_cols)
+    plan = _chunk_plan(cin, nzo, 2)
+    src = _chunk_source(colf * in_cols.mask[..., None].to(colf.dtype), plan, 2)
+    wc = _chunk_weights(w.reshape(9, 3, cin, cout), plan, 2)
+    out = stencil_conv_batched(src, qids, in_cols.col_ids, wc, plan.nc,
+                               rev_qids=_rev_qids_columns(in_cols, out_cols), rev_src_ids=out_cols.col_ids)
+    out = out.unflatten(-1, (plan.nc * plan.z, cout))[..., :nzo, :]
+    mplan = _chunk_plan(1, nzo, 2)
+    msrc = _chunk_source(in_cols.mask[..., None].to(colf.dtype), mplan, 2)
+    mwc = _chunk_weights(torch.ones(9, 3, 1, 1, dtype=colf.dtype, device=colf.device), mplan, 2)
+    mm = stencil_conv_batched(msrc, qids, in_cols.col_ids, mwc, mplan.nc)[..., :nzo]
+    return out, (mm > 0.5) & out_cols.valid[..., None]
+
+
 def columns_to_dense_bev(colf, cols: ColumnSet):
     """``(…, Vc, nz, C)`` columns → ``(…, ny, nx, nz·C)`` dense BEV (z-major,
     then C) through :func:`~lyft3d_tpu_torch.ops.dense_fill.fill_rows_by_id`."""
@@ -555,31 +829,41 @@ def _check_args(src, qids, src_ids, wc, nc: int):
 # plain versions of the small preparation kernels.
 
 MMA_SLICE = 64   # contraction lanes a pipeline stage of the kernel holds
-MMA_MAX_K = 256  # widest contraction (16 steps of 16 lanes)
-MMA_MAX_N = 256  # most output columns a block owns
+MMA_MAX_K = 640  # widest contraction (kMaxStepsWide: 40 steps of 16 lanes)
+MASK_COLS = 256  # output columns of one word of the weights' block bitmap
+MASK_STEPS = 16  # least words of the bitmap an (offset, column tile)
 
 
 def stencil_mma_variant(k: int, n: int) -> dict:
     """What the stencil launches ``conv_mma_kernel`` (``csrc/conv_mma.cuh``)
     with for a contraction of ``k`` lanes and ``n`` output columns: ``kp``
     (``k`` padded to whole 64-lane slices), ``n_pad`` (``n`` padded to pairs
-    of 8-column tiles), the warps, queries and pipeline stages of a block and
-    its dynamic shared memory. Up to 128 columns a block is 8 warps (4 x 2, a warp 32 queries x
-    64 columns); up to 256 it is 16 warps (8 x 2, a warp 16 queries x 128
-    columns). Raises for shapes the kernel does not take."""
+    of 8-column tiles), the warps, queries, columns, column tiles and
+    pipeline stages of a block and its dynamic shared memory. Up to 128
+    columns a block is 8 warps (4 x 2, a warp 32 queries x 64 columns) and
+    owns them all; wider, a block is 16 warps (8 x 2, a warp 16 queries x 128
+    columns) and owns a tile of 256 columns, ``col_tiles`` of them in the
+    grid. The contraction runs through the ring in 64-lane slices, so the
+    shared memory does not depend on it. Raises for shapes the kernel does
+    not take: a contraction above 640 lanes."""
     if k < 1 or n < 1:
         raise ValueError(f"the stencil kernel needs k ≥ 1 and n ≥ 1, got {k} and {n}")
     kp = -(-k // MMA_SLICE) * MMA_SLICE
     n_pad = -(-n // 16) * 16
-    if kp > MMA_MAX_K or n_pad > MMA_MAX_N:
+    if kp > MMA_MAX_K:
         raise ValueError(
-            f"the bfloat16 stencil kernel takes up to {MMA_MAX_K} contraction lanes and "
-            f"{MMA_MAX_N} output columns, got {k} and {n}"
+            f"the bfloat16 stencil kernel takes up to {MMA_MAX_K} contraction lanes, got {k}"
         )
     warps, stages = (8, 3) if n_pad <= 128 else (16, 2)
     cols = 128 if n_pad <= 128 else 256
-    return dict(kp=kp, n_pad=n_pad, warps=warps, queries=128, cols=cols, stages=stages,
-                smem_bytes=stages * (128 + cols) * (MMA_SLICE + 8) * 2)
+    return dict(kp=kp, n_pad=n_pad, warps=warps, queries=128, cols=cols, col_tiles=-(-n_pad // cols),
+                stages=stages, smem_bytes=stages * (128 + cols) * (MMA_SLICE + 8) * 2)
+
+
+def _mask_shape(kp: int, n_pad: int) -> Tuple[int, int]:
+    """(256-column tiles, words a tile) of the weights' block bitmap
+    (``mask_tiles`` and ``mask_steps`` of ``csrc/conv_mma.cuh``)."""
+    return -(-n_pad // MASK_COLS), max(MASK_STEPS, kp // 16)
 
 
 def bf16_split(x):
@@ -594,14 +878,29 @@ def bf16_split(x):
 def stencil_weight_prep_ref(wc, kp: int, n_pad: int, dtype=torch.bfloat16):
     """Plain version of ``weight_prep_kernel`` (``csrc/conv_mma.cuh``): ``wc`` ``(9, k, n)`` →
     ``wt`` ``(9, n_pad, kp)`` bfloat16 (contraction index last, zero-padded)
-    and ``wmask`` ``(9, 16)`` int64 whose bit ``o // 8`` of entry ``[j, k //
-    16]`` says that the 16 x 8 block holds a non-zero. ``dtype`` float32 keeps
-    the values unrounded (for tests of the layout alone)."""
+    and the block bitmap ``wmask`` ``(9, T·S)`` int64 (``T`` 256-column
+    tiles, ``S = max(16, kp/16)`` words a tile): bit ``(o % 256) // 8`` of
+    entry ``[j, (o // 256)·S + k // 16]`` says that the 16 x 8 block holds a
+    non-zero. Up to 256 lanes and 256 columns that is ``(9, 16)``. ``dtype``
+    float32 keeps the values unrounded (for tests of the layout alone)."""
     k, n = wc.shape[1:]
+    tiles, msteps = _mask_shape(kp, n_pad)
     wt = F.pad(wc.to(dtype).transpose(1, 2), (0, kp - k, 0, n_pad - n))
     blocks = (wt.float() != 0).reshape(9, n_pad // 8, 8, kp // 16, 16).any(dim=4).any(dim=2)
-    bits = (blocks.long() << torch.arange(n_pad // 8, device=wc.device)[None, :, None]).sum(dim=1)
-    return wt.contiguous(), F.pad(bits, (0, 16 - kp // 16))
+    blocks = F.pad(blocks, (0, 0, 0, tiles * MASK_COLS // 8 - n_pad // 8)).unflatten(1, (tiles, MASK_COLS // 8))
+    shifts = torch.arange(MASK_COLS // 8, device=wc.device)[None, None, :, None]
+    bits = (blocks.long() << shifts).sum(dim=2)  # (9, tiles, kp // 16)
+    return wt.contiguous(), F.pad(bits, (0, msteps - kp // 16)).flatten(1)
+
+
+def _wmask_keep(wmask, kp: int, n_pad: int):
+    """The bitmap of :func:`stencil_weight_prep_ref` spread out: ``(9, kp,
+    n_pad)`` int64, 1 where the kernel multiplies the block."""
+    tiles, msteps = _mask_shape(kp, n_pad)
+    words = wmask.reshape(9, tiles, msteps)[:, :, : kp // 16]
+    keep = (words[..., None] >> torch.arange(MASK_COLS // 8, device=wmask.device)) & 1
+    keep = keep.permute(0, 2, 1, 3).flatten(2)[:, :, : n_pad // 8]  # (9, steps, n_pad // 8)
+    return keep.repeat_interleave(16, dim=1).repeat_interleave(8, dim=2)
 
 
 def stencil_rows_prep_ref(rows, nc: int, k: int, kp: int, dtype=torch.bfloat16):
@@ -642,9 +941,7 @@ def stencil_conv_mma_ref(src, qids, src_ids, wc, nc: int, dtype=torch.bfloat16):
     rows, flags = stencil_rows_prep_ref(src, nc, k, kp, dtype)
     pos = stencil_positions_ref(qids, src_ids, flags)
     wt, wmask = stencil_weight_prep_ref(wc, kp, n_pad, dtype)
-    keep = (wmask[:, : kp // 16, None] >> torch.arange(n_pad // 8, device=wc.device)) & 1
-    keep = keep.repeat_interleave(16, dim=1).repeat_interleave(8, dim=2)  # (9, kp, n_pad)
-    w = wt.float().transpose(1, 2) * keep.to(torch.float32)
+    w = wt.float().transpose(1, 2) * _wmask_keep(wmask, kp, n_pad).to(torch.float32)
     vq = qids.shape[-1]
     flat = pos.long().flatten(-2)
     g = take_rows(rows, flat.clamp(min=0)) * (flat >= 0)[..., None].to(rows.dtype)
@@ -709,10 +1006,12 @@ def _positions_cuda(qids, src_ids, src_flags=None):
 
 def _weight_prep_cuda(wc, kp: int, n_pad: int):
     """``weight_prep_kernel``: ``wc`` (9, k, n) bfloat16 of any strides →
-    (9, n_pad, kp) bfloat16 and the (9, 16) int32 block bitmap."""
+    (9, n_pad, kp) bfloat16 and the (9, T·S) int32 block bitmap
+    (:func:`stencil_weight_prep_ref`)."""
     k, n = wc.shape[1:]
     wt = torch.empty((9, n_pad, kp), dtype=torch.bfloat16, device=wc.device)
-    wmask = torch.empty((9, 16), dtype=torch.int32, device=wc.device)
+    tiles, msteps = _mask_shape(kp, n_pad)
+    wmask = torch.empty((9, tiles * msteps), dtype=torch.int32, device=wc.device)
     _launch("stencil_weight_prep_launch", wc, wc, *wc.stride(), wt, wmask, k, n, kp, n_pad)
     return wt, wmask
 
@@ -758,8 +1057,9 @@ def _stencil_conv_mma(s, q, ids, wc, nc: int, dgrad: bool, out_dtype):
     _check_not_empty("the stencil kernel", b=b, vs=vs, vq=vq, nc=nc)
     prep = dgrad or kp != k or s.dtype != torch.bfloat16
     w = wc.to(torch.bfloat16)
+    tiles, msteps = _mask_shape(kp, n_pad)
     pos, wt, wmask, flags, rows = _scratch(
-        s.device, 4 * b * 9 * vq, 2 * 9 * n_pad * kp, 4 * 9 * 16, b * vs if prep else 0,
+        s.device, 4 * b * 9 * vq, 2 * 9 * n_pad * kp, 4 * 9 * tiles * msteps, b * vs if prep else 0,
         2 * b * vs * nc * kp if prep else 0)
     out = torch.empty((b, vq, nc * n), dtype=out_dtype, device=s.device)
     _launch("stencil_conv_mma_launch", s, _aligned(s), _DTYPE_CODES[s.dtype], rows, flags,

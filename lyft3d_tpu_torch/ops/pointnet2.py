@@ -37,11 +37,19 @@ float32 multiplies and adds (:func:`_sq_dist`), a squared radius is rounded
 to float32 once on the host, and a box reaches both versions as the same
 eight float32 numbers (:func:`_box_params`).
 
-The JAX package's size thresholds, its ``approx_min_k`` paths and
-``grid_multi_radius_ball_query`` exist for the TPU and are not ported. The
-port's own choices are shape rules over exact kernels: FPS's launch shape,
-ball query's scan or hashed cell grid (``csrc/ball_query.cu`` states why the
-grid's 27 cells hold every hit), and 3-NN's split of the known cloud.
+The JAX package's size thresholds and its ``approx_min_k`` paths exist for
+the TPU and are not ported. The port's own choices are shape rules over exact
+kernels: FPS's launch shape, ball query's scan or hashed cell grid
+(``csrc/ball_query.cu`` states why the grid's 27 cells hold every hit), and
+3-NN's split of the known cloud.
+
+:func:`grid_multi_radius_ball_query` is another function, not another path
+to the same one: it buckets points into plane cells of at most ``cell_cap``
+points, so a crowded cell drops points and the neighbourhoods differ from the
+exact query's. A model configured with ``grid_bounds`` was trained on those,
+so the port computes them as the JAX package does, in plain PyTorch (sorts,
+gathers and a top-k; the JAX package runs no Pallas kernel for it), on
+either device.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ __all__ = [
     "ball_query",
     "multi_radius_ball_query",
     "multi_radius_ball_query_dense",
+    "grid_multi_radius_ball_query",
     "group_points",
     "three_nn",
     "three_nn_dense",
@@ -498,6 +507,73 @@ def multi_radius_ball_query(centers, points, valid, radii, nsamples):
 def ball_query(centers, points, valid, radius: float, nsample: int):
     """Single-radius :func:`multi_radius_ball_query`: ``(idx, count)``."""
     return multi_radius_ball_query(centers, points, valid, (radius,), (nsample,))[0]
+
+
+def grid_multi_radius_ball_query(centers, points, valid, radii, nsamples, bounds, plane=(0, 2),
+                                 cell_cap: int = 16, max_grid: int = 256):
+    """Bucketed multi-radius ball query: the JAX package's function of the
+    same name, batched. Points go into square cells of side ``max(radii)``
+    (larger where the span needs more than ``max_grid`` cells an axis) on the
+    two ``plane`` axes over ``bounds`` ``((lo_a, hi_a), (lo_b, hi_b))``,
+    coordinates beyond them clipped to the edge cells; a cell keeps its
+    ``cell_cap`` lowest point indices. A centre's candidates are the 3 x 3
+    cells around its own, and per radius the first ``k`` candidates by index
+    within it are taken. Returns the :func:`multi_radius_ball_query` contract,
+    ``[(idx (B, S, k) int32, count (B, S) int32), …]``; on CPU and CUDA
+    tensors alike."""
+    b, n = points.shape[:2]
+    s = centers.shape[1]
+    dev = points.device
+    ax, bx = plane
+    (lo_a, hi_a), (lo_b, hi_b) = bounds
+    cell = max(float(max(radii)), max(hi_a - lo_a, hi_b - lo_b) / max_grid)
+    nga = max(int(np.ceil((hi_a - lo_a) / cell)), 1)
+    ngb = max(int(np.ceil((hi_b - lo_b) / cell)), 1)
+    ncells = nga * ngb
+
+    def cell_of(xa, xb):
+        ca = torch.floor((xa - lo_a) / cell).to(torch.int32).clamp(0, nga - 1)
+        cb = torch.floor((xb - lo_b) / cell).to(torch.int32).clamp(0, ngb - 1)
+        return ca.long(), cb.long()
+
+    pa, pb = cell_of(points[..., ax], points[..., bx])
+    scell, sidx = torch.sort(torch.where(valid, pb * nga + pa, ncells), dim=-1, stable=True)
+    pos = torch.arange(n, device=dev).expand(b, n)
+    head = torch.cat([torch.ones_like(scell[:, :1], dtype=torch.bool), scell[:, 1:] != scell[:, :-1]], -1)
+    head &= scell < ncells
+    rank = pos - torch.cummax(torch.where(head, pos, -1), dim=-1).values
+    slots = ncells * cell_cap
+    dest = torch.where((scell < ncells) & (rank < cell_cap), scell * cell_cap + rank, slots)
+    rows = torch.cat([torch.gather(points, 1, sidx[..., None].expand(b, n, 3)),
+                      sidx[..., None].to(torch.float32)], -1)
+    empty = torch.tensor([0.0, 0.0, 0.0, float(n)], device=dev)
+    table = empty.repeat(b, slots + 1, 1)  # the last row takes the dropped points
+    table.scatter_(1, dest[..., None].expand(b, n, 4), rows)
+    table = table[:, :slots].reshape(b, ncells, cell_cap * 4)
+    table = torch.cat([table, empty.repeat(cell_cap)[None, None].expand(b, 1, cell_cap * 4)], 1)
+
+    ca, cb = cell_of(centers[..., ax], centers[..., bx])
+    offs = torch.tensor([(da, db) for db in (-1, 0, 1) for da in (-1, 0, 1)], device=dev)
+    na = ca[..., None] + offs[:, 0]
+    nb = cb[..., None] + offs[:, 1]
+    okc = (na >= 0) & (na < nga) & (nb >= 0) & (nb < ngb)
+    cells9 = torch.where(okc, nb * nga + na, ncells)  # (B, S, 9); ncells: the empty row
+    cand = torch.gather(table, 1, cells9.reshape(b, s * 9, 1).expand(b, s * 9, cell_cap * 4))
+    cand = cand.reshape(b, s, 9 * cell_cap, 4)
+    cidx = cand[..., 3]
+    d = cand[..., :3] - centers[:, :, None, :]
+    d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    out = []
+    for r2, k in zip(_squared_radii(radii), nsamples):
+        mask = (d2 < r2) & (cidx < n)
+        kk = min(int(k), mask.shape[-1])
+        got = torch.sort(torch.where(mask, cidx, float(n)), dim=-1).values[..., :kk].to(torch.int32)
+        if kk < k:
+            got = torch.cat([got, got.new_full((b, s, int(k) - kk), n)], -1)
+        count = mask.sum(-1).clamp(max=int(k)).to(torch.int32)
+        got = torch.where(got >= n, got[..., :1].clamp(min=0), got)
+        out.append((torch.where(got >= n, 0, got), count))
+    return out
 
 
 def group_points(features, idx):

@@ -60,7 +60,7 @@ from lyft3d_tpu_torch.models.pointrcnn.net import (
     PointRCNN_RPN,
     PointRCNNBackbone,
 )
-from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleUnits
+from lyft3d_tpu_torch.models.second.middle import SparseMiddle, SparseMiddleColumns, SparseMiddleUnits
 from lyft3d_tpu_torch.models.second.rpn import RPN
 from lyft3d_tpu_torch.models.second.voxel_encoder import PillarFeatureNet, VoxelFeatureExtractor
 from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
@@ -382,6 +382,7 @@ def _sparse_middle(subm_name: str, strided_name: str):
 
 
 _sparse_middle_units = _sparse_middle("SubMUnitLayer", "StridedUnitLayer")
+_sparse_middle_columns = _sparse_middle("SubMColumnLayer", "StridedColumnLayer")
 _sparse_middle_voxels = _sparse_middle("SubMConvLayer", "SparseConvLayer")
 
 
@@ -393,6 +394,8 @@ def _voxelnet(m: VoxelNet, src, path, name, out):
         _vfe(m.encoder, src, path + ("VoxelFeatureExtractor_0",), f"{name}encoder.", out)
     if isinstance(m.middle, SparseMiddleUnits):
         _sparse_middle_units(m.middle, src, path + ("SparseMiddleUnits_0",), f"{name}middle.", out)
+    elif isinstance(m.middle, SparseMiddleColumns):
+        _sparse_middle_columns(m.middle, src, path + ("SparseMiddleColumns_0",), f"{name}middle.", out)
     elif isinstance(m.middle, SparseMiddle):
         # nn.vmap over the samples shares one set of parameters.
         _sparse_middle_voxels(m.middle, src, path + ("Vmap_SparseMiddleBatch_0", "SparseMiddle_0"),
@@ -468,6 +471,7 @@ _MAPPERS: Dict[type, Callable] = {
     VoxelFeatureExtractor: _vfe,
     RPN: _rpn,
     SparseMiddleUnits: _sparse_middle_units,
+    SparseMiddleColumns: _sparse_middle_columns,
     SparseMiddle: _sparse_middle_voxels,
     VoxelNet: _voxelnet,
     SharedMLP: _shared_mlp,

@@ -304,17 +304,20 @@ def test_stencil_kernel_on_card_matches_plain():
     want = tcs.stencil_conv_ref(src, qids, ids, wc, 2)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     # The tensor-core route at widths that need padding (68 → 80 columns, 30 →
-    # 64 lanes) and at 256 columns; its preparation kernels are held to their
-    # plain versions in tests/test_torch_sparse_kernels_dispatch.py.
-    for nc, kzp, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256)):
+    # 64 lanes), at 256 columns, and at the widths it takes since the dense-z
+    # column middle needs them: a contraction of 300 lanes (five 64-lane
+    # slices) and 640 output columns (three 256-column tiles); its
+    # preparation kernels are held to their plain versions in
+    # tests/test_torch_sparse_kernels_dispatch.py.
+    for nc, kzp, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256), (1, 300, 8), (2, 128, 640)):
         src, qids, ids, wc = (t(a).cuda() for a in stencil_case(3, 2, 300, 260, nc, kzp, n))
         src16, wc16 = src.bfloat16(), wc.bfloat16()
         got = tcs.stencil_conv_batched(src16, qids, ids, wc16, nc)
         want = tcs.stencil_conv_ref(src16, qids, ids, wc16, nc)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    with pytest.raises(ValueError):
-        tcs.stencil_conv_batched(torch.zeros(2, 300, 300, device="cuda", dtype=torch.bfloat16), qids, ids,
-                                 torch.zeros(9, 300, 8, device="cuda"), 1)
+    with pytest.raises(ValueError):  # still refused: a contraction above 640 lanes
+        tcs.stencil_conv_batched(torch.zeros(2, 300, 700, device="cuda", dtype=torch.bfloat16), qids, ids,
+                                 torch.zeros(9, 700, 8, device="cuda"), 1)
 
 
 # ------------------------------------------------------------------ gradients

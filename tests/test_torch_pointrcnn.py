@@ -302,17 +302,47 @@ def test_bridge_raises_on_missing_and_extra_leaves(whole):
 
 
 def test_unported_variants_raise():
-    """The grid-bucketed ball query is not ported and an unknown norm is
-    refused; ``norm="batch"`` is ported (held to flax in
-    ``test_torch_pointrcnn_losses.py``) and builds BatchNorm layers."""
+    """Every variant builds now: ``norm="batch"`` (held to flax in
+    ``test_torch_pointrcnn_losses.py``) builds BatchNorm layers, an unknown
+    norm is refused, and with ``grid_bounds`` (the grid-bucketed ball query
+    of the backbone's SA stages over clouds of 2,048 points or more) each of
+    the three model classes matches flax: a 2,048-point cloud whose plane cells
+    overflow ``cell_cap``, so that the grid's neighbourhoods are not the
+    exact query's."""
     assert all(isinstance(n, torch.nn.BatchNorm2d) for n in tmod.SharedMLP(4, [8, 8], norm="batch").norms)
     assert any(isinstance(m, torch.nn.BatchNorm2d) for m in tnet.PointRCNN(tnet.PointRCNNConfig(), norm="batch").modules())
     with pytest.raises(ValueError, match="norm must be"):
         tmod.SharedMLP(4, [8], norm="group")
-    grid = dataclasses.replace(tnet.PointRCNNConfig(), grid_bounds=((-64.0, 64.0), (-8.0, 120.0)))
-    for build in (tnet.PointRCNN, tnet.PointRCNN_RPN, tnet.PointRCNNBackbone):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build(grid)
+    bounds = ((-8.0, 8.0), (-1.5, 1.0))
+    jcfg = dataclasses.replace(lyft_structure(jnet), grid_bounds=bounds)
+    tcfg = dataclasses.replace(lyft_structure(tnet), grid_bounds=bounds)
+    xyz, _, valid = cloud(21, n=2048, span=8.0)
+    exact = tnet.PointRCNNBackbone(dataclasses.replace(tcfg, grid_bounds=None), 0).sa[0]
+    for jbuild, tbuild in ((jnet.PointRCNNBackbone, tnet.PointRCNNBackbone),
+                           (jnet.PointRCNN_RPN, tnet.PointRCNN_RPN), (jnet.PointRCNN, tnet.PointRCNN)):
+        fm = jbuild(jcfg, norm="layer")
+        params = noisy(jax.jit(fm.init)(jax.random.PRNGKey(0), jnp.asarray(xyz[0]), None,
+                                        jnp.asarray(valid[0])), 16, scale=0.05)
+        want = batched(lambda x, v: fm.apply(params, x, None, v), xyz, valid)
+        # The two-stage net gives a cloud without features one zero channel; the parts take none.
+        tm = load_flax_params(tbuild(tcfg, int(tbuild is tnet.PointRCNN), norm="layer"), params).eval()
+        assert any(getattr(m, "grid_bounds", None) == bounds for m in tm.modules())
+        with torch.inference_mode():
+            got = tm(t(xyz), None, t(valid))
+        if tbuild is tnet.PointRCNNBackbone:
+            close(got, want, 1e-3, "backbone features")
+            sa0 = next(m for m in tm.modules() if isinstance(m, tmod.SAModuleMSG))
+            with torch.inference_mode():  # the grid's stage 0 is another function than the exact one
+                exact.load_state_dict(sa0.state_dict())
+                assert not torch.allclose(sa0(t(xyz), None, t(valid))[1], exact(t(xyz), None, t(valid))[1])
+            continue
+        rpn, rpn_want = (got, want) if tbuild is tnet.PointRCNN_RPN else (got["rpn"], want["rpn"])
+        for k in ("point_features", "cls", "reg"):
+            close(rpn[k], rpn_want[k], 1e-3, f"rpn {k}")
+        if tbuild is tnet.PointRCNN:
+            ok = want["proposals"]["roi_valid"]
+            assert torch.equal(got["proposals"]["roi_valid"], t(ok)) and ok.any()
+            close(got["refined"][t(ok)], want["refined"][ok], 1e-3, "refined boxes")
 
 
 def test_heads_stay_float32_and_bias_init_in_bfloat16():

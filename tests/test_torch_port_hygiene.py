@@ -309,19 +309,80 @@ def test_unported_backbone_raises():
         build_backbone("efficientnet_b7")
 
 
-@pytest.mark.parametrize("change", [dict(middle="sparse_units"), dict(middle="sparse_columns"),
-                                    dict(middle="sparse"), dict(encoder="vfe", middle="sparse_columns"),
-                                    dict(encoder="simple"),
-                                    dict(encoder="simple", middle="sparse_columns"),
-                                    dict(encoder="pillars", middle="sparse_units")])
-def test_unported_voxelnet_variants_raise(change):
-    """Ported (encoder, middle) pairs: pillars + scatter, simple or vfe with
-    sparse_units or sparse, and vfe + scatter. Every other pairing raises."""
-    cfg = dataclasses.replace(VoxelNetConfig(), **change)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        VoxelNet(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cfg.feature_hw
+VOXELNET_PAIRS = [(e, m) for e in ("simple", "vfe", "pillars")
+                  for m in ("scatter", "sparse", "sparse_units", "sparse_columns")]
+
+
+@pytest.fixture(scope="module")
+def tiny_voxels():
+    """The JAX voxelizer's output for two small clouds, one point a voxel, on
+    a 32 x 32 x 16 grid, and the tiny config both packages' VoxelNets are
+    built from."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from lyft3d_tpu.models.second.voxelnet import VoxelNetConfig as JConfig
+    from lyft3d_tpu.ops import anchors as janchors
+    from lyft3d_tpu.ops import voxelize as jvox
+
+    grid = jvox.VoxelGrid((-8.0, -8.0, -2.0, 8.0, 8.0, 2.0), (0.5, 0.5, 0.25))
+    jcfg = JConfig(grid=grid, max_voxels=400, max_points_per_voxel=4, encoder_features=(16,),
+                   middle_features=(8, 16), middle_max_voxels=(384, 256), middle_z_slab=4,
+                   anchor_specs=(janchors.AnchorSpec((1.0, 2.0, 1.0), 0.0, 0.5, 0.35),),
+                   rpn_layer_nums=(1, 1), rpn_strides=(1, 2), rpn_filters=(16, 32),
+                   rpn_up_strides=(1, 2), rpn_up_filters=(16, 16))
+    nx, ny, nz = grid.grid_size
+    clouds = []
+    for seed in (0, 1):
+        # One voxel a BEV column at a random height: the scatter's ids stay
+        # unique, the contract of the JAX fill (which keeps one of several
+        # voxels of a column on the CPU and sums them on the TPU).
+        rng = np.random.RandomState(seed)
+        flat = rng.choice(nx * ny, 300, replace=False)
+        idx = np.stack([flat % nx, flat // nx, rng.randint(0, nz, 300)], -1)
+        xyz = np.array(grid.point_cloud_range[:3]) + (idx + 0.5 + rng.uniform(-0.3, 0.3, idx.shape)) * np.array(
+            grid.voxel_size)
+        clouds.append(np.concatenate([xyz, rng.rand(300, 1)], -1).astype(np.float32))
+    pts = jnp.asarray(np.stack(clouds))
+    vox = jax.vmap(lambda p: jvox.voxelize(p, jnp.ones(p.shape[0], bool), grid, jcfg.max_voxels,
+                                           jcfg.max_points_per_voxel))(pts)
+    return jcfg, [np.asarray(vox[k]) for k in ("voxels", "num_points", "coords", "voxel_valid")]
+
+
+@pytest.mark.parametrize("encoder,middle", VOXELNET_PAIRS + [("an_unknown_encoder", "an_unknown_middle")])
+def test_unported_voxelnet_variants_raise(encoder, middle, tiny_voxels):
+    """Every (encoder, middle) pair the JAX ``VoxelNet`` builds, builds in the
+    port too and, with JAX's flax init loaded by ``load_flax_params``, gives
+    its boxes, classes and directions in float32 within 1e-4 of their scale
+    on a tiny grid. An unknown encoder name builds the pillar encoder and an
+    unknown middle name the scatter, as the JAX package's fall-through
+    branches do (ROADMAP §C)."""
+    import jax
+    import numpy as np
+
+    from lyft3d_tpu.models.second.voxelnet import VoxelNet as JVoxelNet
+    from lyft3d_tpu_torch.ops.anchors import AnchorSpec
+    from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
+    from lyft3d_tpu_torch.utils.flax_params import load_flax_params
+
+    jcfg, inputs = tiny_voxels
+    jcfg = dataclasses.replace(jcfg, encoder=encoder, middle=middle)
+    names = {f.name for f in dataclasses.fields(VoxelNetConfig)}
+    kw = {k: getattr(jcfg, k) for k in names}
+    cfg = VoxelNetConfig(**{**kw, "grid": VoxelGrid(*jcfg.grid),
+                            "anchor_specs": tuple(AnchorSpec(*a) for a in jcfg.anchor_specs)})
+    assert cfg.feature_hw == tuple(jcfg.feature_hw)
+    jmodel = JVoxelNet(jcfg, dtype=np.float32)
+    variables = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(0), *inputs))
+    want = jax.device_get(jax.jit(jmodel.apply)(variables, *inputs))
+    model = load_flax_params(VoxelNet(cfg, in_features=4, device="cpu"), variables)
+    with torch.no_grad():
+        got = model(*(torch.from_numpy(np.array(x)) for x in inputs))
+    for k in ("box", "cls", "dir"):
+        scale = float(np.abs(want[k]).max())
+        assert scale > 0, k
+        np.testing.assert_allclose(got[k].numpy(), want[k], atol=1e-4 * scale, rtol=0, err_msg=k)
 
 
 @pytest.mark.cuda

@@ -245,8 +245,9 @@ def test_the_two_port_middles_agree(per_voxel_middle):
 
 
 def test_unported_middle_variants_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SparseMiddleColumns(4)
+    # The dense-z column middle is ported now (tests/test_torch_column_middle.py).
+    cols = SparseMiddleColumns(4)
+    assert [tuple(m.kernel.shape) for m in cols.strided] == [(27, 16, 16), (27, 32, 32), (27, 64, 64)]
     # "batch" is ported now (tests/test_torch_second_leftovers.py): a BatchNorm over the channels.
     assert SubMUnitLayer(4, 8, 2, norm_type="batch").norm.channel_dim == -1
     with pytest.raises(ValueError, match="unknown norm_type"):

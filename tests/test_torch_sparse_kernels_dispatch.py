@@ -53,7 +53,7 @@ def test_stencil_variant_takes_every_fhd_layer_forward_and_backward(kzp, n):
     assert wg["tile"] == (128, 128) and wg["k_tiles"] == kzp // 128 and wg["n_tiles"] == 1
 
 
-@pytest.mark.parametrize("k,n", [(257, 128), (128, 257), (0, 16), (16, 0), (300, 300)])
+@pytest.mark.parametrize("k,n", [(641, 128), (700, 16), (0, 16), (16, 0), (1000, 1000)])
 def test_stencil_variant_raises_on_shapes_the_kernel_does_not_take(k, n):
     with pytest.raises(ValueError):
         tcs.stencil_mma_variant(k, n)
@@ -160,7 +160,17 @@ WEIGHT_CASES = {
     "banded_strided": lambda: band_weights(1, 8, 17, 17, 2, 256),
     "dense": lambda: torch.from_numpy(np.random.RandomState(2).randn(9, 128, 66).astype(np.float32)),
     "narrow": lambda: torch.from_numpy(np.random.RandomState(3).randn(9, 30, 5).astype(np.float32)),
+    # The dense-z column middle's stage-0 band (3 → 16 channels, 40 cells: 640
+    # columns, three bitmap tiles) and the d_src of its stage-1 layer (448
+    # lanes: 28 bitmap words a tile).
+    "banded_columns_wide": lambda: column_band_weights(4, 3, 16, 40),
+    "banded_columns_d_src": lambda: column_band_weights(5, 16, 32, 20).transpose(1, 2),
 }
+
+
+def column_band_weights(seed, cin, cout, nz):
+    w = torch.from_numpy((np.random.RandomState(seed).randn(9, 3, cin, cout) * 0.3).astype(np.float32))
+    return tcs._chunk_weights(w, tcs._chunk_plan(cin, nz, 1), 1)
 
 
 @pytest.mark.parametrize("case", list(WEIGHT_CASES))
@@ -170,18 +180,21 @@ def test_weight_prep_layout_and_block_bitmap_equal_numpy(case):
     var = tcs.stencil_mma_variant(k, n)
     kp, n_pad = var["kp"], var["n_pad"]
     wt, wmask = tcs.stencil_weight_prep_ref(wc, kp, n_pad)
-    assert wt.shape == (9, n_pad, kp) and wt.dtype == torch.bfloat16 and wmask.shape == (9, 16)
+    # One word a (256-column tile, 16-lane step), at least 16 a tile.
+    tiles, msteps = -(-n_pad // 256), max(16, kp // 16)
+    assert wt.shape == (9, n_pad, kp) and wt.dtype == torch.bfloat16 and wmask.shape == (9, tiles * msteps)
+    assert (tiles, msteps) == ((1, 16) if max(kp, n_pad) <= 256 else (tiles, msteps))
     w = wc.to(torch.bfloat16).float().numpy()
     want_t = np.zeros((9, n_pad, kp), np.float32)
     want_t[:, :n, :k] = w.transpose(0, 2, 1)
     np.testing.assert_array_equal(wt.float().numpy(), want_t)
-    want_mask = np.zeros((9, 16), np.int64)
+    want_mask = np.zeros((9, tiles, msteps), np.int64)
     for j, step, tile in itertools.product(range(9), range(kp // 16), range(n_pad // 8)):
         if want_t[j, tile * 8:(tile + 1) * 8, step * 16:(step + 1) * 16].any():
-            want_mask[j, step] |= 1 << tile
-    np.testing.assert_array_equal(wmask.numpy(), want_mask)
+            want_mask[j, tile // 32, step] |= 1 << (tile % 32)
+    np.testing.assert_array_equal(wmask.numpy(), want_mask.reshape(9, -1))
     zero_blocks = sum(1 for j, s in itertools.product(range(9), range(kp // 16))
-                      for tile in range(n_pad // 8) if not (want_mask[j, s] >> tile) & 1)
+                      for tile in range(n_pad // 8) if not (want_mask[j, tile // 32, s] >> (tile % 32)) & 1)
     if case.startswith("banded"):
         assert zero_blocks > 9 * (kp // 16) * (n_pad // 8) // 2  # most of a band is zeros
     if case == "dense":
@@ -271,7 +284,9 @@ def test_edge_cases_cover_the_shapes_the_kernels_get_wrong_first():
     reverse queries are the true inverse of its queries."""
     cases = chip_smoke.STENCIL_EDGES
     assert {c[5] for c in cases} >= {65, 66, 68, 128, 256} and {c[4] for c in cases} >= {128, 256}
-    assert {c[3] for c in cases} == {1, 2} and {"all", "one", "holes"} <= {c[6] for c in cases}
+    # The dense-z column middle's wide outputs (and so d_src contractions) at 1-5 chunks.
+    assert {c[5] for c in cases} >= {384, 448, 640} and max(c[5] for c in cases if c[3] == 1) == 640
+    assert {c[3] for c in cases} == {1, 2, 3, 4, 5} and {"all", "one", "holes"} <= {c[6] for c in cases}
     assert any(c[2] % 128 for c in cases)
     assert {16, 32, 64} <= {c for pair in chip_smoke.SUBM_EDGES for c in pair}
     src, src_ids, q_ids, qids, rev, wc, cot = chip_smoke.stencil_edge_case(
@@ -293,7 +308,10 @@ def test_sparse_kernels_on_card_at_edge_shapes():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
     dev = torch.device("cuda")
-    for nc, k, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256), (1, 65, 128)):
+    # The last three: the dense-z column middle's 640 columns (three 256-column
+    # tiles) at 2 chunks, and contractions of 640 and 448 lanes (its d_src).
+    for nc, k, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256), (1, 65, 128), (2, 128, 640), (1, 640, 256),
+                     (3, 448, 128)):
         src, qids, ids, wc = (a.to(dev) for a in stencil_inputs(k + n, 2, 300, 260, nc, k, n))
         var = tcs.stencil_mma_variant(k, n)
         rows, flags = tcs._rows_prep_cuda(src, nc, k, var["kp"])
@@ -307,15 +325,16 @@ def test_sparse_kernels_on_card_at_edge_shapes():
             want_wt, want_mask = tcs.stencil_weight_prep_ref(wc16, var["kp"], var["n_pad"])
             steps = var["kp"] // 16
             assert torch.equal(wt, want_wt)
-            assert torch.equal(wmask.long()[:, :steps] & 0xFFFFFFFF, want_mask[:, :steps])
+            words = (wmask.long() & 0xFFFFFFFF).reshape(9, -(-var["n_pad"] // 256), -1)
+            assert torch.equal(words[..., :steps], want_mask.reshape(words.shape)[..., :steps])
         got = tcs.stencil_conv_batched(src.to(torch.bfloat16), qids, ids, wc16, nc)
         want = tcs.stencil_conv_ref(src.to(torch.bfloat16), qids, ids, wc16, nc)
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    with pytest.raises(ValueError):
-        tcs.stencil_conv_batched(torch.zeros(1, 8, 300, device=dev, dtype=torch.bfloat16),
+    with pytest.raises(ValueError):  # a contraction above 640 lanes
+        tcs.stencil_conv_batched(torch.zeros(1, 8, 700, device=dev, dtype=torch.bfloat16),
                                  torch.zeros(1, 9, 8, device=dev, dtype=torch.int32),
                                  torch.arange(8, device=dev, dtype=torch.int32)[None],
-                                 torch.zeros(9, 300, 8, device=dev), 1)
+                                 torch.zeros(9, 700, 8, device=dev), 1)
     # Each call of a wrapper is one launch on its own counter; an empty shape
     # raises and counts nothing.
     src, qids, ids, wc = (a.to(dev) for a in stencil_inputs(7, 2, 300, 260, 1, 128, 68))

@@ -170,6 +170,7 @@ SELECTION_CASES = {
     "voxelnet_pillars": lambda: _voxelnet("second_lyft_9class.yaml", 4),
     "voxelnet_fhd_units": lambda: _voxelnet("second_lyft_9class_sparse.yaml", 3),
     "voxelnet_fhd_per_voxel": lambda: _voxelnet("second_lyft_9class_sparse.yaml", 3, middle="sparse"),
+    "voxelnet_fhd_columns": lambda: _voxelnet("second_lyft_9class_sparse.yaml", 3, middle="sparse_columns"),
     "pointrcnn_lyft_train": _pointrcnn,
 }
 

@@ -16,9 +16,14 @@ from lyft3d_tpu_torch.dryrun import tp_conv_stack, tp_stack_loss
 from lyft3d_tpu_torch.models.backbones import register_backbone
 from lyft3d_tpu_torch.models.backbones.seresnext import seresnext26
 from lyft3d_tpu_torch.models.layers import SameConv2d
-from lyft3d_tpu_torch.models.second.middle import StridedUnitLayer, SubMUnitLayer
+from lyft3d_tpu_torch.models.second.middle import (
+    StridedColumnLayer,
+    StridedUnitLayer,
+    SubMColumnLayer,
+    SubMUnitLayer,
+)
 from lyft3d_tpu_torch.models.unet import LyftUNet
-from lyft3d_tpu_torch.ops.column_sparse import units_from_voxels
+from lyft3d_tpu_torch.ops.column_sparse import columns_from_voxels, units_from_voxels
 from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
 from lyft3d_tpu_torch.parallel import tensor as tp
 from lyft3d_tpu_torch.parallel.mesh import make_train_step_dp, ranks_agree, shard_batch
@@ -46,8 +51,8 @@ def _randn(seed, *shape):
 
 
 def unit_layer_input(seed, shape=(12, 10, 8), n=150, z_slab=4):
-    """A batch of two voxel sets over ``shape`` as z-slab units: ``(cols, colf)``
-    with 4 channels."""
+    """A batch of two voxel sets over ``shape`` as z-slab units (dense-z
+    columns where ``z_slab`` is None): ``(cols, colf)`` with 4 channels."""
     rng = np.random.RandomState(seed)
     nx, ny, nz = shape
     coords, valid = [], []
@@ -59,6 +64,8 @@ def unit_layer_input(seed, shape=(12, 10, 8), n=150, z_slab=4):
         valid.append(np.arange(n + 10) < n)
     active = ActiveSet(torch.from_numpy(np.stack(coords)), torch.from_numpy(np.stack(valid)), shape)
     feats = torch.from_numpy(rng.randn(2, n + 10, 4).astype(np.float32))
+    if z_slab is None:
+        return columns_from_voxels(feats, active)
     return units_from_voxels(feats, active, z_slab)
 
 
@@ -79,11 +86,15 @@ def _layer(kind):
     if kind in cases:
         layer, x = cases[kind]()
         return layer, x, ()
-    cols, colf = unit_layer_input(2)
+    cols, colf = unit_layer_input(2, z_slab=4 if kind.endswith("unit") else None)
     if kind == "subm_unit":
         layer = SubMUnitLayer(4, 12, 2, norm_type="layer")  # 8 z planes, slabs of 4: 2 a column
-    else:
+    elif kind == "strided_unit":
         layer = StridedUnitLayer(4, 12, 2, max_out=200, norm_type="folded")
+    elif kind == "subm_column":
+        layer = SubMColumnLayer(4, 12, norm_type="batch")
+    else:  # the output activity comes from the mask's own stencil, on every rank alike
+        layer = StridedColumnLayer(4, 12, max_out=20, norm_type="layer")
     with torch.no_grad():
         for p in layer.parameters():
             p.copy_(_randn(3, *p.shape) * 0.3)
@@ -91,7 +102,8 @@ def _layer(kind):
 
 
 LAYER_KINDS = ("conv", "same_conv_stride2", "grouped", "grouped_cut", "depthwise",
-               "depthwise_x2_same_stride2", "linear", "subm_unit", "strided_unit")
+               "depthwise_x2_same_stride2", "linear", "subm_unit", "strided_unit", "subm_column",
+               "strided_column")
 
 
 def _first(out):

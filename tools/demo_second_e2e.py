@@ -14,8 +14,9 @@ and PIL is installed); the loader reads its JSON tables and lidar sweeps
 with numpy alone, so the same command runs on the card's machine. The
 model trains in bfloat16 with float32 masters on the card, in float32 on
 the CPU. ``--middle`` picks the sparse middle under ``--sparse``:
-``sparse_units`` (the production path, stencil kernel) or ``sparse`` (the
-per-voxel middle, rank-gather kernel). ``--set key=value`` overrides a
+``sparse_units`` (the production path, stencil kernel), ``sparse_columns``
+(dense-z BEV columns, the same stencil kernel over 1 to 5 z chunks) or
+``sparse`` (the per-voxel middle, rank-gather kernel). ``--set key=value`` overrides a
 field of the experiment (the CLI's dotted overrides; the tests narrow the
 RPN with it). The last line is the JAX demo's JSON object plus
 ``step_ms``, the training's wall time over its steps.
@@ -36,7 +37,7 @@ for p in (ROOT, ROOT / "tools"):
 
 import demo_inputs  # noqa: E402
 
-MIDDLES = ("sparse_units", "sparse")
+MIDDLES = ("sparse_units", "sparse_columns", "sparse")
 
 
 def experiment(steps: int, model_dir, sparse: bool = False, middle: str = "sparse_units"):
@@ -44,8 +45,7 @@ def experiment(steps: int, model_dir, sparse: bool = False, middle: str = "spars
     from lyft3d_tpu_torch.config import AnchorConfig, OptimizerConfig, SecondExperiment
 
     if middle not in MIDDLES:
-        raise ValueError(f"middle={middle!r}: the port's sparse middles are {MIDDLES} "
-                         "(the dense-z column middle, sparse_columns, is not ported)")
+        raise ValueError(f"middle={middle!r}: the sparse middles are {MIDDLES}")
     # --sparse: the z-slab unit middle at a scaled-down geometry (3D voxels,
     # nz 16, 1 point a voxel, the simple encoder); up-strides (8, 16, 32)
     # put the anchor grid at 1.6 m, as the pillars demo's.
@@ -143,7 +143,7 @@ def main(argv=None):
     ap.add_argument("--out", default=str(ROOT / "build" / "demo_second"))
     ap.add_argument("--inputs", default=str(demo_inputs.DEFAULT_OUT))
     ap.add_argument("--sparse", action="store_true", help="the sparse middle (SpMiddleFHD path)")
-    ap.add_argument("--middle", default="sparse_units", help="under --sparse: sparse_units or sparse")
+    ap.add_argument("--middle", default="sparse_units", help="under --sparse: sparse_units, sparse_columns or sparse")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                     help="dotted overrides of the experiment")
