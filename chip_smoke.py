@@ -834,6 +834,24 @@ def bound(n_bytes, n_ops, peak=F32_PEAK):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def band_ops(pos, wc, nc):
+    """Operations of the stencil over its weights' band alone, from this
+    run's positions ``pos`` (b, 9, vq) and weights ``wc`` (9, k, n): for
+    every hit (sample, offset, query), in each of the ``nc`` chunks, 2 x 16 x
+    16 for each (16-lane step, 16-column pair) inside that offset's band
+    range (``stencil_band_ranges_ref``); the zeros outside the ranges, which
+    no tile multiplies, are not counted."""
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    k, n = wc.shape[1:]
+    var = cs.stencil_mma_variant(k, n, nc)
+    _, wmask = cs.stencil_weight_prep_ref(wc, var["kp"], var["n_pad"])
+    ranges = cs.stencil_band_ranges_ref(wmask, var["kp"], var["n_pad"])
+    per_hit = (ranges[..., 1] - ranges[..., 0]).sum(-1) * 16 * 16  # (9,) multiply-adds a chunk
+    hits = (pos >= 0).long().sum(dim=(0, 2))
+    return 2 * nc * int((hits * per_hit).sum())
+
+
 def fill_bound(ids, num_rows, c, size, backward):
     """The bound (:func:`bound`) of the fill's kernel or, with ``backward``,
     of its backward's, from this run's masked (b, v) ids: the ids read once,
@@ -904,18 +922,27 @@ FHD_STENCIL_LAYERS = ((3, 16, 8, 0), (16, 16, 8, 0), (16, 16, 4, 1), (16, 32, 4,
                       (32, 32, 2, 1), (32, 64, 2, 0), (64, 64, 2, 0), (64, 64, 1, 1))
 
 
-# (batch, Vs, Vq, nc, kzp, N, hits) of the stencil edge checks; ``hits`` is the
-# share of (offset, query) pairs that hit, "all", "one", or "holes": 128-query
-# tiles without a hit and an empty last sample.
+# (batch, Vs, Vq, nc, kzp, N, hits[, weights]) of the stencil edge checks;
+# ``hits`` is the share of (offset, query) pairs that hit, "all", "one", or
+# "holes": 128-query tiles without a hit and an empty last sample; ``weights``
+# as :func:`stencil_edge_case` takes them.
 STENCIL_EDGES = (
     (2, 300, 300, 1, 128, 128, 0.3), (2, 300, 260, 2, 128, 68, 0.3), (1, 1000, 777, 1, 256, 128, 0.11),
     (2, 500, 500, 2, 256, 65, 0.5), (2, 333, 400, 1, 128, 66, 0.4), (1, 257, 129, 1, 128, 256, "all"),
     (2, 400, 400, 1, 256, 256, 0.2), (3, 640, 640, 1, 128, 128, "holes"), (2, 500, 500, 1, 256, 128, "one"),
     (2, 100, 90, 1, 30, 16, 0.5),
-    # The dense-z column middle's widths: 640, 448 and 384 columns in 256-column
-    # tiles at 1 to 5 chunks; their d_src contracts over 640, 448 and 384 lanes.
+    # The dense-z column middle's widths: 640, 448 and 384 columns at 1 to 5
+    # chunks; their d_src contracts over 640, 448 and 384 lanes.
     (2, 400, 400, 1, 128, 640, 0.3), (2, 400, 380, 2, 256, 448, 0.3), (1, 500, 500, 3, 256, 384, 0.2),
     (2, 300, 300, 4, 256, 640, "holes"), (2, 300, 310, 5, 128, 448, "one"), (1, 257, 129, 2, 256, 384, "all"),
+    # The wide tile's edges: a ragged last query tile (321 = 20·16 + 1 at 640
+    # columns, a block a 16-query group) with band ranges that touch the first
+    # and the last column; a general matrix, every step's range the whole 448
+    # columns; a ragged last 64-query block (129 = 2·64 + 1 at 256 columns) at
+    # a 640-lane contraction whose d_src (640 float32 columns) reads its
+    # float32 rows as they are; the 224-column layer's band.
+    (1, 300, 321, 2, 256, 640, 0.4, "band"), (2, 260, 200, 3, 128, 448, 0.5, "dense"),
+    (1, 400, 129, 1, 640, 256, 0.3, "band"), (2, 200, 190, 3, 256, 224, 0.3, "band"),
 )
 # (C, Cout) of the rank gather's edge checks: every width of the per-voxel
 # middle (3 to 5 point features in, 16 to 64 channels) and two shapes that are
@@ -1095,11 +1122,14 @@ def subm_edge_table(kind, b, v, seed):
     return ranks.contiguous()
 
 
-def stencil_edge_case(b, vs, vq, nc, kzp, n, hits, seed, dev):
-    """Sources, ids, queries with their reverse queries, weights (banded for
-    odd seeds: 60% of the 16-lane blocks zero) and a cotangent with every
-    third row zero. At every offset the queries read distinct rows, so the
-    reverse queries exist."""
+def stencil_edge_case(b, vs, vq, nc, kzp, n, hits, seed, dev, weights=None):
+    """Sources, ids, queries with their reverse queries, weights and a
+    cotangent with every third row zero. At every offset the queries read
+    distinct rows, so the reverse queries exist. ``weights``: "dense" (every
+    entry random), "blocks" (60% of the 16-lane blocks zero), "band" (each
+    16-lane step's non-zeros a window of columns that slides from the first
+    column to the last, as a column layer's band does); by default "blocks"
+    for odd seeds, else "dense"."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -1127,8 +1157,12 @@ def stencil_edge_case(b, vs, vq, nc, kzp, n, hits, seed, dev):
             rev[bi, j, target[keep]] = q_ids[bi][keep]
     src = torch.randn(b, vs, nc * kzp, generator=g)
     wc = torch.randn(9, kzp, n, generator=g) * 0.3
-    if seed % 2:
+    weights = weights or ("blocks" if seed % 2 else "dense")
+    if weights == "blocks":
         wc = wc * (torch.rand(9, -(-kzp // 16), 1, generator=g) < 0.4).repeat_interleave(16, dim=1)[:, :kzp]
+    elif weights == "band":
+        centre = torch.arange(kzp)[:, None] * (n - 1) / max(1, kzp - 1)
+        wc = wc * ((torch.arange(n)[None, :] - centre).abs() <= max(8, n // 8))
     cot = torch.randn(b, vq, nc * n, generator=g)
     cot[:, ::3] = 0
     return tuple(t.to(dev) for t in (src, src_ids, q_ids, qids.contiguous(), rev.contiguous(), wc, cot))
@@ -1153,9 +1187,10 @@ def stencil_edge_checks(dev):
             raise AssertionError(f"sparse kernel edges: {what} differs from the plain version by "
                                  f"{err} of its scale (tol {tol})")
 
-    for i, (b, vs, vq, nc, kzp, n, hits) in enumerate(STENCIL_EDGES):
-        src, src_ids, q_ids, qids, rev, wc, cot = stencil_edge_case(b, vs, vq, nc, kzp, n, hits, 600 + i, dev)
-        what = f"B={b} Vs={vs} Vq={vq} nc={nc} kzp={kzp} N={n} hits={hits}"
+    for i, (b, vs, vq, nc, kzp, n, hits, *weights) in enumerate(STENCIL_EDGES):
+        src, src_ids, q_ids, qids, rev, wc, cot = stencil_edge_case(b, vs, vq, nc, kzp, n, hits, 600 + i, dev,
+                                                                    *weights)
+        what = f"B={b} Vs={vs} Vq={vq} nc={nc} kzp={kzp} N={n} hits={hits} weights={weights or 'default'}"
         for dtype in (torch.bfloat16, torch.float32):
             s_ = src.to(dtype).requires_grad_(True)
             w_ = wc.to(dtype).requires_grad_(True)
@@ -1169,8 +1204,10 @@ def stencil_edge_checks(dev):
             got_s, = torch.autograd.grad(out, (s_,), cot)
             want_s, want_w = torch.autograd.grad(want, (s32, w32), cot)
             hold(f"d_src {what} {dtype}", got_s, want_s, 1e-5 if dtype == torch.float32 else 2.0 ** -7)
-            if dev.type == "cuda":  # before it is rounded to the weights' type
-                got_w = cs._stencil_wgrad_cuda(s_.detach(), qids, src_ids, cot, nc, kzp, n)
+            if dev.type == "cuda":  # as StencilConv.backward computes it, before it is rounded
+                _, pos = cs._stencil_conv_cuda(s_.detach(), qids, src_ids, w_.detach(), nc)
+                _, flags = cs._stencil_dgrad_cuda(cot, rev, q_ids, w_.detach(), nc)
+                got_w = cs._stencil_wgrad_cuda(s_.detach(), qids, src_ids, cot, nc, kzp, n, flags=flags, pos=pos)
             else:
                 got_w = cs.stencil_conv_bwd_ref(s32.detach(), qids, src_ids, w32.detach(), nc, cot)[1]
             hold(f"d_wc {what} {dtype}", got_w, want_w, WGRAD_TOL)
@@ -1577,11 +1614,13 @@ def sparse_phases(dev, card):
         pts, pvalid = (a.to(dev) for a in fhd_points(FHD_BATCH, FHD_POINTS, seed=13))
         torch.cuda.reset_peak_memory_stats()
         cs.KERNEL_LAUNCHES = sk.KERNEL_LAUNCHES = dense_fill.KERNEL_LAUNCHES = 0
+        wide_counts(reset=True)
         e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
         det = infer(pts, pvalid)
         torch.cuda.synchronize()
         calls = 2 + TIMED_ITERS + 1
         launches = {"stencil_conv": cs.KERNEL_LAUNCHES, "subm_conv": sk.KERNEL_LAUNCHES,
+                    "stencil_conv_wide": cs.WIDE_KERNEL_LAUNCHES,
                     "dense_fill": dense_fill.KERNEL_LAUNCHES}
         for kernel, n in counts.items():
             if launches[kernel] <= 0:
@@ -1636,6 +1675,12 @@ def sparse_phases(dev, card):
         stage_ms["predict"] = cuda_ms(lambda: voxelnet_predict(preds, anchors, anchor_class, cfg))
         units = [int(c.valid[0].sum()) for _, c in states]
         active_cells = [int(c.mask[0].sum()) for _, c in states]
+    # The rule sends the unit middle's layers of 128 columns to the wide tile.
+    per_call["stencil_conv_wide"] = sum(cs.stencil_mma_variant(*c[0][3].shape[1:], c[0][4])["route"] == "wide"
+                                        for c in stencil_calls.calls)
+    if not 0 < per_call["stencil_conv_wide"] * (2 + TIMED_ITERS + 1) == launches["stencil_conv_wide"]:
+        raise AssertionError(f"sparse: {launches['stencil_conv_wide']} stencil launches on the wide tile, "
+                             f"expected {per_call['stencil_conv_wide']} a call")
     caps = (cfg.max_voxels + cfg.max_voxels // 4,) + cfg.middle_max_voxels
     log(f"sparse e2e: VoxelNet FHD sparse_units folded bf16 B={FHD_BATCH} N={FHD_POINTS} "
         f"samples_per_s={FHD_BATCH / (e2e_ms / 1e3):.2f} e2e_ms={e2e_ms:.3f} stages_ms "
@@ -2376,6 +2421,21 @@ def train_counts(reset=False):
         cs.WGRAD_KERNEL_LAUNCHES, sk.KERNEL_LAUNCHES, sk.DGRAD_KERNEL_LAUNCHES, sk.WGRAD_KERNEL_LAUNCHES)))
 
 
+WIDE_COUNTERS = ("stencil_conv_wide", "stencil_dgrad_wide", "stencil_wgrad_wide")
+
+
+def wide_counts(reset=False):
+    """The launches of the stencil's wide tiles (the dense-z column middle's
+    shapes), a part of :func:`train_counts`' stencil counts; ``reset`` zeroes
+    them."""
+    from lyft3d_tpu_torch.ops import column_sparse as cs
+
+    if reset:
+        cs.WIDE_KERNEL_LAUNCHES = cs.WIDE_DGRAD_KERNEL_LAUNCHES = cs.WIDE_WGRAD_KERNEL_LAUNCHES = 0
+    return dict(zip(WIDE_COUNTERS, (cs.WIDE_KERNEL_LAUNCHES, cs.WIDE_DGRAD_KERNEL_LAUNCHES,
+                                    cs.WIDE_WGRAD_KERNEL_LAUNCHES)))
+
+
 def fill_bwd_shape(grad, ids, rows, card, what):
     """One shape of the fill's backward (phases 15 and 18): every kernel that
     takes its rows ``torch.equal`` to the plain gather and timed queued
@@ -2783,12 +2843,15 @@ def stencil_backward_replay(fwd_calls, wgrad_calls, card, cloud="uniform cloud")
         out = cs.stencil_conv_ref(s32, qids, src_ids, w32, nc)
         want_s, want_w = torch.autograd.grad(out, (s32, w32), cot, retain_graph=True)
         rows_read = int((want_s.detach().abs().sum(-1) > 0).sum())  # source rows some query read
-        errs = {}
+        errs, path = {}, None
         for dtype in (src.dtype, torch.float32):
+            # As StencilConv.backward computes them: d_src on the float32
+            # cotangent, d_wc on its row flags and the forward's positions.
             s_, w_ = src.detach().to(dtype), wc.detach().to(dtype)
-            got_s = cs._stencil_conv_cuda(cot.to(dtype), rq, rids, w_.transpose(1, 2).contiguous(), nc,
-                                          dgrad=True, out_dtype=dtype)
-            got_w = cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n)
+            _, pos = cs._stencil_conv_cuda(s_, qids, src_ids, w_, nc)
+            got_s, flags = cs._stencil_dgrad_cuda(cot, rq, rids, w_, nc)
+            got_w = cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n, flags=flags, pos=pos)
+            path = path or dict(flags=flags, pos=pos)
             torch.cuda.synchronize()
             tol_s = 1e-5 if dtype == torch.float32 else 2.0 ** -7
             errs[dtype] = (rel_diff(got_s, want_s), rel_diff(got_w, want_w))
@@ -2799,11 +2862,18 @@ def stencil_backward_replay(fwd_calls, wgrad_calls, card, cloud="uniform cloud")
                 raise AssertionError(f"stencil backward {vs}->{vq} {kzp}x{n} {dtype}: d_src, d_wc differ "
                                      f"from the plain backward by {errs[dtype]} of their scale")
             del got_s, got_w
-        s_, w_t = src.detach(), wc.detach().to(src.dtype).transpose(1, 2).contiguous()
-        g_rows = cot.to(src.dtype)
-        d_ms = cuda_ms(lambda: cs._stencil_conv_cuda(g_rows, rq, rids, w_t, nc, dgrad=True,
-                                                     out_dtype=src.dtype), warmup=1, iters=5)
-        w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n), warmup=1, iters=5)
+        s_, w_ = src.detach(), wc.detach().to(src.dtype)
+        d_ms = cuda_ms(lambda: cs._stencil_dgrad_cuda(cot, rq, rids, w_, nc), warmup=1, iters=5)
+        w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n, **path),
+                       warmup=1, iters=5)
+        # As the replay timed them before d_wc took the forward's positions,
+        # for the reader: d_src on the cotangent rounded to the source's type
+        # beforehand, d_wc finding its own positions and flags.
+        g_rows, w_t = cot.to(src.dtype), w_.transpose(1, 2).contiguous()
+        d0_ms = cuda_ms(lambda: cs._stencil_conv_cuda(g_rows, rq, rids, w_t, nc, dgrad=True,
+                                                      out_dtype=src.dtype), warmup=1, iters=5)
+        w0_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n), warmup=1, iters=5)
+        del path, g_rows
         zero_rows = int((cot.abs().amax(-1) == 0).sum())
         pd_ms = retained_grad_ms(out, (s32,), cot)
         pw_ms = retained_grad_ms(out, (w32,), cot)
@@ -2833,30 +2903,35 @@ def stencil_backward_replay(fwd_calls, wgrad_calls, card, cloud="uniform cloud")
         ops = pairs * 2 * 3 * z_out * cin * cout
         peak = BF16_PEAK if src.dtype == torch.bfloat16 else F32_PEAK
         ids_bytes = (b * 9 * vq + b * 9 * vs + b * vs + b * vq) * 4
-        d_b = bound((b * vq * n + 9 * kzp * n) * size + ids_bytes + b * vs * kzp * size, ops, peak)
+        d_b = bound(b * vq * n * 4 + 9 * kzp * n * size + ids_bytes + b * vs * kzp * size, ops, peak)
         w_b = bound(b * vs * kzp * size + b * vq * n * 4 + ids_bytes + 9 * kzp * n * 4, ops, peak)
-        rows["dgrad"].append(dict(ms=d_ms, plain_ms=pd_ms, bound_ms=d_b[0], bound_by=d_b[1]))
+        rows["dgrad"].append(dict(ms=d_ms, plain_ms=pd_ms, bound_ms=d_b[0], bound_by=d_b[1], earlier_ms=d0_ms))
         rows["wgrad"].append(dict(ms=w_ms, plain_ms=pw_ms, bound_ms=w_b[0], bound_by=w_b[1],
-                                  library_ms=lg_ms, einsum_ms=le_ms))
+                                  library_ms=lg_ms, einsum_ms=le_ms, earlier_ms=w0_ms))
         log(f"stencil backward ({cloud}): B={b} Vs={vs} Vq={vq} kzp={kzp} N={n} ({cin}->{cout}) {str(src.dtype)[6:]} "
             f"hit_pairs={pairs} rows_read={rows_read} zero_cotangent_rows={zero_rows} of {b * vq} "
             f"max_err/scale (d_src, d_wc) "
             + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in errs.items())
-            + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (plain {pd_ms:.3f}, "
-            f"bound {d_b[0]:.5f} {d_b[1]}) d_wc_ms={w_ms:.4f} (plain {pw_ms:.3f}, gather + einsum "
+            + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (on rows "
+            f"rounded beforehand, as timed before: {d0_ms:.4f}; plain {pd_ms:.3f}, bound {d_b[0]:.5f} {d_b[1]}) "
+            f"d_wc_ms={w_ms:.4f} (finding its own positions, as timed "
+            f"before: {w0_ms:.4f}; plain {pw_ms:.3f}, "
+            f"gather + einsum "
             f"{lg_ms:.3f}, einsum on gathered rows {le_ms:.3f}, bound {w_b[0]:.5f} {w_b[1]}) [{card}]")
         del out, s32, w32, want_s, want_w
     records = {}
     for k in rows:
-        total = {m: sum(r[m] for r in rows[k]) for m in ("ms", "plain_ms", "bound_ms")}
+        total = {m: sum(r[m] for r in rows[k]) for m in ("ms", "plain_ms", "bound_ms", "earlier_ms")}
         library = ""
         if k == "wgrad":
             library = (f" gather_einsum_ms={sum(r['library_ms'] for r in rows[k]):.3f} "
                        f"einsum_on_gathered_rows_ms={sum(r['einsum_ms'] for r in rows[k]):.3f}")
-        log(f"stencil backward ({cloud}): nine {k} launches: kernel_ms={total['ms']:.3f} "
-            f"plain_ms={total['plain_ms']:.3f}{library} bound_ms={total['bound_ms']:.4f} [{card}]")
+        log(f"stencil backward ({cloud}): nine {k} launches: kernel_ms={total['ms']:.3f} (as timed before: "
+            f"{total['earlier_ms']:.3f}) plain_ms={total['plain_ms']:.3f}{library} "
+            f"bound_ms={total['bound_ms']:.4f} [{card}]")
         slowest = dict(max(rows[k], key=lambda r: r["ms"]), max_abs_err=worst[k])
         slowest.pop("einsum_ms", None)
+        slowest.pop("earlier_ms", None)
         records[k] = slowest
     return records
 
@@ -5945,6 +6020,22 @@ def data_parallel_families_phase(dev, card):
 FHD_COLUMN_LAYERS = ((3, 16, 40, 0), (16, 16, 40, 0), (16, 16, 20, 1), (16, 32, 20, 0), (32, 32, 20, 0),
                      (32, 32, 10, 1), (32, 64, 10, 0), (64, 64, 10, 0), (64, 64, 5, 1))
 COLUMN_MASK_LAYERS = ((1, 1, 20, 1), (1, 1, 10, 1), (1, 1, 5, 1))
+# The milliseconds of the column-tiled route that preceded the wide tile
+# (commit d3c557f) for each of the twelve launches (forward, d_src, d_wc; no
+# gradient for the mask convs) of column_stencil_replay's layers, copied from
+# PERF.md's source run of that commit (the whole chip_smoke.py on an H100
+# 80GB HBM3 at 700 W), printed beside this run's as "before" for the reader;
+# nothing holds them.
+COLUMN_MS_BEFORE = {
+    "uniform cloud": ((1.0949, 1.1598, 1.1896), (2.4988, 2.8571, 2.2202), (1.019, 2.3113, 0.5733),
+                      (0.1198, None, None), (1.4945, 2.1272, 1.8015), (2.1715, 2.0953, 1.6612),
+                      (0.7052, 1.576, 0.3969), (0.103, None, None), (0.8527, 1.0399, 0.859),
+                      (0.9261, 1.16, 0.8244), (0.4207, 0.8009, 0.2694), (0.1062, None, None)),
+    "lidar cloud": ((1.3415, 1.3919, 2.568), (2.8251, 3.4457, 5.3607), (0.7773, 1.8598, 1.0284),
+                    (0.1063, None, None), (1.4954, 2.1243, 4.7622), (2.1066, 2.1227, 4.2098),
+                    (0.4312, 1.2622, 0.7206), (0.1329, None, None), (0.6272, 0.7908, 1.4354),
+                    (0.6866, 0.9012, 1.1506), (0.2141, 0.5659, 0.3671), (0.1032, None, None)),
+}
 COLUMN_CHECK_POINTS = 65536  # the float32 card-vs-CPU hold, one sample
 COLUMN_TRAIN_POINTS = 65536  # the bfloat16-vs-float32 loss hold, two samples
 PRC_GRID_BOUNDS = ((-64.0, 64.0), (-8.0, 120.0))
@@ -5959,7 +6050,17 @@ def column_stencil_replay(calls, card, cloud):
     backward on a random cotangent with every third row zero (1e-5 float32,
     2^-7 where rounded to bfloat16; ``WGRAD_TOL``). Returns ``{forward,
     dgrad, wgrad: [per-layer dict]}`` with the kernel's, the plain version's
-    and the bound's milliseconds."""
+    and the bound's milliseconds (``d_wc`` also the library pair's:
+    ``torch.gather`` of the rows and one ``torch.einsum`` in bfloat16), and
+    the largest absolute float32 error of each side (``max_abs_err``). Each
+    line also prints the earlier route's milliseconds (:data:`COLUMN_MS_BEFORE`).
+    ``d_src`` and ``d_wc`` are computed and timed as ``StencilConv.backward``
+    computes them (``_stencil_dgrad_cuda`` on the float32 cotangent, then
+    ``_stencil_wgrad_cuda`` on its row flags and the forward's positions),
+    and once through autograd of :func:`stencil_conv_batched` in bfloat16
+    (2^-7 of scale: both gradients rounded to bfloat16). The forward's and
+    ``d_src``'s bounds count operations over the band alone
+    (:func:`band_ops`)."""
     import torch
 
     from lyft3d_tpu_torch.ops import column_sparse as cs
@@ -5968,14 +6069,16 @@ def column_stencil_replay(calls, card, cloud):
         + COLUMN_MASK_LAYERS[1:2] + FHD_COLUMN_LAYERS[6:9] + COLUMN_MASK_LAYERS[2:]
     assert len(calls) == len(layers), len(calls)
     rows = {"forward": [], "dgrad": [], "wgrad": []}
+    worst = dict.fromkeys(rows, 0.0)
     g = torch.Generator(device=calls[0][0][0].device).manual_seed(39)
-    for (args, kwargs), (cin, cout, z_out, strided) in zip(calls, layers):
+    for (args, kwargs), (cin, cout, z_out, strided), before in zip(calls, layers, COLUMN_MS_BEFORE[cloud]):
         src, qids, src_ids, wc, nc = args
         b, vs, _ = src.shape
         vq, (kzp, n) = qids.shape[-1], wc.shape[1:]
         plan = cs._chunk_plan(cin, z_out, 2 if strided else 1)
         assert (kzp, n, nc) == (plan.kzp, plan.z * cout, plan.nc), (kzp, n, nc, plan)
-        hits = int((cs.stencil_positions_ref(qids, src_ids) >= 0).sum())
+        fpos = cs.stencil_positions_ref(qids, src_ids)
+        hits = int((fpos >= 0).sum())
         shape = f"{cin}->{cout} cells={z_out} nc={nc} kzp={kzp} N={n} B={b} Vs={vs} Vq={vq}"
         errs = {}
         for dtype in (torch.bfloat16, torch.float32):
@@ -5983,6 +6086,8 @@ def column_stencil_replay(calls, card, cloud):
             got = cs.stencil_conv_batched(s_, qids, src_ids, w_, nc)
             want = cs.stencil_conv_ref(s_, qids, src_ids, w_, nc)
             errs[dtype] = rel_diff(got, want)
+            if dtype == torch.float32:
+                worst["forward"] = max(worst["forward"], float((got - want).abs().max()))
             if not errs[dtype] <= 1e-5:
                 raise AssertionError(f"column stencil {shape} {dtype}: forward differs by {errs[dtype]}")
             if cin == 1 and not torch.equal(got, want):
@@ -5992,14 +6097,18 @@ def column_stencil_replay(calls, card, cloud):
         k_ms = cuda_ms(lambda: cs.stencil_conv_batched(s16, qids, src_ids, w16, nc), warmup=1, iters=5)
         p_ms = cuda_ms(lambda: cs.stencil_conv_ref(s16, qids, src_ids, w16, nc), warmup=1, iters=2)
         ids_bytes = (b * 9 * vq + b * vs) * 4
-        # Every hit multiplies its chunk's whole band (kzp x N, the band's
-        # zeros included) in each of the nc chunks.
-        ops = 2 * hits * nc * kzp * n
-        fb = bound(b * vs * nc * kzp * 2 + 9 * kzp * n * 2 + ids_bytes + b * vq * nc * n * 4, ops, BF16_PEAK)
-        rows["forward"].append(dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=fb[0], bound_by=fb[1]))
+        fb = bound(b * vs * nc * kzp * 2 + 9 * kzp * n * 2 + ids_bytes + b * vq * nc * n * 4,
+                   band_ops(fpos, wc, nc), BF16_PEAK)
+        wide = {"forward": cs.stencil_mma_variant(kzp, n, nc)["route"] == "wide",
+                "dgrad": cs.stencil_mma_variant(n, kzp, nc, torch.float32)["route"] == "wide",
+                "wgrad": cs.wgrad_mma_variant(kzp, n)["tile"] in cs.WGRAD_WIDE_TILES}
+        rows["forward"].append(dict(shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=fb[0], bound_by=fb[1],
+                                    wide=wide["forward"]))
         line = (f"column stencil ({cloud}): {shape} hits={hits} forward max_err/scale "
                 + " ".join(f"{str(d)[6:]}={e:.3g}" for d, e in errs.items())
-                + f" (tol 1e-5) kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={fb[0]:.5f} ({fb[1]})")
+                + f" (tol 1e-5) {'wide' if wide['forward'] else 'unit'} tile kernel_ms={k_ms:.4f} (before: "
+                f"{before[0]}) plain_ms={p_ms:.3f} "
+                f"bound_ms={fb[0]:.5f} ({fb[1]})")
         rq, rids = kwargs.get("rev_qids"), kwargs.get("rev_src_ids")
         if rq is None:
             log(line + f" [{card}]")
@@ -6011,39 +6120,82 @@ def column_stencil_replay(calls, card, cloud):
         w32 = wc.detach().float().requires_grad_(True)
         out = cs.stencil_conv_ref(s32, qids, src_ids, w32, nc)
         want_s, want_w = torch.autograd.grad(out, (s32, w32), cot, retain_graph=True)
-        berrs = {}
+        # d_src and d_wc as StencilConv.backward computes them: d_src on the
+        # float32 cotangent (its zero rows flagged), d_wc on those flags and
+        # the forward's positions; then once through autograd in bfloat16.
+        berrs, path = {}, {}
         for dtype in (torch.bfloat16, torch.float32):
-            w_t = wc.detach().to(dtype).transpose(1, 2).contiguous()
-            got_s = cs._stencil_conv_cuda(cot.to(dtype), rq, rids, w_t, nc, dgrad=True, out_dtype=dtype)
-            got_w = cs._stencil_wgrad_cuda(src.detach().to(dtype), qids, src_ids, cot, nc, kzp, n)
+            s_, w_ = src.detach().to(dtype), wc.detach().to(dtype)
+            _, pos = cs._stencil_conv_cuda(s_, qids, src_ids, w_, nc)
+            got_s, flags = cs._stencil_dgrad_cuda(cot, rq, rids, w_, nc)
+            got_w = cs._stencil_wgrad_cuda(s_, qids, src_ids, cot, nc, kzp, n, flags=flags, pos=pos)
             berrs[dtype] = (rel_diff(got_s, want_s), rel_diff(got_w, want_w))
+            if dtype == torch.float32:
+                worst["dgrad"] = max(worst["dgrad"], float((got_s - want_s).abs().max()))
+                worst["wgrad"] = max(worst["wgrad"], float((got_w - want_w).abs().max()))
+            else:
+                path = dict(pos=pos, flags=flags)
             tol_s = 1e-5 if dtype == torch.float32 else 2.0 ** -7
             if not (berrs[dtype][0] <= tol_s and berrs[dtype][1] <= WGRAD_TOL):
                 raise AssertionError(f"column stencil {shape} {dtype}: d_src, d_wc differ from the plain "
                                      f"backward by {berrs[dtype]}")
             del got_s, got_w
-        cot16, wt16 = cot.to(torch.bfloat16), w16.transpose(1, 2).contiguous()
-        d_ms = cuda_ms(lambda: cs._stencil_conv_cuda(cot16, rq, rids, wt16, nc, dgrad=True,
-                                                     out_dtype=torch.bfloat16), warmup=1, iters=5)
-        w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s16, qids, src_ids, cot, nc, kzp, n), warmup=1, iters=5)
+        s_a, w_a = s16.clone().requires_grad_(True), w16.clone().requires_grad_(True)
+        ids_a = [t.clone() for t in (qids, src_ids, rq, rids)]  # not inference tensors: autograd saves them
+        auto = torch.autograd.grad(cs.stencil_conv_batched(s_a, ids_a[0], ids_a[1], w_a, nc, *ids_a[2:]),
+                                   (s_a, w_a), cot)
+        auto_errs = (rel_diff(auto[0], want_s), rel_diff(auto[1], want_w))
+        if not max(auto_errs) <= 2.0 ** -7:
+            raise AssertionError(f"column stencil {shape}: autograd's bfloat16 d_src, d_wc differ from the plain "
+                                 f"backward by {auto_errs} (tol 2^-7, both rounded to bfloat16)")
+        del s_a, w_a, ids_a, auto
+        d_ms = cuda_ms(lambda: cs._stencil_dgrad_cuda(cot, rq, rids, w16, nc), warmup=1, iters=5)
+        w_ms = cuda_ms(lambda: cs._stencil_wgrad_cuda(s16, qids, src_ids, cot, nc, kzp, n, **path),
+                       warmup=1, iters=5)
         pd_ms = retained_grad_ms(out, (s32,), cot)
         pw_ms = retained_grad_ms(out, (w32,), cot)
+        # The library yardstick of d_wc: the rows gathered by position, then
+        # one cuBLAS contraction in bfloat16 (the cotangent rounded once).
+        pos = fpos.long().reshape(b, -1)
+        cot_w = cot.to(torch.bfloat16).view(b, vq, nc, n)
+
+        def gather_einsum():
+            picked = torch.gather(s16, 1, pos.clamp(min=0)[..., None].expand(-1, -1, s16.shape[-1]))
+            picked = (picked * (pos >= 0)[..., None].to(picked.dtype)).view(b, 9, vq, nc, kzp)
+            return torch.einsum("bjvck,bvcn->jkn", picked, cot_w)
+
+        lib_err = rel_diff(gather_einsum(), want_w)
+        if not lib_err <= 2.0 ** -6:
+            raise AssertionError(f"column stencil {shape}: gather + einsum differs from the plain d_wc by {lib_err}")
+        lw_ms = cuda_ms(gather_einsum, warmup=1, iters=3)
+        del pos, cot_w, path
         ids_b = (b * 9 * vq + b * 9 * vs + b * vs + b * vq) * 4
-        db = bound((b * vq * nc * n + 9 * kzp * n) * 2 + ids_b + b * vs * nc * kzp * 2, ops, BF16_PEAK)
-        wb = bound(b * vs * nc * kzp * 2 + b * vq * nc * n * 4 + ids_b + 9 * kzp * n * 4, ops, BF16_PEAK)
-        rows["dgrad"].append(dict(shape=shape, ms=d_ms, plain_ms=pd_ms, bound_ms=db[0], bound_by=db[1]))
-        rows["wgrad"].append(dict(shape=shape, ms=w_ms, plain_ms=pw_ms, bound_ms=wb[0], bound_by=wb[1]))
+        # d_src reads the float32 cotangent and writes bfloat16 rows; it
+        # multiplies the transposed band only. d_wc computes the whole
+        # (9, kzp, N) matrix: every hit a full kzp x N outer product a chunk.
+        db = bound(b * vq * nc * n * 4 + 9 * kzp * n * 2 + ids_b + b * vs * nc * kzp * 2,
+                   band_ops(cs.stencil_positions_ref(rq, rids), wc.transpose(1, 2), nc), BF16_PEAK)
+        wb = bound(b * vs * nc * kzp * 2 + b * vq * nc * n * 4 + ids_b + 9 * kzp * n * 4,
+                   2 * hits * nc * kzp * n, BF16_PEAK)
+        rows["dgrad"].append(dict(shape=shape, ms=d_ms, plain_ms=pd_ms, bound_ms=db[0], bound_by=db[1],
+                                  wide=wide["dgrad"]))
+        rows["wgrad"].append(dict(shape=shape, ms=w_ms, plain_ms=pw_ms, bound_ms=wb[0], bound_by=wb[1],
+                                  library_ms=lw_ms, wide=wide["wgrad"]))
         log(line + " backward max_err/scale (d_src, d_wc) "
             + " ".join(f"{str(d)[6:]}=({e[0]:.3g}, {e[1]:.3g})" for d, e in berrs.items())
-            + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (plain "
-            f"{pd_ms:.3f}, bound {db[0]:.5f} {db[1]}, contraction {-(-n // 64) * 64} lanes) d_wc_ms={w_ms:.4f} "
-            f"(plain {pw_ms:.3f}, bound {wb[0]:.5f} {wb[1]}) [{card}]")
+            + f" (tol d_src 1e-5, 2^-7 rounded to bfloat16; d_wc {WGRAD_TOL}) d_src_ms={d_ms:.4f} (before: "
+            f"{before[1]}; plain {pd_ms:.3f}, bound {db[0]:.5f} {db[1]}, contraction {-(-n // 64) * 64} lanes, "
+            f"{'wide' if wide['dgrad'] else 'unit'} tile) d_wc_ms={w_ms:.4f} (before: {before[2]}; plain {pw_ms:.3f}, "
+            f"gather + einsum {lw_ms:.3f}, bound {wb[0]:.5f} {wb[1]}, tile {cs.wgrad_mma_variant(kzp, n)['tile']}) "
+            f"[{card}]")
         del out, s32, w32, want_s, want_w, cot
-    for k, rs in rows.items():
+    for i, (k, rs) in enumerate(rows.items()):
+        earlier = sum(m[i] for m in COLUMN_MS_BEFORE[cloud] if m[i] is not None)
+        library = (f" gather_einsum_ms={sum(r['library_ms'] for r in rs):.3f}" if k == "wgrad" else "")
         log(f"column stencil ({cloud}): {len(rs)} {k} launches of one pass: kernel_ms="
-            f"{sum(r['ms'] for r in rs):.3f} plain_ms={sum(r['plain_ms'] for r in rs):.3f} "
-            f"bound_ms={sum(r['bound_ms'] for r in rs):.4f} [{card}]")
-    return rows
+            f"{sum(r['ms'] for r in rs):.3f} (before: {earlier:.3f}) plain_ms={sum(r['plain_ms'] for r in rs):.3f}"
+            f"{library} bound_ms={sum(r['bound_ms'] for r in rs):.4f} max_abs_err={worst[k]:.3g} [{card}]")
+    return {k: [dict(r, max_abs_err=worst[k]) for r in rs] for k, rs in rows.items()}
 
 
 def column_phase(dev, card, tmp):
@@ -6057,7 +6209,9 @@ def column_phase(dev, card, tmp):
     b. main path: ``make_second_infer_fn`` in bfloat16 (folded norms) at
        batch 4 x 262,144 points on the uniform cloud and on
        :func:`lidar_cloud`, the counts reset before and read after the path:
-       12 stencil launches a call (the chunk counts 1 to 5 each launched) and
+       12 stencil launches a call (the chunk counts 1 to 5 each launched),
+       those of the layers of 192 to 640 columns on the wide tile (five; the
+       mask convs and the layers of 64-128 columns take the unit tile), and
        2 fill launches; CUDA-event times stage by stage.
     c. every stencil call of a pass held to the plain versions
        (:func:`column_stencil_replay`): forward, ``d_src`` and ``d_wc``.
@@ -6065,7 +6219,8 @@ def column_phase(dev, card, tmp):
        (``GRAD_NORM_TOL``, relative).
     e. one ``train_second`` step of the column model on a synthetic Lyft
        tree through the entry point, then ``evaluate_second``: fill, fill
-       backward, stencil, ``d_src`` and ``d_wc`` counted.
+       backward, stencil, ``d_src`` and ``d_wc`` counted, each stencil side
+       also on its wide tile.
     f. ``pillars + sparse_units`` and ``simple + scatter`` at the FHD and the
        pillars grids, once each.
     g. PointRCNN (``lyft_pointrcnn_config("test")``) with ``grid_bounds``
@@ -6096,7 +6251,7 @@ def column_phase(dev, card, tmp):
 
     t_phase = time.perf_counter()
     keys = ("voxels", "num_points", "coords", "voxel_valid")
-    counts = dict.fromkeys(TRAIN_COUNTERS + PRC_KERNELS, 0)
+    counts = dict.fromkeys(TRAIN_COUNTERS + PRC_KERNELS + WIDE_COUNTERS, 0)
 
     def active_of(cfg, vox):
         return ActiveSet(vox["coords"], vox["voxel_valid"], cfg.grid.grid_size)
@@ -6151,21 +6306,27 @@ def column_phase(dev, card, tmp):
     infer = make_second_infer_fn(net, cfg)
     mid = net.middle
     anchors, _, _, anchor_class = cfg.make_anchors(dev)
+    wide_per_call = sum(cs.stencil_mma_variant(p.kzp, p.z * cout, p.nc)["route"] == "wide"
+                        for cin, cout, z_out, strided in FHD_COLUMN_LAYERS + COLUMN_MASK_LAYERS
+                        for p in (cs._chunk_plan(cin, z_out, 2 if strided else 1),))
     records = {}
     for cloud, (pts, pvalid) in (("uniform cloud", fhd_points(FHD_BATCH, FHD_POINTS, seed=39)),
                                  ("lidar cloud", lidar_cloud(FHD_BATCH, FHD_POINTS, seed=39))):
         pts, pvalid = pts.to(dev), pvalid.to(dev)
         torch.cuda.reset_peak_memory_stats()
         train_counts(reset=True)
+        wide_counts(reset=True)
         e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
         det = infer(pts, pvalid)
         torch.cuda.synchronize()
-        run = train_counts()
+        run, wide = train_counts(), wide_counts()
         calls = 2 + TIMED_ITERS + 1
-        if run["stencil_conv"] != 12 * calls or run["dense_fill"] != 2 * calls:
-            raise AssertionError(f"column path ({cloud}): {run} launches in {calls} calls, expected 12 stencil "
-                                 "and 2 fill launches a call")
+        if (run["stencil_conv"] != 12 * calls or wide["stencil_conv_wide"] != wide_per_call * calls
+                or run["dense_fill"] != 2 * calls):
+            raise AssertionError(f"column path ({cloud}): {run}, {wide} launches in {calls} calls, expected 12 "
+                                 f"stencil ({wide_per_call} on the wide tile) and 2 fill launches a call")
         counts["stencil_conv"] += run["stencil_conv"]
+        counts["stencil_conv_wide"] += wide["stencil_conv_wide"]
         counts["dense_fill"] += run["dense_fill"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if not (bool(torch.isfinite(det["boxes"]).all()) and tuple(det["boxes"].shape) == (FHD_BATCH, cfg.nms_post, 7)):
@@ -6200,7 +6361,7 @@ def column_phase(dev, card, tmp):
             + f" kept_voxels_sample0={int(vox['voxel_valid'][0].sum())} columns_sample0={n_cols} "
             f"caps={(cfg.max_voxels,) + cfg.middle_max_voxels} active_cells_sample0={active_cells} "
             f"chunk_counts={chunks} detections={int(det['valid'].sum())} peak_mem_gb={peak_gb:.2f} "
-            f"launches_per_call=12 stencil, 2 fill [{card}]")
+            f"launches_per_call=12 stencil ({wide_per_call} wide tile), 2 fill [{card}]")
         records[cloud] = column_stencil_replay(stencil_calls.calls, card, cloud)
         del vox, feats, states, bev, preds, det, stencil_calls
         torch.cuda.empty_cache()
@@ -6241,13 +6402,14 @@ def column_phase(dev, card, tmp):
     vcfg = fhd_config(middle="sparse_columns", anchor_specs=tuple(
         AnchorSpec(*LYFT9_ANCHORS[i], class_id=j + 1) for j, i in enumerate((0, 2, 4))))
     train_counts(reset=True)
+    wide_counts(reset=True)
     t0 = time.perf_counter()
     _, model, _ = train_second(exp, loader, tokens, vcfg=vcfg, n_devices=1, log_every=1,
                                dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    trained = train_counts()
-    for k in ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad"):
+    trained = dict(train_counts(), **wide_counts())
+    for k in ("dense_fill", "dense_fill_bwd", "stencil_conv", "stencil_dgrad", "stencil_wgrad") + WIDE_COUNTERS:
         if trained[k] <= 0:
             raise AssertionError(f"column train_second: the {k} kernel was never launched ({trained})")
         counts[k] += trained[k]
@@ -6255,9 +6417,11 @@ def column_phase(dev, card, tmp):
     if not (losses_logged and all(math.isfinite(v) for v in losses_logged)):
         raise AssertionError(f"column train_second: losses {losses_logged}")
     train_counts(reset=True)
+    wide_counts(reset=True)
     preds = evaluate_second(model, vcfg, loader, tokens, list(classes))
-    evaluated = train_counts()
+    evaluated = dict(train_counts(), **wide_counts())
     counts["stencil_conv"] += evaluated["stencil_conv"]
+    counts["stencil_conv_wide"] += evaluated["stencil_conv_wide"]
     counts["dense_fill"] += evaluated["dense_fill"]
     if evaluated["stencil_conv"] <= 0:
         raise AssertionError("column evaluate_second never launched the stencil kernel")
@@ -6841,11 +7005,20 @@ def main():
     # wide stencil shapes held forward and backward, a train_second step), the
     # last encoder/middle pairs and PointRCNN with the grid ball query
     with tempfile.TemporaryDirectory() as tmp:
-        col, _ = column_phase(dev, card, Path(tmp))
+        col, col_rows = column_phase(dev, card, Path(tmp))
     fill_launches += col["dense_fill"]
-    for kernel in dryrun.KERNELS:
+    for kernel in dryrun.KERNELS:  # the stencil's unit tiles here; its wide tiles have records of their own
         if kernel != "dense_fill" and kernel in col:
-            fam[kernel] += col[kernel]
+            fam[kernel] += col[kernel] - col.get(f"{kernel}_wide", 0)
+
+    def wide_numbers(side):
+        """The slowest launch of one side of the wide tiles over both clouds'
+        replays, with the largest float32 error of the side's replays."""
+        rows = [r for cloud in col_rows.values() for r in cloud[side] if r["wide"]]
+        slowest = max(rows, key=lambda r: r["ms"])
+        return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=slowest["ms"],
+                    plain_ms=slowest["plain_ms"], bound_ms=slowest["bound_ms"], bound_by=slowest["bound_by"],
+                    library_ms=slowest.get("library_ms"))
 
     def trained(kernel):
         """Launches of ``kernel`` over the timed steps of the five training runs
@@ -6892,7 +7065,8 @@ def main():
         # slices), by phase 37's sparse demo and by every rank of phase 38's
         # sparse family and dry-run stage 4.
         record("stencil_conv", "lyft3d_tpu/ops/column_sparse.py:507",
-               sparse_launches["stencil_conv"] + fhd_batch["stencil_conv"] + tp_launches["stencil_conv"]
+               sparse_launches["stencil_conv"] - sparse_launches["stencil_conv_wide"] + fhd_batch["stencil_conv"]
+               + tp_launches["stencil_conv"]
                + learn["stencil_conv"] + fam["stencil_conv"], stencil_record),
         record("subm_conv", "lyft3d_tpu/ops/subm_conv_kernel.py:42",
                voxel_launches["subm_conv"], subm_record),
@@ -6919,6 +7093,17 @@ def main():
                subm_bwd["dgrad"], source="subm_conv"),
         record("subm_wgrad", "lyft3d_tpu/ops/subm_conv_kernel.py:106", trained("subm_wgrad"),
                subm_bwd["wgrad"], source="subm_conv"),
+        # The stencil's wide tiles (conv_wide_kernel in conv_mma.cuh; the
+        # 16-warp tiles of wgrad_mma_kernel), launched by phase 39's column
+        # middle: its inference on two clouds, train_second's step and
+        # evaluate_second; the forward's also by phase 12's unit middle.
+        record("stencil_conv_wide", "lyft3d_tpu/ops/column_sparse.py:507",
+               col["stencil_conv_wide"] + sparse_launches["stencil_conv_wide"],
+               wide_numbers("forward"), source="stencil_conv"),
+        record("stencil_dgrad_wide", "lyft3d_tpu/ops/column_sparse.py:773", col["stencil_dgrad_wide"],
+               wide_numbers("dgrad"), source="stencil_conv"),
+        record("stencil_wgrad_wide", "lyft3d_tpu/ops/column_sparse.py:777", col["stencil_wgrad_wide"],
+               wide_numbers("wgrad"), source="stencil_conv"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

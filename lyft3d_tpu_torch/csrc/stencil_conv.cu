@@ -13,39 +13,62 @@
 // by its address, so the windows, their alignment rules and the coverage
 // fallback have no counterpart here.
 //
-// Bound: bytes (source rows read once, the output written once; the real
-// work, 27 taps a query with all neighbours present, is far below the
-// tensor cores' rate). What the kernel really fights is the traffic it adds
-// itself: a row gathered more than once, weights re-read by every block,
-// zeros multiplied.
+// Bound: bytes: the source rows, ids and positions read once, the weights
+// once, the output written once (float32: at the column middle's 640
+// columns its 614 MB are most of it), over 3.35 TB/s (chip_smoke.py's
+// formulas); the real work, 2·hits·nc·kzp·N operations with the band's
+// zeros, is far below the tensor cores' rate. What the kernels fight is
+// what they add themselves: a row gathered more than once, weights re-read
+// by every block, zeros multiplied, and, at one to four hits a query,
+// instructions and their latency a hit.
 //
-// bfloat16 takes the tensor-core route of conv_mma.cuh, three launches:
+// bfloat16 takes the tensor-core route of conv_mma.cuh, in one call:
 //   1. `stencil_positions_kernel`: every (sample, offset, query) finds its
 //      source row once, a binary search over the sample's ids (L2-resident:
-//      300 KB at 75,000 units), into an int32 table; no tile searches again.
-//      With per-row flags of the source a hit on an all-zero row (a cotangent
-//      row the caps cut off) becomes a miss.
+//      300 KB at 75,000 units), into an int32 table; no tile searches again,
+//      and the backward's `d_wc` takes the forward's table. With per-row
+//      flags of the source a hit on an all-zero row (a cotangent row the
+//      caps cut off) becomes a miss.
 //   2. `convmma::weight_prep_kernel`: the weights as (9, n_pad, kp), the
 //      contraction index contiguous, zero-padded, with one bit for every
 //      16 x 8 block that holds a non-zero: the band weights are two thirds
-//      zeros, and kzp pads (zs+2)·C to 128 lanes.
-//   3. `convmma::conv_mma_kernel` over 9 offsets and 64-lane slices: a block
-//      owns 128 queries and all output columns up to 128, or up to 256 with
-//      16 warps, so a query's rows are gathered once; wider outputs (the
-//      dense-z column middle's 384, 448 and 640 columns) take a grid
-//      dimension of 256-column tiles, each of which gathers its queries'
-//      rows again (at most 5 chunks, 3 tiles). The contraction runs up to
-//      640 lanes (`d_src` of those layers: the cotangent's columns are its
-//      lanes) in 64-lane slices through the same ring; a `cp.async` ring of
-//      (offset, slice) stages feeds `mma.sync.m16n8k16`, and 16-query groups
-//      without a hit and zero weight block pairs are skipped. What bounds it
-//      now is the ring's latency: with one hit in nine (offset, query) pairs
-//      a stage holds few MMAs, and two blocks an SM do not hide its copy.
-// Rows whose width is not a multiple of 64 lanes (the backward's cotangent
-// rows of 65, 66 or 68 lanes) are first copied into padded bfloat16 rows by
-// `convmma::rows_prep_kernel`, which also converts a float32 cotangent and
-// writes the row flags; it costs one pass over the rows, which the
-// conversion took anyway.
+//      zeros, and kzp pads (zs+2)·C to 128 lanes. For the wide tile also
+//      `band_ranges_kernel` (each (offset, 16-lane step)'s range of non-zero
+//      columns) and `fragment_prep_kernel` (the weights in the order of the
+//      MMA's B fragments).
+//   3. the tile the rule picks (`route`; `stencil_mma_variant` in
+//      ops/column_sparse.py writes the same rule):
+//      - the unit tile, `convmma::conv_mma_kernel`, for at most 256 lanes
+//        and either fewer than 128 columns or 128 columns in more than one
+//        chunk (the unit middle's strided layers, 65-68 columns; the column
+//        middle's mask convs and its layers of 64-128 columns at 3-5
+//        chunks): a block owns 128 queries and all their columns, and a
+//        `cp.async` ring of (offset, 64-lane slice) stages feeds
+//        `mma.sync.m16n8k16`; 16-query groups without a hit and zero weight
+//        block pairs are skipped.
+//      - the wide tile, `convmma::conv_wide_kernel`, for everything else
+//        (the unit middle's 128-column layers, every `d_src`, the column
+//        middle's 192-640 columns at 1-4 chunks): a 16-query group's warps
+//        own a chunk's whole width (128 columns a warp), without shared
+//        memory; each warp walks the offsets its queries hit and the
+//        16-lane steps whose band range meets its columns, loading A
+//        fragments straight from its rows and B fragments from the
+//        fragment-ordered weights. What bounds it is the count of
+//        instructions and their latency a (query group, hit offset, band
+//        step), not bytes (conv_mma.cuh says how the ring version of this
+//        tile measured).
+//      The boundary is measured (tools/stencil_tile_ab.py, both tiles on
+//      every shape both take): the wide tile was faster at every `d_src`
+//      and at the unit middle's 128-column forward layers, the unit tile at
+//      outputs under 128 columns and at 128 columns in 5 chunks.
+// The unit tile reads bfloat16 rows of whole 64-lane slices; rows of
+// another type or width (a float32 cotangent, a chunk that is not whole
+// slices) are first copied into padded bfloat16 rows by
+// `convmma::rows_prep_kernel`, which also writes the row flags. The wide
+// tile reads float32 or bfloat16 rows as they are, two lanes at a time
+// (float32 rounded to bfloat16 as it is read); only a chunk of an odd width
+// is copied, and `d_src`'s zero cotangent rows are flagged by a pass that
+// writes the flags alone (`wgrad::row_flags_kernel`).
 //
 // float32 keeps the float32 FMA route (`stencil_conv_kernel`): float32 is
 // the type of the checks (1e-5), which TF32 would break. One block owns a
@@ -58,10 +81,13 @@
 //          (column_sparse.py:773): the cotangent rows are the source, the
 //          reverse queries pick them, the band weights are transposed, the
 //          contraction is N (up to 640 lanes) and the output width is kzp
-//          (up to 256 columns in one pass).
+//          (128 or 256 columns), so every `d_src` takes the wide tile,
+//          which reads the float32 cotangent as it is.
 //   d_wc[j] = Σ_{b,q,c} src[b, pos(qids[b, j, q])][chunk c]ᵀ g[b, q][chunk c]
 //          `wgrad::wgrad_mma_kernel` (bfloat16 sources, tensor cores, the
-//          float32 cotangent split in two bfloat16 halves) or
+//          float32 cotangent split in two bfloat16 halves; 16-warp tiles of
+//          128 x 256 or 256 x 128 above 128 columns, on the forward's
+//          position table) or
 //          `stencil_wgrad_kernel` (float32 sources, FMA), both of
 //          wgrad_tile.cuh's tiles, ending in float32 atomicAdds into a zeroed
 //          (9, kzp, N) buffer; the sum order varies.
@@ -306,8 +332,7 @@ cudaError_t launch_wgrad(const void* src, const void* qids, const void* src_ids,
 // bfloat16 route: positions, weight and row preparation, tensor-core kernel.
 // ---------------------------------------------------------------------------
 
-constexpr int kSlice = 64;  // contraction lanes a pipeline stage holds (conv_mma.cuh)
-constexpr int kSteps = convmma::kMaxStepsWide;  // the contraction: up to 640 lanes
+constexpr int kSlice = 64;  // contraction lanes a pipeline stage of the unit tile holds (conv_mma.cuh)
 
 // pos[b, j, q] = position of qids[b, j, q] in src_ids[b], −1 where absent or,
 // with `src_flags` (batch, vs), where the source row's flag is 0.
@@ -327,18 +352,14 @@ stencil_positions_kernel(const int32_t* __restrict__ qids, const int32_t* __rest
   pos[i] = p;
 }
 
-// Up to 128 columns: 8 warps (4 x 2, a warp 32 queries x 64 columns), three
-// stages; more: 16 warps (8 x 2, a warp 16 queries x 128 columns), two, in
-// tiles of 256 columns.
+// The unit tile (`route` 0), up to 128 columns: 8 warps (4 x 2, a warp 32
+// queries x 64 columns), three stages.
 template <typename TO>
 cudaError_t launch_mma(const void* src, const void* pos, const void* wt, const void* wmask, void* out,
                        int batch, int vs, int vq, int nc, int kp, int n, int n_pad,
                        cudaStream_t stream) {
-  if (n_pad <= 128) {
-    return convmma::launch_conv_mma<kOffsets, kSlice, 4, 2, 2, 8, 3, false, TO, kSteps>(
-        src, pos, wt, wmask, out, batch, kOffsets, vs, vq, nc, kp, n, n_pad, stream);
-  }
-  return convmma::launch_conv_mma<kOffsets, kSlice, 8, 2, 1, 16, 2, false, TO, kSteps>(
+  if (n_pad > 128) return cudaErrorInvalidValue;
+  return convmma::launch_conv_mma<kOffsets, kSlice, 4, 2, 2, 8, 3, false, TO>(
       src, pos, wt, wmask, out, batch, kOffsets, vs, vq, nc, kp, n, n_pad, stream);
 }
 
@@ -437,44 +458,71 @@ extern "C" int stencil_rows_prep_launch(const void* in, void* out, void* flags, 
 // bfloat16 route, all its launches in one call. out (batch, vq, nc·n) float32
 // (`out_dtype` 0) or bfloat16 (1) from src (batch, vs, nc·k) of `src_dtype`
 // (0 float32, 1 bfloat16), qids (batch, 9, vq), src_ids (batch, vs) and
-// bfloat16 weights whose element (j, k, o) lies at w[j·sj + k·sk + o·so].
-// Scratch of the caller: pos (batch, 9, vq) int32, wt (9, n_pad, kp)
-// bfloat16, wmask (9, mask_tiles(n_pad), mask_steps(kp)) uint32 and, unless src is bfloat16 with k = kp and
-// is to be read as it is (`rows` null), rows (batch, vs, nc·kp) bfloat16 and
-// flags (batch, vs) uint8: a hit on a row that is all zero is then a miss.
+// bfloat16 weights whose element (j, k, o) lies at w[j·sj + k·sk + o·so], on
+// the unit tile (`route` 0) or the wide tile (1; conv_mma.cuh). Scratch of
+// the caller: pos (batch, 9, vq) int32 (the positions, which the caller may
+// keep), wt (9, n_pad, kp) bfloat16, wmask (9, mask_tiles(n_pad),
+// mask_steps(kp)) uint32 and, for the wide tile (else null), wband (9, kp/16)
+// uint32 and wfrag (9, kp/16, n_pad/16, 32) uint4. The rows are read as they
+// are, unless `rows` is given: then rows (batch, vs, nc·kp) bfloat16 is a
+// padded copy made first (the unit tile's rows of another type or width; the
+// wide tile's rows of an odd width). flags (batch, vs) uint8, or null, marks
+// the source rows that hold a non-zero (filled here, by the copy or by a pass
+// of its own): a hit on a row that is all zero is then a miss.
 // An empty shape is an error: nothing would be launched.
-// Up to 128 columns: 8 warps, 128 queries a block; more: 16 warps, 256
-// columns a block.
 extern "C" int stencil_conv_mma_launch(const void* src, int src_dtype, void* rows, void* flags,
                                        const void* qids, const void* src_ids, void* pos,
                                        const void* w, long long sj, long long sk, long long so,
-                                       void* wt, void* wmask, void* out, int out_dtype, int batch,
-                                       int vs, int vq, int nc, int k, int n, int kp, int n_pad,
-                                       int device, void* stream) {
+                                       void* wt, void* wmask, void* wband, void* wfrag, void* out,
+                                       int out_dtype, int batch, int vs, int vq, int nc, int k, int n, int kp,
+                                       int n_pad, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || vs <= 0 || vq <= 0 || nc <= 0 || k <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (batch > 65535 || nc > 65535 || n > n_pad || k > kp || (rows == nullptr && (src_dtype != 1 || k != kp))) {
+  if (batch > 65535 || nc > 65535 || n > n_pad || k > kp || (src_dtype != 0 && src_dtype != 1) ||
+      route < 0 || route > 1 || (route != 0) != (wband != nullptr) || (route != 0) != (wfrag != nullptr) ||
+      (rows != nullptr && flags == nullptr) ||
+      (route == 0 && rows == nullptr && (src_dtype != 1 || k != kp))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_rows = static_cast<long long>(batch) * vs;
   if (rows != nullptr) {
-    err = rows_prep(src, rows, flags, static_cast<long long>(batch) * vs, nc, k, kp, src_dtype, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    err = rows_prep(src, rows, flags, n_rows, nc, k, kp, src_dtype, s);
+  } else if (flags != nullptr) {
+    err = rows_prep(src, nullptr, flags, n_rows, nc, k, k, src_dtype, s);
   }
-  err = positions(qids, src_ids, rows != nullptr ? flags : nullptr, pos, batch, vs, vq, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = positions(qids, src_ids, flags, pos, batch, vs, vq, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = weight_prep(w, sj, sk, so, wt, wmask, k, n, kp, n_pad, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* a = rows != nullptr ? rows : src;
-  if (out_dtype == 0) {
-    err = launch_mma<float>(a, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, s);
-  } else if (out_dtype == 1) {
-    err = launch_mma<__nv_bfloat16>(a, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, s);
+  const int a_dtype = rows != nullptr ? 1 : src_dtype;
+  const int ka = rows != nullptr ? kp : k;
+  if (out_dtype != 0 && out_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == 0) {
+    err = out_dtype == 0 ? launch_mma<float>(a, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, s)
+                         : launch_mma<__nv_bfloat16>(a, pos, wt, wmask, out, batch, vs, vq, nc, kp, n, n_pad, s);
+    return static_cast<int>(err);
+  }
+  err = convmma::band_ranges(wmask, wband, kOffsets, kp, n_pad, s);
+  if (err == cudaSuccess) err = convmma::fragment_prep(wt, wfrag, kOffsets, kp, n_pad, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a_dtype == 1 && out_dtype == 0) {
+    err = convmma::launch_conv_wide<__nv_bfloat16, float>(a, pos, wfrag, wband, out, batch, kOffsets, vs, vq, nc,
+                                                          ka, kp, n, n_pad, s);
+  } else if (a_dtype == 1) {
+    err = convmma::launch_conv_wide<__nv_bfloat16, __nv_bfloat16>(a, pos, wfrag, wband, out, batch, kOffsets, vs,
+                                                                  vq, nc, ka, kp, n, n_pad, s);
+  } else if (out_dtype == 0) {
+    err = convmma::launch_conv_wide<float, float>(a, pos, wfrag, wband, out, batch, kOffsets, vs, vq, nc, ka, kp,
+                                                  n, n_pad, s);
   } else {
-    err = cudaErrorInvalidValue;
+    err = convmma::launch_conv_wide<float, __nv_bfloat16>(a, pos, wfrag, wband, out, batch, kOffsets, vs, vq, nc,
+                                                          ka, kp, n, n_pad, s);
   }
   return static_cast<int>(err);
 }
@@ -484,14 +532,15 @@ extern "C" int stencil_conv_mma_launch(const void* src, int src_dtype, void* row
 // src[pos(qids)]ᵀ g with src (batch, vs, nc·kzp) bfloat16 and the cotangent g
 // (batch, vq, nc·n) float32. flags (batch, vq) uint8, 0 drops the query (its
 // cotangent row is zero): the caller's when `flags_given`, else scratch that
-// is filled here from g. Scratch of the caller: pos (batch, 9, vq) int32;
-// `queues`, 9 zeroed int32 for each of the `tiles` tiles of a weight matrix
-// (a count that differs from the launch's own is an error, as is an empty
-// shape).
+// is filled here from g. pos (batch, 9, vq) int32: the forward's positions
+// when `pos_given` (a hit on a source row that is all zero may be a miss
+// there: it adds nothing), else scratch that is filled here. `queues`, 9
+// zeroed int32 for each of the `tiles` tiles of a weight matrix (a count that
+// differs from the launch's own is an error, as is an empty shape).
 extern "C" int stencil_wgrad_mma_launch(const void* src, const void* qids, const void* src_ids,
                                         const void* g, void* flags, int flags_given, void* pos,
-                                        void* dwc, void* queues, int tiles, int batch, int vs,
-                                        int vq, int nc, int kzp, int n, int device, void* stream) {
+                                        int pos_given, void* dwc, void* queues, int tiles, int batch,
+                                        int vs, int vq, int nc, int kzp, int n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sm_count = 0;
@@ -505,8 +554,10 @@ extern "C" int stencil_wgrad_mma_launch(const void* src, const void* qids, const
     err = rows_prep(g, nullptr, flags, static_cast<long long>(batch) * vq, nc, n, n, 0, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = positions(qids, src_ids, nullptr, pos, batch, vs, vq, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!pos_given) {
+    err = positions(qids, src_ids, nullptr, pos, batch, vs, vq, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(wgrad::launch_mma<float>(src, g, pos, flags, dwc, queues, tiles, batch, vs,
                                                    vq, kOffsets, nc, kzp, n, sm_count, s));
 }

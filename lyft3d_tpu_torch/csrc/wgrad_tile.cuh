@@ -10,11 +10,19 @@
 // 2·K·N operations a hit on the tensor cores). What the design does about it:
 //
 // bfloat16 sources take the tensor-core route, `wgrad_mma_kernel`:
-//   - A block owns a TK x TN tile of the weight matrices (the whole matrix up
-//     to 128 x 128) and one offset at a time, so hits are found and gathered
-//     once per tile, and its float32 accumulators stay in registers while it
-//     works on that offset: one set of atomicAdds per block and offset, not
-//     per 1,024 queries.
+//   - A block owns a TK x TN tile of the weight matrices and one offset at a
+//     time, so hits are found and gathered once per tile, and its float32
+//     accumulators stay in registers while it works on that offset: one set
+//     of atomicAdds per block and offset, not per 1,024 queries. Each hit
+//     reads its `a` row once per N tile and its cotangent row once per K
+//     tile, so the tile is as large as the registers allow: up to 128 x 128
+//     on 8 warps (two blocks an SM) for the unit middle's and the rank
+//     gather's matrices; above 128 columns (the dense-z column middle's
+//     `d_wc`, 128 x 640 and 256 x 192-448) 16 warps over 128 x 256 at 128
+//     lanes (the 640-column layer: three N tiles, the float32 cotangent row
+//     read once) or 256 x 128 (a whole 256-lane contraction: the cotangent
+//     row read once). The stencil's caller hands in the forward's position
+//     table, so the backward searches no ids again.
 //   - Hits are spread unevenly: the centre offset hits at every query, the
 //     others at a tenth of them on a sparse cloud and at most on a dense one,
 //     and the valid units fill only the head of each sample. So the work of
@@ -144,24 +152,24 @@ __device__ __forceinline__ void accumulate_tile(
 // bfloat16 route: tensor cores.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 256;
-constexpr int kMmaWarps = kMmaThreads / 32;
 constexpr int kMmaRounds = 4;      // queries a thread looks up in one compaction
-constexpr int kMmaQueries = kMmaThreads * kMmaRounds;  // queries compacted at a time
 constexpr int kMmaHits = 64;      // hits staged at a time
 constexpr int kMmaPad = 8;        // bfloat16 elements of row padding (no ldmatrix bank conflicts)
 constexpr int kStageBatch = 4;    // 16-byte loads a thread keeps in flight while staging
 
-// Tile geometry: WK x WN warps over the TK x TN tile, each MT m-tiles of 16
-// weight rows by NT n-tiles of 8 columns; the other 8 / (WK·WN) warps split
-// the hits.
-template <typename TG, int MT, int NT, int WK, int WN>
+// Tile geometry: THREADS / 32 warps, WK x WN of them over the TK x TN tile,
+// each MT m-tiles of 16 weight rows by NT n-tiles of 8 columns; the others
+// split the hits. A block compacts THREADS · kMmaRounds queries at a time.
+template <typename TG, int MT, int NT, int WK, int WN, int THREADS = 256>
 struct MmaTile {
   static_assert(NT % 2 == 0, "n-tiles come in pairs (ldmatrix.x4)");
-  static_assert(kMmaWarps % (WK * WN) == 0, "warps must divide");
+  static constexpr int kThreads = THREADS;
+  static constexpr int kWarps = THREADS / 32;
+  static constexpr int kQueries = THREADS * kMmaRounds;
+  static_assert(kWarps % (WK * WN) == 0, "warps must divide");
   static constexpr int kTK = WK * MT * 16;
   static constexpr int kTN = WN * NT * 8;
-  static constexpr int kWH = kMmaWarps / (WK * WN);
+  static constexpr int kWH = kWarps / (WK * WN);
   static constexpr int kLda = kTK + kMmaPad;
   static constexpr int kLdg = kTN + kMmaPad;
   static constexpr bool kSplit = sizeof(TG) == 4;  // float32 cotangent: hi + lo
@@ -180,7 +188,9 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 
 // Stages rows idx[0, hcount) of `src` (lanes col0 .. col0 + valid) into
 // dst[h · ld + lane], h < h16, lane < cols (a multiple of 16), zero beyond the
-// hits and beyond `valid`; 16-byte accesses where the rows are aligned.
+// hits and beyond `valid`; 16-byte accesses where the rows are aligned. All
+// THREADS threads of the block call it.
+template <int THREADS>
 __device__ __forceinline__ void stage_rows(
     const __nv_bfloat16* __restrict__ src, long long stride, long long col0, int valid, int cols,
     const int* idx, int hcount, int h16, __nv_bfloat16* dst, __nv_bfloat16* /*no low half*/, int ld) {
@@ -189,11 +199,11 @@ __device__ __forceinline__ void stage_rows(
     // Four loads in flight a thread before the first store.
     const int segs = cols / 8;
     const int items = h16 * segs;
-    for (int first = tid; first < items; first += kMmaThreads * kStageBatch) {
+    for (int first = tid; first < items; first += THREADS * kStageBatch) {
       uint4 v[kStageBatch];
 #pragma unroll
       for (int u = 0; u < kStageBatch; ++u) {
-        const int item = first + u * kMmaThreads;
+        const int item = first + u * THREADS;
         const int h = item / segs;
         const int s = item - h * segs;
         v[u] = make_uint4(0u, 0u, 0u, 0u);
@@ -203,14 +213,14 @@ __device__ __forceinline__ void stage_rows(
       }
 #pragma unroll
       for (int u = 0; u < kStageBatch; ++u) {
-        const int item = first + u * kMmaThreads;
+        const int item = first + u * THREADS;
         const int h = item / segs;
         if (item < items) *reinterpret_cast<uint4*>(dst + h * ld + (item - h * segs) * 8) = v[u];
       }
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    for (int item = tid; item < h16 * cols; item += kMmaThreads) {
+    for (int item = tid; item < h16 * cols; item += THREADS) {
       const int h = item / cols;
       const int col = item - h * cols;
       __nv_bfloat16 v = zero;
@@ -222,6 +232,7 @@ __device__ __forceinline__ void stage_rows(
 
 // The same for float32 rows, split as hi + lo: hi = bfloat16(v), lo =
 // bfloat16(v − hi).
+template <int THREADS>
 __device__ __forceinline__ void stage_rows(
     const float* __restrict__ src, long long stride, long long col0, int valid, int cols,
     const int* idx, int hcount, int h16, __nv_bfloat16* hi, __nv_bfloat16* lo, int ld) {
@@ -229,11 +240,11 @@ __device__ __forceinline__ void stage_rows(
   if (stride % 4 == 0 && col0 % 4 == 0 && valid % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
     const int segs = cols / 4;
     const int items = h16 * segs;
-    for (int first = tid; first < items; first += kMmaThreads * kStageBatch) {
+    for (int first = tid; first < items; first += THREADS * kStageBatch) {
       float4 v[kStageBatch];
 #pragma unroll
       for (int u = 0; u < kStageBatch; ++u) {
-        const int item = first + u * kMmaThreads;
+        const int item = first + u * THREADS;
         const int h = item / segs;
         const int s = item - h * segs;
         v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -243,7 +254,7 @@ __device__ __forceinline__ void stage_rows(
       }
 #pragma unroll
       for (int u = 0; u < kStageBatch; ++u) {
-        const int item = first + u * kMmaThreads;
+        const int item = first + u * THREADS;
         if (item >= items) continue;
         const int h = item / segs;
         const int s = item - h * segs;
@@ -259,7 +270,7 @@ __device__ __forceinline__ void stage_rows(
       }
     }
   } else {
-    for (int item = tid; item < h16 * cols; item += kMmaThreads) {
+    for (int item = tid; item < h16 * cols; item += THREADS) {
       const int h = item / cols;
       const int col = item - h * cols;
       float v = 0.0f;
@@ -305,15 +316,17 @@ cudaError_t launch_row_flags(const void* rows, void* flags, long long n_rows, in
 // work units (`unit_tiles` tiles of kMmaQueries queries of the flattened
 // (sample, query) space) it pulls from that offset's queue; its sums for an
 // offset go out when the queue is empty.
-template <typename TG, int MT, int NT, int WK, int WN>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+template <typename TG, int MT, int NT, int WK, int WN, int THREADS>
+__global__ void __launch_bounds__(THREADS, 512 / THREADS)
 wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
                  const int32_t* __restrict__ table, const uint8_t* __restrict__ flags,
                  float* __restrict__ dw, int* __restrict__ queues, int batch, int vs, int vq,
                  int offsets, int nc, int K, int N, int n_tiles, int unit_tiles) {
-  using Tile = MmaTile<TG, MT, NT, WK, WN>;
+  using Tile = MmaTile<TG, MT, NT, WK, WN, THREADS>;
   constexpr int kLda = Tile::kLda;
   constexpr int kLdg = Tile::kLdg;
+  constexpr int kMmaWarps = Tile::kWarps;
+  constexpr int kMmaQueries = Tile::kQueries;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int hit_row[kMmaQueries];
   __shared__ int hit_q[kMmaQueries];
@@ -372,7 +385,7 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
         unsigned ballot[kMmaRounds];
 #pragma unroll
         for (int r = 0; r < kMmaRounds; ++r) {
-          const int q = q_base + r * kMmaThreads + tid;
+          const int q = q_base + r * THREADS + tid;
           row[r] = -1;
           if (q < vq) {
             const int p = table[(static_cast<long long>(b) * offsets + j) * vq + q];
@@ -394,7 +407,7 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
           if (row[r] >= 0) {
             const int slot = base[r] + __popc(ballot[r] & ((1u << lane) - 1u));
             hit_row[slot] = b * vs + row[r];
-            hit_q[slot] = b * vq + q_base + r * kMmaThreads + tid;
+            hit_q[slot] = b * vq + q_base + r * THREADS + tid;
           }
         }
         __syncthreads();
@@ -408,8 +421,8 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
             const long long a_col = static_cast<long long>(chunk) * K + k0;
             const long long g_col = static_cast<long long>(chunk) * N + n0;
             // The gathered `a` rows and the cotangent rows (a float32 one as hi + lo).
-            stage_rows(a, a_stride, a_col, kw, kcols, hit_row + h0, hcount, h16, a_s, nullptr, kLda);
-            stage_rows(g, g_stride, g_col, nw, ncols, hit_q + h0, hcount, h16, ghi_s, glo_s, kLdg);
+            stage_rows<THREADS>(a, a_stride, a_col, kw, kcols, hit_row + h0, hcount, h16, a_s, nullptr, kLda);
+            stage_rows<THREADS>(g, g_stride, g_col, nw, ncols, hit_q + h0, hcount, h16, ghi_s, glo_s, kLdg);
             __syncthreads();
 
             for (int grp = wh; grp < h16 / 16; grp += Tile::kWH) {
@@ -459,7 +472,7 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
     float* out = dw + static_cast<long long>(j) * K * N;
     if (Tile::kWH > 1) {
       float* red = reinterpret_cast<float*>(smem);
-      for (int i = tid; i < Tile::kTK * Tile::kTN; i += kMmaThreads) red[i] = 0.0f;
+      for (int i = tid; i < Tile::kTK * Tile::kTN; i += THREADS) red[i] = 0.0f;
       __syncthreads();
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -473,7 +486,7 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
             acc[mi][ni][e] = 0.0f;
           }
       __syncthreads();
-      for (int i = tid; i < Tile::kTK * Tile::kTN; i += kMmaThreads) {
+      for (int i = tid; i < Tile::kTK * Tile::kTN; i += THREADS) {
         const int m = i / Tile::kTN;
         const int n = i - m * Tile::kTN;
         const float v = red[i];
@@ -497,32 +510,33 @@ wgrad_mma_kernel(const __nv_bfloat16* __restrict__ a, const TG* __restrict__ g,
   }
 }
 
-template <typename TG, int MT, int NT, int WK, int WN>
+template <typename TG, int MT, int NT, int WK, int WN, int THREADS = 256>
 cudaError_t launch_mma_tile(const void* a, const void* g, const void* table, const void* flags,
                             void* dw, void* queues, int queue_tiles, int batch, int vs, int vq,
                             int offsets, int nc, int K, int N, int sm_count, cudaStream_t stream) {
-  using Tile = MmaTile<TG, MT, NT, WK, WN>;
+  using Tile = MmaTile<TG, MT, NT, WK, WN, THREADS>;
   const int k_tiles = (K + Tile::kTK - 1) / Tile::kTK;
   const int n_tiles = (N + Tile::kTN - 1) / Tile::kTN;
   // The caller sized `queues` by its own reckoning of the tiles.
   if (static_cast<long long>(k_tiles) * n_tiles != queue_tiles) return cudaErrorInvalidValue;
   if (static_cast<long long>(k_tiles) * n_tiles > 65535) return cudaErrorInvalidConfiguration;
-  const long long tiles = static_cast<long long>(batch) * ((vq + kMmaQueries - 1) / kMmaQueries);
+  const long long tiles = static_cast<long long>(batch) * ((vq + Tile::kQueries - 1) / Tile::kQueries);
   if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
-  // About three blocks an SM in all, at least one an offset to start with;
-  // some eight work units a block and offset, so that late blocks find work.
-  long long blocks = (3LL * sm_count) / (static_cast<long long>(k_tiles) * n_tiles);
+  // About three 256-thread blocks an SM in all (one of 512 threads), at least
+  // one an offset to start with; some eight work units a block and offset, so
+  // that late blocks find work.
+  long long blocks = ((THREADS == 256 ? 3LL : 1LL) * sm_count) / (static_cast<long long>(k_tiles) * n_tiles);
   if (blocks < offsets) blocks = offsets;
   if (blocks > tiles * offsets) blocks = tiles * offsets;
   long long unit_tiles = tiles * offsets / (8 * blocks);
   if (unit_tiles < 1) unit_tiles = 1;
   if (unit_tiles > 8) unit_tiles = 8;
-  auto kernel = wgrad_mma_kernel<TG, MT, NT, WK, WN>;
+  auto kernel = wgrad_mma_kernel<TG, MT, NT, WK, WN, THREADS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Tile::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned int>(blocks), static_cast<unsigned int>(k_tiles * n_tiles));
-  kernel<<<grid, kMmaThreads, Tile::kSmemBytes, stream>>>(
+  kernel<<<grid, THREADS, Tile::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const TG*>(g),
       static_cast<const int32_t*>(table), static_cast<const uint8_t*>(flags),
       static_cast<float*>(dw), static_cast<int*>(queues), batch, vs, vq, offsets, nc, K, N, n_tiles,
@@ -530,14 +544,25 @@ cudaError_t launch_mma_tile(const void* a, const void* g, const void* table, con
   return cudaGetLastError();
 }
 
-// The tile by the shape of one offset's weight matrix: up to 32 x 32 and up
-// to 64 x 64 whole in every warp, anything larger in 128 x 128 tiles.
-// `queue_tiles`: the tiles of one weight matrix that `queues` was sized for.
+// The tile by the shape of one offset's K x N weight matrix: above 128
+// columns (the dense-z column middle's outputs; at most 640 x 640) 16 warps
+// of 32 x 64 over 128 x 256 where K ≤ 128, else over 256 x 128;
+// otherwise up to 32 x 32 and up to 64 x 64 whole in every warp, anything
+// larger in 128 x 128 tiles. `queue_tiles`: the tiles of one weight matrix
+// that `queues` was sized for.
 template <typename TG>
 cudaError_t launch_mma(const void* a, const void* g, const void* table, const void* flags, void* dw,
                        void* queues, int queue_tiles, int batch, int vs, int vq, int offsets, int nc,
                        int K, int N, int sm_count, cudaStream_t stream) {
   if (batch <= 0 || vq <= 0 || offsets <= 0 || nc <= 0 || K <= 0 || N <= 0) return cudaErrorInvalidValue;
+  if (N > 128 && K <= 640 && N <= 640) {
+    if (K <= 128) {
+      return launch_mma_tile<TG, 2, 8, 4, 4, 512>(a, g, table, flags, dw, queues, queue_tiles, batch, vs, vq,
+                                                 offsets, nc, K, N, sm_count, stream);
+    }
+    return launch_mma_tile<TG, 2, 8, 8, 2, 512>(a, g, table, flags, dw, queues, queue_tiles, batch, vs, vq,
+                                               offsets, nc, K, N, sm_count, stream);
+  }
   if (K <= 32 && N <= 32) {
     return launch_mma_tile<TG, 2, 4, 1, 1>(a, g, table, flags, dw, queues, queue_tiles, batch, vs, vq, offsets, nc, K, N, sm_count, stream);
   }

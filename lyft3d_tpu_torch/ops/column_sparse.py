@@ -55,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from lyft3d_tpu_torch import _build
-from lyft3d_tpu_torch.ops._wgrad import wgrad_buffers, wgrad_mma_variant
+from lyft3d_tpu_torch.ops._wgrad import WGRAD_WIDE_TILES, wgrad_buffers, wgrad_mma_variant
 from lyft3d_tpu_torch.ops.dense_fill import fill_rows_by_id
 from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet, resolve_ids, take_rows
 
@@ -89,10 +89,15 @@ __all__ = [
     "stencil_rows_prep_ref",
     "stencil_positions_ref",
     "stencil_conv_mma_ref",
+    "stencil_band_ranges_ref",
+    "stencil_weight_fragments_ref",
     "PAD_ID",
     "KERNEL_LAUNCHES",
     "DGRAD_KERNEL_LAUNCHES",
     "WGRAD_KERNEL_LAUNCHES",
+    "WIDE_KERNEL_LAUNCHES",
+    "WIDE_DGRAD_KERNEL_LAUNCHES",
+    "WIDE_WGRAD_KERNEL_LAUNCHES",
 ]
 
 # Number of times stencil_conv_batched launched the CUDA kernel in this process.
@@ -101,6 +106,12 @@ KERNEL_LAUNCHES = 0
 # queries (d_src) and the weight-gradient kernel (d_wc).
 DGRAD_KERNEL_LAUNCHES = 0
 WGRAD_KERNEL_LAUNCHES = 0
+# Of those, the launches of the wide tiles (the dense-z column middle's
+# shapes: ``conv_wide_kernel`` for the forward and d_src, the 16-warp
+# ``wgrad_mma_kernel`` tiles for d_wc), counted apart.
+WIDE_KERNEL_LAUNCHES = 0
+WIDE_DGRAD_KERNEL_LAUNCHES = 0
+WIDE_WGRAD_KERNEL_LAUNCHES = 0
 
 # Larger than any unit id (nx·ny·NC ≤ 2^25 at the FHD geometry).
 PAD_ID = 2 ** 28
@@ -828,36 +839,76 @@ def _check_args(src, qids, src_ids, wc, nc: int):
 # Host side of the bfloat16 (tensor-core) route: what the kernels are told, and
 # plain versions of the small preparation kernels.
 
-MMA_SLICE = 64   # contraction lanes a pipeline stage of the kernel holds
+MMA_SLICE = 64   # contraction lanes a pipeline stage of the unit tile holds
 MMA_MAX_K = 640  # widest contraction (kMaxStepsWide: 40 steps of 16 lanes)
+MMA_MAX_N = 640  # widest output of the wide tile
 MASK_COLS = 256  # output columns of one word of the weights' block bitmap
 MASK_STEPS = 16  # least words of the bitmap an (offset, column tile)
+WIDE_WARP_COLS = 128  # output columns (8 pairs of 16) a warp of the wide tile owns at most
 
 
-def stencil_mma_variant(k: int, n: int) -> dict:
-    """What the stencil launches ``conv_mma_kernel`` (``csrc/conv_mma.cuh``)
-    with for a contraction of ``k`` lanes and ``n`` output columns: ``kp``
-    (``k`` padded to whole 64-lane slices), ``n_pad`` (``n`` padded to pairs
-    of 8-column tiles), the warps, queries, columns, column tiles and
-    pipeline stages of a block and its dynamic shared memory. Up to 128
-    columns a block is 8 warps (4 x 2, a warp 32 queries x 64 columns) and
-    owns them all; wider, a block is 16 warps (8 x 2, a warp 16 queries x 128
-    columns) and owns a tile of 256 columns, ``col_tiles`` of them in the
-    grid. The contraction runs through the ring in 64-lane slices, so the
-    shared memory does not depend on it. Raises for shapes the kernel does
-    not take: a contraction above 640 lanes."""
-    if k < 1 or n < 1:
-        raise ValueError(f"the stencil kernel needs k ≥ 1 and n ≥ 1, got {k} and {n}")
+def stencil_mma_variant(k: int, n: int, nc: int = 1, src_dtype=torch.bfloat16) -> dict:
+    """What the stencil's bfloat16 route launches for ``nc`` chunks of a
+    contraction of ``k`` lanes into ``n`` output columns, with source rows of
+    ``src_dtype`` (float32: the cotangent of ``d_src``): ``kp`` (``k``
+    padded to whole 64-lane slices), ``n_pad`` (``n`` padded to pairs of
+    8-column tiles), the route and its block, and whether the rows are first
+    copied into padded bfloat16 rows (``prep``, ``rows_prep_kernel``; else
+    the kernel reads them as they are, in ``rows_dtype``).
+
+    The rule (``csrc/conv_mma.cuh``), from the two tiles' times at every
+    shape both take (``tools/stencil_tile_ab.py``): at most 256 lanes and
+    either fewer than 128 columns or 128 columns in more than one chunk (the
+    unit middle's strided layers' 65-68 columns; the column middle's mask
+    convs and its four layers of 64-128 columns at 3-5 chunks) takes the
+    unit tile, ``conv_mma_kernel``: 8 warps (4 x 2, a warp 32 queries x 64
+    columns), three stages, 128 queries a block, the rows copied where they
+    are not bfloat16 of whole slices. Every other shape (the unit middle's
+    128-column layers and every ``d_src`` of both middles, the dense-z column
+    middle's 192-640 columns at 1-4 chunks) takes the wide tile,
+    ``conv_wide_kernel``: no shared memory and no stages; a 16-query group's
+    ``col_warps`` warps (one a 128 columns) own a chunk's whole width
+    together, ``8 // col_warps`` groups (at least one) a block; the rows are
+    read as they are where a chunk's width is even (float32 rows rounded to
+    bfloat16 as they are read), else copied. ``col_tiles`` is 1 on both: a
+    block owns every column. Raises for shapes neither takes: a contraction
+    above 640 lanes, an output above 640 columns."""
+    if k < 1 or n < 1 or nc < 1:
+        raise ValueError(f"the stencil kernel needs k, n and nc ≥ 1, got {k}, {n} and {nc}")
+    if src_dtype not in _DTYPE_CODES:
+        raise TypeError(f"the stencil kernel reads float32 or bfloat16 rows, not {src_dtype}")
     kp = -(-k // MMA_SLICE) * MMA_SLICE
     n_pad = -(-n // 16) * 16
     if kp > MMA_MAX_K:
         raise ValueError(
             f"the bfloat16 stencil kernel takes up to {MMA_MAX_K} contraction lanes, got {k}"
         )
-    warps, stages = (8, 3) if n_pad <= 128 else (16, 2)
-    cols = 128 if n_pad <= 128 else 256
-    return dict(kp=kp, n_pad=n_pad, warps=warps, queries=128, cols=cols, col_tiles=-(-n_pad // cols),
-                stages=stages, smem_bytes=stages * (128 + cols) * (MMA_SLICE + 8) * 2)
+    if n_pad > MMA_MAX_N:
+        raise ValueError(f"the bfloat16 stencil kernel takes up to {MMA_MAX_N} output columns, got {n}")
+    if kp <= 256 and (n_pad < 128 or (n_pad == 128 and nc > 1)):
+        return _unit_tile(k, kp, n_pad, src_dtype)
+    return _wide_tile(k, kp, n_pad, src_dtype)
+
+
+def _unit_tile(k: int, kp: int, n_pad: int, src_dtype) -> dict:
+    """The unit tile's launch (:func:`stencil_mma_variant`), up to 256 lanes
+    and 128 columns."""
+    if kp > 256 or n_pad > 128:
+        raise ValueError(f"the unit tile takes up to 256 lanes and 128 columns, got {kp} and {n_pad}")
+    return dict(route="unit", code=0, kp=kp, n_pad=n_pad, warps=8, queries=128, cols=128, col_tiles=1,
+                stages=3, smem_bytes=3 * (128 + 128) * (MMA_SLICE + 8) * 2,
+                prep=src_dtype != torch.bfloat16 or kp != k, rows_dtype=torch.bfloat16)
+
+
+def _wide_tile(k: int, kp: int, n_pad: int, src_dtype) -> dict:
+    """The wide tile's launch (:func:`stencil_mma_variant`), up to 640 lanes
+    and 640 columns."""
+    col_warps = -(-n_pad // WIDE_WARP_COLS)
+    groups = max(1, 8 // col_warps)
+    direct = k % 2 == 0
+    return dict(route="wide", code=1, kp=kp, n_pad=n_pad, warps=groups * col_warps, queries=16 * groups,
+                cols=WIDE_WARP_COLS * col_warps, col_warps=col_warps, col_tiles=1, stages=0, smem_bytes=0,
+                prep=not direct, rows_dtype=src_dtype if direct else torch.bfloat16)
 
 
 def _mask_shape(kp: int, n_pad: int) -> Tuple[int, int]:
@@ -903,6 +954,36 @@ def _wmask_keep(wmask, kp: int, n_pad: int):
     return keep.repeat_interleave(16, dim=1).repeat_interleave(8, dim=2)
 
 
+def stencil_band_ranges_ref(wmask, kp: int, n_pad: int):
+    """Plain version of ``band_ranges_kernel`` (``csrc/conv_mma.cuh``): from
+    the bitmap of :func:`stencil_weight_prep_ref`, ``(9, kp/16, 2)`` int64:
+    for each (offset, 16-lane step) the 16-column pairs ``[lo, hi)`` outside
+    which the step's weights hold no non-zero (``(0, 0)`` where they are all
+    zero). The wide tile multiplies only those columns."""
+    blocks = _wmask_keep(wmask, kp, n_pad)[:, ::16, ::8]  # (9, steps, n_pad/8): a bit a 16 x 8 block
+    pairs = blocks.unflatten(-1, (n_pad // 16, 2)).any(dim=-1)
+    idx = torch.arange(n_pad // 16, device=wmask.device)
+    lo = torch.where(pairs, idx, n_pad // 16).min(dim=-1).values
+    hi = torch.where(pairs, idx + 1, 0).max(dim=-1).values
+    return torch.stack([torch.where(hi > 0, lo, 0), hi], dim=-1)
+
+
+def stencil_weight_fragments_ref(wt, kp: int, n_pad: int):
+    """Plain version of ``fragment_prep_kernel`` (``csrc/conv_mma.cuh``):
+    ``wt`` ``(9, n_pad, kp)`` (:func:`stencil_weight_prep_ref`) → ``(9,
+    kp/16, n_pad/16, 32, 8)``: for each (offset, 16-lane step, 16-column
+    pair) the eight values lane ``(g, t) = (lane // 4, lane % 4)`` holds, as
+    the four bfloat16 pairs of its ``mma.m16n8k16`` B fragments, k (lane of
+    the step) then n (column of the pair): (2t, g), (2t+1, g), (2t+8, g),
+    (2t+9, g), then the same at column 8 + g."""
+    blocks = wt.reshape(9, n_pad // 16, 16, kp // 16, 16).permute(0, 3, 1, 4, 2)  # (9, steps, pairs, k, n)
+    lane = torch.arange(32, device=wt.device)
+    g, t = lane // 4, lane % 4
+    ks = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9] * 2, dim=-1)  # (32, 8)
+    ns = torch.stack([g] * 4 + [g + 8] * 4, dim=-1)
+    return blocks[:, :, :, ks, ns]
+
+
 def stencil_rows_prep_ref(rows, nc: int, k: int, kp: int, dtype=torch.bfloat16):
     """Plain version of ``rows_prep_kernel`` (``csrc/conv_mma.cuh``): ``rows`` ``(…, nc·k)`` →
     ``(…, nc·kp)`` bfloat16 (or ``dtype``), each chunk zero-padded, and a uint8
@@ -929,19 +1010,29 @@ def stencil_positions_ref(qids, src_ids, src_flags=None):
 
 def stencil_conv_mma_ref(src, qids, src_ids, wc, nc: int, dtype=torch.bfloat16):
     """Plain version of the bfloat16 route as a whole, step by step as the
-    kernels take it: rows rounded to bfloat16 and padded, zero rows flagged
-    and turned into misses, weights transposed, padded and only their
-    non-zero 16 x 8 blocks multiplied, float32 sums. Equal to
+    kernels take it (:func:`stencil_mma_variant`): rows rounded to bfloat16
+    (in the copy pass or, on the wide tile, as they are read), zero rows of a
+    copy flagged and turned into misses, weights transposed and
+    padded, and only what the route multiplies kept (the unit tile: the
+    non-zero 16 x 8 blocks of the bitmap; the wide tile: each (offset,
+    16-lane step)'s band range), float32 sums. Equal to
     :func:`stencil_conv_ref` on bfloat16 inputs up to summation order.
     ``dtype`` float32 skips the rounding (for tests of the route's padding,
-    flags and block masks alone)."""
+    flags, block masks and ranges alone)."""
     k, n = wc.shape[1:]
-    var = stencil_mma_variant(k, n)
+    var = stencil_mma_variant(k, n, nc, src.dtype)
     kp, n_pad = var["kp"], var["n_pad"]
     rows, flags = stencil_rows_prep_ref(src, nc, k, kp, dtype)
-    pos = stencil_positions_ref(qids, src_ids, flags)
+    pos = stencil_positions_ref(qids, src_ids, flags if var["prep"] else None)
     wt, wmask = stencil_weight_prep_ref(wc, kp, n_pad, dtype)
-    w = wt.float().transpose(1, 2) * _wmask_keep(wmask, kp, n_pad).to(torch.float32)
+    if var["route"] == "unit":
+        keep = _wmask_keep(wmask, kp, n_pad)
+    else:
+        ranges = stencil_band_ranges_ref(wmask, kp, n_pad)
+        pair = torch.arange(n_pad // 16, device=wc.device)
+        keep = ((pair >= ranges[..., :1]) & (pair < ranges[..., 1:])).long()  # (9, steps, pairs)
+        keep = keep.repeat_interleave(16, dim=1).repeat_interleave(16, dim=2)
+    w = wt.float().transpose(1, 2) * keep.to(torch.float32)
     vq = qids.shape[-1]
     flat = pos.long().flatten(-2)
     g = take_rows(rows, flat.clamp(min=0)) * (flat >= 0)[..., None].to(rows.dtype)
@@ -958,8 +1049,8 @@ _SIGNATURES = {
     "stencil_positions_launch": [_P] * 4 + [_I] * 4,
     "stencil_weight_prep_launch": [_P] + [_LL] * 3 + [_P] * 2 + [_I] * 5,
     "stencil_rows_prep_launch": [_P] * 3 + [_LL] + [_I] * 5,
-    "stencil_conv_mma_launch": [_P, _I] + [_P] * 6 + [_LL] * 3 + [_P] * 3 + [_I] * 10,
-    "stencil_wgrad_mma_launch": [_P] * 5 + [_I] + [_P] * 3 + [_I] * 8,
+    "stencil_conv_mma_launch": [_P, _I] + [_P] * 6 + [_LL] * 3 + [_P] * 5 + [_I] * 11,
+    "stencil_wgrad_mma_launch": [_P] * 5 + [_I, _P, _I] + [_P] * 2 + [_I] * 8,
 }
 
 
@@ -1042,34 +1133,41 @@ def _check_not_empty(what: str, **sizes):
 
 def _stencil_conv_mma(s, q, ids, wc, nc: int, dgrad: bool, out_dtype):
     """The bfloat16 route on batched, contiguous arguments: one call launches
-    the row preparation (where ``s`` is not bfloat16 rows of whole 64-lane
-    slices, or is the cotangent of ``d_src``, ``dgrad``, whose zero rows are
-    worth flagging), the positions, the weight preparation and the
-    tensor-core kernel, and is counted as one launch of the forward or of
-    ``d_src``. Returns the output and the rows' flags (b, vs) uint8 (``None``
-    without preparation)."""
-    global KERNEL_LAUNCHES, DGRAD_KERNEL_LAUNCHES
+    the row preparation (the copy where :func:`stencil_mma_variant` says
+    ``prep``; else, for ``d_src`` (``dgrad``), whose zero cotangent rows are
+    worth skipping, a pass that only flags them), the positions, the weight
+    preparation (and the band ranges, on the wide tile) and the tensor-core
+    kernel, and is counted as one launch of the forward or of ``d_src``.
+    Returns the output, the rows' flags (b, vs) uint8 (``None`` where none
+    were made) and the positions (b, 9, vq) int32."""
+    global KERNEL_LAUNCHES, DGRAD_KERNEL_LAUNCHES, WIDE_KERNEL_LAUNCHES, WIDE_DGRAD_KERNEL_LAUNCHES
     b, vs, _ = s.shape
     vq = q.shape[-1]
     k, n = wc.shape[1:]
-    var = stencil_mma_variant(k, n)
-    kp, n_pad = var["kp"], var["n_pad"]
     _check_not_empty("the stencil kernel", b=b, vs=vs, vq=vq, nc=nc)
-    prep = dgrad or kp != k or s.dtype != torch.bfloat16
+    var = stencil_mma_variant(k, n, nc, s.dtype)
+    kp, n_pad, prep = var["kp"], var["n_pad"], var["prep"]
+    if var["route"] == "unit":
+        prep = prep or dgrad
+    flagged = prep or dgrad
     w = wc.to(torch.bfloat16)
     tiles, msteps = _mask_shape(kp, n_pad)
-    pos, wt, wmask, flags, rows = _scratch(
-        s.device, 4 * b * 9 * vq, 2 * 9 * n_pad * kp, 4 * 9 * tiles * msteps, b * vs if prep else 0,
-        2 * b * vs * nc * kp if prep else 0)
+    wide = var["route"] == "wide"
+    wt, wmask, wband, wfrag, flags, rows = _scratch(
+        s.device, 2 * 9 * n_pad * kp, 4 * 9 * tiles * msteps, 4 * 9 * (kp // 16) if wide else 0,
+        2 * 9 * n_pad * kp if wide else 0, b * vs if flagged else 0, 2 * b * vs * nc * kp if prep else 0)
+    pos = torch.empty((b, 9, vq), dtype=torch.int32, device=s.device)
     out = torch.empty((b, vq, nc * n), dtype=out_dtype, device=s.device)
     _launch("stencil_conv_mma_launch", s, _aligned(s), _DTYPE_CODES[s.dtype], rows, flags,
-            q, ids, pos, w, *w.stride(), wt, wmask, out, _DTYPE_CODES[out_dtype],
-            b, vs, vq, nc, k, n, kp, n_pad)
+            q, ids, pos, w, *w.stride(), wt, wmask, wband, wfrag, out, _DTYPE_CODES[out_dtype],
+            b, vs, vq, nc, k, n, kp, n_pad, var["code"])
     if dgrad:
         DGRAD_KERNEL_LAUNCHES += 1
+        WIDE_DGRAD_KERNEL_LAUNCHES += wide
     else:
         KERNEL_LAUNCHES += 1
-    return out, (flags.view(b, vs) if prep else None)
+        WIDE_KERNEL_LAUNCHES += wide
+    return out, (flags.view(b, vs) if flagged else None), pos
 
 
 def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int, dgrad: bool = False, out_dtype=torch.float32):
@@ -1079,38 +1177,62 @@ def _stencil_conv_cuda(src, qids, src_ids, wc, nc: int, dgrad: bool = False, out
     ``wc`` may have any strides there. ``dgrad`` says that this is the
     backward's launch on the reverse queries, counted apart. The output is
     float32; the bfloat16 route can also round its float32 sums to bfloat16
-    itself (``out_dtype``), which saves ``d_src`` a pass."""
+    itself (``out_dtype``), which saves ``d_src`` a pass. Returns the output
+    and the positions the bfloat16 route found ((…, 9, Vq) int32, which
+    ``d_wc`` takes; ``None`` on the float32 route, which searches in the
+    kernel)."""
     global KERNEL_LAUNCHES, DGRAD_KERNEL_LAUNCHES
     batched = src.dim() == 3
     s = (src if batched else src[None]).contiguous()
     q = (qids if batched else qids[None]).contiguous()
     ids = (src_ids if batched else src_ids[None]).contiguous()
-    if s.dtype == torch.float32:
-        if out_dtype != torch.float32:
-            raise ValueError("the float32 stencil kernel writes float32")
-        b, vs, _ = s.shape
-        k, n = wc.shape[1:]
-        _check_not_empty("the stencil kernel", b=b, vs=vs, vq=q.shape[-1], nc=nc, k=k, n=n)
-        out = torch.empty((b, q.shape[-1], nc * n), dtype=torch.float32, device=s.device)
-        _launch("stencil_conv_launch", s, s, q, ids, wc.to(s.dtype).contiguous(), out,
-                b, vs, q.shape[-1], nc, k, n)
-        if dgrad:
-            DGRAD_KERNEL_LAUNCHES += 1
-        else:
-            KERNEL_LAUNCHES += 1
+    if s.dtype != torch.float32:
+        out, _, pos = _stencil_conv_mma(s, q, ids, wc, nc, dgrad, out_dtype)
+        return (out, pos) if batched else (out[0], pos[0])
+    if out_dtype != torch.float32:
+        raise ValueError("the float32 stencil kernel writes float32")
+    b, vs, _ = s.shape
+    k, n = wc.shape[1:]
+    _check_not_empty("the stencil kernel", b=b, vs=vs, vq=q.shape[-1], nc=nc, k=k, n=n)
+    out = torch.empty((b, q.shape[-1], nc * n), dtype=torch.float32, device=s.device)
+    _launch("stencil_conv_launch", s, s, q, ids, wc.to(s.dtype).contiguous(), out,
+            b, vs, q.shape[-1], nc, k, n)
+    if dgrad:
+        DGRAD_KERNEL_LAUNCHES += 1
     else:
-        out, _ = _stencil_conv_mma(s, q, ids, wc, nc, dgrad, out_dtype)
-    return out if batched else out[0]
+        KERNEL_LAUNCHES += 1
+    return (out if batched else out[0]), None
 
 
-def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int, flags=None):
+def _stencil_dgrad_cuda(grad_out, rev_qids, rev_src_ids, wc, nc: int):
+    """``d_src`` on the card as :class:`StencilConv` computes it: the stencil
+    on the reverse queries over the float32 cotangent rows ``grad_out``
+    ``(…, Vq, nc·N)``, the band weights ``wc`` ``(9, kzp, N)`` transposed.
+    bfloat16 ``wc`` takes the tensor-core route, which reads the float32
+    rows itself, flags the zero ones and writes bfloat16; float32 ``wc`` the
+    float32 route. Returns ``d_src`` in ``wc``'s dtype and the cotangent
+    rows' flags ((…, Vq) uint8, ``None`` on the float32 route), which ``d_wc``
+    takes."""
+    wct = wc.transpose(1, 2)
+    if wc.dtype == torch.float32:
+        return _stencil_conv_cuda(grad_out.float(), rev_qids, rev_src_ids, wct, nc, dgrad=True)[0], None
+    batched = grad_out.dim() == 3
+    d_src, flags, _ = _stencil_conv_mma(*((t if batched else t[None]).contiguous()
+                                          for t in (grad_out, rev_qids, rev_src_ids)), wct, nc, True, wc.dtype)
+    return (d_src, flags) if batched else (d_src[0], flags[0])
+
+
+def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int, flags=None, pos=None):
     """Launch the weight-gradient kernel on PyTorch's current stream: ``(9,
     kzp, n)`` float32 from the source rows and the float32 cotangent; the FMA
     tile for float32 ``src``, the tensor-core tile for bfloat16 ``src``, which
-    skips queries whose cotangent row is zero by ``flags`` (b, vq) uint8
-    (computed in the same call when not given)."""
-    global WGRAD_KERNEL_LAUNCHES
+    skips queries whose cotangent row is zero by ``flags`` (…, vq) uint8
+    (computed in the same call when not given) and takes the forward's
+    positions ``pos`` (…, 9, vq) int32 where given (else it finds them)."""
+    global WGRAD_KERNEL_LAUNCHES, WIDE_WGRAD_KERNEL_LAUNCHES
     batched = src.dim() == 3
+    if not batched:
+        flags, pos = (None if t is None else t[None] for t in (flags, pos))
     s = (src if batched else src[None]).contiguous()
     q = (qids if batched else qids[None]).contiguous()
     ids = (src_ids if batched else src_ids[None]).contiguous()
@@ -1122,10 +1244,15 @@ def _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc: int, kzp: int, n: int,
     if s.dtype == torch.float32:
         _launch("stencil_wgrad_launch", s, s, q, ids, g, out, b, vs, vq, nc, kzp, n)
     else:
-        pos, own_flags = _scratch(s.device, 4 * b * 9 * vq, b * vq if flags is None else 0)
+        if pos is not None and (pos.shape != (b, 9, vq) or pos.dtype != torch.int32):
+            raise ValueError(f"the forward's positions (b, 9, vq) int32 expected, got {tuple(pos.shape)} {pos.dtype}")
+        own_pos, own_flags = _scratch(s.device, 4 * b * 9 * vq if pos is None else 0,
+                                      b * vq if flags is None else 0)
         _launch("stencil_wgrad_mma_launch", s, _aligned(s), q, ids, _aligned(g),
-                own_flags if flags is None else flags, int(flags is not None), pos, out, queues, tiles,
+                own_flags if flags is None else flags, int(flags is not None),
+                own_pos if pos is None else pos.contiguous(), int(pos is not None), out, queues, tiles,
                 b, vs, vq, nc, kzp, n)
+        WIDE_WGRAD_KERNEL_LAUNCHES += wgrad_mma_variant(kzp, n)["tile"] in WGRAD_WIDE_TILES
     WGRAD_KERNEL_LAUNCHES += 1
     return out
 
@@ -1139,23 +1266,28 @@ class StencilConv(torch.autograd.Function):
     queries the backward raises there. On a CPU tensor the plain versions run
     (without reverse queries, autograd of the plain forward).
 
-    In bfloat16 on the card ``d_src``'s call first rounds the float32
-    cotangent to bfloat16 rows padded to whole 64-lane slices (the strided
-    layers' 65, 66 and 68 lanes are not 16-byte aligned) and flags its
-    non-zero rows (``rows_prep_kernel``, one pass); both kernels skip
-    the zero rows the capacity caps leave."""
+    In bfloat16 on the card the forward keeps its positions for ``d_wc``.
+    ``d_src``'s call (the wide tile, at every shape of both middles) flags
+    the float32 cotangent's non-zero rows in one pass and reads the rows as
+    they are; where a chunk's width is odd (the unit middle's 65 lanes) that
+    pass also rounds them to bfloat16 rows padded to whole 64-lane slices
+    (``rows_prep_kernel``). Both kernels skip the zero rows the capacity
+    caps leave (:func:`_stencil_dgrad_cuda`, :func:`_stencil_wgrad_cuda`)."""
 
     @staticmethod
     def forward(ctx, src, qids, src_ids, wc, nc, rev_qids, rev_src_ids):
-        ctx.save_for_backward(src, qids, src_ids, wc, rev_qids, rev_src_ids)
         ctx.nc = nc
+        pos = None
         if src.device.type == "cuda":
-            return _stencil_conv_cuda(src, qids, src_ids, wc, nc)
-        return stencil_conv_ref(src, qids, src_ids, wc, nc)
+            out, pos = _stencil_conv_cuda(src, qids, src_ids, wc, nc)
+        else:
+            out = stencil_conv_ref(src, qids, src_ids, wc, nc)
+        ctx.save_for_backward(src, qids, src_ids, wc, rev_qids, rev_src_ids, pos)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        src, qids, src_ids, wc, rev_qids, rev_src_ids = ctx.saved_tensors
+        src, qids, src_ids, wc, rev_qids, rev_src_ids, pos = ctx.saved_tensors
         nc = ctx.nc
         grad_out = grad_out.contiguous()
         need_src, need_wc = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
@@ -1174,23 +1306,15 @@ class StencilConv(torch.autograd.Function):
             # The transposed conv is a 9-offset stencil over the cotangent
             # rows (chunk width N, output width kzp), picked by the reverse
             # queries; the cotangent rows' ids are the forward's query ids.
-            wct = wc.transpose(1, 2)
-            if on_card and src.dtype == torch.bfloat16:
-                batched = grad_out.dim() == 3
-                d_src, flags = _stencil_conv_mma(
-                    grad_out if batched else grad_out[None],
-                    (rev_qids if batched else rev_qids[None]).contiguous(),
-                    (rev_src_ids if batched else rev_src_ids[None]).contiguous(),
-                    wct, nc, True, src.dtype)
-                d_src = d_src if batched else d_src[0]
-            elif on_card:
-                d_src = _stencil_conv_cuda(grad_out.to(src.dtype), rev_qids, rev_src_ids, wct, nc, dgrad=True)
+            if on_card:
+                d_src, flags = _stencil_dgrad_cuda(grad_out, rev_qids, rev_src_ids, wc, nc)
             else:
-                d_src = stencil_conv_ref(grad_out.to(src.dtype), rev_qids, rev_src_ids, wct.contiguous(), nc)
-            d_src = d_src.to(src.dtype)
+                d_src = stencil_conv_ref(grad_out.to(src.dtype), rev_qids, rev_src_ids,
+                                         wc.transpose(1, 2).contiguous(), nc).to(src.dtype)
         if need_wc:
             if on_card:
-                d_wc = _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc, kzp, n, flags=flags).to(wc.dtype)
+                d_wc = _stencil_wgrad_cuda(src, qids, src_ids, grad_out, nc, kzp, n, flags=flags,
+                                           pos=pos).to(wc.dtype)
             else:
                 d_wc = stencil_conv_bwd_ref(src, qids, src_ids, wc, nc, grad_out)[1]
         return d_src, None, None, d_wc, None, None, None

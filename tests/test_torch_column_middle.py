@@ -12,9 +12,12 @@ inputs, at a small size (nz ≤ 8, ≤ 300 voxels).
   ``train_second`` step of a ``simple + sparse_columns`` VoxelNet;
 - ``grid_multi_radius_ball_query`` on a clustered cloud where cells overflow
   ``cell_cap``;
-- a CPU emulation of the stencil's tensor-core route at the column shapes it
-  was widened for (256-column tiles, a 640-lane contraction in 64-lane
-  slices), held to ``stencil_conv_ref``.
+- a CPU emulation of the stencil's wide tile (``conv_wide_kernel``: a
+  16-query group's warps own a chunk's whole width, band ranges, weights in
+  the MMA's fragment order, float32 rows rounded as they are read) at the
+  column shapes, held to ``stencil_conv_ref``; the band ranges' cover of
+  every non-zero (``hypothesis``); the bfloat16 column VoxelNet's gradients
+  as far from float32 as JAX's.
 
 Tolerances: ids, validity, masks and query ids exact (the caps are integer
 arithmetic that decides which columns survive); placed features exact
@@ -34,6 +37,8 @@ import jax.numpy as jnp
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
+from hypothesis import given, settings, strategies as st
 
 from lyft3d_tpu.models.second import middle as jmid
 from lyft3d_tpu.models.second.voxelnet import VoxelNet as JVoxelNet
@@ -351,6 +356,58 @@ def test_column_voxelnet_trainer_step_follows_jax(tmp_path):
     assert resolved > 0.9 * sum(w.size for w in after.values())
 
 
+def test_bf16_column_gradients_are_as_far_from_float32_as_jax():
+    """The bfloat16 column VoxelNet (``layer`` norm, nz 8, 2 x ~170 voxels,
+    the same flax weights and numpy batch) against its float32 self, leaf by
+    leaf: ‖g_bf16 − g_f32‖ / ‖g_f32‖ in JAX and in the port (plain
+    versions). Both sides are bfloat16 rounding noise taken at different
+    places in the two frameworks, so no leaf's ratio equals the other
+    side's; the port's median leaf stays within 1.5x of JAX's and its worst
+    leaf within 2x of JAX's worst. A fault of the port's bfloat16 path (a
+    gradient wrong, not noisy) would put its ratios near 1 and its median
+    far above JAX's. Measured here: medians 0.164 (port) and 0.168 (JAX),
+    worst leaves 0.50 and 0.37, both at the first layers' kernels and
+    LayerNorm scales (sums that cancel)."""
+    grid = JCOLUMNS.grid._replace(voxel_size=(0.5, 0.5, 0.5))
+    jcfg = dataclasses.replace(JCOLUMNS, grid=grid, middle_norm="layer")
+    assert jcfg.grid.grid_size[2] == 8
+    batch = sparse_batch()
+    batch["points"], batch["points_valid"] = batch["points"][:, :320], batch["points_valid"][:, :320]
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    keys = ("voxels", "num_points", "coords", "voxel_valid")
+    vox = jax.vmap(lambda p, m: jvox.voxelize(p, m, jcfg.grid, jcfg.max_voxels, jcfg.max_points_per_voxel))(
+        jb["points"], jb["points_valid"])
+    assert int(np.asarray(vox["voxel_valid"]).sum(-1).max()) <= 300
+    variables = randomized(jax.device_get(jax.jit(JVoxelNet(jcfg, dtype=jnp.float32).init)(
+        jax.random.PRNGKey(0), *[vox[k] for k in keys])), 5)
+    jloss = jtrain.make_second_loss_fn(jcfg)
+    jax_side, port_side = {}, {}
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        jm = JVoxelNet(jcfg, dtype=jdt)
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p: jloss(jm, {**variables, "params": p}, jb, jax.random.PRNGKey(0))[0]))(variables["params"])
+        jax_side[tdt] = (float(loss), flat(jax.device_get(grads)))
+        cfg = port_config(jcfg)
+        model = load_flax_params(VoxelNet(cfg, in_features=3, dtype=tdt), variables)
+        tl, _ = ttrain.make_second_loss_fn(cfg, device="cpu")(model, {k: t(v) for k, v in batch.items()})
+        tl.backward()
+        port_side[tdt] = (float(tl.detach()), {k: p.grad.detach().float() for k, p in model.named_parameters()
+                                               if p.grad is not None})
+
+    def ratios(side, norm):
+        g32, g16 = side[torch.float32][1], side[torch.bfloat16][1]
+        return np.array([norm(g16[k] - g) / norm(g) for k, g in g32.items() if norm(g) > 0])
+
+    jr = ratios(jax_side, lambda x: float(np.linalg.norm(np.asarray(x, np.float64))))
+    tr = ratios(port_side, lambda x: float(x.double().norm()))
+    assert len(jr) == len(tr) == 42
+    for side in (jax_side, port_side):
+        assert abs(side[torch.bfloat16][0] - side[torch.float32][0]) <= 1e-2 * abs(side[torch.float32][0])
+    np.testing.assert_allclose(port_side[torch.float32][0], jax_side[torch.float32][0], rtol=1e-5)
+    assert np.median(tr) <= 1.5 * np.median(jr), (np.median(tr), np.median(jr))
+    assert tr.max() <= 2.0 * jr.max() and tr.max() < 1.0, (tr.max(), jr.max())
+
+
 # ------------------------------------------------------------ grid ball query
 
 
@@ -379,67 +436,166 @@ def test_grid_ball_query_matches_jax_where_cells_overflow():
     assert occupancy.max() > 16
 
 
-# ------------------------------------------- the widened tensor-core tiling
+# ------------------------------------------------ the wide tensor-core tile
 
 
-def emulate_conv_mma(src, qids, src_ids, wc, nc, queries=128):
-    """``conv_mma_kernel`` of ``csrc/conv_mma.cuh`` on the CPU: blocks of 128
-    queries x one chunk x one column tile (128 columns, or 256 for wider
-    outputs; a tile's bits sit in its 256-column word of the bitmap), each
-    walking the (offset, 64-lane
-    slice) pairs that have a hit in the block and a non-zero weight block in
-    its tile (:func:`stencil_weight_prep_ref`'s bitmap), each 16-lane step
-    multiplying only the 16 x 8 blocks its word marks; float32 sums. Returns
-    the output and how many pairs each block walked."""
+def emulate_conv_wide(src, qids, src_ids, wc, nc):
+    """``conv_wide_kernel`` of ``csrc/conv_mma.cuh`` on the CPU: each warp (a
+    16-query group of one chunk, one of ``col_warps`` column warps owning
+    the 16-column pairs [8·cw, 8·cw + 8)) walks the offsets at which
+    one of its queries hits and the 16-lane steps whose band range
+    (:func:`stencil_band_ranges_ref`) holds one of its pairs, multiplying
+    its two rows a lane (misses and lanes at or past the rows' chunk width
+    zero; a float32 row rounded to bfloat16 as it is read) by the B block
+    the lanes load from the fragment-ordered weights
+    (:func:`stencil_weight_fragments_ref`), rebuilt here from the lanes'
+    fragments; float32 sums. Returns the output and the number of 16 x 16
+    weight blocks multiplied by the warps of a 16-query group."""
     k, n = wc.shape[1:]
-    var = tcs.stencil_mma_variant(k, n)
-    kp, n_pad, tile_cols = var["kp"], var["n_pad"], var["cols"]
-    assert var["col_tiles"] == -(-n_pad // tile_cols)
-    rows, _ = tcs.stencil_rows_prep_ref(src, nc, k, kp, torch.float32)
-    wt, wmask = tcs.stencil_weight_prep_ref(wc, kp, n_pad, torch.float32)
-    tiles, msteps = -(-n_pad // 256), max(16, kp // 16)
-    words = wmask.reshape(9, tiles, msteps)
-    pos = tcs.stencil_positions_ref(qids, src_ids).long()
+    var = tcs.stencil_mma_variant(k, n, nc, src.dtype)
+    assert var["route"] == "wide" and var["col_tiles"] == 1 and var["cols"] >= var["n_pad"]
+    kp, n_pad, col_warps = var["kp"], var["n_pad"], var["col_warps"]
+    if var["prep"]:  # the padded copy, its zero rows flagged
+        (rows, flags), ka = tcs.stencil_rows_prep_ref(src, nc, k, kp), kp
+    else:
+        rows, flags, ka = src.to(torch.bfloat16), None, k
+    rows = rows.float()
+    wt, wmask = tcs.stencil_weight_prep_ref(wc, kp, n_pad)
+    band = tcs.stencil_band_ranges_ref(wmask, kp, n_pad)
+    frags = tcs.stencil_weight_fragments_ref(wt, kp, n_pad).float()  # (9, steps, pairs, 32, 8)
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    ks = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9] * 2, dim=-1)
+    ns = torch.stack([g] * 4 + [g + 8] * 4, dim=-1)
+    blocks = torch.zeros(9, kp // 16, n_pad // 16, 16, 16)
+    blocks[:, :, :, ks, ns] = frags  # B[k, n] as the lanes hand it to mma.m16n8k16
+    pos = tcs.stencil_positions_ref(qids, src_ids, flags).long()
     b, vq = qids.shape[0], qids.shape[-1]
     out = torch.zeros(b, vq, nc, n_pad)
-    walked = []
-    for bi, chunk, ct, q0 in itertools.product(range(b), range(nc), range(var["col_tiles"]),
-                                              range(0, vq, queries)):
-        cols = slice(ct * tile_cols, min(n_pad, (ct + 1) * tile_cols))
-        word, shift = divmod(ct * tile_cols, 256)
-        pairs = 0
-        for j in range(9):
-            p = pos[bi, j, q0:q0 + queries]
-            if not (p >= 0).any():
-                continue
-            a = rows[bi, p.clamp(min=0), chunk * kp:(chunk + 1) * kp] * (p >= 0)[:, None]
-            for sl in range(kp // 64):
-                w_words = words[j, word, sl * 4:(sl + 1) * 4] >> (shift // 8)
-                if not (w_words != 0).any():
-                    continue
-                pairs += 1
-                for ks in range(4):
-                    step = sl * 4 + ks
-                    bits = int(words[j, word, step]) >> (shift // 8)
-                    keep = torch.tensor([(bits >> (c // 8)) & 1 for c in range(cols.stop - cols.start)],
-                                        dtype=torch.float32)
-                    out[bi, q0:q0 + queries, chunk, cols] += (
-                        a[:, step * 16:(step + 1) * 16] @ (wt[j, cols, step * 16:(step + 1) * 16].T * keep))
-        walked.append(pairs)
-    return out[..., :n].reshape(b, vq, nc * n), walked
+    multiplied = 0
+    groups = -(-vq // 16)
+    for bi, chunk, j in itertools.product(range(b), range(nc), range(9)):
+        p = pos[bi, j]
+        hit = F.pad((p >= 0).float(), (0, groups * 16 - vq)).view(groups, 16).any(-1)
+        a = torch.zeros(vq, kp)
+        a[:, :ka] = rows[bi, p.clamp(min=0), chunk * ka:(chunk + 1) * ka] * (p >= 0)[:, None]
+        for step in range(kp // 16):
+            lo, hi = (int(v) for v in band[j, step])
+            for cw in range(col_warps):
+                mine = [q for q in range(lo, hi) if q // 8 == cw]
+                if bi == chunk == 0:
+                    multiplied += len(mine) * int(hit.sum())
+                for pair in mine:
+                    out[bi, :, chunk, pair * 16:(pair + 1) * 16] += a[:, step * 16:(step + 1) * 16] @ blocks[j, step, pair]
+    return out[..., :n].reshape(b, vq, nc * n), multiplied / groups
 
 
 @pytest.mark.parametrize("nc,k,n", [(2, 128, 640), (1, 640, 256), (3, 448, 128)],
                          ids=["640_columns_3_tiles", "640_lane_d_src", "448_lane_d_src_3_chunks"])
 def test_widened_tiling_emulation_equals_plain(nc, k, n):
-    """Column tiles of 256 (a 640-wide forward: three tiles, the last half
-    full) and a contraction of 640 or 448 lanes in 64-lane slices (``d_src``
-    of the wide layers), with band weights whose zero blocks the bitmap
-    skips: the emulated blocks rebuild ``stencil_conv_ref`` within 1e-5 of
-    its scale, and skip work where the bitmap says so."""
+    """The widened shapes (a 640-wide forward at two chunks; contractions of
+    640 and 448 lanes, ``d_src`` of the wide layers) on the wide tile that
+    now takes them (a 16-query group's warps own a chunk's whole width, no
+    column tiles), with weights whose 16-lane blocks are 60% zero: the
+    emulated warps rebuild ``stencil_conv_ref`` (on the rows rounded to
+    bfloat16) within 1e-5 of its scale, and skip the all-zero steps."""
     src, src_ids, _, qids, _, wc, _ = chip_smoke.stencil_edge_case(2, 200, 300, nc, k, n, 0.3, 11,
                                                                    torch.device("cpu"))
-    got, walked = emulate_conv_mma(src, qids, src_ids, wc, nc)
-    want = tcs.stencil_conv_ref(src, qids, src_ids, wc, nc)
+    src = src.to(torch.bfloat16)
+    got, multiplied = emulate_conv_wide(src, qids, src_ids, wc, nc)
+    want = tcs.stencil_conv_ref(src, qids, src_ids, wc.to(torch.bfloat16), nc)
     close(got, want, 1e-5)
-    assert max(walked) <= 9 * (-(-k // 64)) and min(walked) < 9 * (-(-k // 64))
+    steps, pairs = -(-k // 64) * 4, -(-n // 16)
+    assert 0 < multiplied < 9 * steps * pairs  # the all-zero steps skipped
+
+
+def column_band(cin, cout, nz, stride, seed):
+    """A column layer's chunk plan and band weights ``(9, kzp, z·Cout)``."""
+    plan = tcs._chunk_plan(cin, nz, stride)
+    w = torch.from_numpy((np.random.RandomState(seed).randn(9, 3, cin, cout) * 0.3).astype(np.float32))
+    return plan, tcs._chunk_weights(w, plan, stride)
+
+
+@pytest.mark.parametrize("cin,cout,nz,stride,side", [
+    (3, 16, 40, 1, "forward"), (16, 32, 20, 1, "forward"), (16, 16, 40, 1, "forward"),
+    (3, 16, 40, 1, "d_src"), (16, 32, 20, 1, "d_src"), (16, 16, 40, 1, "d_src"), (16, 16, 20, 2, "d_src")],
+    ids=["640_columns", "448_columns_2_chunks", "224_columns_3_chunks", "d_src_640_lanes",
+         "d_src_448_lanes", "d_src_224_lanes", "d_src_strided_112_lanes"])
+def test_wide_tile_emulation_equals_plain_at_column_shapes(cin, cout, nz, stride, side):
+    """The wide tile at the dense-z column middle's shapes with its band
+    weights: the forward at 640, 448 and 224 columns (1, 2 and 3 chunks) and
+    ``d_src`` (the float32 cotangent read as it is and rounded to bfloat16 as
+    it is read, zero cotangent rows flagged) rebuild ``stencil_conv_ref``
+    within 1e-5 of its scale, and a 16-query group's warps multiply only the
+    band: at most half the 16 x 16 weight blocks of every step and pair."""
+    plan, wc = column_band(cin, cout, nz, stride, seed=cin + nz)
+    kzp, n = wc.shape[1:]
+    vs, vq = (150, 200) if side == "forward" else (200, 150)
+    k, width = (kzp, n) if side == "forward" else (n, kzp)
+    src, src_ids, _, qids, _, _, _ = chip_smoke.stencil_edge_case(
+        2, vs, vq, plan.nc, k, width, 0.4, 21, torch.device("cpu"))
+    w = wc if side == "forward" else wc.transpose(1, 2)
+    if side == "d_src":
+        src[:, ::3] = 0  # the caps' zero cotangent rows
+        assert tcs.stencil_mma_variant(k, width, plan.nc, torch.float32)["rows_dtype"] == torch.float32
+    else:
+        src = src.to(torch.bfloat16)
+    got, multiplied = emulate_conv_wide(src, qids, src_ids, w, plan.nc)
+    want = tcs.stencil_conv_ref(src.to(torch.bfloat16), qids, src_ids, w.to(torch.bfloat16), plan.nc)
+    close(got, want, 1e-5)
+    var = tcs.stencil_mma_variant(k, width, plan.nc, src.dtype)
+    assert 0 < multiplied <= 9 * (var["kp"] // 16) * (var["n_pad"] // 16) // 2
+    # The route's plain version agrees: the ranges keep every non-zero.
+    close(tcs.stencil_conv_mma_ref(src, qids, src_ids, w, plan.nc), want, 1e-5)
+
+
+@settings(max_examples=40, deadline=None)
+@given(k=st.integers(1, 640), n=st.integers(1, 640), seed=st.integers(0, 2 ** 16), banded=st.booleans(),
+       density=st.floats(0.0, 1.0))
+def test_band_ranges_cover_every_nonzero(k, n, seed, banded, density):
+    """``stencil_band_ranges_ref`` (the plain ``band_ranges_kernel``) over the
+    bitmap of ``stencil_weight_prep_ref``: for every offset and 16-lane step,
+    no non-zero weight lies outside the step's range, and an empty range
+    means an all-zero step; for a random matrix, banded (a window of
+    columns a step) or not."""
+    rng = np.random.RandomState(seed)
+    wc = rng.randn(9, k, n).astype(np.float32) * (rng.rand(9, k, n) < density)
+    if banded:
+        rows = np.arange(k)[:, None] * n // k
+        wc *= np.abs(np.arange(n)[None, :] - rows) < 1 + rng.randint(0, max(1, n // 4))
+    kp, n_pad = -(-k // 64) * 64, -(-n // 16) * 16
+    wt, wmask = tcs.stencil_weight_prep_ref(torch.from_numpy(wc), kp, n_pad)
+    band = tcs.stencil_band_ranges_ref(wmask, kp, n_pad).numpy()
+    nz = wt.float().numpy() != 0  # (9, n_pad, kp)
+    for j, step in itertools.product(range(9), range(kp // 16)):
+        cols = np.nonzero(nz[j, :, step * 16:(step + 1) * 16].any(axis=1))[0]
+        lo, hi = band[j, step]
+        if len(cols) == 0:
+            assert lo == hi == 0
+        else:
+            assert lo * 16 <= cols.min() and cols.max() < hi * 16 and hi <= n_pad // 16
+            assert cols.min() // 16 == lo and cols.max() // 16 == hi - 1  # the tightest pairs
+
+
+@pytest.mark.parametrize("nc,kzp,n,weights", [(1, 128, 640, "band"), (3, 256, 224, "band"), (2, 128, 68, "dense"),
+                                              (1, 30, 16, "blocks")])
+def test_band_ops_counts_the_band_alone(nc, kzp, n, weights):
+    """``chip_smoke.band_ops``, the operations the forward's and ``d_src``'s
+    bounds count: 2 x 16 x 16 a hit, a chunk and a (16-lane step, 16-column
+    pair) between the step's first and last non-zero column pair, found here
+    from the weights directly; at least the non-zeros' products, at most
+    the whole padded matrix's."""
+    src, src_ids, _, qids, _, wc, _ = chip_smoke.stencil_edge_case(2, 90, 80, nc, kzp, n, 0.4, 5, torch.device("cpu"),
+                                                                   weights)
+    pos = tcs.stencil_positions_ref(qids, src_ids)
+    hits = (pos >= 0).sum(dim=(0, 2)).numpy()
+    nz = wc.to(torch.bfloat16).float().numpy() != 0  # (9, kzp, n)
+    blocks = np.zeros(9, dtype=np.int64)
+    for j, step in itertools.product(range(9), range(-(-kzp // 16))):
+        cols = np.nonzero(nz[j, step * 16:(step + 1) * 16].any(axis=0))[0]
+        if len(cols):
+            blocks[j] += cols.max() // 16 + 1 - cols.min() // 16
+    got = chip_smoke.band_ops(pos, wc, nc)
+    assert got == 2 * nc * int((hits * blocks).sum()) * 256
+    assert 2 * nc * int((hits * nz.sum(axis=(1, 2))).sum()) <= got
+    assert got <= 2 * nc * int(hits.sum()) * (-(-kzp // 16) * 16) * (-(-n // 16) * 16)

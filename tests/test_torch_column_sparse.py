@@ -305,8 +305,9 @@ def test_stencil_kernel_on_card_matches_plain():
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     # The tensor-core route at widths that need padding (68 → 80 columns, 30 →
     # 64 lanes), at 256 columns, and at the widths it takes since the dense-z
-    # column middle needs them: a contraction of 300 lanes (five 64-lane
-    # slices) and 640 output columns (three 256-column tiles); its
+    # column middle needs them: a contraction of 300 lanes (the wide tile:
+    # more than 256 lanes) and 640 output columns at 2 chunks (the wide tile,
+    # five 128-column warps a 16-query group); its
     # preparation kernels are held to their plain versions in
     # tests/test_torch_sparse_kernels_dispatch.py.
     for nc, kzp, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256), (1, 300, 8), (2, 128, 640)):

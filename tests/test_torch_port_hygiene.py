@@ -189,7 +189,7 @@ print("ok")
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("which", ["stencil_dgrad", "stencil_wgrad", "subm", "fill"])
+@pytest.mark.parametrize("which", ["stencil_dgrad", "stencil_dgrad_mma", "stencil_wgrad", "subm", "fill"])
 def test_backward_cuda_paths_propagate_loader_errors(monkeypatch, which):
     """Each backward launcher, with the kernel loader failing, raises before
     it counts a launch, and the plain backward is never called."""
@@ -212,6 +212,9 @@ def test_backward_cuda_paths_propagate_loader_errors(monkeypatch, which):
     calls = {
         "stencil_dgrad": (lambda: cs._stencil_conv_cuda(torch.zeros(4, 2), q, ids, torch.zeros(9, 2, 128), 1,
                                                         dgrad=True), "stencil_conv"),
+        "stencil_dgrad_mma": (lambda: cs._stencil_dgrad_cuda(torch.zeros(4, 128), q, ids,
+                                                             torch.zeros(9, 128, 128, dtype=torch.bfloat16), 1),
+                              "stencil_conv"),
         "stencil_wgrad": (lambda: cs._stencil_wgrad_cuda(torch.zeros(4, 128), q, ids, torch.zeros(4, 2), 1,
                                                          128, 2), "stencil_conv"),
         "subm": (lambda: sk._subm_conv_bwd_cuda(torch.zeros(4, 3), torch.zeros(27, 4, dtype=torch.int32),
@@ -234,7 +237,7 @@ def test_stencil_backward_on_a_cuda_tensor_needs_reverse_queries():
 
     class Ctx:
         saved_tensors = (torch.zeros(4, 128), torch.zeros(9, 4, dtype=torch.int32),
-                         torch.zeros(4, dtype=torch.int32), torch.zeros(9, 128, 2), None, None)
+                         torch.zeros(4, dtype=torch.int32), torch.zeros(9, 128, 2), None, None, None)
         nc = 1
         needs_input_grad = (True, False, False, True, False, False, False)
 

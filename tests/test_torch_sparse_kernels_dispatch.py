@@ -21,6 +21,7 @@ from lyft3d_tpu_torch.ops import column_sparse as tcs
 from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
 
 SM_SHARED_BYTES = 233472  # an H100 SM's shared memory; a block may take 232,448
+BLOCK_SHARED_BYTES = 232448
 
 
 def fhd_stencil_shapes():
@@ -38,25 +39,121 @@ def fhd_stencil_shapes():
 
 @pytest.mark.parametrize("kzp,n", fhd_stencil_shapes())
 def test_stencil_variant_takes_every_fhd_layer_forward_and_backward(kzp, n):
+    """The unit middle's forward: the strided layers' 65-68 columns on the
+    unit tile, the 128-column layers on the wide tile; every ``d_src`` (kzp
+    = 128 or 256 output columns) on the wide tile. Each block owns all its
+    columns on 8 warps."""
     fwd = tcs.stencil_mma_variant(kzp, n)
     assert fwd["kp"] == kzp and fwd["n_pad"] % 16 == 0 and n <= fwd["n_pad"] < n + 16
     assert fwd["cols"] >= fwd["n_pad"] and fwd["warps"] == 8 and fwd["queries"] == 128
+    assert fwd["route"] == ("wide" if n == 128 else "unit") and fwd["col_tiles"] == 1
     # d_src: the cotangent's N lanes are the contraction, kzp the output width.
     bwd = tcs.stencil_mma_variant(n, kzp)
     assert bwd["kp"] % 64 == 0 and n <= bwd["kp"] < n + 64 and bwd["n_pad"] == kzp
-    assert bwd["cols"] >= kzp and bwd["warps"] == (8 if kzp <= 128 else 16)
+    assert bwd["route"] == "wide" and bwd["cols"] >= kzp and bwd["warps"] == 8
+    assert bwd["queries"] == 16 * (8 // bwd["col_warps"]) and bwd["col_tiles"] == 1
     for var in (fwd, bwd):
-        assert var["smem_bytes"] == var["stages"] * (var["queries"] + var["cols"]) * 72 * 2
-        assert 2 * (var["smem_bytes"] + 2048) <= SM_SHARED_BYTES or var["warps"] == 16
+        if var["route"] == "unit":
+            assert var["smem_bytes"] == var["stages"] * (var["queries"] + var["cols"]) * 72 * 2
+            assert 2 * (var["smem_bytes"] + 2048) <= SM_SHARED_BYTES
         assert var["smem_bytes"] <= 232448
     wg = tcs.wgrad_mma_variant(kzp, n)
     assert wg["tile"] == (128, 128) and wg["k_tiles"] == kzp // 128 and wg["n_tiles"] == 1
 
 
-@pytest.mark.parametrize("k,n", [(641, 128), (700, 16), (0, 16), (16, 0), (1000, 1000)])
+@pytest.mark.parametrize("k,n", [(641, 128), (700, 16), (0, 16), (16, 0), (1000, 1000), (128, 641), (64, 1000)])
 def test_stencil_variant_raises_on_shapes_the_kernel_does_not_take(k, n):
     with pytest.raises(ValueError):
         tcs.stencil_mma_variant(k, n)
+
+
+def column_stencil_shapes():
+    """(side, kzp or the contraction, N or the output, nc) of the twelve
+    forward and nine ``d_src`` launches of the dense-z column middle at the
+    FHD geometry (``chip_smoke.column_stencil_replay``'s layers)."""
+    shapes = []
+    for cin, cout, z_out, strided in chip_smoke.FHD_COLUMN_LAYERS + chip_smoke.COLUMN_MASK_LAYERS:
+        plan = tcs._chunk_plan(cin, z_out, 2 if strided else 1)
+        n = plan.z * cout
+        shapes.append(("forward", plan.kzp, n, plan.nc))
+        if cin > 1:  # the mask convs have no gradient
+            shapes.append(("d_src", n, plan.kzp, plan.nc))
+    return shapes
+
+
+@pytest.mark.parametrize("side,k,n,nc", column_stencil_shapes(),
+                         ids=[f"{s}-{k}x{n}-nc{c}" for s, k, n, c in column_stencil_shapes()])
+def test_stencil_variant_at_every_column_shape(side, k, n, nc):
+    """The rule at the column middle's shapes: every launch of more than 256
+    lanes or more than 128 columns (128 at one chunk too) takes the wide
+    tile, whose warps of a 16-query group own a
+    chunk's whole width (one warp a 128 columns, no column tiles) with no
+    shared memory; ``d_src`` reads its float32 cotangent as it is (no
+    bfloat16 copy: its widths are even). The mask convs (one chunk, at most
+    32 columns) and the four forward layers of 64 to 128 columns keep the
+    unit tile, whose block owns all their columns too."""
+    src_dtype = torch.bfloat16 if side == "forward" else torch.float32
+    var = tcs.stencil_mma_variant(k, n, nc, src_dtype)
+    assert var["kp"] % 64 == 0 and k <= var["kp"] < k + 64 and n <= var["n_pad"] < n + 16
+    assert var["col_tiles"] == 1 and var["cols"] >= var["n_pad"]
+    assert var["smem_bytes"] <= BLOCK_SHARED_BYTES
+    if var["kp"] <= 256 and (var["n_pad"] < 128 or (var["n_pad"] == 128 and nc > 1)):
+        assert side == "forward" and var["route"] == "unit" and var["warps"] == 8 and var["cols"] == 128
+        return
+    assert var["route"] == "wide" and var["code"] == 1 and not var["prep"]
+    assert var["rows_dtype"] == src_dtype and var["stages"] == 0 and var["smem_bytes"] == 0
+    col_warps = -(-var["n_pad"] // 128)
+    assert var["col_warps"] == col_warps and var["cols"] == 128 * col_warps
+    assert var["warps"] == max(1, 8 // col_warps) * col_warps <= 8 and var["queries"] == 16 * (var["warps"] // col_warps)
+
+
+@pytest.mark.parametrize("kzp,n", fhd_stencil_shapes())
+def test_stencil_variant_keeps_the_unit_tile_at_every_unit_shape(kzp, n):
+    """The unit middle's nine forward and nine ``d_src`` shapes (one chunk, at
+    most 256 lanes and columns): the unit tile keeps the forward outputs of
+    fewer than 128 columns (the strided layers), reading bfloat16 rows of
+    whole 64-lane slices as they are; the wide tile, measured faster there
+    (``tools/stencil_tile_ab.py``), takes the 128-column forwards and every
+    ``d_src``, reading the float32 cotangent as it is except a chunk of an
+    odd width (65 lanes), which it copies."""
+    for k, width, dtype in ((kzp, n, torch.bfloat16), (n, kzp, torch.float32)):
+        var = tcs.stencil_mma_variant(k, width, 1, dtype)
+        assert var["col_tiles"] == 1 and var["smem_bytes"] <= BLOCK_SHARED_BYTES
+        if dtype == torch.bfloat16 and width < 128:
+            assert var["route"] == "unit" and var["code"] == 0
+            assert var["queries"] == 128 and var["stages"] == 3 and var["prep"] == (var["kp"] != k)
+        else:
+            assert var["route"] == "wide" and var["code"] == 1 and var["stages"] == 0
+            assert var["prep"] == (k % 2 == 1)
+            assert var["rows_dtype"] == (torch.bfloat16 if k % 2 else dtype)
+
+
+@pytest.mark.parametrize("k,n,nc,dtype,prep", [
+    (65, 256, 2, torch.float32, True), (66, 256, 3, torch.float32, False), (640, 256, 1, torch.float32, False),
+    (640, 640, 1, torch.float32, False), (67, 448, 2, torch.bfloat16, True), (64, 640, 2, torch.bfloat16, False)],
+    ids=["65_lanes", "66_lanes", "f32_640_lanes", "f32_640_columns", "bf16_67_lanes", "bf16_640_columns"])
+def test_wide_tile_copies_only_rows_it_cannot_read(k, n, nc, dtype, prep):
+    """The wide tile reads its rows two lanes at a time: rows whose chunk is
+    an even number of lanes are read as they are (float32 rounded to
+    bfloat16 as it is read), odd ones (the unit middle's 65-lane strided
+    layer) get the padded bfloat16 copy."""
+    var = tcs.stencil_mma_variant(k, n, nc, dtype)
+    assert var["route"] == "wide" and var["prep"] == prep
+    assert var["rows_dtype"] == (torch.bfloat16 if prep else dtype)
+
+
+@pytest.mark.parametrize("k,n,tile,tiles", [
+    (128, 640, (128, 256), (1, 3)), (256, 224, (256, 128), (1, 2)), (256, 112, (128, 128), (2, 1)),
+    (256, 448, (256, 128), (1, 4)), (256, 192, (256, 128), (1, 2)), (256, 96, (128, 128), (2, 1)),
+    (256, 384, (256, 128), (1, 3)), (256, 128, (128, 128), (2, 1)), (256, 64, (128, 128), (2, 1))])
+def test_wgrad_variant_at_every_column_shape(k, n, tile, tiles):
+    """``d_wc`` at the column middle's nine shapes: above 128 columns the
+    16-warp tiles, a whole 256-lane contraction (the float32 cotangent row
+    read once) or 128 x 256 at 128 lanes; up to 128 columns the unit
+    middle's 128 x 128 on 8 warps, two blocks an SM."""
+    assert tcs.wgrad_mma_variant(k, n) == dict(tile=tile, k_tiles=tiles[0], n_tiles=tiles[1], hit_split=1)
+    _, queues, n_tiles = tcs.wgrad_buffers(9, k, n, torch.device("cpu"))
+    assert n_tiles == tiles[0] * tiles[1] and queues.numel() == 9 * n_tiles
 
 
 @pytest.mark.parametrize("c,cout", list(itertools.product((3, 16, 32, 64), (16, 32, 64))))
@@ -70,7 +167,9 @@ def test_wgrad_variant_fits_each_rank_gather_shape_without_padding_tiles(c, cout
 
 def test_wgrad_variant_tiles_large_matrices_and_raises_on_absurd_ones():
     assert tcs.wgrad_mma_variant(256, 68) == dict(tile=(128, 128), k_tiles=2, n_tiles=1, hit_split=1)
-    assert tcs.wgrad_mma_variant(300, 300)["k_tiles"] == 3
+    assert tcs.wgrad_mma_variant(300, 100)["k_tiles"] == 3
+    # Wider than 128 columns: the column middle's 16-warp tiles, 256 x 128 above 128 lanes.
+    assert tcs.wgrad_mma_variant(300, 300) == dict(tile=(256, 128), k_tiles=2, n_tiles=3, hit_split=1)
     with pytest.raises(ValueError):
         tcs.wgrad_mma_variant(0, 4)
     with pytest.raises(ValueError):
@@ -308,8 +407,8 @@ def test_sparse_kernels_on_card_at_edge_shapes():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs the full check")
     dev = torch.device("cuda")
-    # The last three: the dense-z column middle's 640 columns (three 256-column
-    # tiles) at 2 chunks, and contractions of 640 and 448 lanes (its d_src).
+    # The last three: the dense-z column middle's 640 columns at 2 chunks, and
+    # contractions of 640 and 448 lanes (its d_src): the wide tile.
     for nc, k, n in ((2, 128, 68), (1, 30, 65), (1, 256, 256), (1, 65, 128), (2, 128, 640), (1, 640, 256),
                      (3, 448, 128)):
         src, qids, ids, wc = (a.to(dev) for a in stencil_inputs(k + n, 2, 300, 260, nc, k, n))
