@@ -1,0 +1,6 @@
+"""Samples of the optimizer steps completed in the window (after a final
+synchronise), over its seconds (host clock)."""
+
+
+def read(run):
+    return run.items / run.window_s if run.calls and run.window_s > 0 else None
