@@ -52,6 +52,7 @@ from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev
 from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
 from lyft3d_tpu_torch.ops.voxelize import VoxelGrid
 from lyft3d_tpu_torch.train.losses import sigmoid_focal_loss, weighted_smooth_l1
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = ["VoxelNetConfig", "VoxelNet", "voxelnet_loss", "voxelnet_predict"]
 
@@ -295,52 +296,53 @@ def voxelnet_predict(preds, anchors, anchor_class, cfg: VoxelNetConfig):
     Returns fixed-size ``(B, K)`` detections, ``K = min(nms_post, nms_pre, A)``:
     boxes ``(B, K, 7)``, scores, classes (1-based, int32), valid.
     """
-    box = preds["box"].float()
-    boxes = decode_boxes(box, anchors, cfg.encode_angle_to_vector)
-    scores_all = torch.sigmoid(preds["cls"].float())
-    scores, cls_idx = scores_all.max(dim=-1)
-    if cfg.num_classes == 1:  # the anchor's own class
-        pred_class = anchor_class.expand(scores.shape)
-    else:
-        pred_class = cls_idx.to(torch.int32) + 1
+    with span("predict"):
+        box = preds["box"].float()
+        boxes = decode_boxes(box, anchors, cfg.encode_angle_to_vector)
+        scores_all = torch.sigmoid(preds["cls"].float())
+        scores, cls_idx = scores_all.max(dim=-1)
+        if cfg.num_classes == 1:  # the anchor's own class
+            pred_class = anchor_class.expand(scores.shape)
+        else:
+            pred_class = cls_idx.to(torch.int32) + 1
 
-    # Direction fix: flip by π where the direction bit disagrees with the
-    # anchor's, then wrap into [-π, π).
-    dir_bit = preds["dir"].argmax(dim=-1)
-    yaw = boxes[..., 6]
-    pi = torch.tensor(math.pi, dtype=yaw.dtype, device=yaw.device)
-    anchor_bit = torch.remainder(torch.floor((yaw - anchors[:, 6]) / pi), 2.0)
-    yaw = torch.where(dir_bit != anchor_bit.to(dir_bit.dtype), yaw + pi, yaw)
-    boxes = torch.cat([boxes[..., :6], limit_period(yaw, 0.5, 2 * math.pi)[..., None]], dim=-1)
+        # Direction fix: flip by π where the direction bit disagrees with the
+        # anchor's, then wrap into [-π, π).
+        dir_bit = preds["dir"].argmax(dim=-1)
+        yaw = boxes[..., 6]
+        pi = torch.tensor(math.pi, dtype=yaw.dtype, device=yaw.device)
+        anchor_bit = torch.remainder(torch.floor((yaw - anchors[:, 6]) / pi), 2.0)
+        yaw = torch.where(dir_bit != anchor_bit.to(dir_bit.dtype), yaw + pi, yaw)
+        boxes = torch.cat([boxes[..., :6], limit_period(yaw, 0.5, 2 * math.pi)[..., None]], dim=-1)
 
-    # Top-k prefilter (stable: ties to the lower index, as lax.top_k), then NMS.
-    k = min(cfg.nms_pre, scores.shape[-1])
-    top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-    top_boxes = _take(boxes, top_idx)
-    top_class = torch.gather(pred_class, 1, top_idx)
-    valid = top_scores >= cfg.score_threshold
+        # Top-k prefilter (stable: ties to the lower index, as lax.top_k), then NMS.
+        k = min(cfg.nms_pre, scores.shape[-1])
+        top_scores, top_idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+        top_boxes = _take(boxes, top_idx)
+        top_class = torch.gather(pred_class, 1, top_idx)
+        valid = top_scores >= cfg.score_threshold
 
-    bev = torch.cat([top_boxes[..., 0:2], top_boxes[..., 3:5], top_boxes[..., 6:7]], dim=-1)
-    if cfg.per_class_nms:
-        # Suppress only same-class overlaps; rows are already score-sorted.
-        iou = rotated_iou_bev(bev, bev)
-        same = top_class[..., :, None] == top_class[..., None, :]
-        keep = nms_mask_from_iou(torch.where(same, iou, torch.zeros_like(iou)), top_scores,
-                                 cfg.nms_iou, valid=valid, presorted=True)
-    else:
-        keep = rotated_nms(bev, top_scores, cfg.nms_iou, valid=valid)
-    sel, sel_valid = select_top_k(keep, top_scores, min(cfg.nms_post, k))
+        bev = torch.cat([top_boxes[..., 0:2], top_boxes[..., 3:5], top_boxes[..., 6:7]], dim=-1)
+        if cfg.per_class_nms:
+            # Suppress only same-class overlaps; rows are already score-sorted.
+            iou = rotated_iou_bev(bev, bev)
+            same = top_class[..., :, None] == top_class[..., None, :]
+            keep = nms_mask_from_iou(torch.where(same, iou, torch.zeros_like(iou)), top_scores,
+                                     cfg.nms_iou, valid=valid, presorted=True)
+        else:
+            keep = rotated_nms(bev, top_scores, cfg.nms_iou, valid=valid)
+        sel, sel_valid = select_top_k(keep, top_scores, min(cfg.nms_post, k))
 
-    out_boxes = _take(top_boxes, sel)
-    r = cfg.grid.point_cloud_range
-    inside = (
-        (out_boxes[..., 0] >= r[0]) & (out_boxes[..., 0] <= r[3])
-        & (out_boxes[..., 1] >= r[1]) & (out_boxes[..., 1] <= r[4])
-    )
-    return {
-        "boxes": out_boxes,
-        "scores": torch.gather(top_scores, 1, sel),
-        "classes": torch.gather(top_class, 1, sel),
-        "valid": sel_valid & inside,
-    }
+        out_boxes = _take(top_boxes, sel)
+        r = cfg.grid.point_cloud_range
+        inside = (
+            (out_boxes[..., 0] >= r[0]) & (out_boxes[..., 0] <= r[3])
+            & (out_boxes[..., 1] >= r[1]) & (out_boxes[..., 1] <= r[4])
+        )
+        return {
+            "boxes": out_boxes,
+            "scores": torch.gather(top_scores, 1, sel),
+            "classes": torch.gather(top_class, 1, sel),
+            "valid": sel_valid & inside,
+        }

@@ -22,6 +22,7 @@ import torch
 
 from lyft3d_tpu_torch.ops.box_ops import box_corners_2d, corners_to_standup_2d, encode_boxes
 from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev, standup_iou
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = [
     "AnchorSpec",
@@ -230,15 +231,16 @@ def assign_targets(anchors, anchor_class, matched_thr, unmatched_thr, gt_boxes, 
     class), bbox_targets ``(…, A, 7 or 8)``, reg_weights ``(…, A)``,
     dir_targets ``(…, A)`` int64, assigned_gt, max_iou.
     """
-    lead = tuple(gt_boxes.shape[:-2])
-    if anchor_mask is None:
-        anchor_mask = torch.ones((*lead, anchors.shape[0]), dtype=torch.bool, device=anchors.device)
+    with span("assign_targets"):
+        lead = tuple(gt_boxes.shape[:-2])
+        if anchor_mask is None:
+            anchor_mask = torch.ones((*lead, anchors.shape[0]), dtype=torch.bool, device=anchors.device)
 
-    def one(g, c, v, m):
-        return _assign_one(anchors, anchor_class, matched_thr, unmatched_thr, g, c, v, m,
-                           similarity, encode_angle_to_vector)
+        def one(g, c, v, m):
+            return _assign_one(anchors, anchor_class, matched_thr, unmatched_thr, g, c, v, m,
+                               similarity, encode_angle_to_vector)
 
-    return _per_sample(one, (gt_boxes, gt_classes, gt_valid, anchor_mask), lead)
+        return _per_sample(one, (gt_boxes, gt_classes, gt_valid, anchor_mask), lead)
 
 
 def _assign_pruned_one(anchors, anchor_class, matched_thr, unmatched_thr, gt_boxes, gt_classes,
@@ -276,13 +278,14 @@ def assign_targets_pruned(anchors, anchor_class, matched_thr, unmatched_thr, gt_
     the anchor mask selects candidates (cumsum compaction, fixed capacity),
     assignment runs on the subset and the results scatter back; every other
     anchor is don't-care (−1)."""
-    lead = tuple(gt_boxes.shape[:-2])
+    with span("assign_targets"):
+        lead = tuple(gt_boxes.shape[:-2])
 
-    def one(g, c, v, m):
-        return _assign_pruned_one(anchors, anchor_class, matched_thr, unmatched_thr, g, c, v, m,
-                                  max_active, similarity, encode_angle_to_vector)
+        def one(g, c, v, m):
+            return _assign_pruned_one(anchors, anchor_class, matched_thr, unmatched_thr, g, c, v, m,
+                                      max_active, similarity, encode_angle_to_vector)
 
-    return _per_sample(one, (gt_boxes, gt_classes, gt_valid, anchor_mask), lead)
+        return _per_sample(one, (gt_boxes, gt_classes, gt_valid, anchor_mask), lead)
 
 
 def tune_match_thresholds(anchors, anchor_class, gt_samples, class_ids,

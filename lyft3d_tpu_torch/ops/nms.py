@@ -15,6 +15,7 @@ import torch
 
 from lyft3d_tpu_torch.ops.box_ops import box_corners_2d, corners_to_standup_2d
 from lyft3d_tpu_torch.ops.rotated_iou import rotated_iou_bev, standup_iou
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = ["nms_mask_from_iou", "rotated_nms", "standup_nms", "select_top_k"]
 
@@ -29,17 +30,19 @@ def _greedy_keep_sorted(iou_s, valid_s, iou_threshold):
     bounded by N. Samples that settle early stay at their fixpoint while the
     others iterate.
     """
-    n = valid_s.shape[-1]
-    rank = torch.arange(n, device=valid_s.device)
-    m = (iou_s > iou_threshold) & (rank[:, None] < rank[None, :])
-    keep = valid_s
-    for _ in range(n):
-        sup = (keep[..., :, None] & m).any(dim=-2)
-        new = valid_s & ~sup
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return keep
+    with span("nms"):
+        n = valid_s.shape[-1]
+        rank = torch.arange(n, device=valid_s.device)
+        m = (iou_s > iou_threshold) & (rank[:, None] < rank[None, :])
+        keep = valid_s
+        for _ in range(n):
+            with span("nms.step"):
+                sup = (keep[..., :, None] & m).any(dim=-2)
+                new = valid_s & ~sup
+                if torch.equal(new, keep):
+                    break
+            keep = new
+        return keep
 
 
 def _descending_order(scores, valid):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from lyft3d_tpu_torch.ops.box_ops import box_corners_2d
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = [
     "polygon_intersection_area",
@@ -134,16 +135,17 @@ def rotated_iou_bev(boxes1, boxes2, criterion: int = -1):
     ``criterion``: −1 → intersection / union; 0 → intersection / area1;
     1 → intersection / area2.
     """
-    inter = rotated_overlap_bev(boxes1, boxes2)
-    a1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
-    a2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
-    if criterion == 0:
-        denom = a1 + torch.zeros_like(a2)
-    elif criterion == 1:
-        denom = a2 + torch.zeros_like(a1)
-    else:
-        denom = a1 + a2 - inter
-    return inter / torch.clamp(denom, min=_EPS_DEN)
+    with span("rotated_iou"):
+        inter = rotated_overlap_bev(boxes1, boxes2)
+        a1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
+        a2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
+        if criterion == 0:
+            denom = a1 + torch.zeros_like(a2)
+        elif criterion == 1:
+            denom = a2 + torch.zeros_like(a1)
+        else:
+            denom = a1 + a2 - inter
+        return inter / torch.clamp(denom, min=_EPS_DEN)
 
 
 def _bev_of(boxes):

@@ -25,6 +25,7 @@ from lyft3d_tpu_torch.data.bev_pipeline import (
 from lyft3d_tpu_torch.data.lyftdb import LyftDB
 from lyft3d_tpu_torch.ops.bev_raster import bev_rasterize, normalize_bev
 from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = [
     "make_bev_input",
@@ -83,16 +84,17 @@ def to_host(det: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """One device→host copy for the whole detection dict: every field is
     packed into one float32 buffer (the integer and bool fields are exact
     in float32) and unpacked on the host."""
-    keys = list(det)
-    parts = [det[k].reshape(*det[k].shape[:2], -1).to(torch.float32) for k in keys]
-    packed = torch.cat(parts, dim=-1).cpu().numpy()
-    out, at = {}, 0
-    for k, part in zip(keys, parts):
-        width = part.shape[-1]
-        arr = packed[..., at : at + width].reshape(det[k].shape)
-        out[k] = arr.astype(torch.empty((), dtype=det[k].dtype).numpy().dtype)
-        at += width
-    return out
+    with span("to_host"):
+        keys = list(det)
+        parts = [det[k].reshape(*det[k].shape[:2], -1).to(torch.float32) for k in keys]
+        packed = torch.cat(parts, dim=-1).cpu().numpy()
+        out, at = {}, 0
+        for k, part in zip(keys, parts):
+            width = part.shape[-1]
+            arr = packed[..., at : at + width].reshape(det[k].shape)
+            out[k] = arr.astype(torch.empty((), dtype=det[k].dtype).numpy().dtype)
+            at += width
+        return out
 
 
 def detections_to_world(

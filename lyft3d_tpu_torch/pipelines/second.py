@@ -20,7 +20,7 @@ from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, VoxelNetConfig, vo
 from lyft3d_tpu_torch.ops.anchors import AnchorSpec
 from lyft3d_tpu_torch.ops.voxelize import VoxelGrid, voxelize
 from lyft3d_tpu_torch.pipelines.bev import to_host
-from lyft3d_tpu_torch.utils.profiler import SectionTimers
+from lyft3d_tpu_torch.utils.profiler import SectionTimers, span
 
 __all__ = ["voxelnet_config_from_experiment", "make_second_infer_fn", "evaluate_second"]
 
@@ -80,9 +80,11 @@ def make_second_infer_fn(model: VoxelNet, vcfg: VoxelNetConfig) -> Callable:
 
     @torch.inference_mode()
     def infer(points, valid):
-        vox = voxelize(points, valid, vcfg.grid, vcfg.max_voxels, vcfg.max_points_per_voxel)
-        preds = model(vox["voxels"], vox["num_points"], vox["coords"], vox["voxel_valid"])
-        return voxelnet_predict(preds, anchors, anchor_class, vcfg)
+        with span("infer"):
+            vox = voxelize(points, valid, vcfg.grid, vcfg.max_voxels, vcfg.max_points_per_voxel)
+            with span("forward"):
+                preds = model(vox["voxels"], vox["num_points"], vox["coords"], vox["voxel_valid"])
+            return voxelnet_predict(preds, anchors, anchor_class, vcfg)
 
     return infer
 

@@ -37,6 +37,7 @@ from lyft3d_tpu_torch.pipelines.second import evaluate_second, voxelnet_config_f
 from lyft3d_tpu_torch.pipelines.second_pipeline import SecondSampleLoader
 from lyft3d_tpu_torch.train.optim import build_optimizer
 from lyft3d_tpu_torch.train.trainer import Trainer, TrainerConfig
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = [
     "voxelnet_config_from_experiment",
@@ -90,23 +91,24 @@ def make_second_targets_fn(vcfg: VoxelNetConfig, device="cuda") -> Callable:
 
     @torch.no_grad()
     def targets_fn(batch):
-        vox = voxelize(batch["points"], batch["points_valid"], vcfg.grid, vcfg.max_voxels,
-                       vcfg.max_points_per_voxel)
-        amask = None
-        if vcfg.anchor_area_threshold > 0:
-            # Don't-care anchors over empty BEV area.
-            amask = anchors_area_mask(
-                anchor_standup, bev_occupancy_mask(vox["coords"], vox["voxel_valid"], (ny, nx)),
-                vcfg.grid.point_cloud_range, min_area=vcfg.anchor_area_threshold)
-        gt = (batch["gt_boxes"].float(), batch["gt_classes"].to(torch.int32), batch["gt_valid"])
-        if vcfg.similarity == "rotated" and vcfg.anchor_area_threshold > 0:
-            # Rotated IoU is affordable only on the mask-pruned anchor subset.
-            tgts = assign_targets_pruned(anchors, acls, mt, ut, *gt, amask,
-                                         max_active=vcfg.max_active_anchors, similarity="rotated")
-        else:
-            tgts = assign_targets(anchors, acls, mt, ut, *gt, anchor_mask=amask,
-                                  similarity=vcfg.similarity)
-        return vox, tgts
+        with span("targets"):
+            vox = voxelize(batch["points"], batch["points_valid"], vcfg.grid, vcfg.max_voxels,
+                           vcfg.max_points_per_voxel)
+            amask = None
+            if vcfg.anchor_area_threshold > 0:
+                # Don't-care anchors over empty BEV area.
+                amask = anchors_area_mask(
+                    anchor_standup, bev_occupancy_mask(vox["coords"], vox["voxel_valid"], (ny, nx)),
+                    vcfg.grid.point_cloud_range, min_area=vcfg.anchor_area_threshold)
+            gt = (batch["gt_boxes"].float(), batch["gt_classes"].to(torch.int32), batch["gt_valid"])
+            if vcfg.similarity == "rotated" and vcfg.anchor_area_threshold > 0:
+                # Rotated IoU is affordable only on the mask-pruned anchor subset.
+                tgts = assign_targets_pruned(anchors, acls, mt, ut, *gt, amask,
+                                             max_active=vcfg.max_active_anchors, similarity="rotated")
+            else:
+                tgts = assign_targets(anchors, acls, mt, ut, *gt, anchor_mask=amask,
+                                      similarity=vcfg.similarity)
+            return vox, tgts
 
     return targets_fn
 
@@ -120,8 +122,10 @@ def make_second_loss_fn(vcfg: VoxelNetConfig, device="cuda") -> Callable:
 
     def loss_fn(model, batch, generator=None):
         vox, tgts = targets_fn(batch)
-        preds = model(vox["voxels"], vox["num_points"], vox["coords"], vox["voxel_valid"])
-        return voxelnet_loss(preds, tgts, vcfg)
+        with span("forward"):
+            preds = model(vox["voxels"], vox["num_points"], vox["coords"], vox["voxel_valid"])
+        with span("loss"):
+            return voxelnet_loss(preds, tgts, vcfg)
 
     return loss_fn
 

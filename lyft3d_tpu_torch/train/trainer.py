@@ -63,6 +63,7 @@ from lyft3d_tpu_torch.parallel import tensor as tp
 from lyft3d_tpu_torch.train import checkpoint as ckpt
 from lyft3d_tpu_torch.train.logging import MetricLog
 from lyft3d_tpu_torch.train.optim import global_norm
+from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = ["TrainState", "TrainerConfig", "Trainer"]
 
@@ -191,22 +192,25 @@ class Trainer:
     def step_fn(self, state: TrainState, batch, generator=None):
         """One optimizer step on ``batch``; returns ``(state, metrics)`` with
         the metrics as detached tensors (``loss`` and ``grad_norm`` added)."""
-        model = state.module
-        model.train()
-        for p in state.params:
-            p.grad = None
-        loss, metrics = self.loss_fn(model, batch, generator)
-        loss.backward()
-        metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in dict(metrics).items()}
-        metrics["loss"] = loss.detach()
-        state.push_grads()
-        all_reduce_gradients(self.group, state.masters)
-        metrics = average_metrics(self.group, metrics)
-        metrics["grad_norm"] = global_norm([m.grad for m in state.masters], state.masters)
-        state.optimizer.step()
-        state.pull_params()
-        state.step += 1
-        return state, metrics
+        with span("step"):
+            model = state.module
+            model.train()
+            for p in state.params:
+                p.grad = None
+            loss, metrics = self.loss_fn(model, batch, generator)
+            with span("backward"):
+                loss.backward()
+            metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in dict(metrics).items()}
+            metrics["loss"] = loss.detach()
+            with span("optimizer"):
+                state.push_grads()
+                all_reduce_gradients(self.group, state.masters)
+                metrics = average_metrics(self.group, metrics)
+                metrics["grad_norm"] = global_norm([m.grad for m in state.masters], state.masters)
+                state.optimizer.step()
+                state.pull_params()
+            state.step += 1
+            return state, metrics
 
     # -- lifecycle -----------------------------------------------------------
     def init_or_resume(self) -> TrainState:

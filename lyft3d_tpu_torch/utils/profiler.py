@@ -6,7 +6,8 @@ start_timer/end_timer pairs with a CUDA sync around the stages, averaged ms;
 clock around its block; where the block hands a CUDA tensor it computed to
 ``set_sentinel``, the clock stops only after the card has finished the work
 queued before it (PyTorch returns before the card does). :func:`trace` writes
-a ``torch.profiler`` trace, the card's kernels included where there is one.
+a ``torch.profiler`` trace, the card's kernels included where there is one;
+:func:`span` marks the program's stages in it.
 """
 
 from __future__ import annotations
@@ -18,7 +19,21 @@ from typing import Dict
 
 import torch
 
+# The JAX package's names; :func:`span` is the port's own.
 __all__ = ["SectionTimers", "simple_timer", "trace"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``lyft3d.<name>`` range in the running ``torch.profiler`` trace, on
+    the profiler's clock beside the card's kernels; spans opened inside it
+    on the same thread are its children. With no profiler running it is one
+    shared context that does nothing: no sync, no tensor work, no
+    allocation."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("lyft3d." + name)
+    return _NO_SPAN
 
 
 class SectionTimers:
@@ -33,20 +48,22 @@ class SectionTimers:
     @contextlib.contextmanager
     def section(self, name: str, sentinel=None):
         """Time a block; pass the block's output tensor via ``set_sentinel``
-        so that the time covers the card's work on it."""
-        if not self.enabled:
-            self._box = {}
+        so that the time covers the card's work on it. The block is also a
+        :func:`span` of the same name."""
+        with span(name):
+            if not self.enabled:
+                self._box = {}
+                yield self
+                return
+            box = {}
+            self._box = box
+            t0 = time.perf_counter()
             yield self
-            return
-        box = {}
-        self._box = box
-        t0 = time.perf_counter()
-        yield self
-        sentinel = box.get("sentinel")
-        if self.sync and torch.is_tensor(sentinel) and sentinel.device.type == "cuda":
-            torch.cuda.current_stream(sentinel.device).synchronize()
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+            sentinel = box.get("sentinel")
+            if self.sync and torch.is_tensor(sentinel) and sentinel.device.type == "cuda":
+                torch.cuda.current_stream(sentinel.device).synchronize()
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
 
     def set_sentinel(self, value):
         self._box["sentinel"] = value
