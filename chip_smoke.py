@@ -59,9 +59,18 @@ Phases, one line of numbers each:
    bit-equal, box/cls/dir heads within 1e-3 of the logit scale. Then the
    main path, ``make_second_infer_fn`` (voxelize → encoder → fill kernel →
    RPN in bfloat16, heads in float32 → decode + NMS) at batch 8 x 262,144
-   points: the fill kernel's launch count is reset before it and must be
-   > 0 after it; samples/s from CUDA events (2 warm-up, 10 timed
+   points: the fill kernel's and the rotated IoU kernel's launch counts are
+   reset before it; the fill's must be > 0 after it and the rotated IoU's 1
+   a call (its NMS); samples/s from CUDA events (2 warm-up, 10 timed
    iterations), a stage split, and peak memory.
+7c. rotated IoU (:func:`rotated_iou_phase`): the pairwise rotated BEV IoU
+   kernel (``csrc/rotated_iou.cu``, one launch a call) against its plain
+   version on the same card, on LiDAR-like candidates
+   (:func:`iou_candidates`) at the NMS shape of the benchmark's pillars cell,
+   80 x 1,000 x 1,000, and at PointRCNN's 4 x 1,024 x 1,024: each criterion
+   of ``rotated_iou_bev`` and ``rotated_iou_3d`` within 1e-4 IoU, the bare
+   overlap within 1e-4 of its scale; timed at 80 x 1,000² beside the plain
+   version, with its bound (:func:`iou_bound`).
 
 8. fps / ball / knn / roi: the four hand-written PointNet++ kernels against
    their plain PyTorch versions on the card at the largest shapes of the
@@ -98,7 +107,8 @@ Phases, one line of numbers each:
     the FPS and ball-query kernels → FP with the 3-NN kernel → proposal layer
     → RoI pool with the RoI-select kernel → RCNN → decode + final NMS), in
     bfloat16 with folded norms at batch 4 x 16,384 points: the four launch
-    counts are reset before it and must be 6, 6, 4 and 1 a call after it;
+    counts and the rotated IoU's are reset before it and must be 6, 6, 4, 1
+    and 2 (the proposal and the final NMS) a call after it;
     output shapes, finite boxes, scores in [0, 1]; samples/s from CUDA events
     (2 warm-up, 10 timed iterations), a stage split, and peak memory; the
     path again with ball query held to the scan, interleaved with the rule's
@@ -139,18 +149,19 @@ Phases, one line of numbers each:
     (voxelize with block filter → mean encoder → units (fill kernel) → 3
     stages of 2 submanifold + 1 strided conv (stencil kernel) → dense BEV
     (fill kernel) → RPN → decode + NMS), in bfloat16 with folded middle norms
-    at batch 4 x 262,144 points: the stencil and fill launch counts are reset
-    before it and must be 9 and 2 a call after it; samples/s from CUDA events,
-    a stage split, how far each capacity cap truncates, and peak memory. Every
+    at batch 4 x 262,144 points: the stencil, fill and rotated IoU launch
+    counts are reset before it and must be 9, 2 and 1 a call after it;
+    samples/s from CUDA events, a stage split, how far each capacity cap
+    truncates, and peak memory. Every
     stencil and fill call of one forward pass is recorded and replayed:
     the stencil kernel against its plain version at the nine shapes (bfloat16
     and float32, 1e-5 of the output scale, the strided layers' mask channel
     equal), the fill kernel at its two new shapes (``torch.equal``; the
     launch queued beside ``index_add_``);
 13. per-voxel e2e: the second sparse path, ``middle="sparse"``, same geometry
-    and caps, bfloat16: the rank gather kernel's count must be 6 a call and
-    the fill kernel's 1; samples/s and a stage split; the six recorded calls
-    replayed against the plain version (1e-5 of scale in float32 and for the
+    and caps, bfloat16: the rank gather kernel's count must be 6 a call, the
+    fill kernel's 1 and the rotated IoU kernel's 1; samples/s and a stage
+    split; the six recorded calls replayed against the plain version (1e-5 of scale in float32 and for the
     bfloat16 route's float32 sums, 2^-7 for its rounded output) and timed
     beside ``index_select`` + ``einsum``; the fill call replayed as in 12;
 14. cross-check: with the same float32 weights, and a cloud and caps under
@@ -251,7 +262,8 @@ Phases, one line of numbers each:
     counts reset around it; then one frame's step (frozen RPN + proposals,
     RoI sampling + noise, ``roi_pool3d``, RCNN forward + loss, backward,
     ``adam``) on all 512 RoIs x 512 points: timed as in 23, split into those
-    stages, peak memory, the sampled foreground;
+    stages, peak memory, the sampled foreground, and the rotated IoU kernel's
+    launches in a step (2: the proposal NMS and the RoIs' 3D IoU with the GT);
 25. the offline RCNN: ``cache_rcnn_samples`` over 2 frames, then one
     ``train_rcnn_offline`` step, counted, then both timed by CUDA events;
 26. card against CPU, float32 with TF32 off, on a 4,096-point frame of the
@@ -281,13 +293,14 @@ Phases, one line of numbers each:
     the yaml's microbatch 32 (``ranger``, ``grad_accum`` 4, GroupNorm);
 31. VFE pillars, ``lyft9_config(encoder="vfe", encoder_features=(32,
     128))``: float32 heads card against CPU at batch 1; ``make_second_infer_fn``
-    at batch 8 x 262,144 points (the fill kernel 1 a call); a training run as
+    at batch 8 x 262,144 points (the fill kernel 1 a call, the rotated IoU
+    kernel 1); a training run as
     phase 17's (the fill and its backward launched every step);
 32. FHD with ``middle_norm="batch"`` in eval mode, running statistics from
     a seeded generator: float32 heads card against CPU on 30,000 points;
-    ``make_second_infer_fn`` at batch 4 x 262,144 (the stencil 9 and the fill
-    2 a call). Phases 28-32 print one JSON line each (a line a model in 29);
-    their launches join the others' in the ``kernels`` line.
+    ``make_second_infer_fn`` at batch 4 x 262,144 (the stencil 9, the fill 2
+    and the rotated IoU 1 a call). Phases 28-32 print one JSON line each (a
+    line a model in 29); their launches join the others' in the ``kernels`` line.
 
 33. serve: a Lyft-format tree written with numpy and ``json`` alone
     (:func:`serve_tree`: 2 scenes x 8 samples, one ``LIDAR_TOP`` sweep of
@@ -825,6 +838,15 @@ def roi_boxes(pts, r, seed):
 
 F32_PEAK = 67e12  # float32 operations a second outside the tensor cores (H100 SXM data sheet)
 HBM_RATE = 3.35e12  # bytes a second
+# The rotated IoU (phase 7c): ROADMAP R1's contract against the plain
+# version, the shapes of its NMS callers (the benchmark's pillars cell: 80
+# sweeps x nms_pre 1,000 candidates; PointRCNN 4 x 1,024), and the float32
+# operations of a pair that does the polygon work and of one that the
+# early-out skips (csrc/rotated_iou.cu's count).
+IOU_TOL = 1e-4
+IOU_NMS_SHAPE = (80, 1000)
+IOU_PRC_SHAPE = (4, 1024)
+IOU_PAIR_OPS, IOU_SKIP_OPS = 460, 12
 
 
 def bound(n_bytes, n_ops, peak=F32_PEAK):
@@ -832,6 +854,51 @@ def bound(n_bytes, n_ops, peak=F32_PEAK):
     rate against operations over the peak rate; returns (ms, which)."""
     by_bytes, by_ops = n_bytes / HBM_RATE * 1e3, n_ops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def iou_candidates(batch, n, seed):
+    """``(batch, n, 5)`` float32 BEV boxes ``[x, y, w, l, yaw]`` as a
+    detector's top candidates: clusters of near-duplicates (jittered centre,
+    size and yaw, a fifth turned by π) about objects of the nine classes'
+    anchor sizes over ±48 m, and a fifth of singletons."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([a[0][:2] for a in LYFT9_ANCHORS], np.float32)
+    out = np.empty((batch, n, 5), np.float32)
+    objects = max(1, n // 5)
+    for b in range(batch):
+        ctr = rng.uniform(-48, 48, (objects, 2))
+        size = sizes[rng.integers(0, len(sizes), objects)]
+        yaw = rng.uniform(-np.pi, np.pi, objects)
+        pick = rng.integers(0, objects, n)
+        xy = ctr[pick] + rng.normal(0, 0.15, (n, 2))
+        single = rng.random(n) < 0.2
+        xy[single] = rng.uniform(-48, 48, (int(single.sum()), 2))
+        wl = size[pick] * np.exp(rng.normal(0, 0.05, (n, 2)))
+        th = yaw[pick] + rng.normal(0, 0.05, n) + np.pi * (rng.random(n) < 0.2)
+        out[b] = np.concatenate([xy, wl, ((th + np.pi) % (2 * np.pi) - np.pi)[:, None]], axis=1)
+    return out
+
+
+def iou_bound(boxes1, boxes2):
+    """The rotated IoU kernel's bound at ``(B, N, 5)`` x ``(B, M, 5)``: the
+    float32 ``(B, N, M)`` result written and the boxes read once, against
+    :data:`IOU_PAIR_OPS` a pair that passes the early-out and
+    :data:`IOU_SKIP_OPS` one that it skips, counting as skipped the pairs
+    whose circumscribed circles lie more than ``_FAR_GAP`` apart (the
+    kernel's rule less its thin-box clause). Returns (ms, which, the share
+    of pairs past the early-out)."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import rotated_iou as riou
+
+    b, n, m = boxes1.shape[0], boxes1.shape[1], boxes2.shape[1]
+    d = torch.hypot(boxes1[:, :, None, 0] - boxes2[:, None, :, 0], boxes1[:, :, None, 1] - boxes2[:, None, :, 1])
+    reach = (0.5 * torch.hypot(boxes1[..., 2], boxes1[..., 3]))[:, :, None] \
+        + (0.5 * torch.hypot(boxes2[..., 2], boxes2[..., 3]))[:, None, :]
+    pairs = b * n * m
+    worked = int((d - reach <= riou._FAR_GAP).sum())
+    ms, by = bound(4 * pairs + 20 * b * (n + m), IOU_PAIR_OPS * worked + IOU_SKIP_OPS * (pairs - worked))
+    return ms, by, worked / max(pairs, 1)
 
 
 def band_ops(pos, wc, nc):
@@ -1544,7 +1611,7 @@ def sparse_phases(dev, card):
     from lyft3d_tpu_torch.models.second import middle as middle_mod
     from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet, voxelnet_predict
     from lyft3d_tpu_torch.ops import column_sparse as cs
-    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops import dense_fill, rotated_iou
     from lyft3d_tpu_torch.ops import subm_conv_kernel as sk
     from lyft3d_tpu_torch.ops.sparse_conv import ActiveSet
     from lyft3d_tpu_torch.ops.voxelize import voxelize
@@ -1613,7 +1680,7 @@ def sparse_phases(dev, card):
         infer = make_second_infer_fn(net, cfg)
         pts, pvalid = (a.to(dev) for a in fhd_points(FHD_BATCH, FHD_POINTS, seed=13))
         torch.cuda.reset_peak_memory_stats()
-        cs.KERNEL_LAUNCHES = sk.KERNEL_LAUNCHES = dense_fill.KERNEL_LAUNCHES = 0
+        cs.KERNEL_LAUNCHES = sk.KERNEL_LAUNCHES = dense_fill.KERNEL_LAUNCHES = rotated_iou.KERNEL_LAUNCHES = 0
         wide_counts(reset=True)
         e2e_ms = cuda_ms(lambda: infer(pts, pvalid))
         det = infer(pts, pvalid)
@@ -1621,7 +1688,7 @@ def sparse_phases(dev, card):
         calls = 2 + TIMED_ITERS + 1
         launches = {"stencil_conv": cs.KERNEL_LAUNCHES, "subm_conv": sk.KERNEL_LAUNCHES,
                     "stencil_conv_wide": cs.WIDE_KERNEL_LAUNCHES,
-                    "dense_fill": dense_fill.KERNEL_LAUNCHES}
+                    "dense_fill": dense_fill.KERNEL_LAUNCHES, "rotated_iou": rotated_iou.KERNEL_LAUNCHES}
         for kernel, n in counts.items():
             if launches[kernel] <= 0:
                 raise AssertionError(f"the {name} path never launched the {kernel} kernel")
@@ -1646,7 +1713,7 @@ def sparse_phases(dev, card):
 
     # 12. main path: the unit middle, folded norms, bfloat16, batch 4.
     cfg = fhd_config(middle_norm="folded")
-    per_call = {"stencil_conv": 9, "dense_fill": 2}
+    per_call = {"stencil_conv": 9, "dense_fill": 2, "rotated_iou": 1}
     net, pts, pvalid, e2e_ms, det, launches, peak_gb = run_path(cfg, "sparse", per_call)
     anchors, _, _, anchor_class = cfg.make_anchors(dev)
     mid = net.middle
@@ -1698,7 +1765,7 @@ def sparse_phases(dev, card):
 
     # 13. second path: the per-voxel middle, bfloat16, batch 4.
     cfg2 = fhd_config(middle="sparse")
-    per_call2 = {"subm_conv": 6, "dense_fill": 1}
+    per_call2 = {"subm_conv": 6, "dense_fill": 1, "rotated_iou": 1}
     net, pts, pvalid, e2e2_ms, det, launches2, peak2_gb = run_path(cfg2, "per-voxel", per_call2)
     mid = net.middle
     with torch.inference_mode():
@@ -1766,6 +1833,67 @@ def sparse_phases(dev, card):
     del net_u, net_v
     torch.cuda.empty_cache()
     return stencil_record, subm_record, main_launches, launches2
+
+
+def rotated_iou_phase(dev, card):
+    """Phase 7c: the rotated IoU kernel against its plain version on the
+    card at its NMS callers' shapes, each criterion, the bare overlap and
+    ``rotated_iou_3d``, each call one launch; then timed at the pillars
+    cell's 80 x 1,000². Returns the ``kernels`` record's numbers."""
+    import torch
+
+    from lyft3d_tpu_torch.ops import rotated_iou as riou
+
+    def launched(fn, *args):
+        before = riou.KERNEL_LAUNCHES
+        out = fn(*args)
+        torch.cuda.synchronize()
+        if riou.KERNEL_LAUNCHES != before + 1:
+            raise AssertionError(f"rotated IoU: {riou.KERNEL_LAUNCHES - before} kernel launches in a call, "
+                                 f"expected 1")
+        return out
+
+    def named(shape):
+        return f"{shape[0]}x{shape[1]}x{shape[1]}"
+
+    gaps = {}
+    nms_boxes = torch.from_numpy(iou_candidates(*IOU_NMS_SHAPE, seed=70)).to(dev)
+    prc = iou_candidates(*IOU_PRC_SHAPE, seed=71)
+    for what, boxes in ((named(IOU_NMS_SHAPE), nms_boxes), (named(IOU_PRC_SHAPE), torch.from_numpy(prc).to(dev))):
+        for criterion in (-1, 0, 1):
+            got = launched(riou.rotated_iou_bev, boxes, boxes, criterion)
+            want = riou.rotated_iou_bev_plain(boxes, boxes, criterion)
+            gaps[f"{what} criterion {criterion}"] = float((got - want).abs().max())
+            del got, want
+        got = launched(riou.rotated_overlap_bev, boxes, boxes)
+        want = riou.rotated_overlap_bev_plain(boxes, boxes)
+        gaps[f"{what} overlap (of its scale)"] = rel_diff(got, want)
+        del got, want
+    # rotated_iou_3d, PointRCNN's targets: the same BEV boxes with z and h.
+    rng = np.random.default_rng(72)
+    z, h = rng.uniform(-2.0, 0.0, prc.shape[:2] + (1,)), rng.uniform(0.5, 3.5, prc.shape[:2] + (1,))
+    b3 = torch.from_numpy(np.concatenate([prc[..., :2], z, prc[..., 2:4], h, prc[..., 4:]], -1)
+                          .astype(np.float32)).to(dev)
+    got = launched(riou.rotated_iou_3d, b3, b3)
+    bev = riou._bev_of(b3)
+    want = riou._iou_3d(riou.rotated_overlap_bev_plain(bev, bev), b3[..., :, None, :], b3[..., None, :, :])
+    gaps[f"{named(IOU_PRC_SHAPE)} 3d"] = float((got - want).abs().max())
+    del got, want, b3, bev
+    worst = max(gaps.values())
+    if not worst <= IOU_TOL:
+        raise AssertionError(f"rotated IoU kernel against the plain version: {gaps} (tol {IOU_TOL})")
+    overlapping = float((riou.rotated_overlap_bev_plain(nms_boxes, nms_boxes) > 0).float().mean())
+    k_ms = cuda_ms(lambda: riou.rotated_iou_bev(nms_boxes, nms_boxes))
+    p_ms = cuda_ms(lambda: riou.rotated_iou_bev_plain(nms_boxes, nms_boxes), warmup=1, iters=3)
+    b_ms, b_by, worked = iou_bound(nms_boxes, nms_boxes)
+    log(f"rotated iou: kernel against the plain version on the card, one launch a call, worst gap "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()) + f" (tol {IOU_TOL}); at "
+        f"{named(IOU_NMS_SHAPE)} criterion -1: kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} ({b_by}) pairs_past_early_out={worked:.4%} "
+        f"pairs_overlapping={overlapping:.4%} [{card}]")
+    del nms_boxes
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def raster_edge_points(batch, seed):
@@ -3688,6 +3816,7 @@ def rcnn_online_phase(cfg, rpn, loader, dev, card):
         rcnn_loss,
     )
     from lyft3d_tpu_torch.ops import pointnet2 as p2
+    from lyft3d_tpu_torch.ops import rotated_iou
     from lyft3d_tpu_torch.pipelines import pointrcnn_train as prt
     from lyft3d_tpu_torch.train.optim import build_optimizer
 
@@ -3751,9 +3880,14 @@ def rcnn_online_phase(cfg, rpn, loader, dev, card):
             recorded(prc_modules, "three_nn") as knn_calls, \
             recorded(p2, "roi_inside_select") as roi_calls:
         prc_reset()
+        rotated_iou.KERNEL_LAUNCHES = 0
         step()
         torch.cuda.synchronize()
         per_step = prc_counts()
+        per_step["rotated_iou"] = rotated_iou.KERNEL_LAUNCHES
+    if per_step["rotated_iou"] != 2:
+        raise AssertionError(f"online RCNN step: {per_step['rotated_iou']} rotated IoU launches, expected 2 "
+                             f"(the proposal NMS and the RoIs' 3D IoU with the GT)")
     phase_json("pointrcnn rcnn online step", card, config='lyft_pointrcnn_config("train")', dtype="float32",
                tf32=torch.backends.cuda.matmul.allow_tf32, batch=1, points=int(xyz.shape[1]), rois=cfg.num_proposals, roi_points=cfg.roi_points,
                valid_proposals=int(shared["props"]["roi_valid"].sum()), sampled_fg=int(tg["fg"].sum()),
@@ -4284,14 +4418,14 @@ def vfe_phase(dev, card):
     """Phase 31: SECOND pillars with the VFE encoder
     (``lyft9_config(encoder="vfe", encoder_features=(32, 128))``): float32
     heads card against CPU at batch 1, TF32 off; ``make_second_infer_fn`` at
-    batch 8 × 262,144 points with the fill kernel's count reset (1 a call),
-    and the encoder alone; then ``train_run`` (2 warm-up + 10 timed steps of ``adam_onecycle``) with
-    the fill and fill-backward counts. Returns (inference fill launches,
-    training counts)."""
+    batch 8 × 262,144 points with the fill and rotated IoU kernels' counts
+    reset (1 a call each), and the encoder alone; then ``train_run`` (2
+    warm-up + 10 timed steps of ``adam_onecycle``) with the fill and
+    fill-backward counts. Returns (inference launches, training counts)."""
     import torch
 
     from lyft3d_tpu_torch.models.second.voxelnet import VoxelNet
-    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops import dense_fill, rotated_iou
     from lyft3d_tpu_torch.ops.voxelize import voxelize
     from lyft3d_tpu_torch.train.optim import build_optimizer
 
@@ -4302,8 +4436,9 @@ def vfe_phase(dev, card):
                dtype="float32", batch=1, points=SEC_POINTS, tf32=False, voxels_kept=kept,
                max_err_of_scale=err, tol=1e-3)
     pts, pvalid = (a.to(dev) for a in pillar_points(SEC_BATCH, SEC_POINTS, seed=54))
-    e2e_ms, det, peak_gb, launches = second_e2e(
-        name, cfg, 4, pts, pvalid, dev, None, {"dense_fill": (dense_fill, "KERNEL_LAUNCHES")}, {"dense_fill": 1})
+    counters = {"dense_fill": (dense_fill, "KERNEL_LAUNCHES"), "rotated_iou": (rotated_iou, "KERNEL_LAUNCHES")}
+    e2e_ms, det, peak_gb, launches = second_e2e(name, cfg, 4, pts, pvalid, dev, None, counters,
+                                                {"dense_fill": 1, "rotated_iou": 1})
     # The encoder alone (phase 7 times the pillar encoder the same way).
     net = VoxelNet(cfg, in_features=4, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
@@ -4311,7 +4446,8 @@ def vfe_phase(dev, card):
         encoder_ms = cuda_ms(lambda: net.encoder(vox["voxels"], vox["num_points"], vox["coords"]))
     phase_json("vfe e2e", card, config="lyft9 encoder=vfe", dtype="bfloat16", batch=SEC_BATCH, points=SEC_POINTS,
                e2e_ms=e2e_ms, samples_per_s=SEC_BATCH / (e2e_ms / 1e3), encoder_ms=encoder_ms,
-               detections=int(det["valid"].sum()), peak_mem_gb=peak_gb, fill_launches=launches["dense_fill"])
+               detections=int(det["valid"].sum()), peak_mem_gb=peak_gb, fill_launches=launches["dense_fill"],
+               rotated_iou_launches=launches["rotated_iou"])
     del det, net, vox
 
     def onecycle(params):
@@ -4323,7 +4459,7 @@ def vfe_phase(dev, card):
                                           ("dense_fill", "dense_fill_bwd"))
     del state, trainer, batch
     torch.cuda.empty_cache()
-    return launches["dense_fill"], counts
+    return launches, counts
 
 
 def seeded_running_statistics(seed):
@@ -4350,12 +4486,12 @@ def fhd_batch_norm_phase(dev, card):
     ``middle_norm="batch"`` in eval mode (running statistics from
     :func:`seeded_running_statistics`): float32 heads card against CPU on a
     1 × 30,000-point cloud, TF32 off; then ``make_second_infer_fn`` at batch
-    4 × 262,144 in bfloat16 with the stencil and fill counts reset (9 and 2 a
-    call). Returns the launches."""
+    4 × 262,144 in bfloat16 with the stencil, fill and rotated IoU counts
+    reset (9, 2 and 1 a call). Returns the launches."""
     import torch
 
     from lyft3d_tpu_torch.ops import column_sparse as cs
-    from lyft3d_tpu_torch.ops import dense_fill
+    from lyft3d_tpu_torch.ops import dense_fill, rotated_iou
 
     name, cfg = "FHD batch middle", fhd_config(middle_norm="batch")
     prepare = seeded_running_statistics(56)
@@ -4364,9 +4500,10 @@ def fhd_batch_norm_phase(dev, card):
     phase_json("fhd batch check", card, config="fhd middle_norm=batch (eval)", dtype="float32", batch=1,
                points=FHD_CHECK_POINTS, tf32=False, voxels_kept=kept, max_err_of_scale=err, tol=1e-3)
     pts, pvalid = (a.to(dev) for a in fhd_points(FHD_BATCH, FHD_POINTS, seed=58))
-    counters = {"stencil_conv": (cs, "KERNEL_LAUNCHES"), "dense_fill": (dense_fill, "KERNEL_LAUNCHES")}
+    counters = {"stencil_conv": (cs, "KERNEL_LAUNCHES"), "dense_fill": (dense_fill, "KERNEL_LAUNCHES"),
+                "rotated_iou": (rotated_iou, "KERNEL_LAUNCHES")}
     e2e_ms, det, peak_gb, launches = second_e2e(name, cfg, 3, pts, pvalid, dev, prepare, counters,
-                                                {"stencil_conv": 9, "dense_fill": 2})
+                                                {"stencil_conv": 9, "dense_fill": 2, "rotated_iou": 1})
     phase_json("fhd batch e2e", card, config="fhd middle_norm=batch (eval)", dtype="bfloat16", batch=FHD_BATCH,
                points=FHD_POINTS, e2e_ms=e2e_ms, samples_per_s=FHD_BATCH / (e2e_ms / 1e3),
                detections=int(det["valid"].sum()), peak_mem_gb=peak_gb, launches=launches)
@@ -6522,7 +6659,7 @@ def main():
         lyft_pointrcnn_config,
         proposal_layer,
     )
-    from lyft3d_tpu_torch.ops import bev_raster, column_sparse, dense_fill, subm_conv_kernel
+    from lyft3d_tpu_torch.ops import bev_raster, column_sparse, dense_fill, rotated_iou, subm_conv_kernel
     from lyft3d_tpu_torch.ops import pointnet2 as p2
     from lyft3d_tpu_torch.ops.bin_coder import decode_refined_boxes
     from lyft3d_tpu_torch.ops.mask_to_boxes import extract_detections_from_logits
@@ -6535,6 +6672,7 @@ def main():
     def reset_counts():
         bev_raster.KERNEL_LAUNCHES = 0
         dense_fill.KERNEL_LAUNCHES = 0
+        rotated_iou.KERNEL_LAUNCHES = 0
         for name in p2.KERNEL_LAUNCHES:
             p2.KERNEL_LAUNCHES[name] = 0
 
@@ -6543,11 +6681,11 @@ def main():
     t0 = time.perf_counter()
     loaders = [bev_raster._kernel_library, dense_fill._kernel_library, p2._fps_library,
                p2._ball_query_library, p2._knn_library, p2._roi_select_library,
-               column_sparse._kernel_library, subm_conv_kernel._kernel_library]
+               column_sparse._kernel_library, subm_conv_kernel._kernel_library, rotated_iou._kernel_library]
     with ThreadPoolExecutor(len(loaders)) as pool:
         list(pool.map(lambda load: load(), loaders))
     log(f"build: bev_raster.cu dense_fill.cu fps.cu ball_query.cu knn.cu roi_select.cu "
-        f"stencil_conv.cu subm_conv.cu (with conv_mma.cuh, wgrad_tile.cuh, mma.cuh) -> "
+        f"stencil_conv.cu subm_conv.cu (with conv_mma.cuh, wgrad_tile.cuh, mma.cuh) rotated_iou.cu -> "
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc each, in parallel: nvcc {' '.join(_build.NVCC_FLAGS)})")
 
@@ -6723,6 +6861,10 @@ def main():
     fill_launches = dense_fill.KERNEL_LAUNCHES
     if fill_launches <= 0:
         raise AssertionError("the pillars main path never launched the fill kernel")
+    iou_launches = {"pillars": rotated_iou.KERNEL_LAUNCHES}
+    if iou_launches["pillars"] != 2 + TIMED_ITERS + 1:
+        raise AssertionError(f"pillars: {iou_launches['pillars']} rotated IoU launches in "
+                             f"{2 + TIMED_ITERS + 1} calls, expected 1 a call")
     k = vcfg.nms_post
     expect = {"boxes": (SEC_BATCH, k, 7), "scores": (SEC_BATCH, k), "classes": (SEC_BATCH, k),
               "valid": (SEC_BATCH, k)}
@@ -6758,10 +6900,13 @@ def main():
         + " ".join(f"{n}={v:.3f}" for n, v in sec_ms.items())
         + f" occupied_pillars_sample0={occupied} kept={vcfg.max_voxels} "
         f"detections={int(det['valid'].sum())} peak_mem_gb={sec_peak_gb:.2f} "
-        f"fill_launches={fill_launches} [{card}]")
+        f"fill_launches={fill_launches} rotated_iou_launches={iou_launches['pillars']} [{card}]")
 
     del net, infer, pts, pvalid, vox, feats, bev, preds, det
     torch.cuda.empty_cache()
+
+    # 7c. the rotated IoU kernel against the plain version on the card
+    iou_record = rotated_iou_phase(dev, card)
 
     # 8. the four PointNet++ kernels against their plain versions
     select = select_kernels_phase(dev, card)
@@ -6842,7 +6987,8 @@ def main():
     torch.cuda.synchronize()
     calls = 2 + TIMED_ITERS + 1
     prc_launches = dict(p2.KERNEL_LAUNCHES)
-    per_call = {"fps": 6, "ball_query": 6, "knn": 4, "roi_select": 1}
+    prc_launches["rotated_iou"] = iou_launches["pointrcnn"] = rotated_iou.KERNEL_LAUNCHES
+    per_call = {"fps": 6, "ball_query": 6, "knn": 4, "roi_select": 1, "rotated_iou": 2}
     for name, n in per_call.items():
         if prc_launches[name] <= 0:
             raise AssertionError(f"the PointRCNN main path never launched the {name} kernel")
@@ -6968,7 +7114,7 @@ def main():
     launches += deeplab_inference_phase(dev, card)
     launches += bev_family_phase(dev, card)
     bev_train_step_run(DEEPLAB_MODEL, BEV_YAML_BATCH, dev, card)
-    vfe_fill, train_launches["vfe"] = vfe_phase(dev, card)
+    vfe_launches, train_launches["vfe"] = vfe_phase(dev, card)
     fhd_batch = fhd_batch_norm_phase(dev, card)
 
     # 33-34. the front ends: the viewer answering detect requests on the
@@ -7048,7 +7194,7 @@ def main():
         # fill_launches).
         record("dense_fill", "lyft3d_tpu/ops/dense_fill.py:78",
                fill_launches + sparse_launches["dense_fill"] + voxel_launches["dense_fill"]
-               + vfe_fill + fhd_batch["dense_fill"], fill_numbers),
+               + vfe_launches["dense_fill"] + fhd_batch["dense_fill"], fill_numbers),
         # Launched by four paths: PointRCNN inference, training (the three
         # trainers' entry points), phase 37's PointRCNN demo and phase 38's
         # RPN and RCNN families and dry-run stages 5-6 (every rank's).
@@ -7104,6 +7250,15 @@ def main():
                wide_numbers("dgrad"), source="stencil_conv"),
         record("stencil_wgrad_wide", "lyft3d_tpu/ops/column_sparse.py:777", col["stencil_wgrad_wide"],
                wide_numbers("wgrad"), source="stencil_conv"),
+        # Replaces no TPU kernel (the JAX package's rotated IoU is jnp).
+        # Launched by six paths, each counted: pillars (1 a call), the unit
+        # and the per-voxel sparse middles (1 a call each), VFE pillars (1),
+        # the FHD BatchNorm middle (1) and PointRCNN (2 a call, its proposal
+        # and final NMS); phase 7c's own launches and the training paths'
+        # are not in the count.
+        record("rotated_iou", None,
+               iou_launches["pillars"] + sparse_launches["rotated_iou"] + voxel_launches["rotated_iou"]
+               + vfe_launches["rotated_iou"] + fhd_batch["rotated_iou"] + iou_launches["pointrcnn"], iou_record),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

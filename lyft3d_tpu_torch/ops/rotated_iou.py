@@ -5,35 +5,62 @@ The intersection of two convex quads is the convex hull of the 16
 edge×edge crossings and of the corners of either quad inside the other.
 Those 24 candidates are sorted by a diamond pseudo-angle around their
 centroid (monotone in ``atan2``, no transcendentals) and integrated with
-the shoelace formula, all as elementwise tensor math over any leading
-shape. Pairwise functions take ``(N, 5)`` × ``(M, 5)`` or batched
-``(B, N, 5)`` × ``(B, M, 5)`` BEV boxes ``[x, y, w, l, yaw]`` and work on
-blocks of rows, so that the (B, rows, M, 24) candidates never exist for
-all rows at once. The 3D IoU (PointRCNN's training targets) multiplies the
-BEV overlap by the vertical one: pairwise (:func:`rotated_iou_3d`) and row
-by row (:func:`rotated_iou_3d_paired`, N pairs instead of an N × N matrix).
+the shoelace formula. Pairwise functions take ``(N, 5)`` × ``(M, 5)`` or
+batched ``(B, N, 5)`` × ``(B, M, 5)`` BEV boxes ``[x, y, w, l, yaw]`` and
+choose their path by the device of the boxes alone:
+
+- CUDA tensor: one launch of the hand-written kernel ``csrc/rotated_iou.cu``
+  (built by ``nvcc`` at first use) for the whole ``(B, N, M)``, or an error.
+  There is no fallback. It skips, exactly, the pairs whose circumscribed
+  circles lie apart (``_FAR_GAP``, ``_FAR_GAP_EDGE``).
+- CPU tensor: the plain version, :func:`polygon_intersection_area` as
+  elementwise tensor math over blocks of rows, so that the (B, rows, M, 24)
+  candidates never exist for all rows at once.
+- anything else: raises.
+
+The 3D IoU (PointRCNN's training targets) multiplies the BEV overlap by the
+vertical one: pairwise (:func:`rotated_iou_3d`) and row by row
+(:func:`rotated_iou_3d_paired`, N pairs instead of an N × N matrix, always
+the plain version).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from lyft3d_tpu_torch import _build
 from lyft3d_tpu_torch.ops.box_ops import box_corners_2d
 from lyft3d_tpu_torch.utils.profiler import span
 
 __all__ = [
     "polygon_intersection_area",
     "rotated_overlap_bev",
+    "rotated_overlap_bev_plain",
     "rotated_iou_bev",
+    "rotated_iou_bev_plain",
     "rotated_iou_3d",
     "rotated_iou_3d_paired",
     "standup_iou",
+    "KERNEL_LAUNCHES",
 ]
+
+# Number of times the pairwise functions launched the CUDA kernel in this process.
+KERNEL_LAUNCHES = 0
 
 _EPS_IN = 1e-6  # boundary margin for corner containment (metre-scale boxes)
 _EPS_DEN = 1e-12
-# Pairs per block of rows in the pairwise functions.
+# Pairs per block of rows in the plain pairwise functions.
 _PAIRS_PER_BLOCK = 1 << 20
+# The kernel's early-out: it writes 0 without the polygon work where the
+# centres lie farther apart than the sum of the half-diagonals plus _FAR_GAP
+# (metres), so that no edge crosses another, and that gap times the shorter
+# edge of the two boxes exceeds _FAR_GAP_EDGE (square metres), so that no
+# corner passes the containment test (_EPS_IN on a cross product). The plain
+# version is exactly 0 there.
+_FAR_GAP = 1e-3
+_FAR_GAP_EDGE = 1e-4
 
 
 def _cross2(ax, ay, bx, by):
@@ -113,9 +140,64 @@ def _batched(boxes1, boxes2):
     return boxes1, boxes2, single
 
 
-def rotated_overlap_bev(boxes1, boxes2):
-    """``(…, N, M)`` BEV intersection areas of rotated boxes ``(…, N, 5)`` ×
-    ``(…, M, 5)``."""
+def _check_device(boxes1, boxes2):
+    kind = boxes1.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"the rotated IoU runs on cuda or cpu tensors, not {kind!r}")
+    if boxes2.device != boxes1.device:
+        raise ValueError(f"boxes on {boxes1.device} and {boxes2.device}")
+    return kind == "cuda"
+
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # boxes1, boxes2, out
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, n, m
+    ctypes.c_int, ctypes.c_float, ctypes.c_float,  # mode, gap, gap_edge
+    ctypes.c_int, ctypes.c_void_p,  # device, stream
+]
+# What the kernel writes: the bare intersection area, or its ratio for each
+# criterion of rotated_iou_bev.
+_MODES = {"overlap": 0, -1: 1, 0: 2, 1: 3}
+
+
+def _kernel_library():
+    fn = _build.load_library("rotated_iou").rotated_iou_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _pairwise_cuda(boxes1, boxes2, mode):
+    """Launch ``csrc/rotated_iou.cu`` once on PyTorch's current stream:
+    ``(…, N, M)`` intersection areas (``mode`` "overlap") or IoUs (``mode``
+    a criterion of :func:`rotated_iou_bev`), in float32, cast to the boxes'
+    dtype."""
+    global KERNEL_LAUNCHES
+    launch = _kernel_library()
+    b1, b2, single = _batched(boxes1, boxes2)
+    if b1.shape[-1] != 5 or b2.shape[-1] != 5 or b1.dim() != 3 or b2.dim() != 3:
+        raise ValueError(f"boxes must be (N, 5) or (B, N, 5), got {tuple(boxes1.shape)} and "
+                         f"{tuple(boxes2.shape)}")
+    bsz = torch.broadcast_shapes(b1.shape[:1], b2.shape[:1])[0]
+    b1 = b1.expand(bsz, -1, -1).float().contiguous()
+    b2 = b2.expand(bsz, -1, -1).float().contiguous()
+    n, m = b1.shape[1], b2.shape[1]
+    out = torch.empty((bsz, n, m), dtype=torch.float32, device=b1.device)
+    if out.numel():
+        err = launch(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), bsz, n, m, _MODES[mode],
+                     _FAR_GAP, _FAR_GAP_EDGE, b1.device.index,
+                     torch.cuda.current_stream(b1.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rotated_iou kernel launch failed with CUDA error {err}")
+        KERNEL_LAUNCHES += 1
+    out = out.to(boxes1.dtype)
+    return out[0] if single else out
+
+
+def rotated_overlap_bev_plain(boxes1, boxes2):
+    """Plain version of :func:`rotated_overlap_bev`, on any device:
+    :func:`polygon_intersection_area` over blocks of rows."""
     b1, b2, single = _batched(boxes1, boxes2)
     bsz, n, m = b1.shape[0], b1.shape[1], b2.shape[1]
     c1 = box_corners_2d(b1)  # (B, N, 4, 2)
@@ -129,23 +211,42 @@ def rotated_overlap_bev(boxes1, boxes2):
     return inter[0] if single else inter
 
 
+def rotated_iou_bev_plain(boxes1, boxes2, criterion: int = -1):
+    """Plain version of :func:`rotated_iou_bev`, on any device."""
+    inter = rotated_overlap_bev_plain(boxes1, boxes2)
+    a1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
+    a2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
+    if criterion == 0:
+        denom = a1 + torch.zeros_like(a2)
+    elif criterion == 1:
+        denom = a2 + torch.zeros_like(a1)
+    else:
+        denom = a1 + a2 - inter
+    return inter / torch.clamp(denom, min=_EPS_DEN)
+
+
+def rotated_overlap_bev(boxes1, boxes2):
+    """``(…, N, M)`` BEV intersection areas of rotated boxes ``(…, N, 5)`` ×
+    ``(…, M, 5)``: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if _check_device(boxes1, boxes2):
+        return _pairwise_cuda(boxes1, boxes2, "overlap")
+    return rotated_overlap_bev_plain(boxes1, boxes2)
+
+
 def rotated_iou_bev(boxes1, boxes2, criterion: int = -1):
-    """``(…, N, M)`` BEV rotated IoU.
+    """``(…, N, M)`` BEV rotated IoU: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.
 
     ``criterion``: −1 → intersection / union; 0 → intersection / area1;
     1 → intersection / area2.
     """
     with span("rotated_iou"):
-        inter = rotated_overlap_bev(boxes1, boxes2)
-        a1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
-        a2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
-        if criterion == 0:
-            denom = a1 + torch.zeros_like(a2)
-        elif criterion == 1:
-            denom = a2 + torch.zeros_like(a1)
-        else:
-            denom = a1 + a2 - inter
-        return inter / torch.clamp(denom, min=_EPS_DEN)
+        if criterion not in (-1, 0, 1):
+            raise ValueError(f"criterion must be -1, 0 or 1, got {criterion!r}")
+        if _check_device(boxes1, boxes2):
+            return _pairwise_cuda(boxes1, boxes2, criterion)
+        return rotated_iou_bev_plain(boxes1, boxes2, criterion)
 
 
 def _bev_of(boxes):

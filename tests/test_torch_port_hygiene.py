@@ -112,6 +112,27 @@ print("ok")
     assert proc.stdout.strip() == "ok"
 
 
+def test_rotated_iou_import_needs_no_nvcc_or_gpu():
+    code = """
+import lyft3d_tpu_torch.ops.rotated_iou as r
+import lyft3d_tpu_torch.ops.nms as nms
+import lyft3d_tpu_torch._build as b
+import torch
+assert not b._LIBS, "a kernel library was loaded at import"
+boxes = torch.tensor([[0.0, 0.0, 2.0, 4.0, 0.3], [0.0, 0.0, 2.0, 4.0, 0.3], [9.0, 9.0, 2.0, 4.0, 0.0]])
+iou = r.rotated_iou_bev(boxes, boxes)
+assert abs(float(iou[0, 1]) - 1.0) < 1e-5 and float(iou[0, 2]) == 0.0
+assert r.rotated_iou_3d(torch.zeros(1, 2, 7), torch.ones(1, 3, 7)).shape == (1, 2, 3)
+assert nms.rotated_nms(boxes, torch.tensor([0.9, 0.8, 0.7]), 0.5).tolist() == [True, False, True]
+assert r.KERNEL_LAUNCHES == 0 and not b._LIBS
+print("ok")
+"""
+    proc = _run(code, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent",
+                       "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_pointnet2_import_needs_no_nvcc_or_gpu():
     code = """
 import lyft3d_tpu_torch.ops.pointnet2 as p2
